@@ -1,0 +1,535 @@
+"""Single-device BioEM engine: host precompute → loop over orientation blocks.
+
+PyTorch counterpart of ``bioem_tpu.core.engine`` (reference main loop
+``bioem::run``, bioem.cpp:659-907). The reference's triple loop
+(orientation × ctf × image) becomes:
+
+* host-side precompute of the CTF bank, image FFT bank, per-image sums and
+  DFT displacement weights (reference precalculate, bioem.cpp:594-622);
+* one **block step** that projects an orientation block, compares it with
+  the whole CTF bank and every image over the displacement lattice, and
+  folds the result into the streaming per-image state;
+* a plain Python loop over orientation blocks that updates the state in
+  place (the JAX package's ``lax.scan`` with buffer donation).
+
+Two branches of the block step, chosen like the JAX package's
+``use_pallas = (backend == "tpu")``: on a CUDA device the **kernel branch**
+runs the hand-written CUDA kernels (ops/project_cuda.py,
+ops/compare_cuda.py); on the CPU the **plain branch** runs the einsum
+formulation of core/posterior.py.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import RunConfig
+from ..params import (
+    BioEMParams,
+    displacement_lists,
+    log_normalization_constant,
+    make_ctf_grid,
+    orientation_volume_quirked,
+)
+from ..io.map_io import ImageStack
+from ..io.model_io import Model
+from .ctf import build_ctf_bank
+from .orientations import OrientationSet, rotation_matrices
+from .posterior import (
+    PosteriorState,
+    convolution_sums,
+    ctf_prior_term,
+    displacement_cc,
+    displacement_dft_weights,
+    displacement_lse,
+    hermitian_weights,
+    init_state,
+    logpro_constants,
+    merge_block,
+    refine_varying_max,
+    stride_fold,
+)
+from .projection import (
+    make_fourier_projection_spec,
+    make_projection_spec,
+    project_batch,
+    project_fourier_batch,
+    project_fourier_batch_kernel,
+    projection_always_in_bounds,
+    projection_oob_report,
+)
+
+F32 = torch.float32
+F64 = torch.float64
+
+
+class Banks(NamedTuple):
+    """Device-resident precomputed constants of one engine (same fields,
+    shapes and dtypes as the JAX package's Banks; see convert.py)."""
+
+    ctf_re: torch.Tensor  # (C, N, F) f32 CTF/PSF kernel bank (real part)
+    ctf_im: torch.Tensor
+    wx_re: torch.Tensor  # (D, N) f32 displacement DFT rows
+    wx_im: torch.Tensor
+    wy_re: torch.Tensor  # (D, F) f32 displacement DFT cols
+    wy_im: torch.Tensor
+    h: torch.Tensor  # (F,) f32 Hermitian weights
+    img_re: torch.Tensor  # (I, N, F) f32 conj image spectra · h/N² (real)
+    img_im: torch.Tensor
+    sum_ref: torch.Tensor  # (I,) f32
+    ssq_ref: torch.Tensor  # (I,) f32
+    disp: torch.Tensor  # (D,) i32
+    amp: torch.Tensor  # (C,)
+    pha: torch.Tensor
+    env: torch.Tensor
+    points: torch.Tensor  # (P, 3) f32 (radius-grouped when Fourier projection)
+    radii: torch.Tensor  # (P,) f32
+    dens: torch.Tensor  # (P,) f32
+    norm_den: torch.Tensor  # scalar f32
+    st_re: torch.Tensor  # (G, N, F) f32 radius-group stencil DFTs (Fourier
+    st_im: torch.Tensor  # projection path; (1, 1, 1) dummies otherwise)
+    st_sums: torch.Tensor  # (G,) f32 unit-stencil sums (tempden weights)
+
+
+@dataclass
+class Results:
+    """Final per-image posterior summary (reference Output_Probabilities)."""
+
+    log_prob: np.ndarray
+    constoadd: np.ndarray
+    total: np.ndarray
+    best_orient: np.ndarray
+    best_conv: np.ndarray
+    best_cent_x: np.ndarray
+    best_cent_y: np.ndarray
+    best_norm: np.ndarray
+    best_mu: np.ndarray
+    angle_log: Optional[np.ndarray]  # (I, n_orient) or None
+    log_norm_const: float
+    # raw per-angle accumulator split for ANG_PROB's "Separated:" columns:
+    # (log(forAngles), ConstAngle) per (image, orientation)
+    angle_raw: Optional[tuple] = None
+    # CTF parameter grid, attached by run_bioem for the output writers
+    grid: Optional[object] = None
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fused_coefficients(f0, sum_c, sum_ref, ntot):
+    """u(cc) = a_u·cc − b_u·cc² coefficients of the fused comparison,
+    (O·C, I) f32 each: the division by F0 hoisted out of the kernel's
+    displacement loop."""
+    f0_32 = f0.to(F32)  # (O, C, I)
+    a_u = (2.0 * sum_ref[None, None, :] * sum_c[:, :, None] / f0_32).to(F32)
+    b_u = float(np.float32(ntot)) / f0_32
+    o, c, i = f0.shape
+    return a_u.reshape(o * c, i), b_u.reshape(o * c, i)
+
+
+class BioEMEngine:
+    """Posterior computation for one model against an image stack."""
+
+    def __init__(
+        self,
+        p: BioEMParams,
+        orients: OrientationSet,
+        model: Model,
+        images: ImageStack,
+        cfg: Optional[RunConfig] = None,
+        device=None,
+    ):
+        from ..convert import banks_from_numpy
+
+        cfg = cfg or RunConfig()
+        self.cfg = cfg
+        self.p = p
+        if device is None:  # the device torch finds, as jax.default_backend()
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.use_kernels = (
+            cfg.use_kernels if cfg.use_kernels is not None
+            else self.device.type == "cuda"
+        )
+        if self.device.type == "cuda":
+            # TF32 keeps ~3 decimal digits of an f32 product: the same trap
+            # as the TPU's bf16 default matmul precision, which moved pixel
+            # snaps and displacement argmaxes there. Every contraction on
+            # the card (rotations, convolution sums, the plain branch's
+            # einsums) must stay full f32.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+        # Debug reductions (reference bioem.cpp:518-525, map.cpp:545-548)
+        grid = make_ctf_grid(p)
+        n_orient = orients.n
+        n_ctf = grid.n
+        if cfg.debug_break:
+            n_orient = min(n_orient, cfg.debug_break)
+            n_ctf = min(n_ctf, cfg.debug_break)
+        maps = images.maps
+        if cfg.debug_nmaps:
+            maps = maps[: cfg.debug_nmaps]
+
+        self.orients = orients
+        self.n_orient = n_orient
+        self.n_img = maps.shape[0]
+        n = p.n_pixels
+        nf = p.n_fft_1d
+
+        # --- CTF bank (host precompute, reference param.cpp:1336-1620) ---
+        self.grid = grid
+        ctf_bank = build_ctf_bank(p, grid)[:n_ctf]
+        self.n_ctf = n_ctf
+
+        # --- displacement lattice + DFT weights ---
+        disp, _cent = displacement_lists(p)
+        self.disp = disp
+        wx, wy = displacement_dft_weights(n, disp)
+        self.n_fold = stride_fold(p.grid_space_center, n, disp)
+        self._h = hermitian_weights(n)
+
+        # --- block sizes ---
+        self.o_block = max(1, min(cfg.orient_block, n_orient))
+        if self.use_kernels:
+            # The comparison kernel runs one block per (o·c, image); the
+            # tile only sets the image padding granularity.
+            self.i_block = min(max(cfg.kernel_img_tile, 1), self.n_img)
+        elif cfg.image_block > 0:
+            self.i_block = min(cfg.image_block, self.n_img)
+        else:
+            # Bound the (O, C, Ib, N, F) complex product tensor ≈ 1 GiB.
+            budget = 1 << 27  # elements
+            per_img = self.o_block * n_ctf * n * nf
+            self.i_block = int(np.clip(budget // max(per_img, 1), 1, self.n_img))
+        self.n_img_pad = _cdiv(self.n_img, self.i_block) * self.i_block
+        self.n_orient_pad = _cdiv(n_orient, self.o_block) * self.o_block
+
+        img = self._image_arrays(maps)
+        self.fspec = None
+        self.spec = None
+        marr = self._model_arrays(model)
+
+        self.banks = banks_from_numpy(
+            dict(
+                ctf_re=ctf_bank.real, ctf_im=ctf_bank.imag,
+                wx_re=wx.real, wx_im=wx.imag, wy_re=wy.real, wy_im=wy.imag,
+                h=self._h, disp=disp.astype(np.int32),
+                amp=grid.amp[:n_ctf], pha=grid.phase[:n_ctf], env=grid.env[:n_ctf],
+                **img, **marr,
+            ),
+            self.device,
+        )
+
+        # --- orientation blocks (padded with angle 0; the int mask kills
+        # the padding lanes) ---
+        ang = orients.angles[:n_orient]
+        pad_o = self.n_orient_pad - n_orient
+        ang_p = np.concatenate([ang, np.repeat(ang[:1], pad_o, 0)]) if pad_o else ang
+        mask = np.concatenate(
+            [np.ones(n_orient, np.int32), np.zeros(pad_o, np.int32)]
+        )
+        nblk = self.n_orient_pad // self.o_block
+        self._ang = ang
+        self.ang_blocks = torch.as_tensor(
+            ang_p.reshape(nblk, self.o_block, 4).astype(np.float32), device=self.device
+        )
+        self.mask_blocks = torch.as_tensor(mask.reshape(nblk, self.o_block), device=self.device)
+
+        self._check_projection_bounds(model)
+
+    # ------------------------------------------------------------------
+    def _image_arrays(self, maps: np.ndarray) -> dict:
+        """Per-image Σ/Σ² and prefolded conj-FFT bank, padded to n_img_pad
+        by replicating image 0 (reference map.cpp:557-630)."""
+        n = self.p.n_pixels
+        n_img = maps.shape[0]
+        flat = maps.reshape(n_img, -1).astype(np.float64)
+        sum_ref = flat.sum(axis=1).astype(np.float32)
+        ssq_ref = (flat**2).sum(axis=1).astype(np.float32)
+        # Data-driven gate for the f32 log1p shortcut in logpro_constants:
+        # the shortcut needs h/g = (sr²/ssr)/g ≲ 1e-4 per image; with
+        # g = ntot − sc²/ssc ≳ ntot/2 that bounds to h_max < 5e-5·ntot.
+        # Normalised ingest gives h ≈ 1e-9; TEXT maps are never normalised
+        # (reference parity) and a DC-dominated text image has h ~ ntot.
+        h_max = float(
+            np.max(sum_ref.astype(np.float64) ** 2
+                   / np.maximum(ssq_ref.astype(np.float64), 1e-300))
+        ) if n_img else 0.0
+        self._f32_corr_ok = (not self.p.no_map_norm) and (
+            h_max < 5e-5 * self.p.n_total_pixels
+        )
+        img_fft = np.fft.rfft2(maps.astype(np.float32)).astype(np.complex64)
+        img_fc = (
+            np.conj(img_fft) * (self._h[None, None, :] / np.float32(n * n))
+        ).astype(np.complex64)
+        pad_i = self.n_img_pad - n_img
+        if pad_i:
+            # Replicate image 0 into the padding lanes to keep all values
+            # finite; padded lanes are dropped at extraction time.
+            img_fc = np.concatenate([img_fc, np.repeat(img_fc[:1], pad_i, 0)])
+            sum_ref = np.concatenate([sum_ref, np.repeat(sum_ref[:1], pad_i)])
+            ssq_ref = np.concatenate([ssq_ref, np.repeat(ssq_ref[:1], pad_i)])
+        return dict(
+            img_re=img_fc.real, img_im=img_fc.imag, sum_ref=sum_ref, ssq_ref=ssq_ref,
+        )
+
+    def _model_arrays(self, model: Model) -> dict:
+        """Model point/stencil arrays in the engine's projection layout:
+        radius-grouped for the Fourier path, as read for the raster."""
+        p = self.p
+        cfg = self.cfg
+        pts = model.points
+        radii = model.radii
+        dens = model.densities
+        st_re = st_im = np.zeros((1, 1, 1), np.float32)
+        st_sums = np.zeros(1, np.float32)
+        # Fourier-space projection: exact, raster+FFT-free; needs few
+        # distinct radii (see projection.py). Otherwise the raster.
+        if cfg.projection in ("auto", "fourier"):
+            fp = make_fourier_projection_spec(p, model.radii)
+            if fp is not None:
+                self.fspec, gather_idx, pad_mask, st, st_sums = fp
+                pts = model.points[gather_idx]
+                radii = model.radii[gather_idx]
+                # Group-padding slots carry zero density → contribute nothing.
+                dens = model.densities[gather_idx] * pad_mask
+                st_re, st_im = st.real, st.imag
+            elif cfg.projection == "fourier":
+                raise ValueError("projection='fourier' requires <= 32 distinct radii")
+        self.spec = make_projection_spec(p, model.radii)
+        return dict(
+            points=np.asarray(pts, np.float32),
+            radii=np.asarray(radii, np.float32),
+            dens=np.asarray(dens, np.float32),
+            norm_den=np.float32(model.norm_den),
+            st_re=st_re,
+            st_im=st_im,
+            st_sums=np.asarray(st_sums, np.float32),
+        )
+
+    def _check_projection_bounds(self, model: Model):
+        """Out-of-frame diagnostics (reference bioem.cpp:1723-1731 warns per
+        projection; a fully out-of-frame orientation gives tempden == 0 →
+        NaN). The O(P) rotation-invariant bound skips the scan for
+        well-centred models."""
+        p = self.p
+        n = p.n_pixels
+        if projection_always_in_bounds(
+            n, p.pixel_size, p.shift_x, p.shift_y, model.points, model.radii
+        ):
+            return
+        rotm_all = rotation_matrices(
+            torch.as_tensor(self._ang.astype(np.float32)), self.orients.use_quaternions
+        ).numpy()
+        total_oob, affected, all_oob = projection_oob_report(
+            n, p.pixel_size, p.shift_x, p.shift_y,
+            model.points, model.radii, rotm_all,
+        )
+        if all_oob:
+            raise ValueError(
+                f"model projects entirely outside the {n}x{n} grid for "
+                f"{all_oob} of {self.n_orient} orientations (tempden == 0 — "
+                "the posterior would be NaN). Check PIXEL_SIZE / "
+                "NUMBER_PIXELS / SHIFT_X/Y against the model extent."
+            )
+        if total_oob:
+            warnings.warn(
+                f"{total_oob} point projections fall outside the "
+                f"{n}x{n} grid across {affected} of {self.n_orient} "
+                "orientations; their density is dropped (reference "
+                "bioem.cpp:1723-1731 behaviour).",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+
+    # ------------------------------------------------------------------
+    def _project_block(self, banks: Banks, angles: torch.Tensor):
+        """Projection spectra (pr, pi), each (O, N, F) f32, of one
+        orientation block."""
+        rotm = rotation_matrices(angles, self.orients.use_quaternions)
+        if self.fspec is not None:
+            proj_fn = (
+                project_fourier_batch_kernel if self.use_kernels else project_fourier_batch
+            )
+            return proj_fn(
+                self.fspec, rotm, banks.points, banks.radii, banks.dens,
+                banks.norm_den, banks.st_re, banks.st_im, banks.st_sums,
+            )
+        proj = project_batch(
+            self.spec, rotm, banks.points, banks.radii, banks.dens, banks.norm_den
+        )
+        proj_f = torch.fft.rfft2(proj)  # (O, N, F) complex64
+        return proj_f.real.contiguous(), proj_f.imag.contiguous()
+
+    def _kernel_constants(self, banks: Banks, pr, pi, prior_oc):
+        """The kernel branch's convolution sums and f64 constants, without
+        materialising conv: |conv|² = |proj|²·|ctf|², so
+        ssqC[o,c] = (|proj|²·h) @ |ctf|²ᵀ, and sumC = conv's DC term.
+        Returns (sum_c, ssq_c, f0, k)."""
+        o, c = pr.shape[0], banks.ctf_re.shape[0]
+        ntot = self.p.n_total_pixels
+        mag_p = (pr * pr + pi * pi) * banks.h[None, None, :]
+        mag_c = banks.ctf_re**2 + banks.ctf_im**2
+        ssq_c = torch.matmul(mag_p.reshape(o, -1), mag_c.reshape(c, -1).T) / float(ntot)
+        sum_c = (
+            pr[:, 0, 0, None] * banks.ctf_re[None, :, 0, 0]
+            + pi[:, 0, 0, None] * banks.ctf_im[None, :, 0, 0]
+        )
+        f0, k = logpro_constants(
+            sum_c, ssq_c, banks.sum_ref, banks.ssq_ref, prior_oc, ntot,
+            images_normalized=self._f32_corr_ok,
+        )
+        return sum_c, ssq_c, f0, k
+
+    def _block_step(
+        self, state: PosteriorState, banks: Banks, angles: torch.Tensor,
+        orient_offset: int, mask: torch.Tensor,
+    ) -> PosteriorState:
+        p = self.p
+        n = p.n_pixels
+        ntot = p.n_total_pixels
+        o, c = self.o_block, self.n_ctf
+        d = self.disp.shape[0]
+        n_img_local = banks.img_re.shape[0]
+
+        pr, pi = self._project_block(banks, angles)
+        prior = ctf_prior_term(banks.amp, banks.pha, banks.env, p)  # (C,) f64
+        prior_oc = prior[None, :].expand(o, c)
+
+        if self.use_kernels:
+            sum_c, ssq_c, f0, k = self._kernel_constants(banks, pr, pi, prior_oc)
+            m_cols = n // self.n_fold
+            wx_re = banks.wx_re[:, :m_cols].contiguous()
+            wx_im = banks.wx_im[:, :m_cols].contiguous()
+            # The fused kernel evaluates u in f32; DC-dominated image banks
+            # need the f64 u, so they take the cc-out mode and the f64
+            # displacement_lse.
+            if self._f32_corr_ok:
+                from ..ops.compare_cuda import fused_compare_block
+
+                a_u, b_u = fused_coefficients(f0, sum_c, banks.sum_ref, ntot)
+                m, se, ds, ccs = fused_compare_block(
+                    pr, pi, banks.ctf_re, banks.ctf_im, banks.img_re, banks.img_im,
+                    wx_re, wx_im, banks.wy_re, banks.wy_im, a_u, b_u,
+                    a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
+                )
+                se = se.reshape(o, c, n_img_local)
+                ds = ds.reshape(o, c, n_img_local)
+                ccs = ccs.reshape(o, c, n_img_local)
+                # f64 repair of the kernel's f32 max at the argmax cc.
+                m = refine_varying_max(ccs, sum_c, banks.sum_ref, f0, ntot)
+            else:
+                from ..ops.compare_cuda import fused_displacement_cc
+
+                conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
+                conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
+                cc = fused_displacement_cc(
+                    conv_re.reshape(o * c, n, p.n_fft_1d),
+                    conv_im.reshape(o * c, n, p.n_fft_1d),
+                    banks.img_re, banks.img_im, wx_re, wx_im, banks.wy_re, banks.wy_im,
+                    n_fold=self.n_fold,
+                ).reshape(o, c, n_img_local, d, d)
+                m, se, ds, ccs = displacement_lse(
+                    cc, sum_c, banks.sum_ref, f0, ntot, f32_u=self._f32_corr_ok,
+                    ssq_c=ssq_c, ssq_ref=banks.ssq_ref,
+                )
+        else:
+            # conv = proj · conj(ctf) (reference bioem.cpp:1879-1883), split form
+            conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
+            conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
+            sum_c, ssq_c = convolution_sums(conv_re, conv_im, banks.h, n)
+            outs = []
+            for s in range(0, n_img_local, self.i_block):
+                sl = slice(s, s + self.i_block)
+                sref_b, ssref_b = banks.sum_ref[sl], banks.ssq_ref[sl]
+                f0_b, k_b = logpro_constants(
+                    sum_c, ssq_c, sref_b, ssref_b, prior_oc, ntot,
+                    images_normalized=self._f32_corr_ok,
+                )
+                cc = displacement_cc(
+                    conv_re, conv_im, banks.img_re[sl], banks.img_im[sl],
+                    banks.wx_re, banks.wx_im, banks.wy_re, banks.wy_im,
+                )
+                outs.append((*displacement_lse(
+                    cc, sum_c, sref_b, f0_b, ntot, f32_u=self._f32_corr_ok,
+                    ssq_c=ssq_c, ssq_ref=ssref_b,
+                ), k_b))
+            m, se, ds, ccs, k = (torch.cat(x, dim=2) for x in zip(*outs))
+
+        k = torch.where(mask[:, None, None] != 0, k, torch.full_like(k, -torch.inf))
+        return merge_block(
+            state, m, se, ds, ccs, k, sum_c, ssq_c, banks.sum_ref,
+            banks.disp, orient_offset, ntot, d,
+        )
+
+    # ------------------------------------------------------------------
+    def initial_state(self) -> PosteriorState:
+        return init_state(
+            self.n_img_pad, self.n_orient_pad, self.p.write_angles > 0, self.device
+        )
+
+    def run(self) -> PosteriorState:
+        """One full posterior pass over every orientation block."""
+        banks = self.banks
+        state = self.initial_state()
+        nblk = self.ang_blocks.shape[0]
+        verbose = self.cfg.debug_output >= 2
+        for b in range(nblk):
+            t0 = time.perf_counter()
+            state = self._block_step(
+                state, banks, self.ang_blocks[b], b * self.o_block, self.mask_blocks[b]
+            )
+            if verbose:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                print(
+                    f"\tTime orientation block {b}/{nblk}: "
+                    f"{time.perf_counter() - t0:.4f}"
+                )
+        return state
+
+    # ------------------------------------------------------------------
+    def results(self, state: PosteriorState, n_img: Optional[int] = None) -> Results:
+        p = self.p
+        volu = orientation_volume_quirked(p, self.orients.voluang, self.grid)
+        k_norm = log_normalization_constant(p, volu)
+        i = self.n_img if n_img is None else n_img
+
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        total = host(state.total)[:i]
+        const = host(state.const)[:i]
+        with np.errstate(divide="ignore"):
+            log_prob = np.log(total) + const + k_norm
+        angle_log = None
+        angle_raw = None
+        if state.ang_total is not None:
+            at = host(state.ang_total)[:i, : self.n_orient]
+            ac = host(state.ang_const)[:i, : self.n_orient]
+            with np.errstate(divide="ignore"):
+                log_at = np.log(at)
+                angle_log = log_at + ac + k_norm
+            angle_raw = (log_at, ac)
+        return Results(
+            log_prob=log_prob,
+            constoadd=const,
+            total=total,
+            best_orient=host(state.best_orient)[:i],
+            best_conv=host(state.best_conv)[:i],
+            best_cent_x=host(state.best_cent_x)[:i],
+            best_cent_y=host(state.best_cent_y)[:i],
+            best_norm=host(state.best_norm)[:i],
+            best_mu=host(state.best_mu)[:i],
+            angle_log=angle_log,
+            log_norm_const=k_norm,
+            angle_raw=angle_raw,
+        )

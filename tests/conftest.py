@@ -85,3 +85,11 @@ def _isolate_autotune_cache(tmp_path, monkeypatch):
     monkeypatch.setenv(
         "BIOEM_TPU_AUTOTUNE_CACHE", str(tmp_path / "autotune_cache.json")
     )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA CUDA card (the port's hand-written kernels); "
+        "skipped on machines without one",
+    )
