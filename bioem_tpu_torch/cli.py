@@ -8,9 +8,13 @@ the JAX package's, flag for flag, so existing BioEM invocations work:
         --Inputfile params.txt [--ReadOrientation quat.txt] [...]
 
 Performance env vars (BIOEM_DEBUG_*, BIOEM_TPU_*) are honoured via
-RunConfig.from_env. The parts of the JAX CLI that are not ported yet
-(--PrintBestCalMap, --Refine*, a device mesh, checkpointing, DEBUG_PROB
-dumps) raise NotImplementedError instead of running something else.
+RunConfig.from_env: block sizes, the kernel switches, autotuning and its
+cache, checkpoint/resume and the profiler trace (config.HONOURED_ENV).
+The parts of the JAX CLI that are not ported yet (--PrintBestCalMap,
+--Refine*, a device mesh, multi-host runs, DEBUG_PROB dumps, the native
+ingest; config.NOT_PORTED_ENV) raise NotImplementedError instead of
+running something else; the TPU-only knobs (config.TPU_ONLY_ENV) are
+ignored.
 """
 
 from __future__ import annotations
@@ -203,7 +207,7 @@ def main(argv=None) -> int:
     if cfg.debug_output >= 1:
         print(
             f"Main loop: {perf['run_s']:.3f}s on {perf['device']} "
-            f"({perf['comparisons_per_s']:.3e} comparisons/s)"
+            f"({perf['comparisons_per_s']:.3e} comparisons/s), config {perf['config']}"
         )
 
     with open(args.OutputFile, "w") as f:

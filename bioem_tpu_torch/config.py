@@ -1,18 +1,22 @@
 """Performance configuration (never changes results).
 
-The PyTorch port's subset of ``bioem_tpu.config.RunConfig``: the
+The PyTorch port's counterpart of ``bioem_tpu.config.RunConfig``: the
 reference separates physics parameters (keyword file) from performance
 knobs (env vars, reference bioem.cpp:97-138). The port reads the same
-``BIOEM_*`` environment names as the JAX package for the settings the
-single-device posterior path honours. Mesh, autotune, checkpoint and
-profile settings are not ported yet.
+``BIOEM_*`` environment names as the JAX package. Every name the JAX
+package reads is in exactly one of three sets below: honoured here
+(:data:`HONOURED_ENV`), refused by the CLI because its feature is not
+ported yet (:data:`NOT_PORTED_ENV`), or ignored by design because it only
+steers the TPU or JAX (:data:`TPU_ONLY_ENV`). The JAX package's
+``use_pallas``/``pallas_img_tile``/``pallas_projection`` are
+``use_kernels``/``kernel_img_tile``/``kernel_projection`` here.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import FrozenSet, Optional
 
 
 @dataclass
@@ -28,17 +32,43 @@ class RunConfig:
     debug_nmaps: int = 0  # cap on images
     # Verbosity 0/1/2 (reference BIOEM_DEBUG_OUTPUT).
     debug_output: int = 0
-    # Image padding granularity of the kernel branch (the JAX package's
-    # pallas_img_tile; same environment name). The CUDA comparison kernel
-    # itself runs one block per (orientation·ctf, image) and needs no tile.
-    kernel_img_tile: int = 32
-    # Projection backend: "auto" (Fourier when the model has <= 32 distinct
-    # radii, else raster), "fourier", or "raster".
-    projection: str = "auto"
+    # Autotune block sizes and the comparison kernel before the main run.
+    # None = auto: on when the problem has at least
+    # run.AUTOTUNE_MIN_COMPARISONS comparisons. BIOEM_TPU_AUTOTUNE=0/1 forces.
+    autotune: Optional[bool] = None
     # Run the hand-written CUDA kernels (True) or the plain torch branch
     # (False). None = auto: kernels on a CUDA device, plain on the CPU —
     # the JAX package's use_pallas = (backend == "tpu").
     use_kernels: Optional[bool] = None
+    # Images per block of the batched comparison kernel (K4), as
+    # pallas_img_tile is the JAX kernel's image tile; on the kernel branch
+    # it is also the image padding granularity. K1 runs one block per
+    # (orientation·ctf, image) and needs no tile. A K4 tile that does not
+    # fit the kernel's shared memory is clamped down unless forced.
+    kernel_img_tile: int = 32
+    # Displacement log-sum-exp inside the comparison kernel (K1/K4, True)
+    # or over the cc lattice of K3 in torch (the hybrid, False). None =
+    # True on the kernel branch (the JAX package's default on its kernel
+    # backend).
+    fused_lse: Optional[bool] = None
+    # Checkpoint/resume of the streaming accumulator state.
+    checkpoint_path: str = ""
+    checkpoint_every: int = 0  # orientation blocks between checkpoints (0 = 16)
+    # torch.profiler Chrome-trace output directory; empty = off.
+    profile_dir: str = ""
+    # Projection backend: "auto" (Fourier when the model has <= 32 distinct
+    # radii, else raster), "fourier", or "raster".
+    projection: str = "auto"
+    # Fourier projection through its CUDA kernel (K2) or the plain torch
+    # projection. None = follows use_kernels. BIOEM_TPU_PROJ_PALLAS=0/1 forces.
+    kernel_projection: Optional[bool] = None
+    # The image-batched comparison kernel (K4) instead of K1 when the
+    # log-sum-exp is fused. BIOEM_TPU_FUSED_BATCHED=0/1 forces.
+    fused_batched: bool = False
+    # Tuned fields the user pinned explicitly (env var or caller): the
+    # autotuner never overrides these (performance knobs are obeyed
+    # verbatim, reference doc/index.rst:1535-1653).
+    forced: FrozenSet[str] = field(default_factory=frozenset)
 
     @classmethod
     def from_env(cls) -> "RunConfig":
@@ -50,34 +80,85 @@ class RunConfig:
             "BIOEM_DEBUG_NMAPS": "debug_nmaps",
             "BIOEM_DEBUG_OUTPUT": "debug_output",
             "BIOEM_TPU_PALLAS_IMG_TILE": "kernel_img_tile",
+            "BIOEM_TPU_CHECKPOINT_EVERY": "checkpoint_every",
         }
+        forced = set()
+        tunable = {"orient_block", "image_block", "kernel_img_tile"}
         for env, attr in mapping.items():
             v = os.environ.get(env)
             if v is not None:
                 setattr(cfg, attr, int(v))
+                if attr in tunable:
+                    forced.add(attr)
+        cfg.checkpoint_path = os.environ.get("BIOEM_TPU_CHECKPOINT", "")
+        cfg.profile_dir = os.environ.get("BIOEM_TPU_PROFILE_DIR", "")
         cfg.projection = os.environ.get("BIOEM_TPU_PROJECTION", "auto")
+        if os.environ.get("BIOEM_TPU_AUTOTUNE"):
+            cfg.autotune = bool(int(os.environ["BIOEM_TPU_AUTOTUNE"]))
+        switches = {
+            "BIOEM_TPU_PALLAS": "use_kernels",
+            "BIOEM_TPU_PROJ_PALLAS": "kernel_projection",
+            "BIOEM_TPU_FUSED_BATCHED": "fused_batched",
+            "BIOEM_TPU_FUSED_LSE": "fused_lse",
+        }
+        for env, attr in switches.items():
+            if os.environ.get(env):
+                setattr(cfg, attr, bool(int(os.environ[env])))
+                forced.add(attr)
+        cfg.forced = frozenset(forced)
         return cfg
 
 
-# Environment settings of the JAX package that the port does not honour
-# yet. The CLI refuses them rather than silently running something else.
+# Every BIOEM_* name the JAX package reads, in exactly one of three sets.
+# Honoured: RunConfig.from_env above, and the autotuner's cache path.
+HONOURED_ENV = frozenset({
+    "BIOEM_DEBUG_BREAK", "BIOEM_DEBUG_NMAPS", "BIOEM_DEBUG_OUTPUT",
+    "BIOEM_TPU_ORIENT_BLOCK", "BIOEM_TPU_IMAGE_BLOCK", "BIOEM_TPU_PALLAS_IMG_TILE",
+    "BIOEM_TPU_CHECKPOINT", "BIOEM_TPU_CHECKPOINT_EVERY", "BIOEM_TPU_PROFILE_DIR",
+    "BIOEM_TPU_PROJECTION", "BIOEM_TPU_AUTOTUNE", "BIOEM_TPU_AUTOTUNE_CACHE",
+    "BIOEM_TPU_PALLAS", "BIOEM_TPU_PROJ_PALLAS", "BIOEM_TPU_FUSED_BATCHED",
+    "BIOEM_TPU_FUSED_LSE",
+})
+
+# Not ported yet: the CLI refuses them rather than silently running
+# something else.
 NOT_PORTED_ENV = {
     "BIOEM_TPU_MESH_IMAGES": "the device mesh",
     "BIOEM_TPU_MESH_ORIENT": "the device mesh",
-    "BIOEM_TPU_CHECKPOINT": "checkpoint/resume",
+    "BIOEM_TPU_COORDINATOR": "multi-host runs",
+    "BIOEM_TPU_NUM_PROCESSES": "multi-host runs",
+    "BIOEM_TPU_PROCESS_ID": "multi-host runs",
     "BIOEM_TPU_DEBUG_PROB": "the DEBUG_PROB per-evaluation dump",
+    "BIOEM_TPU_DEBUG_PROB_FILE": "the DEBUG_PROB per-evaluation dump",
+    "BIOEM_TPU_DEBUG_PROB_KERNEL": "the DEBUG_PROB per-evaluation dump",
+    "BIOEM_TPU_NATIVE_IO": "the native C++ ingest",
+}
+
+# Ignored by design: they steer the TPU or JAX, which the port does not use.
+TPU_ONLY_ENV = {
+    "BIOEM_TPU_MXU_PRECISION": "TPU matmul precision workaround (3-pass bf16); the "
+                               "port's kernels hold f32 accuracy by FMA or 3xTF32",
+    "BIOEM_TPU_SPLIT": "TPU bf16 hi/lo split variant",
+    "BIOEM_TPU_ACCURATE_LOG1P": "TPU log1p workaround; the port uses a true log1p",
+    "BIOEM_TPU_FORCE_CPU": "JAX backend switch; the port takes the device torch finds",
+    "BIOEM_TPU_NO_X64": "JAX x64 switch; the port keeps probabilities in f64 always",
+}
+
+# Values that ask for what the port already does.
+_PASSING = {
+    "BIOEM_TPU_MESH_IMAGES": "1",  # a 1×1 mesh is the single device
+    "BIOEM_TPU_MESH_ORIENT": "1",
+    "BIOEM_TPU_NATIVE_IO": "0",  # the NumPy readers the port has
 }
 
 
 def not_ported_env() -> list[str]:
-    """Names of set environment variables whose feature is not ported.
-    A mesh of 1×1 is the single device the port runs on, so it passes."""
+    """Names of set environment variables whose feature is not ported
+    (a value that asks for what the port already does passes)."""
     bad = []
     for name, what in NOT_PORTED_ENV.items():
         v = os.environ.get(name)
-        if v is None or v == "":
-            continue
-        if name.startswith("BIOEM_TPU_MESH_") and v.strip() == "1":
+        if v is None or v == "" or v.strip() == _PASSING.get(name):
             continue
         bad.append(f"{name} ({what})")
     return bad

@@ -16,7 +16,16 @@ Two branches of the block step, chosen like the JAX package's
 ``use_pallas = (backend == "tpu")``: on a CUDA device the **kernel branch**
 runs the hand-written CUDA kernels (ops/project_cuda.py,
 ops/compare_cuda.py); on the CPU the **plain branch** runs the einsum
-formulation of core/posterior.py.
+formulation of core/posterior.py. The kernel branch's comparison is, as
+in the JAX engine, the fused kernel with the displacement log-sum-exp
+inside (K1, or the image-batched K4 with ``fused_batched``) or, with
+``fused_lse=False`` or DC-dominated images, the hybrid: the cc-lattice
+kernel K3 and the torch ``displacement_lse``.
+
+``run`` checkpoints and resumes the streaming state
+(runtime/checkpoint.py) and prints the TimeStat phase table at
+``debug_output >= 1``; ``time_blocks`` times the block loop for the
+autotuner (runtime/autotune.py).
 """
 
 from __future__ import annotations
@@ -123,6 +132,32 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def f32_corr_gate(maps: np.ndarray, p: BioEMParams) -> bool:
+    """Data-driven gate for the f32 log1p shortcut in logpro_constants and
+    for the fused comparison (K1/K4), whose log-sum-exp evaluates u in f32.
+    The shortcut needs h/g = (sr²/ssr)/g ≲ 1e-4 per image; with
+    g = ntot − sc²/ssc ≳ ntot/2 that bounds to h_max < 5e-5·ntot.
+    Normalised ingest gives h ≈ 1e-9; TEXT maps are never normalised
+    (reference parity) and a DC-dominated text image has h ~ ntot."""
+    if p.no_map_norm:
+        return False
+    if not maps.shape[0]:
+        return True
+    flat = maps.reshape(maps.shape[0], -1).astype(np.float64)
+    sum_ref = flat.sum(axis=1).astype(np.float32).astype(np.float64)
+    ssq_ref = (flat**2).sum(axis=1).astype(np.float32).astype(np.float64)
+    h_max = float(np.max(sum_ref**2 / np.maximum(ssq_ref, 1e-300)))
+    return h_max < 5e-5 * p.n_total_pixels
+
+
+def _same_shapes(a: PosteriorState, b: PosteriorState) -> bool:
+    """Both states hold the same fields at the same shapes."""
+    return all(
+        (x is None) == (y is None) and (x is None or x.shape == y.shape)
+        for x, y in zip(a, b)
+    )
+
+
 def fused_coefficients(f0, sum_c, sum_ref, ntot):
     """u(cc) = a_u·cc − b_u·cc² coefficients of the fused comparison,
     (O·C, I) f32 each: the division by F0 hoisted out of the kernel's
@@ -157,6 +192,14 @@ class BioEMEngine:
         self.use_kernels = (
             cfg.use_kernels if cfg.use_kernels is not None
             else self.device.type == "cuda"
+        )
+        # Log-sum-exp inside the comparison kernel (K1/K4) or the hybrid
+        # (K3 + torch displacement_lse); only the kernel branch reads it.
+        self.fused_lse = cfg.fused_lse if cfg.fused_lse is not None else True
+        # K2 or the plain Fourier projection; follows the comparison branch.
+        self.kernel_projection = (
+            cfg.kernel_projection if cfg.kernel_projection is not None
+            else self.use_kernels
         )
         if self.device.type == "cuda":
             # TF32 keeps ~3 decimal digits of an f32 product: the same trap
@@ -195,13 +238,20 @@ class BioEMEngine:
         wx, wy = displacement_dft_weights(n, disp)
         self.n_fold = stride_fold(p.grid_space_center, n, disp)
         self._h = hermitian_weights(n)
+        self._f32_corr_ok = f32_corr_gate(maps, p)
+        # The comparison the kernel branch runs: K4, K1 or the hybrid.
+        fused = self.use_kernels and self.fused_lse and self._f32_corr_ok
+        self.fused_batched = fused and cfg.fused_batched
 
         # --- block sizes ---
         self.o_block = max(1, min(cfg.orient_block, n_orient))
         if self.use_kernels:
-            # The comparison kernel runs one block per (o·c, image); the
-            # tile only sets the image padding granularity.
+            # K4's image tile; for K1 and the hybrid (one block per
+            # (o·c, image)) only the image padding granularity. On the CPU
+            # K4's wrapper runs its plain version, which ignores the tile.
             self.i_block = min(max(cfg.kernel_img_tile, 1), self.n_img)
+            if self.fused_batched and self.device.type == "cuda":
+                self.i_block = self._k4_tile(self.i_block, disp.shape[0], n // self.n_fold, nf)
         elif cfg.image_block > 0:
             self.i_block = min(cfg.image_block, self.n_img)
         else:
@@ -245,6 +295,32 @@ class BioEMEngine:
 
         self._check_projection_bounds(model)
 
+        # Identifies the problem in checkpoints (one sha256 over the small
+        # identifying arrays); run() may checkpoint per call.
+        from ..runtime.checkpoint import problem_fingerprint
+
+        self._fingerprint = problem_fingerprint(p, orients, model, images, cfg)
+
+    def _k4_tile(self, tile: int, d: int, m: int, nf: int) -> int:
+        """K4's image tile: ``tile`` if it fits the kernel's shared memory;
+        a forced tile that does not fit raises, a default one is clamped
+        down to the largest that fits (the tile never changes results).
+        The kernel library answers, so this builds it."""
+        from ..ops.compare_cuda import batched_smem_bytes, batched_tile_fits
+
+        if batched_tile_fits(d, m, nf, tile):
+            return tile
+        if "kernel_img_tile" in self.cfg.forced:
+            raise ValueError(
+                f"kernel_img_tile={tile} (forced) does not fit the batched comparison "
+                f"kernel at D={d}, M={m}: {batched_smem_bytes(d, m, nf, tile)} bytes of "
+                "shared memory (0 = no kernel instance for this tile)"
+            )
+        for t in range(tile - 1, 0, -1):
+            if batched_tile_fits(d, m, nf, t):
+                return t
+        raise ValueError(f"the batched comparison kernel fits no image tile at D={d}, M={m}")
+
     # ------------------------------------------------------------------
     def _image_arrays(self, maps: np.ndarray) -> dict:
         """Per-image Σ/Σ² and prefolded conj-FFT bank, padded to n_img_pad
@@ -254,18 +330,6 @@ class BioEMEngine:
         flat = maps.reshape(n_img, -1).astype(np.float64)
         sum_ref = flat.sum(axis=1).astype(np.float32)
         ssq_ref = (flat**2).sum(axis=1).astype(np.float32)
-        # Data-driven gate for the f32 log1p shortcut in logpro_constants:
-        # the shortcut needs h/g = (sr²/ssr)/g ≲ 1e-4 per image; with
-        # g = ntot − sc²/ssc ≳ ntot/2 that bounds to h_max < 5e-5·ntot.
-        # Normalised ingest gives h ≈ 1e-9; TEXT maps are never normalised
-        # (reference parity) and a DC-dominated text image has h ~ ntot.
-        h_max = float(
-            np.max(sum_ref.astype(np.float64) ** 2
-                   / np.maximum(ssq_ref.astype(np.float64), 1e-300))
-        ) if n_img else 0.0
-        self._f32_corr_ok = (not self.p.no_map_norm) and (
-            h_max < 5e-5 * self.p.n_total_pixels
-        )
         img_fft = np.fft.rfft2(maps.astype(np.float32)).astype(np.complex64)
         img_fc = (
             np.conj(img_fft) * (self._h[None, None, :] / np.float32(n * n))
@@ -357,7 +421,8 @@ class BioEMEngine:
         rotm = rotation_matrices(angles, self.orients.use_quaternions)
         if self.fspec is not None:
             proj_fn = (
-                project_fourier_batch_kernel if self.use_kernels else project_fourier_batch
+                project_fourier_batch_kernel if self.kernel_projection
+                else project_fourier_batch
             )
             return proj_fn(
                 self.fspec, rotm, banks.points, banks.radii, banks.dens,
@@ -409,18 +474,24 @@ class BioEMEngine:
             m_cols = n // self.n_fold
             wx_re = banks.wx_re[:, :m_cols].contiguous()
             wx_im = banks.wx_im[:, :m_cols].contiguous()
-            # The fused kernel evaluates u in f32; DC-dominated image banks
-            # need the f64 u, so they take the cc-out mode and the f64
-            # displacement_lse.
-            if self._f32_corr_ok:
-                from ..ops.compare_cuda import fused_compare_block
+            # The fused kernels evaluate u in f32; DC-dominated image banks
+            # need the f64 u, so they take the hybrid: the cc-lattice
+            # kernel and the f64 displacement_lse (as does fused_lse=False).
+            if self.fused_lse and self._f32_corr_ok:
+                from ..ops import compare_cuda
 
                 a_u, b_u = fused_coefficients(f0, sum_c, banks.sum_ref, ntot)
-                m, se, ds, ccs = fused_compare_block(
-                    pr, pi, banks.ctf_re, banks.ctf_im, banks.img_re, banks.img_im,
-                    wx_re, wx_im, banks.wy_re, banks.wy_im, a_u, b_u,
-                    a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
-                )
+                args = (pr, pi, banks.ctf_re, banks.ctf_im, banks.img_re, banks.img_im,
+                        wx_re, wx_im, banks.wy_re, banks.wy_im, a_u, b_u)
+                if self.fused_batched:
+                    m, se, ds, ccs = compare_cuda.fused_compare_block_batched(
+                        *args, a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
+                        img_tile=self.i_block,
+                    )
+                else:
+                    m, se, ds, ccs = compare_cuda.fused_compare_block(
+                        *args, a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
+                    )
                 se = se.reshape(o, c, n_img_local)
                 ds = ds.reshape(o, c, n_img_local)
                 ccs = ccs.reshape(o, c, n_img_local)
@@ -476,24 +547,73 @@ class BioEMEngine:
             self.n_img_pad, self.n_orient_pad, self.p.write_angles > 0, self.device
         )
 
-    def run(self) -> PosteriorState:
-        """One full posterior pass over every orientation block."""
-        banks = self.banks
-        state = self.initial_state()
-        nblk = self.ang_blocks.shape[0]
-        verbose = self.cfg.debug_output >= 2
-        for b in range(nblk):
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def time_blocks(self, target_orients: int, repeats: int = 2) -> float:
+        """Best-of-``repeats`` seconds per orientation of the block loop
+        over ~``target_orients`` orientations, after one dropped warm-up
+        pass (the autotuner's probe; the warm-up builds the kernels)."""
+        nb = min(max(1, _cdiv(target_orients, self.o_block)), self.ang_blocks.shape[0])
+        best = float("inf")
+        for rep in range(repeats + 1):
+            state = self.initial_state()
+            self._sync()
             t0 = time.perf_counter()
-            state = self._block_step(
-                state, banks, self.ang_blocks[b], b * self.o_block, self.mask_blocks[b]
-            )
-            if verbose:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                print(
-                    f"\tTime orientation block {b}/{nblk}: "
-                    f"{time.perf_counter() - t0:.4f}"
+            for b in range(nb):
+                state = self._block_step(
+                    state, self.banks, self.ang_blocks[b], b * self.o_block,
+                    self.mask_blocks[b],
                 )
+            self._sync()
+            if rep:
+                best = min(best, time.perf_counter() - t0)
+        return best / (nb * self.o_block)
+
+    def run(self) -> PosteriorState:
+        """One full posterior pass over every orientation block.
+
+        With cfg.checkpoint_path a matching checkpoint is resumed, and the
+        state is saved every cfg.checkpoint_every blocks (default 16) and
+        at the end. A checkpoint matches when its fingerprint does and its
+        state has this engine's shapes: the fingerprint leaves out the
+        image padding, which follows the kernel and its tile. At
+        ``debug_output >= 1`` the BLOCK/CHECKPOINT phase table is printed;
+        at 2 every block is synchronised and timed."""
+        from ..utils.timestat import TimeStat
+
+        banks = self.banks
+        ckpt = self.cfg.checkpoint_path
+        debug = self.cfg.debug_output
+        nblk = self.ang_blocks.shape[0]
+        state = self.initial_state()
+        start = 0
+        every = max(1, self.cfg.checkpoint_every or 16)
+        if ckpt:
+            from ..runtime.checkpoint import load_checkpoint, save_checkpoint
+
+            loaded = load_checkpoint(ckpt, self._fingerprint, self.device)
+            if loaded is not None and _same_shapes(loaded[0], state):
+                state, start = loaded
+                if debug >= 1:
+                    print(f"Resuming from checkpoint at block {start}/{nblk}")
+        ts = TimeStat()
+        for b in range(start, nblk):
+            save = bool(ckpt) and ((b + 1) % every == 0 or b == nblk - 1)
+            with ts.time("BLOCK"):
+                state = self._block_step(
+                    state, banks, self.ang_blocks[b], b * self.o_block, self.mask_blocks[b]
+                )
+                if debug >= 2 or save:
+                    self._sync()
+            if debug >= 2:
+                print(f"\tTime orientation block {b}/{nblk}: {ts.phases['BLOCK'][-1]:.4f}")
+            if save:
+                with ts.time("CHECKPOINT"):
+                    save_checkpoint(ckpt, state, b + 1, self._fingerprint)
+        if debug >= 1 and ts.phases:
+            print(ts.summary())
         return state
 
     # ------------------------------------------------------------------

@@ -26,26 +26,21 @@
 // never written to device memory) and keeps DC lattice rows of t1 in
 // registers while the wx weights are broadcast from shared memory as
 // float4 pairs. t1 and the lattice stay in shared memory. Plain f32 FMA,
-// no tensor cores yet; log1pf/expf are libdevice (no fast-math
-// intrinsics — a_coef ≈ −N²/2 amplifies any error in log1p).
+// no tensor cores (compare_batched.cu is the tensor-core variant, K4);
+// the log-sum-exp is compare_lse.cuh, shared with K4.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "compare_lse.cuh"
+
 namespace {
+
+using bioem_lse::better;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-// (v, q) ranks above (best, bidx): the larger value wins, NaN counts as
-// the largest (as jnp.max/argmax treat it), and ties go to the lower flat
-// index — the reference sweep's first-occurrence rule.
-__device__ __forceinline__ bool better(float v, int q, float best, int bidx) {
-  const bool vn = isnan(v), bn = isnan(best);
-  if (vn || bn) return vn && (!bn || q < bidx);
-  return v > best || (v == best && q < bidx);
-}
 
 template <int DC, bool CC_OUT>
 __global__ void __launch_bounds__(kThreads)
@@ -170,9 +165,7 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
   float best = -INFINITY;
   int bidx = DD;
   for (int q = tid; q < DD; q += kThreads) {
-    const float cc = ccv[q];
-    const float u = au * cc - bu * cc * cc;
-    const float v = a_coef * log1pf(u);
+    const float v = bioem_lse::lattice_value(ccv[q], au, bu, a_coef);
     vv[q] = v;
     if (better(v, q, best, bidx)) {
       best = v;
@@ -180,15 +173,7 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
     }
   }
   const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bidx, off);
-    if (better(ov, oi, best, bidx)) {
-      best = ov;
-      bidx = oi;
-    }
-  }
+  bioem_lse::warp_argmax(best, bidx);
   if (lane == 0) {
     red_v[warp] = best;
     red_i[warp] = bidx;
@@ -208,8 +193,7 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
   const float mx = red_v[0];
   float s = 0.f;
   for (int q = tid; q < DD; q += kThreads) s += expf(vv[q] - mx);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  s = bioem_lse::warp_sum(s);
   __syncthreads();
   if (lane == 0) red_s[warp] = s;
   __syncthreads();

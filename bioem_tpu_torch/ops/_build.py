@@ -1,11 +1,14 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``bioem_tpu_torch/csrc/*.cu`` are compiled with nvcc into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds, not minutes):
+``bioem_tpu_torch/csrc/*.cu`` are compiled with nvcc, one process per
+source, all started together, and linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds, not
+minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libbioem_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libbioem_kernels_<hash>.so *.o
 
 The library lands in ``bioem_tpu_torch/_build/`` keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -28,10 +31,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 build_info: dict = {}
@@ -46,11 +47,14 @@ SIGNATURES = {
     "bioem_fourier_project": [P, P, P, P, P, I, I, I, I, I, P, P, P],
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 8 + [P] * 4 + [P],
     "bioem_fused_displacement_cc": [P] * 8 + [I] * 7 + [P] + [P],
+    "bioem_fused_compare_batched": [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
     "bioem_compare_smem_bytes": [I, I, I],
+    "bioem_compare_batched_smem_bytes": [I, I, I, I],
     "bioem_error_string": [I],
 }
 RESTYPES = {
     "bioem_compare_smem_bytes": ctypes.c_size_t,
+    "bioem_compare_batched_smem_bytes": ctypes.c_size_t,
     "bioem_error_string": ctypes.c_char_p,
 }
 
@@ -86,30 +90,45 @@ def library_path(extra_flags: tuple = ()) -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the hashed library is missing; return its
-    path. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and
-    spills per kernel) and records the compiler output in
-    ``build_info["log"]``. A failed build raises."""
+    path. One nvcc per source runs in parallel, then one links them.
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+    per kernel) and records the compiler output in ``build_info["log"]``.
+    A failed build raises."""
     extra = ("-Xptxas", "-v") if verbose else ()
     out = library_path(extra)
     if os.path.exists(out):
         build_info.update(path=out, seconds=0.0, cached=True)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, _obj, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(obj for _c, obj, _p in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
     build_info.update(
-        path=out, seconds=secs, cached=False, log=proc.stdout + proc.stderr
+        path=out, seconds=time.perf_counter() - t0, cached=False,
+        log="".join(log) + proc.stdout + proc.stderr,
     )
     return out
 

@@ -1,10 +1,14 @@
-"""Fused comparison (K1) and cc-lattice (K3) kernels: wrappers + plain versions.
+"""Fused comparison (K1, K4) and cc-lattice (K3) kernels: wrappers + plain versions.
 
 Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
-``fused_compare_block``) and ``_fused_cc_kernel`` (entry
-``fused_displacement_cc``). Both are one CUDA kernel, ``csrc/compare.cu``
-(see its header for what bounds it on the card and how the design
-answers that); the cc-lattice entry is its cc-out mode.
+``fused_compare_block``), ``_fused_block_kernel_batched`` (entry
+``fused_compare_block_batched``) and ``_fused_cc_kernel`` (entry
+``fused_displacement_cc``). K1 and K3 are one CUDA kernel,
+``csrc/compare.cu``, the cc-lattice entry being its cc-out mode; K4 is
+``csrc/compare_batched.cu``, which takes a tile of images per block and
+runs stage 1 on the tensor cores in 3xTF32 (see each source's header for
+what bounds it on the card and how the design answers that). K1 and K4
+share one contract, so their plain version is one function.
 
     conv[o,c]       = proj[o] ⊙ conj(ctf[c])
     cc[o,c,i,d,e]   = Re( wx[d] @ fold(conv[o,c] ⊙ img_fc[i]) @ wy[e]ᵀ )
@@ -87,17 +91,39 @@ def _check(fn: str, device, specs) -> None:
             raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _check_launch(fn: str, lib, d: int, m: int, f: int, n: int, n_fold: int, oc: int):
+def _check_launch(fn: str, smem: int, d: int, m: int, n: int, n_fold: int, oc: int):
     if m * n_fold != n:
         raise ValueError(f"{fn}: wx has {m} columns, expected N/n_fold = {n}/{n_fold}")
     if oc > 65535:
         raise ValueError(f"{fn}: {oc} orientation·ctf pairs exceed the grid limit 65535")
-    smem = lib.bioem_compare_smem_bytes(d, m, f)
     if smem > MAX_SMEM:
         raise ValueError(
-            f"{fn}: D={d}, M={m}, F={f} needs {smem} bytes of shared memory "
-            f"(> {MAX_SMEM})"
+            f"{fn}: D={d}, M={m} needs {smem} bytes of shared memory (> {MAX_SMEM})"
         )
+
+
+def _compare_dims(fn: str, args) -> tuple:
+    """Check the twelve inputs of a fused comparison on their CUDA device;
+    return (O, C, I, N, F, D, M)."""
+    proj_re, proj_im, ctf_re, ctf_im, img_re, img_im, wx_re, wx_im, wy_re, wy_im, a_u, b_u = args
+    o_n, n, f = proj_re.shape
+    c_n, i_n, d, m = ctf_re.shape[0], img_re.shape[0], wy_re.shape[0], wx_re.shape[1]
+    oc = o_n * c_n
+    _check(fn, proj_re.device, [
+        ("proj_re", proj_re, (o_n, n, f)), ("proj_im", proj_im, (o_n, n, f)),
+        ("ctf_re", ctf_re, (c_n, n, f)), ("ctf_im", ctf_im, (c_n, n, f)),
+        ("img_re", img_re, (i_n, n, f)), ("img_im", img_im, (i_n, n, f)),
+        ("wx_re", wx_re, (d, m)), ("wx_im", wx_im, (d, m)),
+        ("wy_re", wy_re, (d, f)), ("wy_im", wy_im, (d, f)),
+        ("a_u", a_u, (oc, i_n)), ("b_u", b_u, (oc, i_n)),
+    ])
+    return o_n, c_n, i_n, n, f, d, m
+
+
+def _summary_outputs(oc: int, i_n: int, dev):
+    out_m = torch.empty((oc, i_n), dtype=F32, device=dev)
+    return (out_m, torch.empty_like(out_m),
+            torch.empty((oc, i_n), dtype=torch.int32, device=dev), torch.empty_like(out_m))
 
 
 def fused_compare_block(
@@ -127,34 +153,21 @@ def fused_compare_block(
         return fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     if dev.type != "cuda":
         raise ValueError(f"fused_compare_block: unsupported device {dev}")
-    o_n, n, f = proj_re.shape
-    c_n, i_n, d, m = ctf_re.shape[0], img_re.shape[0], wy_re.shape[0], wx_re.shape[1]
-    oc = o_n * c_n
-    _check("fused_compare_block", dev, [
-        ("proj_re", proj_re, (o_n, n, f)), ("proj_im", proj_im, (o_n, n, f)),
-        ("ctf_re", ctf_re, (c_n, n, f)), ("ctf_im", ctf_im, (c_n, n, f)),
-        ("img_re", img_re, (i_n, n, f)), ("img_im", img_im, (i_n, n, f)),
-        ("wx_re", wx_re, (d, m)), ("wx_im", wx_im, (d, m)),
-        ("wy_re", wy_re, (d, f)), ("wy_im", wy_im, (d, f)),
-        ("a_u", a_u, (oc, i_n)), ("b_u", b_u, (oc, i_n)),
-    ])
+    o_n, c_n, i_n, n, f, d, m = _compare_dims("fused_compare_block", args)
     lib = _build.load()
-    _check_launch("fused_compare_block", lib, d, m, f, n, n_fold, oc)
-    out_m = torch.empty((oc, i_n), dtype=F32, device=dev)
-    out_se = torch.empty_like(out_m)
-    out_ds = torch.empty((oc, i_n), dtype=torch.int32, device=dev)
-    out_ccs = torch.empty_like(out_m)
+    _check_launch("fused_compare_block", lib.bioem_compare_smem_bytes(d, m, f),
+                  d, m, n, n_fold, o_n * c_n)
+    outs = _summary_outputs(o_n * c_n, i_n, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.bioem_fused_compare(
             *(t.data_ptr() for t in args), float(a_coef),
             o_n, c_n, i_n, n, f, d, m, n_fold,
-            out_m.data_ptr(), out_se.data_ptr(), out_ds.data_ptr(),
-            out_ccs.data_ptr(), stream,
+            *(t.data_ptr() for t in outs), stream,
         )
     _build.check(status, "fused_compare_block")
     fused_compare_block.launches += 1
-    return out_m, out_se, out_ds, out_ccs
+    return outs
 
 
 fused_compare_block.launches = 0
@@ -190,7 +203,8 @@ def fused_displacement_cc(
         ("wy_re", wy_re, (d, f)), ("wy_im", wy_im, (d, f)),
     ])
     lib = _build.load()
-    _check_launch("fused_displacement_cc", lib, d, m, f, n, n_fold, oc)
+    _check_launch("fused_displacement_cc", lib.bioem_compare_smem_bytes(d, m, f),
+                  d, m, n, n_fold, oc)
     cc = torch.empty((oc, i_n, d, d), dtype=F32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -204,3 +218,79 @@ def fused_displacement_cc(
 
 
 fused_displacement_cc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the image-batched fused comparison (csrc/compare_batched.cu)
+# ---------------------------------------------------------------------------
+
+def batched_smem_bytes(d: int, m: int, f: int, it: int) -> int:
+    """Dynamic shared memory of the batched kernel at (D, M, F, IT), or 0
+    when it has no instance for (D, IT), as the kernel library computes it
+    (``bioem_compare_batched_smem_bytes``; builds the library on first use)."""
+    return int(_build.load().bioem_compare_batched_smem_bytes(d, m, f, it))
+
+
+def batched_tile_fits(d: int, m: int, f: int, it: int) -> bool:
+    """The batched kernel has an instance for this tile and its shared
+    memory fits one block on Hopper."""
+    return 0 < batched_smem_bytes(d, m, f, it) <= MAX_SMEM
+
+
+def fused_compare_block_batched(
+    proj_re: torch.Tensor,  # (O, N, F) f32 — projection spectra
+    proj_im: torch.Tensor,
+    ctf_re: torch.Tensor,  # (C, N, F) f32 — CTF/PSF kernel bank
+    ctf_im: torch.Tensor,
+    img_re: torch.Tensor,  # (I, N, F) f32 — conj(rfft2(img))·h/N² prefolded
+    img_im: torch.Tensor,
+    wx_re: torch.Tensor,  # (D, N/n_fold) f32
+    wx_im: torch.Tensor,
+    wy_re: torch.Tensor,  # (D, F) f32
+    wy_im: torch.Tensor,
+    a_u: torch.Tensor,  # (O·C, I) f32 — 2·sum_ref·sum_c/F0
+    b_u: torch.Tensor,  # (O·C, I) f32 — Ntot/F0
+    *,
+    a_coef: float,  # (3 − Ntot)/2
+    n_fold: int = 1,
+    img_tile: int = 8,
+):
+    """K4: :func:`fused_compare_block`'s contract, computed ``img_tile``
+    images per block with stage 1 on the tensor cores (3xTF32). The image
+    count must be a multiple of the tile (as the JAX kernel requires)."""
+    args = (proj_re, proj_im, ctf_re, ctf_im, img_re, img_im,
+            wx_re, wx_im, wy_re, wy_im, a_u, b_u)
+    i_n = img_re.shape[0]
+    it = min(int(img_tile), i_n)
+    if it < 1 or i_n % it:
+        raise ValueError(
+            f"fused_compare_block_batched: image count {i_n} not a multiple of tile {it}"
+        )
+    dev = proj_re.device
+    if dev.type == "cpu":
+        return fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_compare_block_batched: unsupported device {dev}")
+    fn = "fused_compare_block_batched"
+    o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
+    smem = batched_smem_bytes(d, m, f, it)
+    if smem == 0:
+        raise ValueError(
+            f"{fn}: no kernel instance for D={d} at tile {it} (tiles 1..16, "
+            "at most four 16-row tiles of t1 per warp)"
+        )
+    _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
+    outs = _summary_outputs(o_n * c_n, i_n, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _build.load().bioem_fused_compare_batched(
+            *(t.data_ptr() for t in args), float(a_coef),
+            o_n, c_n, i_n, n, f, d, m, n_fold, it,
+            *(t.data_ptr() for t in outs), stream,
+        )
+    _build.check(status, fn)
+    fused_compare_block_batched.launches += 1
+    return outs
+
+
+fused_compare_block_batched.launches = 0

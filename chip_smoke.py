@@ -12,14 +12,22 @@ the port's main path on the card, in phases (each prints its own lines):
 2. build: nvcc of every kernel, with its seconds and ptxas resource lines;
 3. kernels vs their plain torch versions at the production shapes
    (bench.py's BASELINE config-2 problem) and one odd shape, with each
-   kernel's time beside the plain version's;
+   kernel's time beside the plain version's; the image-batched comparison
+   (K4) at every image tile the autotuner would try;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
-   images at N=224) through run_bioem on the kernel branch, against the
-   plain branch on the same card.
+   images at N=224) through run_bioem: on the kernel branch with K1, with
+   K4 forced (BIOEM_TPU_FUSED_BATCHED), and autotuned twice (each
+   candidate's time and the winner printed, then the winner from the
+   cache; each pass with the seconds its tuning took; the autotune cache is
+   a temporary file, never the working directory's), each against the plain branch on the
+   same card; then a checkpoint round trip (stop after half the blocks,
+   resume in a fresh engine) against the straight run.
 
-Every kernel's launch counter is set to 0 before phase 4 and read after
-phase 5: the main path must have launched each kernel. The line before the
+The main path is driven in two parts, each with every kernel's launch
+counter set to 0 just before it and read just after: the goldens with
+the plain and K1 passes must launch K1, K2 and K3; the K4, autotuned and
+checkpoint passes must launch K2 and K4. The line before the
 last is a JSON object describing every kernel; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Exits non-zero without a result when no CUDA device is present or
@@ -42,6 +50,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+DEVICE = "cuda"
 
 
 def say(msg: str) -> None:
@@ -184,7 +193,7 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s, "
         f"cached={info['cached']})")
     for line in info.get("log", "").splitlines():
-        if "Used" in line or "spill" in line:
+        if "entry function" in line or "Used" in line or "spill" in line:
             say(f"[build] {line.strip()}")
 
 
@@ -213,11 +222,16 @@ def _block_inputs(eng, b: int = 0):
     )
 
 
-def check_compare(torch, name, args, a_coef, n_fold):
-    """K1 against its plain version on the card; returns max |Δm|."""
+def check_compare(torch, name, args, a_coef, n_fold, img_tile=None):
+    """K1 (or K4 at ``img_tile``) against their plain version on the card;
+    returns max |Δm|."""
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
 
-    kern = cc_mod.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
+    if img_tile is None:
+        kern = cc_mod.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
+    else:
+        kern = cc_mod.fused_compare_block_batched(*args, a_coef=a_coef, n_fold=n_fold,
+                                                  img_tile=img_tile)
     plain = cc_mod.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     torch.cuda.synchronize()
     km, ks, kd, kc = kern
@@ -323,6 +337,13 @@ def phase_kernels(torch, eng) -> dict:
         f"D={eng.disp.shape[0]} n_fold={eng.n_fold} G={eng.fspec.n_groups} "
         f"Pp={eng.fspec.group_pad}")
     err1 = check_compare(torch, "K1 fused_compare_block", k1_args, x["a_coef"], eng.n_fold)
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.runtime.autotune import k4_tiles
+
+    tiles = k4_tiles(RunConfig(), eng.p, eng.n_img, device=DEVICE)
+    require(len(tiles) == 2, f"the autotuner would try K4 at {tiles}, expected two tiles")
+    err4 = {t: check_compare(torch, f"K4 fused_compare_block_batched tile {t}", k1_args,
+                             x["a_coef"], eng.n_fold, img_tile=t) for t in tiles}
     conv_re = (x["pr"][:, None] * bk.ctf_re[None] + x["pi"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     conv_im = (x["pi"][:, None] * bk.ctf_re[None] - x["pr"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     k3_args = (conv_re, conv_im, bk.img_re, bk.img_im, x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im)
@@ -345,6 +366,8 @@ def phase_kernels(torch, eng) -> dict:
     odd = (r(on, nn, fn), r(on, nn, fn), r(cn, nn, fn), r(cn, nn, fn), r(inn, nn, fn),
            r(inn, nn, fn), *w, au, bu)
     check_compare(torch, "K1 odd N=15 D=5", odd, -111.0, 1)
+    for t in (1, 5):
+        check_compare(torch, f"K4 odd N=15 D=5 tile {t}", odd, -111.0, 1, img_tile=t)
     check_cc(torch, "K3 odd N=15 D=5", r(6, nn, fn), r(6, nn, fn), odd[4], odd[5], *w, 1, inn)
     gi = lambda *s: torch.as_tensor(rng.integers(-20, 40, s).astype(np.int32), device=dev)  # noqa: E731
     check_project(torch, "K2 odd N=15", gi(3, 4, 8), gi(3, 4, 8), r(3, 4, 8).abs(),
@@ -358,8 +381,16 @@ def phase_kernels(torch, eng) -> dict:
                time_ms(torch, lambda: cc_mod.displacement_cc_plain(*k3_args, n_fold=eng.n_fold), 3))
     t["K2"] = (time_ms(torch, lambda: pj.fourier_project_block(*k2_args, n=n)),
                time_ms(torch, lambda: pj.fourier_project_block_plain(*k2_args, n=n), 3))
+    for tile in tiles:
+        t[f"K4 tile {tile}"] = (time_ms(torch, lambda tile=tile: cc_mod.fused_compare_block_batched(
+            *k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold, img_tile=tile)), t["K1"][1])
     for k, (a, b) in t.items():
         say(f"[kernels] {k} production-shape time: kernel {a:.3f} ms, plain {b:.3f} ms")
+    # K4's row: the tile the forced-K4 production pass runs (the default
+    # tile, clamped to what fits); every tried tile is printed above.
+    k4_tile = eng._k4_tile(min(eng.cfg.kernel_img_tile, eng.n_img), eng.disp.shape[0],
+                           n // eng.n_fold, f)
+    require(k4_tile in tiles, f"the forced K4 pass runs tile {k4_tile}, not a checked one {tiles}")
     return {
         "K1": dict(name="fused_compare_block", route="cuda",
                    source="bioem_tpu_torch/csrc/compare.cu",
@@ -373,6 +404,11 @@ def phase_kernels(torch, eng) -> dict:
                    source="bioem_tpu_torch/csrc/compare.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:643",
                    max_abs_err=err3, ms=t["K3"][0], plain_ms=t["K3"][1]),
+        "K4": dict(name="fused_compare_block_batched", route="cuda",
+                   source="bioem_tpu_torch/csrc/compare_batched.cu",
+                   replaces="bioem_tpu/ops/compare_pallas.py:367",
+                   max_abs_err=err4[k4_tile], ms=t[f"K4 tile {k4_tile}"][0],
+                   plain_ms=t["K1"][1], tile=k4_tile),
     }
 
 
@@ -412,49 +448,109 @@ def phase_goldens() -> None:
         require(ok, f"golden {case} vs {golden} out of tolerance")
 
 
-def phase_production(problem) -> None:
-    from bioem_tpu_torch.config import RunConfig
-    from bioem_tpu_torch.ops import compare_cuda as cc_mod
-    from bioem_tpu_torch.ops import project_cuda as pj
-    from bioem_tpu_torch.run import run_bioem
-
-    p, orients, model, images, planted = problem
-    before = (cc_mod.fused_compare_block.launches, pj.fourier_project_block.launches)
-    res_k, perf_k = run_bioem(p, orients, model, images, RunConfig(use_kernels=True), device="cuda")
-    n_k1 = cc_mod.fused_compare_block.launches - before[0]
-    n_k2 = pj.fourier_project_block.launches - before[1]
-    cmp = perf_k["comparisons"]
-    say(f"[production] kernel branch: {perf_k['run_s']:.3f} s, "
-        f"{perf_k['comparisons_per_s']:.4e} comparisons/s ({cmp} comparisons; "
-        f"K1 launches {n_k1}, K2 launches {n_k2})")
-    require(n_k1 > 0 and n_k2 > 0, "production run did not launch K1 and K2")
-    require(bool(np.isfinite(res_k.log_prob).all()), "non-finite logP on the kernel branch")
-    res_p, perf_p = run_bioem(
-        p, orients, model, images, RunConfig(use_kernels=False), device="cuda"
-    )
-    say(f"[production] plain branch: {perf_p['run_s']:.3f} s, "
-        f"{perf_p['comparisons_per_s']:.4e} comparisons/s")
-    require(bool(np.isfinite(res_p.log_prob).all()), "non-finite logP on the plain branch")
-    fields = ("best_orient", "best_conv", "best_cent_x", "best_cent_y")
-    same = np.all([getattr(res_k, f) == getattr(res_p, f) for f in fields], axis=0)
-    dlp = float(np.max(np.abs(res_k.log_prob - res_p.log_prob)))
-    # q and −q are the same rotation and both lie on the quaternion grid, so
-    # recovery compares rotation matrices, not grid indices.
+def check_against_plain(name, res, res_p, planted, orients) -> None:
+    """Argmax tuples equal to the plain branch's on every image, finite
+    logP, and the planted orientation recovered on ≥ 90 % of the images."""
     import torch
 
     from bioem_tpu_torch.core.orientations import rotation_matrices
 
+    require(bool(np.isfinite(res.log_prob).all()), f"{name}: non-finite logP")
+    fields = ("best_orient", "best_conv", "best_cent_x", "best_cent_y")
+    same = np.all([getattr(res, f) == getattr(res_p, f) for f in fields], axis=0)
+    dlp = float(np.max(np.abs(res.log_prob - res_p.log_prob)))
+
+    # q and −q are the same rotation and both lie on the quaternion grid, so
+    # recovery compares rotation matrices, not grid indices.
     def rot(idx):
         return rotation_matrices(torch.as_tensor(orients.angles[idx]), orients.use_quaternions)
 
-    same_rot = (rot(res_k.best_orient) - rot(planted["orient"])).abs().amax(dim=(1, 2)) < 1e-5
+    same_rot = (rot(res.best_orient) - rot(planted["orient"])).abs().amax(dim=(1, 2)) < 1e-5
     rec = float(same_rot.float().mean())
-    rec_c = float(np.mean(res_k.best_conv == planted["ctf"]))
-    say(f"[production] argmax tuples equal on {int(same.sum())}/{len(same)} images; "
-        f"max |ΔlogP| kernel vs plain {dlp:.3e}; planted orientation recovered "
-        f"{rec:.3f}, planted CTF {rec_c:.3f}")
-    require(bool(same.all()), "argmax tuples differ between kernel and plain branch")
-    require(rec >= 0.9, "planted orientations not recovered")
+    rec_c = float(np.mean(res.best_conv == planted["ctf"]))
+    say(f"[production] {name}: argmax tuples equal to the plain branch on "
+        f"{int(same.sum())}/{len(same)} images; max |ΔlogP| vs plain {dlp:.3e}; planted "
+        f"orientation recovered {rec:.3f}, planted CTF {rec_c:.3f}")
+    require(bool(same.all()), f"{name}: argmax tuples differ from the plain branch")
+    require(rec >= 0.9, f"{name}: planted orientations not recovered")
+
+
+def _run(name, problem, cfg):
+    """run_bioem on the card with the launches of K1, K2 and K4 it made."""
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.ops import project_cuda as pj
+    from bioem_tpu_torch.run import run_bioem
+
+    p, orients, model, images, _ = problem
+    fns = (cc_mod.fused_compare_block, pj.fourier_project_block,
+           cc_mod.fused_compare_block_batched)
+    before = [fn.launches for fn in fns]
+    res, perf = run_bioem(p, orients, model, images, cfg, device=DEVICE)
+    n = [fn.launches - b for fn, b in zip(fns, before)]
+    say(f"[production] {name}: {perf['run_s']:.3f} s, "
+        f"{perf['comparisons_per_s']:.4e} comparisons/s ({perf['comparisons']} "
+        f"comparisons; K1 launches {n[0]}, K2 launches {n[1]}, K4 launches {n[2]}; "
+        f"config {perf['config']}; autotuning {perf['autotune_s']:.3f} s before it)")
+    return res, perf, n
+
+
+def phase_production(problem):
+    """The plain branch and the default kernel branch (K1); returns both
+    results."""
+    from bioem_tpu_torch.config import RunConfig
+
+    planted, orients = problem[4], problem[1]
+    res_p, _, _ = _run("plain branch", problem, RunConfig(use_kernels=False, autotune=False))
+    require(bool(np.isfinite(res_p.log_prob).all()), "non-finite logP on the plain branch")
+    res_k, _, n = _run("kernel branch (K1)", problem, RunConfig(use_kernels=True, autotune=False))
+    require(n[0] > 0 and n[1] > 0, "the kernel branch did not launch K1 and K2")
+    check_against_plain("kernel branch (K1)", res_k, res_p, planted, orients)
+    return res_p, res_k
+
+
+def phase_tuned(problem, res_p, res_k, k4_tile: int) -> None:
+    """K4 forced, the autotuned run, and a checkpoint round trip."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    p, orients, model, images, planted = problem
+    # K4 as BIOEM_TPU_FUSED_BATCHED=1 forces it, at the default tile
+    res_4, perf_4, n = _run("K4 forced", problem, RunConfig(
+        use_kernels=True, autotune=False, fused_batched=True, forced=frozenset({"fused_batched"})))
+    require(n[2] > 0 and perf_4["config"]["fused_batched"]
+            and perf_4["config"]["kernel_img_tile"] == k4_tile,
+            f"the forced pass did not launch K4 at tile {k4_tile}")
+    check_against_plain("K4 forced", res_4, res_p, planted, orients)
+    res_a, _, _ = _run("autotuned", problem, RunConfig(autotune=True, debug_output=1))
+    check_against_plain("autotuned", res_a, res_p, planted, orients)
+    # the same shape again: the winner comes from the cache, untimed
+    res_a, _, _ = _run("autotuned, cached", problem, RunConfig(autotune=True, debug_output=1))
+    check_against_plain("autotuned, cached", res_a, res_p, planted, orients)
+
+    # Checkpoint round trip on the kernel branch (K1): stop after half the
+    # blocks, resume in a fresh engine, hold it to the straight run.
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = RunConfig(use_kernels=True, autotune=False,
+                        checkpoint_path=os.path.join(tmp, "state.npz"))
+        eng = BioEMEngine(p, orients, model, images, cfg, device=DEVICE)
+        nblk = eng.ang_blocks.shape[0]
+        k = nblk // 2
+        state = eng.initial_state()
+        for b in range(k):
+            state = eng._block_step(state, eng.banks, eng.ang_blocks[b], b * eng.o_block,
+                                    eng.mask_blocks[b])
+        save_checkpoint(cfg.checkpoint_path, state, k, eng._fingerprint)
+        del eng, state
+        eng = BioEMEngine(p, orients, model, images, cfg, device=DEVICE)
+        res_c = eng.results(eng.run())
+    rel = float(np.max(np.abs(res_c.log_prob - res_k.log_prob) / np.abs(res_k.log_prob)))
+    fields = ("best_orient", "best_conv", "best_cent_x", "best_cent_y")
+    same = all(np.array_equal(getattr(res_c, f), getattr(res_k, f)) for f in fields)
+    say(f"[production] checkpoint round trip: stopped after block {k}/{nblk}, resumed in a "
+        f"fresh engine; max rel |ΔlogP| vs the straight run {rel:.3e}, argmax tuples "
+        f"{'equal' if same else 'DIFFER'}")
+    require(rel <= 1e-12 and same, "the resumed run differs from the straight run")
 
 
 def main() -> int:
@@ -473,6 +569,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
+    # The autotuner's cache goes to a temporary file, never the working
+    # directory's .bioem_tpu_autotune.json.
+    cache_dir = tempfile.mkdtemp(prefix="bioem_autotune_")
+    os.environ["BIOEM_TPU_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "autotune.json")
     try:
         phase_environment(torch)
         phase_build()
@@ -485,7 +585,7 @@ def main() -> int:
         t0 = time.perf_counter()
         problem = build_problem()
         p, orients, model, images, _ = problem
-        eng = BioEMEngine(p, orients, model, images, RunConfig(), device="cuda")
+        eng = BioEMEngine(p, orients, model, images, RunConfig(), device=DEVICE)
         require(eng.fspec is not None and eng._f32_corr_ok,
                 "production problem must take the Fourier projection and the fused comparison")
         say(f"[setup] production problem: {orients.n} orientations × {eng.n_ctf} CTFs × "
@@ -495,28 +595,43 @@ def main() -> int:
         del eng
 
         counters = {"K1": cc_mod.fused_compare_block, "K2": pj.fourier_project_block,
-                    "K3": cc_mod.fused_displacement_cc}
-        for fn in counters.values():
-            fn.launches = 0
-        phase_goldens()
-        phase_production(problem)
-        for k, fn in counters.items():
-            rows[k]["launches"] = fn.launches
-        say(f"[main path] launches: " + ", ".join(f"{k} {fn.launches}" for k, fn in counters.items()))
-        require(all(fn.launches > 0 for fn in counters.values()),
-                "a kernel of the main path was never launched")
+                    "K3": cc_mod.fused_displacement_cc,
+                    "K4": cc_mod.fused_compare_block_batched}
+
+        def main_path(name, drive, kernels):
+            """Counts from 0 around one path; each of ``kernels`` must launch."""
+            for fn in counters.values():
+                fn.launches = 0
+            out = drive()
+            say(f"[main path] {name} launches: "
+                + ", ".join(f"{k} {fn.launches}" for k, fn in counters.items()))
+            require(all(counters[k].launches > 0 for k in kernels),
+                    f"a kernel of {name} ({', '.join(kernels)}) was never launched")
+            for k, fn in counters.items():
+                rows[k]["launches"] = rows[k].get("launches", 0) + fn.launches
+            return out
+
+        def goldens_and_k1():
+            phase_goldens()
+            return phase_production(problem)
+
+        res_p, res_k = main_path("goldens + production K1", goldens_and_k1, ("K1", "K2", "K3"))
+        main_path("production K4 + autotuned + checkpoint",
+                  lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]), ("K2", "K4"))
     except Exception as e:  # every phase failure ends the run with a nonzero code
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
     say(f"[done] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [dict(name=r["name"], route=r["route"], source=r["source"],
                                      replaces=r["replaces"], launches=r["launches"],
                                      max_abs_err=r["max_abs_err"], ms=r["ms"],
                                      plain_ms=r["plain_ms"])
-                                for r in (rows["K1"], rows["K2"], rows["K3"])]}))
+                                for r in rows.values()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -11,7 +11,8 @@ does not have; this file needs only torch and the port.)
 chip_smoke.py makes the same comparisons at the production shapes.
 Tolerances: m, se rtol 1e-5 at these small shapes, the argmax exact away
 from near-ties (two best lattice values within 1e-5·|a_coef|); cc and the
-projection spectra < 5e-5 of their max magnitude.
+projection spectra < 5e-5 of their max magnitude. The image-batched
+kernel (K4, 3xTF32 tensor cores) is held to K1's tolerances.
 """
 
 import numpy as np
@@ -102,12 +103,47 @@ def test_wrapper_rejects_bad_input(rng, dev):
         C.fused_compare_block(*args, a_coef=-1.0, n_fold=2)
 
 
-def test_engine_kernel_branch_vs_plain_branch(rng, dev):
-    """The engine on the card: kernel branch against plain branch, on a
-    small problem with a stride-folded lattice, padding and per-angle
-    slabs."""
-    from bioem_tpu_torch.config import RunConfig
-    from bioem_tpu_torch.core.engine import BioEMEngine
+@pytest.mark.parametrize("it", [1, 2, 4])
+@pytest.mark.parametrize("n_fold,n_disp", [(1, 5), (2, 21)])
+def test_batched_kernel_vs_plain(rng, dev, n_fold, n_disp, it):
+    n = 48 if n_disp * n_fold >= 32 else 32
+    args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, i=8)
+    before = C.fused_compare_block_batched.launches
+    km, ks, kd, kc = C.fused_compare_block_batched(*args, a_coef=-511.5, n_fold=n_fold,
+                                                   img_tile=it)
+    torch.cuda.synchronize()
+    assert C.fused_compare_block_batched.launches == before + 1
+    pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=-511.5, n_fold=n_fold)
+    torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=0)
+    assert kd.dtype == torch.int32
+    ok = kd == pd
+    assert float(ok.float().mean()) >= 0.9
+    torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
+
+
+def test_batched_wrapper_rejects_bad_tiles(rng, dev):
+    """I % IT != 0 and a tile whose operands exceed the shared memory of a
+    block raise before any launch. The library sizes the production tiles
+    within a block's shared memory and has no instance past tile 16 or
+    past four t1 row tiles per warp."""
+    for d, m, it, fits in [(21, 112, 8, True), (21, 112, 16, True), (5, 15, 5, True),
+                           (21, 112, 17, False), (61, 112, 16, False), (61, 112, 4, True),
+                           (21, 448, 16, False)]:
+        assert C.batched_tile_fits(d, m, 113, it) == fits, (d, m, it)
+    assert C.batched_smem_bytes(21, 112, 113, 17) == 0
+    args = _cmp_inputs(rng, dev, n=32, n_fold=2, n_disp=9, i=6)
+    before = C.fused_compare_block_batched.launches
+    with pytest.raises(ValueError, match="not a multiple of tile 4"):
+        C.fused_compare_block_batched(*args, a_coef=-1.0, n_fold=2, img_tile=4)
+    args = _cmp_inputs(rng, dev, n=448, n_fold=1, n_disp=21, o=1, c=1, i=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        C.fused_compare_block_batched(*args, a_coef=-1.0, n_fold=1, img_tile=16)
+    assert C.fused_compare_block_batched.launches == before
+
+
+def _engine_problem(rng, n_img=5):
+    """A small problem with a stride-folded lattice and per-angle slabs."""
     from bioem_tpu_torch.core.orientations import build_orientations
     from bioem_tpu_torch.io.map_io import ImageStack, _normalize_stack
     from bioem_tpu_torch.io.model_io import Model
@@ -123,13 +159,42 @@ def test_engine_kernel_branch_vs_plain_branch(rng, dev):
     dens = rng.uniform(40.0, 100.0, 12).astype(np.float32)
     model = Model(rng.uniform(-6, 6, (12, 3)).astype(np.float32),
                   rng.uniform(1.0, 3.2, 12).astype(np.float32), dens, float(dens.sum()))
-    images = ImageStack(_normalize_stack(rng.normal(0, 1, (5, 16, 16)).astype(np.float32)))
-    res = []
-    for kern in (True, False):
-        eng = BioEMEngine(p, build_orientations(p), model, images,
-                          RunConfig(orient_block=3, use_kernels=kern), device=dev)
-        assert eng.use_kernels == kern
-        res.append(eng.results(eng.run()))
-    np.testing.assert_allclose(res[0].log_prob, res[1].log_prob, rtol=0, atol=1e-4)
-    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
-        np.testing.assert_array_equal(getattr(res[0], f), getattr(res[1], f))
+    images = ImageStack(_normalize_stack(rng.normal(0, 1, (n_img, 16, 16)).astype(np.float32)))
+    return p, build_orientations(p), model, images
+
+
+def test_engine_kernel_branch_vs_plain_branch(rng, dev):
+    """The engine on the card: kernel branch against plain branch, with
+    image padding."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    problem = _engine_problem(rng)
+    res = {}
+    for name, kw in (("plain", dict(use_kernels=False)), ("k1", dict(use_kernels=True)),
+                     ("k4", dict(use_kernels=True, fused_batched=True, kernel_img_tile=5)),
+                     ("hybrid", dict(use_kernels=True, fused_lse=False))):
+        before = C.fused_compare_block_batched.launches
+        eng = BioEMEngine(*problem, RunConfig(orient_block=3, **kw), device=dev)
+        assert eng.use_kernels == kw["use_kernels"]
+        res[name] = eng.results(eng.run())
+        assert (C.fused_compare_block_batched.launches > before) == (name == "k4")
+    for name in ("k1", "k4", "hybrid"):
+        np.testing.assert_allclose(res[name].log_prob, res["plain"].log_prob, rtol=0, atol=1e-4)
+        for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+            np.testing.assert_array_equal(getattr(res[name], f), getattr(res["plain"], f))
+
+
+def test_engine_k4_tile_on_the_card(rng, dev):
+    """On the card the kernel library sizes K4's tile: a forced tile it has
+    no instance for raises at construction, the unforced default is clamped
+    down to the largest tile that fits (16 here)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    problem = _engine_problem(rng, n_img=20)
+    kw = dict(use_kernels=True, fused_batched=True, kernel_img_tile=20)
+    with pytest.raises(ValueError, match="forced"):
+        BioEMEngine(*problem, RunConfig(**kw, forced=frozenset({"kernel_img_tile"})), device=dev)
+    eng = BioEMEngine(*problem, RunConfig(**kw), device=dev)
+    assert eng.fused_batched and eng.i_block == 16 and eng.n_img_pad == 32

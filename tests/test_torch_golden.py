@@ -106,7 +106,7 @@ def test_port_golden_f64_external_truth(case, tmp_path, branch):
     (["--RefineCTF"], {}),
     ([], {"BIOEM_TPU_MESH_ORIENT": "2"}),
     ([], {"BIOEM_TPU_DEBUG_PROB": "0"}),
-    ([], {"BIOEM_TPU_CHECKPOINT": "ckpt.npz"}),
+    ([], {"BIOEM_TPU_NATIVE_IO": "1"}),
 ])
 def test_not_ported_features_refuse(argv, env, monkeypatch):
     """Features of the JAX CLI that the port lacks raise NotImplementedError

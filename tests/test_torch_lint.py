@@ -47,8 +47,8 @@ RULES = [
 
 def test_lint_sees_the_port():
     names = {os.path.basename(f) for f in FILES}
-    assert {"compare.cu", "project.cu", "engine.py", "compare_cuda.py",
-            "project_cuda.py", "chip_smoke.py"} <= names
+    assert {"compare.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "engine.py",
+            "compare_cuda.py", "project_cuda.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=IDS)
