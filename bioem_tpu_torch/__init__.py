@@ -9,7 +9,9 @@ plus maximizing-parameter tracking and per-orientation posteriors.
 The package sits beside the JAX package ``bioem_tpu``, keeps its module
 layout and names, and never imports JAX. On an NVIDIA Hopper card the
 posterior's hot path runs hand-written CUDA kernels (``ops/``, built from
-``csrc/`` at first use); on the CPU it runs the plain torch formulation.
+``csrc/`` at first use). The entry points take the card; asked for the CPU
+(``device="cpu"`` or ``BIOEM_TPU_FORCE_CPU=1``) they run the plain torch
+formulation there, and with neither and no card they raise.
 """
 
 __version__ = "0.1.0"

@@ -10,11 +10,15 @@ the JAX package's, flag for flag, so existing BioEM invocations work:
 Performance env vars (BIOEM_DEBUG_*, BIOEM_TPU_*) are honoured via
 RunConfig.from_env: block sizes, the kernel switches, autotuning and its
 cache, checkpoint/resume and the profiler trace (config.HONOURED_ENV).
-The parts of the JAX CLI that are not ported yet (--PrintBestCalMap,
---Refine*, a device mesh, multi-host runs, DEBUG_PROB dumps, the native
-ingest; config.NOT_PORTED_ENV) raise NotImplementedError instead of
-running something else; the TPU-only knobs (config.TPU_ONLY_ENV) are
-ignored.
+The posterior run takes the CUDA card; ``BIOEM_TPU_FORCE_CPU=1`` asks for
+the CPU, and with neither it raises before reading any input
+(config.resolve_device). ``BIOEM_TPU_DEBUG_PROB=<image>`` writes the
+per-evaluation dump of that image after the outputs (debug_prob.py).
+``--PrintBestCalMap`` runs the forward simulator (simulator.py, host
+NumPy, no device). The parts of the JAX CLI that are not ported yet
+(--Refine*, a device mesh, multi-host runs, the native ingest;
+config.NOT_PORTED_ENV) raise NotImplementedError instead of running
+something else; the TPU-only knobs (config.TPU_ONLY_ENV) are ignored.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ import sys
 import time
 
 from . import defs
-from .config import RunConfig, not_ported_env
-from .params import read_parameters
+from .config import RunConfig, not_ported_env, resolve_device
+from .params import read_best_params, read_parameters
 from .io.map_io import read_ref_maps
 from .io.model_io import read_model, write_coordread
 from .io.output import write_angle_probabilities, write_probabilities
@@ -136,8 +140,6 @@ def write_rotated_models(model, orients, out) -> None:
 
 def _refuse_not_ported(args) -> None:
     what = []
-    if args.PrintBestCalMap:
-        what.append("--PrintBestCalMap (the forward simulator)")
     if args.Refine or args.RefineCTF or args.RefineCTFAmp:
         what.append("--Refine/--RefineCTF/--RefineCTFAmp (continuous refinement)")
     what += not_ported_env()
@@ -157,12 +159,37 @@ def main(argv=None) -> int:
         print("Error - For multiple MRCs command --ReadMRC is necessary too")
         return 1
 
+    # ---- PrintBestCalMap mode (reference main.cpp:97-108) ----
+    if args.PrintBestCalMap:
+        from .simulator import write_best_map
+
+        bp = read_best_params(args.PrintBestCalMap)
+        model = read_model(
+            args.Modelfile,
+            read_pdb=args.ReadPDB,
+            read_mrc=args.ReadModelMRC,
+            load_dump=args.LoadModelDump,
+            dump=args.DumpModel,
+            pixel_size=bp.pixel_size,
+            center_mass=not bp.no_center_mass,
+        )
+        if args.PrintCOORDREAD:
+            write_coordread(model)
+        with open(defs.FILE_BESTMAP, "w") as f:
+            write_best_map(bp, model, f)
+        print(
+            "\n\nBest map printed in file: BESTMAP with gnuplot format in "
+            "columns 2, 3 and 4. \n\n"
+        )
+        return 0
+
     for req in ("Modelfile", "Particlesfile", "Inputfile"):
         if getattr(args, req) is None:
             print("Error - Need to specify all mandatory options")
             build_parser().print_help()
             return 1
 
+    device = resolve_device()
     t0 = time.perf_counter()
     p = read_parameters(args.Inputfile, not_uniform_angles=args.ReadOrientation is not None)
 
@@ -203,7 +230,7 @@ def main(argv=None) -> int:
 
     from .run import run_bioem
 
-    results, perf = run_bioem(p, orients, model, images, cfg)
+    results, perf = run_bioem(p, orients, model, images, cfg, device=device)
     if cfg.debug_output >= 1:
         print(
             f"Main loop: {perf['run_s']:.3f}s on {perf['device']} "
@@ -215,6 +242,12 @@ def main(argv=None) -> int:
     if p.write_angles:
         with open(defs.FILE_ANG_PROB, "w") as f:
             write_angle_probabilities(f, p, orients, results)
+    # Per-evaluation debug dump (reference DEBUG_PROB, defs.h:52):
+    # BIOEM_TPU_DEBUG_PROB=<image index> writes every (orientation, ctf,
+    # displacement) logpro of that image for cross-path diffing.
+    from .debug_prob import maybe_dump_from_env
+
+    maybe_dump_from_env(perf["engine"])
     return 0
 
 

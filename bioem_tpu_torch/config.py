@@ -10,6 +10,9 @@ ported yet (:data:`NOT_PORTED_ENV`), or ignored by design because it only
 steers the TPU or JAX (:data:`TPU_ONLY_ENV`). The JAX package's
 ``use_pallas``/``pallas_img_tile``/``pallas_projection`` are
 ``use_kernels``/``kernel_img_tile``/``kernel_projection`` here.
+
+:func:`resolve_device` is the one place where an entry point without an
+explicit device picks one: the card, or the CPU only when asked.
 """
 
 from __future__ import annotations
@@ -109,15 +112,38 @@ class RunConfig:
         return cfg
 
 
+def resolve_device(device=None):
+    """The device an entry point runs on: ``device`` when the caller names
+    one; else the CPU when ``BIOEM_TPU_FORCE_CPU`` is set to any non-empty
+    value (the JAX package's switch, read as it reads it); else the card.
+    With neither and no CUDA device it raises rather than fall back to the
+    CPU: a run that silently left the card would take the plain branch and
+    report a CPU time as the card's."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if os.environ.get("BIOEM_TPU_FORCE_CPU"):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: bioem_tpu_torch runs on the card; to run on the CPU "
+            "pass device='cpu' or set BIOEM_TPU_FORCE_CPU=1"
+        )
+    return torch.device("cuda")
+
+
 # Every BIOEM_* name the JAX package reads, in exactly one of three sets.
-# Honoured: RunConfig.from_env above, and the autotuner's cache path.
+# Honoured: RunConfig.from_env above, resolve_device, the autotuner's cache
+# path and the DEBUG_PROB dump (debug_prob.maybe_dump_from_env).
 HONOURED_ENV = frozenset({
     "BIOEM_DEBUG_BREAK", "BIOEM_DEBUG_NMAPS", "BIOEM_DEBUG_OUTPUT",
     "BIOEM_TPU_ORIENT_BLOCK", "BIOEM_TPU_IMAGE_BLOCK", "BIOEM_TPU_PALLAS_IMG_TILE",
     "BIOEM_TPU_CHECKPOINT", "BIOEM_TPU_CHECKPOINT_EVERY", "BIOEM_TPU_PROFILE_DIR",
     "BIOEM_TPU_PROJECTION", "BIOEM_TPU_AUTOTUNE", "BIOEM_TPU_AUTOTUNE_CACHE",
     "BIOEM_TPU_PALLAS", "BIOEM_TPU_PROJ_PALLAS", "BIOEM_TPU_FUSED_BATCHED",
-    "BIOEM_TPU_FUSED_LSE",
+    "BIOEM_TPU_FUSED_LSE", "BIOEM_TPU_FORCE_CPU",
+    "BIOEM_TPU_DEBUG_PROB", "BIOEM_TPU_DEBUG_PROB_FILE", "BIOEM_TPU_DEBUG_PROB_KERNEL",
 })
 
 # Not ported yet: the CLI refuses them rather than silently running
@@ -128,9 +154,6 @@ NOT_PORTED_ENV = {
     "BIOEM_TPU_COORDINATOR": "multi-host runs",
     "BIOEM_TPU_NUM_PROCESSES": "multi-host runs",
     "BIOEM_TPU_PROCESS_ID": "multi-host runs",
-    "BIOEM_TPU_DEBUG_PROB": "the DEBUG_PROB per-evaluation dump",
-    "BIOEM_TPU_DEBUG_PROB_FILE": "the DEBUG_PROB per-evaluation dump",
-    "BIOEM_TPU_DEBUG_PROB_KERNEL": "the DEBUG_PROB per-evaluation dump",
     "BIOEM_TPU_NATIVE_IO": "the native C++ ingest",
 }
 
@@ -140,7 +163,6 @@ TPU_ONLY_ENV = {
                                "port's kernels hold f32 accuracy by FMA or 3xTF32",
     "BIOEM_TPU_SPLIT": "TPU bf16 hi/lo split variant",
     "BIOEM_TPU_ACCURATE_LOG1P": "TPU log1p workaround; the port uses a true log1p",
-    "BIOEM_TPU_FORCE_CPU": "JAX backend switch; the port takes the device torch finds",
     "BIOEM_TPU_NO_X64": "JAX x64 switch; the port keeps probabilities in f64 always",
 }
 

@@ -20,7 +20,9 @@ formulation of core/posterior.py. The kernel branch's comparison is, as
 in the JAX engine, the fused kernel with the displacement log-sum-exp
 inside (K1, or the image-batched K4 with ``fused_batched``) or, with
 ``fused_lse=False`` or DC-dominated images, the hybrid: the cc-lattice
-kernel K3 and the torch ``displacement_lse``.
+kernel K3 and the torch ``displacement_lse``. Without an explicit device
+the engine takes the card, or the CPU when ``BIOEM_TPU_FORCE_CPU`` asks
+(config.resolve_device); it never falls back to the CPU by itself.
 
 ``run`` checkpoints and resumes the streaming state
 (runtime/checkpoint.py) and prints the TimeStat phase table at
@@ -38,7 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import RunConfig
+from ..config import RunConfig, resolve_device
 from ..params import (
     BioEMParams,
     displacement_lists,
@@ -186,9 +188,8 @@ class BioEMEngine:
         cfg = cfg or RunConfig()
         self.cfg = cfg
         self.p = p
-        if device is None:  # the device torch finds, as jax.default_backend()
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        # The card, or the CPU only when asked (config.resolve_device).
+        self.device = resolve_device(device)
         self.use_kernels = (
             cfg.use_kernels if cfg.use_kernels is not None
             else self.device.type == "cuda"

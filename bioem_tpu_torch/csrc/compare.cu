@@ -27,7 +27,9 @@
 // registers while the wx weights are broadcast from shared memory as
 // float4 pairs. t1 and the lattice stay in shared memory. Plain f32 FMA,
 // no tensor cores (compare_batched.cu is the tensor-core variant, K4);
-// the log-sum-exp is compare_lse.cuh, shared with K4.
+// the log-sum-exp is compare_lse.cuh, shared with K4. The body variant V is
+// kFull in production; the ablation probe P3 instantiates the others at
+// DC = 24 only (D = 17..24, the production D = 21).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,11 +40,28 @@
 namespace {
 
 using bioem_lse::better;
+using bioem_lse::kFull;
+using bioem_lse::kMmOnly;
+using bioem_lse::kNoLse;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-template <int DC, bool CC_OUT>
+// Block sum of one float per thread into *out (thread 0 writes); the
+// checksum of P3's ablated bodies. Every thread of the block must call it.
+__device__ __forceinline__ void block_checksum(float s, float* red_s, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s = bioem_lse::warp_sum(s);
+  if (lane == 0) red_s[warp] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tot = 0.f;
+    for (int w = 0; w < kWarps; ++w) tot += red_s[w];
+    *out = tot;
+  }
+}
+
+template <int DC, bool CC_OUT, int V>
 __global__ void __launch_bounds__(kThreads)
 compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                const float* __restrict__ k_re, const float* __restrict__ k_im,
@@ -95,6 +114,7 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
   const float* pi_im = img_im + i * NF;
 
   // Stage 1: t1[d, f] = Σ_j wx[d, j] · fold(p)[j, f].
+  float chk = 0.f;  // the ablated bodies' checksum
   for (int d0 = 0; d0 < D; d0 += DC) {
     for (int f = tid; f < F; f += kThreads) {
       float ar[DC], ai[DC];
@@ -106,21 +126,27 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
 #pragma unroll 2
       for (int j = 0; j < M; ++j) {
         float pr = 0.f, pim = 0.f;
-        for (int k = 0; k < n_fold; ++k) {
-          const size_t idx = (size_t)(j + k * M) * F + f;
-          float cr, ci;
-          if (CC_OUT) {
-            cr = pa_re[idx];
-            ci = pa_im[idx];
-          } else {
-            const float xr = pa_re[idx], xi = pa_im[idx];
-            const float kr = pk_re[idx], ki = pk_im[idx];
-            cr = xr * kr + xi * ki;
-            ci = xi * kr - xr * ki;
+        if constexpr (V == kMmOnly) {
+          // Operands formed once: the image spectrum itself.
+          pr = pi_re[(size_t)j * F + f];
+          pim = pi_im[(size_t)j * F + f];
+        } else {
+          for (int k = 0; k < n_fold; ++k) {
+            const size_t idx = (size_t)(j + k * M) * F + f;
+            float cr, ci;
+            if (CC_OUT) {
+              cr = pa_re[idx];
+              ci = pa_im[idx];
+            } else {
+              const float xr = pa_re[idx], xi = pa_im[idx];
+              const float kr = pk_re[idx], ki = pk_im[idx];
+              cr = xr * kr + xi * ki;
+              ci = xi * kr - xr * ki;
+            }
+            const float ir = pi_re[idx], ii = pi_im[idx];
+            pr += cr * ir - ci * ii;
+            pim += cr * ii + ci * ir;
           }
-          const float ir = pi_re[idx], ii = pi_im[idx];
-          pr += cr * ir - ci * ii;
-          pim += cr * ii + ci * ir;
         }
         const float4* w4 = reinterpret_cast<const float4*>(wxs + (size_t)j * Dpad + d0);
 #pragma unroll
@@ -132,10 +158,19 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
           ai[2 * h + 1] += w.z * pim + w.w * pr;
         }
       }
+      if constexpr (V == kMmOnly) {
 #pragma unroll
-      for (int dd = 0; dd < DC; ++dd)
-        if (d0 + dd < D) t1s[(d0 + dd) * F + f] = make_float2(ar[dd], ai[dd]);
+        for (int dd = 0; dd < DC; ++dd) chk += ar[dd] + ai[dd];
+      } else {
+#pragma unroll
+        for (int dd = 0; dd < DC; ++dd)
+          if (d0 + dd < D) t1s[(d0 + dd) * F + f] = make_float2(ar[dd], ai[dd]);
+      }
     }
+  }
+  if constexpr (V == kMmOnly) {
+    block_checksum(chk, red_s, out_m + (size_t)oc * I + i);
+    return;
   }
   __syncthreads();
 
@@ -153,10 +188,16 @@ compare_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
     const float cc = sr - si;
     if (CC_OUT)
       out_cc[((size_t)oc * I + i) * DD + q] = cc;
+    else if constexpr (V == kNoLse)
+      chk += cc;
     else
       ccv[q] = cc;
   }
   if (CC_OUT) return;
+  if constexpr (V == kNoLse) {
+    block_checksum(chk, red_s, out_m + (size_t)oc * I + i);
+    return;
+  }
   __syncthreads();
 
   // Displacement log-sum-exp over the D² lattice.
@@ -214,7 +255,7 @@ size_t smem_bytes(int DC, int D, int M, int F) {
          sizeof(float) * 2 * (size_t)D * D;
 }
 
-template <int DC, bool CC_OUT>
+template <int DC, bool CC_OUT, int V = kFull>
 int launch(const float* a_re, const float* a_im, const float* k_re, const float* k_im,
            const float* img_re, const float* img_im, const float* wx_re,
            const float* wx_im, const float* wy_re, const float* wy_im,
@@ -222,12 +263,12 @@ int launch(const float* a_re, const float* a_im, const float* k_re, const float*
            int N, int F, int D, int M, int n_fold, float* m, float* se, int* ds,
            float* ccs, float* cc, cudaStream_t stream) {
   const size_t smem = smem_bytes(DC, D, M, F);
-  cudaError_t err = cudaFuncSetAttribute(compare_kernel<DC, CC_OUT>,
+  cudaError_t err = cudaFuncSetAttribute(compare_kernel<DC, CC_OUT, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(I, OC);
-  compare_kernel<DC, CC_OUT><<<grid, kThreads, smem, stream>>>(
+  compare_kernel<DC, CC_OUT, V><<<grid, kThreads, smem, stream>>>(
       a_re, a_im, k_re, k_im, img_re, img_im, wx_re, wx_im, wy_re, wy_im, a_u, b_u,
       a_coef, C, I, N, F, D, M, n_fold, m, se, ds, ccs, cc);
   return (int)cudaGetLastError();
@@ -287,6 +328,30 @@ int bioem_fused_displacement_cc(const float* conv_re, const float* conv_im,
   return dispatch<true>(conv_re, conv_im, nullptr, nullptr, img_re, img_im, wx_re, wx_im,
                         wy_re, wy_im, nullptr, nullptr, 0.f, OC, 1, I, N, F, D, M, n_fold,
                         nullptr, nullptr, nullptr, nullptr, cc, (cudaStream_t)stream);
+}
+
+// The kernel probe P3: body variant ``variant`` (bioem_lse::Body: kFull,
+// kNoLse or kMmOnly) of bioem_fused_compare at DC = 24 (D = 17..24). kFull
+// is the production instance itself; the other variants write a checksum
+// into m and nothing else.
+int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
+                        const float* ctf_re, const float* ctf_im, const float* img_re,
+                        const float* img_im, const float* wx_re, const float* wx_im,
+                        const float* wy_re, const float* wy_im, const float* a_u,
+                        const float* b_u, float a_coef, int O, int C, int I, int N, int F,
+                        int D, int M, int n_fold, float* m, float* se, int* ds, float* ccs,
+                        void* stream) {
+  if (D <= 16 || D > 24) return (int)cudaErrorInvalidValue;
+#define BIOEM_K1_ARGS                                                                    \
+  proj_re, proj_im, ctf_re, ctf_im, img_re, img_im, wx_re, wx_im, wy_re, wy_im, a_u, b_u, \
+      a_coef, O * C, C, I, N, F, D, M, n_fold, m, se, ds, ccs, nullptr, (cudaStream_t)stream
+  switch (variant) {
+    case kFull: return launch<24, false, kFull>(BIOEM_K1_ARGS);
+    case kNoLse: return launch<24, false, kNoLse>(BIOEM_K1_ARGS);
+    case kMmOnly: return launch<24, false, kMmOnly>(BIOEM_K1_ARGS);
+  }
+#undef BIOEM_K1_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* bioem_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -30,15 +30,16 @@
 // the dropped lo·lo term keeps the product near f32 accuracy (single-pass
 // TF32, ~1e-3 relative, moves the displacement argmax). Each 8-deep k-step
 // goes into a zeroed fragment that is then added to the running sum with
-// IEEE f32 adds: chaining all 84 MMAs of an F chunk through one
-// accumulator loses ~5× accuracy to the tensor cores' truncating
-// accumulation (H100, production block: cc at the argmax 5.4e-6 vs 7.2e-7
-// relative to the plain version). The GEMM walks F in
+// IEEE f32 adds (tf32x3.cuh, shared with the precision probe P1): chaining
+// all 84 MMAs of an F chunk through one accumulator loses ~5× accuracy to
+// the tensor cores' truncating accumulation. The GEMM walks F in
 // chunks of 16 columns per image and the folded rows j in chunks of 16,
 // forming p for the chunk in shared memory (double-buffered) straight from
 // L2; t1 is never held whole: each F chunk's t1 goes to shared memory and
 // stage 2 accumulates cc = Re(t1 · wyᵀ) over the chunks (f32 FMA). The
 // log-sum-exp (compare_lse.cuh, shared with K1) runs one warp per image.
+// The body variant V is kFull in production; the ablation probe P3
+// instantiates the others at the production tiling only.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +47,7 @@
 #include <stdint.h>
 
 #include "compare_lse.cuh"
+#include "tf32x3.cuh"
 
 using namespace nvcuda;
 
@@ -98,18 +100,12 @@ inline Tiling tiling(int D, int IT) {
   return t;
 }
 
-template <class Frag>
-__device__ __forceinline__ void split_tf32(Frag& hi, Frag& lo) {
-#pragma unroll
-  for (int t = 0; t < hi.num_elements; ++t) {
-    const float x = hi.x[t];
-    const float h = wmma::__float_to_tf32(x);
-    hi.x[t] = h;
-    lo.x[t] = wmma::__float_to_tf32(x - h);
-  }
-}
+using bioem_lse::kFull;
+using bioem_lse::kMmOnly;
+using bioem_lse::kNoGemm;
+using bioem_lse::kNoLse;
 
-template <int NTW, int MTW>
+template <int NTW, int MTW, int V>
 __global__ void __launch_bounds__(kThreads)
 compare_batched_kernel(const float* __restrict__ proj_re, const float* __restrict__ proj_im,
                        const float* __restrict__ ctf_re, const float* __restrict__ ctf_im,
@@ -165,13 +161,22 @@ compare_batched_kernel(const float* __restrict__ proj_re, const float* __restric
   const int n_jc = Mp / KC;
   const int n_fc = (F + FC - 1) / FC;
 
+  float chk = 0.f;  // kMmOnly's checksum
+  if constexpr (V == kMmOnly) {
+    // Operands formed once: both B buffers from the tile's image spectra.
+    for (int q = tid; q < 4 * KC * ld; q += kThreads)
+      U[q] = img_re[(size_t)i0 * NF + (size_t)q % NF];
+    __syncthreads();
+  }
   for (int fcb = 0; fcb < n_fc; ++fcb) {
     const int f0 = fcb * FC;
     const int f = f0 + fcl;
-    for (int q = tid; q < FC * D; q += kThreads) {
-      const int fc = q / D, e = q - (q / D) * D;
-      wyc[q] = f0 + fc < F ? make_float2(wy_re[e * F + f0 + fc], wy_im[e * F + f0 + fc])
-                           : make_float2(0.f, 0.f);
+    if constexpr (V != kMmOnly) {
+      for (int q = tid; q < FC * D; q += kThreads) {
+        const int fc = q / D, e = q - (q / D) * D;
+        wyc[q] = f0 + fc < F ? make_float2(wy_re[e * F + f0 + fc], wy_im[e * F + f0 + fc])
+                             : make_float2(0.f, 0.f);
+      }
     }
 
     // p rows [j0, j0 + KC) of this F chunk for every image of the tile:
@@ -217,12 +222,15 @@ compare_batched_kernel(const float* __restrict__ proj_re, const float* __restric
 #pragma unroll
       for (int u = 0; u < NTW; ++u) wmma::fill_fragment(acc[v][u], 0.f);
 
-    form_b(0, U);
-    __syncthreads();
+    if constexpr (V != kMmOnly) {
+      form_b(0, U);
+      __syncthreads();
+    }
     for (int jc = 0; jc < n_jc; ++jc) {
       const float* Bc = U + (jc & 1) * 2 * KC * ld;
-      if (jc + 1 < n_jc) form_b(jc + 1, U + ((jc + 1) & 1) * 2 * KC * ld);
-      if (mma_warp) {
+      if constexpr (V != kMmOnly)
+        if (jc + 1 < n_jc) form_b(jc + 1, U + ((jc + 1) & 1) * 2 * KC * ld);
+      if (V != kNoGemm && mma_warp) {
 #pragma unroll
         for (int s = 0; s < 2 * KC / 8; ++s) {
           // k-step s covers chunk rows [8s, 8s + 8): p_re rows first, then p_im.
@@ -235,7 +243,7 @@ compare_batched_kernel(const float* __restrict__ proj_re, const float* __restric
             const int mt = gm * MTW + v;
             if (mt < MT) {
               wmma::load_matrix_sync(a_hi[v], As + mt * 16 * lda + acol, lda);
-              split_tf32(a_hi[v], a_lo[v]);
+              if constexpr (V != kMmOnly) bioem_tf32x3::split(a_hi[v], a_lo[v]);
             }
           }
 #pragma unroll
@@ -245,24 +253,29 @@ compare_batched_kernel(const float* __restrict__ proj_re, const float* __restric
               wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major>
                   b_hi, b_lo;
               wmma::load_matrix_sync(b_hi, Bc + 8 * s * ld + nt * FC, ld);
-              split_tf32(b_hi, b_lo);
+              if constexpr (V != kMmOnly) bioem_tf32x3::split(b_hi, b_lo);
 #pragma unroll
               for (int v = 0; v < MTW; ++v) {
                 if (gm * MTW + v < MT) {
-                  wmma::fill_fragment(step[v][u], 0.f);
-                  wmma::mma_sync(step[v][u], a_lo[v], b_hi, step[v][u]);
-                  wmma::mma_sync(step[v][u], a_hi[v], b_lo, step[v][u]);
-                  wmma::mma_sync(step[v][u], a_hi[v], b_hi, step[v][u]);
-#pragma unroll
-                  for (int t = 0; t < step[v][u].num_elements; ++t)
-                    acc[v][u].x[t] += step[v][u].x[t];
+                  if constexpr (V == kMmOnly)
+                    bioem_tf32x3::mma_step(acc[v][u], step[v][u], a_hi[v], a_hi[v], b_hi, b_hi);
+                  else
+                    bioem_tf32x3::mma_step(acc[v][u], step[v][u], a_hi[v], a_lo[v], b_hi, b_lo);
                 }
               }
             }
           }
         }
       }
-      __syncthreads();
+      if constexpr (V != kMmOnly) __syncthreads();
+    }
+    if constexpr (V == kMmOnly) {
+#pragma unroll
+      for (int v = 0; v < MTW; ++v)
+#pragma unroll
+        for (int u = 0; u < NTW; ++u)
+          for (int t = 0; t < acc[v][u].num_elements; ++t) chk += acc[v][u].x[t];
+      continue;
     }
 
     // This chunk's t1 (rows [0, Dp) re, [Dp, 2Dp) im; image i at columns
@@ -298,11 +311,23 @@ compare_batched_kernel(const float* __restrict__ proj_re, const float* __restric
     __syncthreads();
   }
 
+  if constexpr (V == kMmOnly) {
+    chk = bioem_lse::warp_sum(chk);
+    if (lane == 0 && warp < IT) out_m[(size_t)oc * I + i0 + warp] = chk;
+    return;
+  }
   // Displacement log-sum-exp, one warp per image.
   for (int i = warp; i < IT; i += kWarps) {
     const size_t oi = (size_t)oc * I + i0 + i;
     const float au = a_u[oi], bu = b_u[oi];
     const float* cci = ccs + i * DD;
+    if constexpr (V == kNoLse) {
+      float sum = 0.f;
+      for (int q = lane; q < DD; q += 32) sum += cci[q];
+      sum = bioem_lse::warp_sum(sum);
+      if (lane == 0) out_m[oi] = sum;
+      continue;
+    }
     float best = -INFINITY;
     int bidx = DD;
     for (int q = lane; q < DD; q += 32) {
@@ -329,7 +354,7 @@ compare_batched_kernel(const float* __restrict__ proj_re, const float* __restric
   }
 }
 
-template <int NTW, int MTW>
+template <int NTW, int MTW, int V = kFull>
 int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
            const float* ctf_im, const float* img_re, const float* img_im,
            const float* wx_re, const float* wx_im, const float* wy_re, const float* wy_im,
@@ -337,12 +362,12 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
            int F, int D, int M, int n_fold, int IT, float* m, float* se, int* ds,
            float* ccs, cudaStream_t stream) {
   const size_t smem = layout(D, M, IT).bytes;
-  cudaError_t err = cudaFuncSetAttribute(compare_batched_kernel<NTW, MTW>,
+  cudaError_t err = cudaFuncSetAttribute(compare_batched_kernel<NTW, MTW, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(I / IT, O * C);
-  compare_batched_kernel<NTW, MTW><<<grid, kThreads, smem, stream>>>(
+  compare_batched_kernel<NTW, MTW, V><<<grid, kThreads, smem, stream>>>(
       proj_re, proj_im, ctf_re, ctf_im, img_re, img_im, wx_re, wx_im, wy_re, wy_im, a_u,
       b_u, a_coef, C, I, N, F, D, M, n_fold, IT, m, se, ds, ccs);
   return (int)cudaGetLastError();
@@ -391,8 +416,32 @@ int bioem_fused_compare_batched(const float* proj_re, const float* proj_im,
     case 23: return launch<2, 3>(BIOEM_K4_ARGS);
     case 24: return launch<2, 4>(BIOEM_K4_ARGS);
   }
-#undef BIOEM_K4_ARGS
   return (int)cudaErrorInvalidValue;
 }
+
+// The kernel probe P3: the body variant ``variant`` (bioem_lse::Body) of
+// the production instance at its tiling (one image tile and three t1 row
+// tiles per warp: D = 21, IT = 8). kFull is the production instance
+// itself; the other variants write a checksum into m and nothing else.
+int bioem_probe_compare_batched(int variant, const float* proj_re, const float* proj_im,
+                                const float* ctf_re, const float* ctf_im,
+                                const float* img_re, const float* img_im,
+                                const float* wx_re, const float* wx_im, const float* wy_re,
+                                const float* wy_im, const float* a_u, const float* b_u,
+                                float a_coef, int O, int C, int I, int N, int F, int D, int M,
+                                int n_fold, int IT, float* m, float* se, int* ds, float* ccs,
+                                void* stream) {
+  if (!supported(D, IT) || I % IT != 0) return (int)cudaErrorInvalidValue;
+  const Tiling t = tiling(D, IT);
+  if (t.ntw != 1 || t.mtw != 3) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case kFull: return launch<1, 3, kFull>(BIOEM_K4_ARGS);
+    case kNoLse: return launch<1, 3, kNoLse>(BIOEM_K4_ARGS);
+    case kMmOnly: return launch<1, 3, kMmOnly>(BIOEM_K4_ARGS);
+    case kNoGemm: return launch<1, 3, kNoGemm>(BIOEM_K4_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#undef BIOEM_K4_ARGS
 
 }  // extern "C"

@@ -6,6 +6,10 @@
 //
 // log1pf/expf are libdevice (no fast-math intrinsics: a_coef ≈ −N²/2
 // amplifies any error in log1p).
+//
+// Also the body variants both kernels take as a template parameter: the
+// production instances are kFull; the others exist only for the ablation
+// probe P3 (ops/probe_cuda.py) and write a checksum in place of a result.
 
 #pragma once
 
@@ -13,6 +17,11 @@
 #include <math.h>
 
 namespace bioem_lse {
+
+// kNoLse: the cc lattice without the log-sum-exp; kMmOnly: stage 1 alone,
+// fed from operands formed once (no conv product, fold or TF32 split);
+// kNoGemm (K4 only): everything but the tensor-core GEMM.
+enum Body : int { kFull = 0, kNoLse = 1, kMmOnly = 2, kNoGemm = 3 };
 
 // (v, q) ranks above (best, bidx): the larger value wins, NaN counts as
 // the largest (as jnp.max/argmax treat it), and ties go to the lower flat

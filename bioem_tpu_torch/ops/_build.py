@@ -48,6 +48,10 @@ SIGNATURES = {
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 8 + [P] * 4 + [P],
     "bioem_fused_displacement_cc": [P] * 8 + [I] * 7 + [P] + [P],
     "bioem_fused_compare_batched": [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
+    "bioem_probe_compare": [I] + [P] * 12 + [F] + [I] * 8 + [P] * 4 + [P],
+    "bioem_probe_compare_batched": [I] + [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
+    "bioem_probe_f32_product": [I, P, P, P, I, I, I, I, P],
+    "bioem_probe_product_sum": [I, P, P, P, P, I, I, I, I, I, P],
     "bioem_compare_smem_bytes": [I, I, I],
     "bioem_compare_batched_smem_bytes": [I, I, I, I],
     "bioem_error_string": [I],

@@ -1,0 +1,189 @@
+"""The kernel probes P1–P3: wrappers and plain versions.
+
+Replaces the TPU micro-probes of ``tools/kernel_probe.py`` (P1
+``_f32_dot_kernel``, P2 ``_loop_mm_kernel``/``_batched_mm_kernel``, P3
+``probe_body_ablation``'s ``body(variant).kern``); each answers the TPU
+probe's question asked of the card (see ``csrc/probe.cu`` for P1 and P2,
+and the body variants of ``csrc/compare.cu`` and ``csrc/compare_batched.cu``
+for P3):
+
+* P1 :func:`f32_product` — one f32 product in a named scheme (FP32 FMA,
+  3xTF32, 1xTF32, FP64 tensor cores), for its accuracy and its cost;
+* P2 :func:`product_sum` — reps · Σ_i A·B_i in bf16 with f32
+  accumulation, looped (one accumulator) or batched (one wide product,
+  then a reduction over its column blocks);
+* P3 :func:`body_ablation` — the production comparison body of K1 or K4
+  with pieces removed; only ``full`` (the production instance itself)
+  has a result, the other variants write a checksum into ``m``.
+
+A CPU tensor gets the plain torch version; a CUDA tensor gets the kernel
+or an exception. P3's ablated variants are wrong by design and have no
+plain version: they raise on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .compare_cuda import (
+    _check_launch,
+    _compare_dims,
+    _summary_outputs,
+    batched_smem_bytes,
+    fused_compare_block_plain,
+)
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+SCHEMES = ("fma", "3xtf32", "tf32", "f64tc")  # csrc/probe.cu Scheme
+STRUCTURES = ("loop", "batched")  # csrc/probe.cu Structure
+VARIANTS = ("full", "no_lse", "mm_only", "no_gemm")  # csrc/compare_lse.cuh Body
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# P1
+# ---------------------------------------------------------------------------
+
+def f32_product_plain(a: torch.Tensor, b: torch.Tensor, batch: int = 1) -> torch.Tensor:
+    """(batch, M, N) copies of a·b, each product computed in f64 and
+    rounded to f32 once (the same work as the kernel's ``batch`` copies)."""
+    return torch.matmul(a.double().expand(batch, *a.shape), b.double()).float()
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor, *, scheme: str,
+                batch: int = 1) -> torch.Tensor:
+    """P1: ``batch`` copies of a·b, a (M, K) and b (K, N) f32, computed in
+    ``scheme`` (one of :data:`SCHEMES`); returns (batch, M, N) f32."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"f32_product: scheme {scheme!r} not in {SCHEMES}")
+    dev = a.device
+    if dev.type == "cpu":
+        return f32_product_plain(a, b, batch)
+    if dev.type != "cuda":
+        raise ValueError(f"f32_product: unsupported device {dev}")
+    m, k = a.shape
+    n = b.shape[1]
+    for name, t, shape in (("a", a, (m, k)), ("b", b, (k, n))):
+        if t.device != dev or t.dtype != F32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"f32_product: {name} must be contiguous float32 {shape} on {dev}")
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"f32_product: batch {batch} outside [1, 65535]")
+    out = torch.empty((batch, m, n), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        status = _build.load().bioem_probe_f32_product(
+            SCHEMES.index(scheme), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, k, n, batch, _stream(dev))
+    _build.check(status, "f32_product")
+    f32_product.launches += 1
+    return out
+
+
+f32_product.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P2
+# ---------------------------------------------------------------------------
+
+def product_sum_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """reps · Σ_i a·b[i] in f32 (bf16 inputs are exact in f32)."""
+    return (a.float() @ b.float()).sum(dim=0) * reps
+
+
+def product_sum(a: torch.Tensor, b: torch.Tensor, *, reps: int, structure: str) -> torch.Tensor:
+    """P2: reps · Σ_i a·b[i], a (96, K) and b (n_img, K, 128) bf16, f32
+    accumulation, in one block of the card, looped or batched (one of
+    :data:`STRUCTURES`); returns (96, 128) f32."""
+    if structure not in STRUCTURES:
+        raise ValueError(f"product_sum: structure {structure!r} not in {STRUCTURES}")
+    dev = a.device
+    if dev.type == "cpu":
+        return product_sum_plain(a, b, reps)
+    if dev.type != "cuda":
+        raise ValueError(f"product_sum: unsupported device {dev}")
+    m, k = a.shape
+    n_img, _, n = b.shape
+    if (m, n) != (96, 128) or k % 16 or not 16 <= k <= 128:
+        raise ValueError(f"product_sum: needs a (96, K) and b (n_img, K, 128) with K a "
+                         f"multiple of 16 up to 128, got {tuple(a.shape)}, {tuple(b.shape)}")
+    for name, t in (("a", a), ("b", b)):
+        if t.device != dev or t.dtype != BF16 or not t.is_contiguous():
+            raise ValueError(f"product_sum: {name} must be contiguous bfloat16 on {dev}")
+    if b.shape[1] != k or reps < 1:
+        raise ValueError("product_sum: b's depth must be a's, reps ≥ 1")
+    out = torch.empty((m, n), dtype=F32, device=dev)
+    wide = (torch.empty((m, n_img * n), dtype=F32, device=dev) if structure == "batched"
+            else None)
+    with torch.cuda.device(dev):
+        status = _build.load().bioem_probe_product_sum(
+            STRUCTURES.index(structure), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            wide.data_ptr() if wide is not None else None, m, k, n, n_img, reps, _stream(dev))
+    _build.check(status, "product_sum")
+    product_sum.launches += 1
+    return out
+
+
+product_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P3
+# ---------------------------------------------------------------------------
+
+def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
+                  variant: str = "full", img_tile: int = 8):
+    """P3: the comparison body of K1 (``body="k1"``) or K4 (``"k4"``, at
+    ``img_tile``) in ``variant`` (one of :data:`VARIANTS`; ``no_gemm`` is
+    K4's only) on the twelve inputs of ``compare_cuda.fused_compare_block``.
+    Returns (m, se, ds, ccs) as the production kernel does for ``full``;
+    for the ablated variants ``m`` holds a checksum and the rest is zero.
+    The variants exist at the production tiling only: D = 17..24 for K1,
+    and for K4 three t1 row tiles per warp at one image tile per warp
+    (D = 21 at tile 8)."""
+    if body not in ("k1", "k4") or variant not in VARIANTS or (
+            body == "k1" and variant == "no_gemm"):
+        raise ValueError(f"body_ablation: no variant {variant!r} of {body!r}")
+    dev = args[0].device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise ValueError(f"body_ablation: {variant!r} is an ablation, wrong by design, "
+                             "timed on the card only; it has no plain version")
+        return fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
+    if dev.type != "cuda":
+        raise ValueError(f"body_ablation: unsupported device {dev}")
+    fn = "body_ablation"
+    o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
+    lib = _build.load()
+    if body == "k1":
+        smem = lib.bioem_compare_smem_bytes(d, m, f)
+    else:
+        if img_tile < 1 or i_n % img_tile:
+            raise ValueError(f"{fn}: image count {i_n} not a multiple of tile {img_tile}")
+        smem = batched_smem_bytes(d, m, f, img_tile)
+    _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
+    outs = _summary_outputs(o_n * c_n, i_n, dev)
+    if variant != "full":
+        for t in outs:  # an ablated body writes only m
+            t.zero_()
+    ptrs = [t.data_ptr() for t in args]
+    with torch.cuda.device(dev):
+        if body == "k1":
+            status = lib.bioem_probe_compare(
+                VARIANTS.index(variant), *ptrs, float(a_coef), o_n, c_n, i_n, n, f, d, m,
+                n_fold, *(t.data_ptr() for t in outs), _stream(dev))
+        else:
+            status = lib.bioem_probe_compare_batched(
+                VARIANTS.index(variant), *ptrs, float(a_coef), o_n, c_n, i_n, n, f, d, m,
+                n_fold, img_tile, *(t.data_ptr() for t in outs), _stream(dev))
+    _build.check(status, f"{fn} ({body}, {variant})")
+    body_ablation.launches += 1
+    return outs
+
+
+body_ablation.launches = 0

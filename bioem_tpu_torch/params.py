@@ -451,3 +451,139 @@ def read_parameters(path: str, not_uniform_angles: bool = False) -> BioEMParams:
         raise ParamError("Writing CTF is only valid when integrating over the PSF")
 
     return p.finalize_ctf_mode()
+
+
+@dataclass
+class BestParams:
+    """Parameters for the PrintBestCalMap forward simulator.
+
+    Reference ``bioem_param::forprintBest`` (param.cpp:629-907): a single
+    orientation + single CTF/PSF tuple + displacement + norm/offset, used to
+    synthesise the maximum-a-posteriori image.
+    """
+
+    pixel_size: float = 0.0
+    n_pixels: int = 0
+    use_quaternions: bool = False
+    use_psf: bool = False
+    # orientation: Euler (alpha, beta, gamma) or quaternion (q1..q4)
+    orient: tuple = (0.0, 0.0, 0.0, 0.0)
+    amp: float = 0.0
+    phase: float = 0.0
+    env: float = 0.0
+    ddx: int = 0
+    ddy: int = 0
+    best_norm: float = 1.0
+    best_offset: float = 0.0
+    with_noise: bool = False
+    noise_std: float = 1.0
+    project_radius: bool = True
+    no_center_mass: bool = False
+    shift_x: int = 0
+    shift_y: int = 0
+    electron_wavelength: float = DEFAULT_ELECTRON_WAVELENGTH
+
+
+def read_best_params(path: str) -> BestParams:
+    """Parse a BEST_* keyword file (reference param.cpp:629-907)."""
+    bp = BestParams()
+    orient = [0.0, 0.0, 0.0, 0.0]
+    ctfparam = False
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            tok = line.split()
+            if not tok:
+                continue
+            key, args = tok[0], tok[1:]
+            if key == "PIXEL_SIZE":
+                bp.pixel_size = float(args[0])
+            elif key == "NUMBER_PIXELS":
+                bp.n_pixels = int(args[0])
+            elif key == "BEST_ALPHA":
+                orient[0] = float(args[0])
+            elif key == "BEST_BETA":
+                orient[1] = float(args[0])
+            elif key == "BEST_GAMMA":
+                orient[2] = float(args[0])
+            elif key == "USE_QUATERNIONS":
+                bp.use_quaternions = True
+            elif key == "BEST_Q1":
+                orient[0] = float(args[0])
+            elif key == "BEST_Q2":
+                orient[1] = float(args[0])
+            elif key == "BEST_Q3":
+                orient[2] = float(args[0])
+            elif key == "BEST_Q4":
+                orient[3] = float(args[0])
+            elif key == "USE_PSF":
+                bp.use_psf = True
+            elif key == "BEST_PSF_ENVELOPE":
+                bp.env = float(args[0])
+            elif key == "BEST_PSF_PHASE":
+                bp.phase = float(args[0])
+            elif key == "BEST_PSF_AMP":
+                bp.amp = float(args[0])
+            elif key == "BEST_CTF_B_ENV":
+                bp.env = float(args[0])
+                ctfparam = True
+            elif key == "BEST_CTF_DEFOCUS":
+                bp.phase = float(args[0]) * math.pi * 2.0 * 10000.0 * bp.electron_wavelength
+                ctfparam = True
+            elif key == "BEST_CTF_AMP":
+                bp.amp = float(args[0])
+                ctfparam = True
+            elif key == "BEST_DX":
+                bp.ddx = int(args[0])
+            elif key == "BEST_DY":
+                bp.ddy = int(args[0])
+            elif key == "BEST_NORM":
+                bp.best_norm = float(args[0])
+            elif key == "BEST_OFFSET":
+                bp.best_offset = float(args[0])
+            elif key == "WITHNOISE":
+                bp.noise_std = float(args[0])
+                bp.with_noise = True
+            elif key == "NO_PROJECT_RADIUS":
+                bp.project_radius = False
+            elif key == "SHIFT_X":
+                bp.shift_x = int(args[0])
+            elif key == "SHIFT_Y":
+                bp.shift_y = int(args[0])
+    if bp.use_psf and ctfparam:
+        raise ParamError("Inconsitent input: using both PSF and CTF?")
+    if bp.use_quaternions:
+        for q in orient:
+            if q * q > 1:
+                raise ParamError(f"Quaternion {q}")
+    bp.orient = tuple(orient)
+    return bp
+
+
+def best_to_params(bp: BestParams) -> BioEMParams:
+    """Build a single-kernel BioEMParams from BestParams (param.cpp:893-904)."""
+    p = BioEMParams(
+        pixel_size=bp.pixel_size,
+        n_pixels=bp.n_pixels,
+        use_quaternions=bp.use_quaternions,
+        use_psf=bp.use_psf,
+        n_amp=1,
+        n_phase=1,
+        n_env=1,
+        start_amp=bp.amp,
+        end_amp=bp.amp,
+        start_phase=bp.phase,
+        end_phase=bp.phase,
+        start_env=bp.env,
+        end_env=bp.env,
+        project_radius=bp.project_radius,
+        no_center_mass=bp.no_center_mass,
+        shift_x=bp.shift_x,
+        shift_y=bp.shift_y,
+        electron_wavelength=bp.electron_wavelength,
+    )
+    # In print-best mode start_phase/env already hold final-space values:
+    # skip the CTF→phase conversion by marking finalized.
+    p._finalized = True
+    return p

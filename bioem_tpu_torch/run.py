@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .config import RunConfig
+from .config import RunConfig, resolve_device
 from .core.engine import BioEMEngine, Results
 from .core.orientations import OrientationSet
 from .io.map_io import ImageStack
@@ -78,14 +78,18 @@ def run_bioem(
 ) -> Tuple[Results, dict]:
     """Run the full posterior computation; returns (results, perf stats).
 
+    ``device`` None is the card, or the CPU with ``BIOEM_TPU_FORCE_CPU``
+    (config.resolve_device: no card and no switch raises).
     ``results.grid`` carries the CTF parameter grid for the output writers;
     ``perf["config"]`` is the configuration that ran (after autotuning and
     the engine's own resolution of its defaults); ``perf["autotune_s"]``
-    the seconds the autotuner took before the pass.
+    the seconds the autotuner took before the pass; ``perf["engine"]`` the
+    engine that ran (the DEBUG_PROB dump reuses its banks).
     """
     from .utils.timestat import profile_trace
 
     cfg = cfg or RunConfig.from_env()
+    device = resolve_device(device)
     t0 = time.perf_counter()
     cfg = maybe_autotune(p, orients, model, images, cfg, device=device)
     autotune_s = time.perf_counter() - t0
@@ -105,6 +109,7 @@ def run_bioem(
         "comparisons": comparisons,
         "comparisons_per_s": comparisons / run_s if run_s > 0 else float("inf"),
         "device": str(eng.device),
+        "engine": eng,
         "config": {
             "orient_block": eng.o_block,
             "use_kernels": eng.use_kernels,

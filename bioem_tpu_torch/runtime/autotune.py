@@ -45,7 +45,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import RunConfig
+from ..config import RunConfig, resolve_device
 
 # Tuned fields persisted across processes.
 _CACHED_FIELDS = ("orient_block", "image_block", "use_kernels",
@@ -76,14 +76,8 @@ def _bucket(n: int) -> int:
     return lo if n * n <= lo * hi else hi
 
 
-def _device(device=None) -> torch.device:
-    if device is None:  # the device the engine would take
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
-
-
 def _device_kind(device=None) -> str:
-    dev = _device(device)
+    dev = resolve_device(device)
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
@@ -152,7 +146,7 @@ def k4_tiles(cfg: RunConfig, p, n_img: int, device=None) -> List[int]:
     i0 = min(max(cfg.kernel_img_tile, 1), max(n_img, 1))
     n_pad = -(-max(n_img, 1) // i0) * i0
     tiles = [t for t in K4_TILES if n_pad % t == 0]
-    if _device(device).type == "cuda":
+    if resolve_device(device).type == "cuda":
         disp, _ = displacement_lists(p)
         n = p.n_pixels
         m = n // stride_fold(p.grid_space_center, n, disp)
@@ -171,7 +165,7 @@ def default_candidates(cfg: RunConfig, p=None, n_img: int = 0, device=None) -> L
     plain branch only the orientation block matters: {4, 8, 16}. Forced
     knobs keep their value."""
     use_kernels = (cfg.use_kernels if cfg.use_kernels is not None
-                   else _device(device).type == "cuda")
+                   else resolve_device(device).type == "cuda")
     forced = cfg.forced
     if not use_kernels:
         o_blocks = (cfg.orient_block,) if "orient_block" in forced else (4, 8, 16)
@@ -220,6 +214,7 @@ def autotune_config(
     (``BioEMEngine.time_blocks``); cached per (device kind, problem shape)."""
     from ..run import make_engine
 
+    device = resolve_device(device)
     # Tune and key at the shape the engine will actually run (debug caps
     # applied), so a reduced run never poisons the production entry.
     n_orient = min(orients.n, cfg.debug_break) if cfg.debug_break else orients.n
@@ -252,7 +247,7 @@ def autotune_config(
             continue
         finally:
             eng = None
-            if _device(device).type == "cuda":
+            if resolve_device(device).type == "cuda":
                 torch.cuda.empty_cache()
         if verbose:
             print(f"autotune: {_describe(cand)}: {t_cand * 1e3:.4f} ms/orientation "

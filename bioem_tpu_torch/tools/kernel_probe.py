@@ -1,0 +1,231 @@
+"""Kernel probes P1–P3 on the card (counterpart of ``tools/kernel_probe.py``).
+
+Each probe asks of the card the question its TPU probe asked of the TPU,
+through the port's own kernels (``ops/probe_cuda.py``):
+
+P1  Which f32-product scheme holds the accuracy contract, and at what cost?
+    The (96,112)·(112,113) product of the TPU probe's inputs in FP32 FMA
+    (K1's stage 1), 3xTF32 (K4's stage 1), 1xTF32 and FP64 tensor cores:
+    median and max relative error against an f64 NumPy product; then, at
+    that shape and at K4's stage-1 shape over a production block (512 tile
+    products of (48×224)·(224×1024)), each scheme's output against the
+    plain version (every batch copy) and its time.
+P2  What does a looped small product cost against one wide product? Σ of
+    64 bf16 products (96,112)·(112,128), 4 times, in one block: one
+    accumulator (K1's structure) vs one wide product and a column-block
+    reduction (K4's structure).
+P3  Where does the production body spend its time? K1 and K4 (tile 8) at
+    the production block (O=8, C=8, I=64, N=224, F=113, D=21, n_fold=2)
+    with pieces removed: ``full``, ``no_lse``, ``mm_only`` and K4's
+    ``no_gemm``; ``full`` must equal the production kernel bit for bit.
+
+Usage, on a machine with a CUDA card (there is no CPU mode: a probe's
+answer is a measurement of the card):
+
+    python -m bioem_tpu_torch.tools.kernel_probe
+
+Every time is a mean over timed launches after a warm-up, from CUDA events.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from ..core.posterior import displacement_dft_weights
+from ..ops import compare_cuda, probe_cuda
+
+# P2's shapes (the TPU probe's): m, k, n, images, reps.
+P2_SHAPE = (96, 112, 128, 64, 4)
+# K4's stage 1 over a production block at tile 8: (2·Dp × 2·Mp) · (2·Mp ×
+# tile·128 columns), 64 o·c pairs × 8 tiles.
+K4_STAGE1 = (48, 224, 8 * 128, 64 * 8)
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds per call on the card (CUDA events, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _require_card() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the kernel probes measure the card: no CUDA device "
+                           "(torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def probe_f32_accuracy(say=print) -> dict:
+    """P1. Returns {"err": {scheme: (median, max) relative to f64 at the
+    TPU probe's shape}, and for each shape name in "shapes" ({shape: (M, K,
+    N, batch)}): "plain_err" {shape: {scheme: (median relative, max |Δ|)
+    of every batch copy from the plain version}}, "copies_equal" {shape:
+    {scheme: every copy equal to copy 0}}, "ms" {shape: {scheme: ms}},
+    "plain_ms" {shape: ms} and "library_ms" {shape: ms}, each timing all
+    ``batch`` products."""
+    dev = _require_card()
+    m, k, n = 96, 112, 113
+    rng = np.random.default_rng(0)
+    a = rng.normal(0, 1, (m, k)).astype(np.float32)
+    b = rng.normal(0, 1, (k, n)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    ta, tb = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    out = {"err": {}, "plain_err": {}, "copies_equal": {}, "ms": {}, "plain_ms": {},
+           "library_ms": {}, "shapes": {"probe": (m, k, n, 1), "k4_stage1": K4_STAGE1}}
+    for scheme in probe_cuda.SCHEMES:
+        got = probe_cuda.f32_product(ta, tb, scheme=scheme)[0].cpu().numpy()
+        rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
+        med, mx = float(np.median(rel)), float(rel.max())
+        out["err"][scheme] = (med, mx)
+        say(f"P1 {scheme}: rel err vs f64 median={med:.2e} max={mx:.2e} -> "
+            f"{'f32-accurate (median < 1e-6)' if med < 1e-6 else 'below f32 accuracy'}")
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # the yardstick is SGEMM, not TF32
+    try:
+        for shape, (sm, sk, sn, batch) in out["shapes"].items():
+            xa = torch.as_tensor(rng.normal(0, 1, (sm, sk)).astype(np.float32), device=dev)
+            xb = torch.as_tensor(rng.normal(0, 1, (sk, sn)).astype(np.float32), device=dev)
+            plain = probe_cuda.f32_product_plain(xa, xb, batch)
+            out["plain_err"][shape], out["copies_equal"][shape] = {}, {}
+            for s in probe_cuda.SCHEMES:
+                got = probe_cuda.f32_product(xa, xb, scheme=s, batch=batch)
+                rel = (got[0] - plain[0]).abs() / plain[0].abs().clamp_min(1e-30)
+                out["plain_err"][shape][s] = (float(rel.median()),
+                                              float((got - plain).abs().max()))
+                out["copies_equal"][shape][s] = bool(torch.equal(got, got[:1].expand_as(got)))
+                del got
+            del plain
+            say(f"P1 at ({sm},{sk})·({sk},{sn}) × {batch} vs the plain version: "
+                + ", ".join(f"{s} median rel {e[0]:.2e} max |Δ| {e[1]:.2e}"
+                            f"{'' if out['copies_equal'][shape][s] else ' (COPIES DIFFER)'}"
+                            for s, e in out["plain_err"][shape].items()))
+            out["ms"][shape] = {s: time_ms(lambda s=s: probe_cuda.f32_product(
+                xa, xb, scheme=s, batch=batch)) for s in probe_cuda.SCHEMES}
+            out["plain_ms"][shape] = time_ms(lambda: probe_cuda.f32_product_plain(xa, xb, batch), 3)
+            xa_b = xa.expand(batch, sm, sk)
+            out["library_ms"][shape] = time_ms(lambda: torch.matmul(xa_b, xb))
+            say(f"P1 times at ({sm},{sk})·({sk},{sn}) × {batch}: "
+                + ", ".join(f"{s} {t:.4f} ms" for s, t in out["ms"][shape].items())
+                + f"; plain (f64, all {batch} products) {out['plain_ms'][shape]:.4f} ms, "
+                  f"torch.matmul f32 {out['library_ms'][shape]:.4f} ms")
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    return out
+
+
+def probe_issue_overhead(say=print) -> dict:
+    """P2. Returns {"ms": {structure: ms}, "err": {structure: max |Δ|},
+    "tol": {structure: tolerance}, "plain_ms", "library_ms", "shape"}.
+
+    Tolerance: bf16 products are exact in f32, so the two structures and
+    the plain version differ only in the f32 rounding of their running
+    sums. Each accumulator update rounds by at most 2⁻²³ of the partial sum
+    (the tensor cores truncate), and the partial sums stay within ~2·max|out|,
+    so |Δ| ≤ 2 · updates · 2⁻²³ · max|out|, with updates = images·reps·K/16
+    for the loop and reps·K/16 + images for the batched structure."""
+    dev = _require_card()
+    m, k, n, n_img, reps = P2_SHAPE
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.as_tensor(rng.normal(0, 1, (n_img, k, n)).astype(np.float32)).to(dev, torch.bfloat16)
+    plain = probe_cuda.product_sum_plain(a, b, reps)
+    scale = float(plain.abs().max())
+    updates = {"loop": n_img * reps * (k // 16), "batched": reps * (k // 16) + n_img}
+    out = {"ms": {}, "err": {}, "tol": {}, "shape": P2_SHAPE}
+    for st in probe_cuda.STRUCTURES:
+        got = probe_cuda.product_sum(a, b, reps=reps, structure=st)
+        out["err"][st] = float((got - plain).abs().max())
+        out["tol"][st] = 2 * updates[st] * 2.0 ** -23 * scale
+        out["ms"][st] = time_ms(lambda st=st: probe_cuda.product_sum(a, b, reps=reps, structure=st))
+        us = out["ms"][st] * 1e3
+        say(f"P2 {st}: {us:.1f} us/call ({us * 1e3 / (n_img * reps):.0f} ns per "
+            f"{m}x{k}x{n} product-equivalent); max |Δ| vs plain {out['err'][st]:.3e} "
+            f"(tol {out['tol'][st]:.3e})")
+    out["plain_ms"] = time_ms(lambda: probe_cuda.product_sum_plain(a, b, reps))
+    out["library_ms"] = time_ms(lambda: torch.einsum("mk,ikn->mn", a, b))
+    say(f"P2 issue-overhead ratio loop/batched: {out['ms']['loop'] / out['ms']['batched']:.2f}x; "
+        f"plain {out['plain_ms'] * 1e3:.1f} us, torch.einsum bf16 {out['library_ms'] * 1e3:.1f} us")
+    return out
+
+
+def production_block_inputs(dev, seed: int = 2):
+    """Random inputs of one production comparison block (O=8, C=8, I=64,
+    N=224, F=113, D=21 at stride 2, n_fold=2) with the true lattice DFT
+    weights: the twelve arguments of fused_compare_block, a_coef and
+    n_fold."""
+    o, c, i, n, n_fold = 8, 8, 64, 224, 2
+    f, m = n // 2 + 1, n // n_fold
+    disp = np.concatenate([np.arange(0, 21, 2), np.arange(-20, 0, 2)]).astype(np.int32)
+    wx, wy = displacement_dft_weights(n, disp)
+    rng = np.random.default_rng(seed)
+    g = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)  # noqa: E731
+    r = lambda *s: g(rng.normal(0, 1, s))  # noqa: E731
+    args = (r(o, n, f), r(o, n, f), r(c, n, f), r(c, n, f), r(i, n, f), r(i, n, f),
+            g(wx.real[:, :m]), g(wx.imag[:, :m]), g(wy.real), g(wy.imag),
+            g(np.abs(rng.normal(0, 1e-6, (o * c, i)))), g(np.abs(rng.normal(0, 1e-9, (o * c, i)))))
+    return args, (3.0 - n * n) * 0.5, n_fold
+
+
+def probe_body_ablation(say=print, img_tile: int = 8) -> dict:
+    """P3. Returns {"ms": {(body, variant): ms}, "bit_equal": {body: bool},
+    "comparisons": n, "dims": the block's (O, C, I, N, F, D, M, n_fold),
+    "max_abs_err": max |Δm| of K4's full body from the plain version,
+    "plain_ms": the plain version's time}."""
+    dev = _require_card()
+    args, a_coef, n_fold = production_block_inputs(dev)
+    (o, n, f), c, i, (d, m) = args[0].shape, args[2].shape[0], args[4].shape[0], args[6].shape
+    n_cmp = o * c * i
+    prod = {"k1": compare_cuda.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold),
+            "k4": compare_cuda.fused_compare_block_batched(*args, a_coef=a_coef, n_fold=n_fold,
+                                                            img_tile=img_tile)}
+    plain = compare_cuda.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
+    out = {"ms": {}, "bit_equal": {}, "comparisons": n_cmp,
+           "dims": (o, c, i, n, f, d, m, n_fold),
+           "max_abs_err": float((prod["k4"][0] - plain[0]).abs().max()),
+           "plain_ms": time_ms(lambda: compare_cuda.fused_compare_block_plain(
+               *args, a_coef=a_coef, n_fold=n_fold), 3)}
+    for body in ("k1", "k4"):
+        for variant in probe_cuda.VARIANTS:
+            if body == "k1" and variant == "no_gemm":
+                continue
+
+            def run(body=body, variant=variant):
+                return probe_cuda.body_ablation(*args, a_coef=a_coef, n_fold=n_fold, body=body,
+                                                variant=variant, img_tile=img_tile)
+
+            res = run()
+            if variant == "full":
+                out["bit_equal"][body] = all(torch.equal(x, y) for x, y in zip(res, prod[body]))
+            else:
+                torch.cuda.synchronize()
+            t = time_ms(run)
+            out["ms"][(body, variant)] = t
+            note = (f"; bit-equal to the production kernel: {out['bit_equal'][body]}"
+                    if variant == "full" else "")
+            say(f"P3 {body}{' tile ' + str(img_tile) if body == 'k4' else ''} {variant}: "
+                f"{t:.4f} ms per production block ({t * 1e6 / n_cmp:.1f} ns per comparison){note}")
+    return out
+
+
+def main(argv=None) -> int:
+    dev = _require_card()
+    print(f"card: {torch.cuda.get_device_name(dev)}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    probe_f32_accuracy()
+    probe_issue_overhead()
+    probe_body_ablation()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

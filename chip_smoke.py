@@ -22,14 +22,27 @@ the port's main path on the card, in phases (each prints its own lines):
    cache; each pass with the seconds its tuning took; the autotune cache is
    a temporary file, never the working directory's), each against the plain branch on the
    same card; then a checkpoint round trip (stop after half the blocks,
-   resume in a fresh engine) against the straight run.
+   resume in a fresh engine) against the straight run;
+6. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
+   f32 product's accuracy and time by scheme), P2 (looped vs batched
+   product issue) and P3 (the K1/K4 body ablation at the production
+   block), each held to its check;
+7. --PrintBestCalMap on golden case M through the port's CLI, held to
+   tests/test_golden.py's BESTMAP rule;
+8. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
+   one image on the plain branch and through K3, diffed with the port's
+   diff entry point, and the dump's log-sum-exp held to the image's logP.
 
-The main path is driven in two parts, each with every kernel's launch
-counter set to 0 just before it and read just after: the goldens with
-the plain and K1 passes must launch K1, K2 and K3; the K4, autotuned and
-checkpoint passes must launch K2 and K4. The line before the
-last is a JSON object describing every kernel; the last line is
-``{"ok": true, "device": {...}}`` and is printed only when every phase
+The paths are driven in parts, each with every kernel's launch counter
+set to 0 just before it and read just after: the goldens with the plain
+and K1 passes must launch K1, K2 and K3; the K4, autotuned and checkpoint
+passes K2 and K4; the probe tool P1, P2 and P3; the DEBUG_PROB runs K3.
+The line before the last is a JSON object describing every kernel, with
+its launches on those paths, its time beside its plain version's, the
+least time the card could take for the same work (``bound_ms``, from the
+shapes of this run's inputs and the H100 peaks below) and, where one
+PyTorch call computes the same function, that call's time; the last line
+is ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Exits non-zero without a result when no CUDA device is present or
 when the port's package is not next to this script.
 """
@@ -45,12 +58,19 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DEVICE = "cuda"
+
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet) and its
+# memory rate, for bound_ms.
+PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(msg: str) -> None:
@@ -67,21 +87,40 @@ def require(cond: bool, msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Timing
+# Bounds: the least time the card could take for a kernel's work
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, reps: int = 10) -> float:
-    """Mean milliseconds per call on the card (CUDA events, after a warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def bound(ops: dict, nbytes: float) -> tuple:
+    """(ms, "operations" | "bytes"): the larger of the operations over the
+    peak of their type (``ops`` = {type: count}, summed) and the bytes
+    (each input read once, each output written once) over HBM's rate."""
+    t_ops = sum(n / PEAK[ty] for ty, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def compare_work(o, c, i, n, f, d, m, n_fold, conv_in: bool = False) -> dict:
+    """Useful f32 operations of one comparison block, split into stage 1
+    (t1 = wx·p, 8·D·M·F per comparison: K4 runs it on the tensor cores)
+    and the rest: conv = proj ⊙ conj(ctf) once per (o, c) unless conv is
+    an input (K3), p = conv ⊙ img (6·N·F) and its fold, stage 2
+    cc = Re(t1·wyᵀ) (4·D²·F), and the log-sum-exp (8 per lattice point,
+    a transcendental counted as one operation)."""
+    cmp = o * c * i
+    stage1 = 8 * d * m * f * cmp
+    rest = (0 if conv_in else 6 * o * c * n * f) + cmp * (
+        6 * n * f + 2 * (n_fold - 1) * m * f + 4 * d * d * f + (0 if conv_in else 8 * d * d))
+    return {"stage1": stage1, "rest": rest}
+
+
+def compare_bound(o, c, i, n, f, d, m, n_fold, tensor_cores: bool = False) -> tuple:
+    """K1's (f32 FMA) or K4's (stage 1 in 3xTF32 on the tensor cores)
+    bound: spectra, weights and a_u/b_u read once, four (O·C, I) outputs."""
+    w = compare_work(o, c, i, n, f, d, m, n_fold)
+    ops = ({"tf32": 3 * w["stage1"], "f32": w["rest"]} if tensor_cores
+           else {"f32": w["stage1"] + w["rest"]})
+    nbytes = 4 * (2 * (o + c + i) * n * f + 2 * d * m + 2 * d * f + 2 * o * c * i + 4 * o * c * i)
+    return bound(ops, nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +365,7 @@ def check_project(torch, name, i0, j0, dens, st_re, st_im, n):
 def phase_kernels(torch, eng) -> dict:
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
     from bioem_tpu_torch.ops import project_cuda as pj
+    from bioem_tpu_torch.tools.kernel_probe import time_ms  # CUDA events, after a warm-up
 
     dev = eng.device
     bk = eng.banks
@@ -375,14 +415,14 @@ def phase_kernels(torch, eng) -> dict:
 
     # times at the production shapes, kernel beside plain version
     t = {}
-    t["K1"] = (time_ms(torch, lambda: cc_mod.fused_compare_block(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold)),
-               time_ms(torch, lambda: cc_mod.fused_compare_block_plain(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold), 3))
-    t["K3"] = (time_ms(torch, lambda: cc_mod.fused_displacement_cc(*k3_args, n_fold=eng.n_fold)),
-               time_ms(torch, lambda: cc_mod.displacement_cc_plain(*k3_args, n_fold=eng.n_fold), 3))
-    t["K2"] = (time_ms(torch, lambda: pj.fourier_project_block(*k2_args, n=n)),
-               time_ms(torch, lambda: pj.fourier_project_block_plain(*k2_args, n=n), 3))
+    t["K1"] = (time_ms(lambda: cc_mod.fused_compare_block(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold)),
+               time_ms(lambda: cc_mod.fused_compare_block_plain(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold), 3))
+    t["K3"] = (time_ms(lambda: cc_mod.fused_displacement_cc(*k3_args, n_fold=eng.n_fold)),
+               time_ms(lambda: cc_mod.displacement_cc_plain(*k3_args, n_fold=eng.n_fold), 3))
+    t["K2"] = (time_ms(lambda: pj.fourier_project_block(*k2_args, n=n)),
+               time_ms(lambda: pj.fourier_project_block_plain(*k2_args, n=n), 3))
     for tile in tiles:
-        t[f"K4 tile {tile}"] = (time_ms(torch, lambda tile=tile: cc_mod.fused_compare_block_batched(
+        t[f"K4 tile {tile}"] = (time_ms(lambda tile=tile: cc_mod.fused_compare_block_batched(
             *k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold, img_tile=tile)), t["K1"][1])
     for k, (a, b) in t.items():
         say(f"[kernels] {k} production-shape time: kernel {a:.3f} ms, plain {b:.3f} ms")
@@ -391,30 +431,73 @@ def phase_kernels(torch, eng) -> dict:
     k4_tile = eng._k4_tile(min(eng.cfg.kernel_img_tile, eng.n_img), eng.disp.shape[0],
                            n // eng.n_fold, f)
     require(k4_tile in tiles, f"the forced K4 pass runs tile {k4_tile}, not a checked one {tiles}")
+
+    # Bounds from this block's shapes. K2 counts the model's points (the
+    # zero-density group padding is work the data does not need).
+    i_n, d, m = bk.img_re.shape[0], eng.disp.shape[0], n // eng.n_fold
+    b1 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold)
+    b4 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold, tensor_cores=True)
+    w3 = compare_work(o, c, i_n, n, f, d, m, eng.n_fold, conv_in=True)
+    b3 = bound({"f32": w3["stage1"] + w3["rest"]},
+               4 * (2 * (o * c + i_n) * n * f + 2 * d * m + 2 * d * f + o * c * i_n * d * d))
+    g = x["i0"].shape[0]
+    n_pts = int((x["dens"] != 0).sum())
+    b2 = bound({"f32": 8 * n_pts * n * f + 8 * g * o * n * f},
+               4 * (3 * x["i0"].numel() + 2 * g * n * f + 2 * o * n * f))
+    for k, b in (("K1", b1), ("K2", b2), ("K3", b3), ("K4", b4)):
+        say(f"[kernels] {k} bound {b[0]:.4f} ms ({b[1]}-bound)")
+    none = dict(library_ms=None)  # no single PyTorch call computes K1–K4
     return {
         "K1": dict(name="fused_compare_block", route="cuda",
                    source="bioem_tpu_torch/csrc/compare.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:301",
-                   max_abs_err=err1, ms=t["K1"][0], plain_ms=t["K1"][1]),
+                   max_abs_err=err1, ms=t["K1"][0], plain_ms=t["K1"][1],
+                   bound_ms=b1[0], bound_by=b1[1], **none),
         "K2": dict(name="fourier_project_block", route="cuda",
                    source="bioem_tpu_torch/csrc/project.cu",
                    replaces="bioem_tpu/ops/project_pallas.py:70",
-                   max_abs_err=err2, ms=t["K2"][0], plain_ms=t["K2"][1]),
+                   max_abs_err=err2, ms=t["K2"][0], plain_ms=t["K2"][1],
+                   bound_ms=b2[0], bound_by=b2[1], **none),
         "K3": dict(name="fused_displacement_cc", route="cuda",
                    source="bioem_tpu_torch/csrc/compare.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:643",
-                   max_abs_err=err3, ms=t["K3"][0], plain_ms=t["K3"][1]),
+                   max_abs_err=err3, ms=t["K3"][0], plain_ms=t["K3"][1],
+                   bound_ms=b3[0], bound_by=b3[1], **none),
         "K4": dict(name="fused_compare_block_batched", route="cuda",
                    source="bioem_tpu_torch/csrc/compare_batched.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:367",
                    max_abs_err=err4[k4_tile], ms=t[f"K4 tile {k4_tile}"][0],
-                   plain_ms=t["K1"][1], tile=k4_tile),
+                   plain_ms=t["K1"][1], tile=k4_tile, bound_ms=b4[0], bound_by=b4[1], **none),
     }
+
+
+@contextlib.contextmanager
+def _in_case(case: str, env: dict):
+    """A temporary copy of golden case ``case`` as the working directory,
+    with ``env`` set; both undone on exit."""
+    sys.path.insert(0, HERE)
+    from tests.test_golden import DATA
+
+    saved = {k: os.environ.get(k) for k in env}
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        shutil.copytree(os.path.join(DATA, case), work, dirs_exist_ok=True)
+        os.environ.update(env)
+        os.chdir(work)
+        try:
+            yield work
+        finally:
+            os.chdir(old)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
 
 def phase_goldens() -> None:
     sys.path.insert(0, HERE)
-    from tests.test_golden import CASE_ATOL, CASES, DATA, F64_CASES, LOGP_ATOL, parse_output
+    from tests.test_golden import CASE_ATOL, CASES, F64_CASES, LOGP_ATOL, parse_output
     from bioem_tpu_torch.cli import main
 
     runs = [(c, "Output_Probabilities.golden") for c in sorted(CASES)]
@@ -423,19 +506,13 @@ def phase_goldens() -> None:
         model_file, maps_file, extra, _has_ang, n_ang, centers_exact = CASES[case]
         f64 = "f64" in golden
         atol = 2e-3 if f64 else CASE_ATOL.get(case, LOGP_ATOL)
-        with tempfile.TemporaryDirectory() as work:
-            shutil.copytree(os.path.join(DATA, case), work, dirs_exist_ok=True)
-            old = os.getcwd()
-            os.chdir(work)
-            try:
-                with contextlib.redirect_stdout(io.StringIO()):
-                    rc = main(["--Modelfile", model_file, "--Particlesfile", maps_file,
-                               "--Inputfile", "param.txt", "--OutputFile", "out", *extra])
-            finally:
-                os.chdir(old)
+        with _in_case(case, {}):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = main(["--Modelfile", model_file, "--Particlesfile", maps_file,
+                           "--Inputfile", "param.txt", "--OutputFile", "out", *extra])
             require(rc == 0, f"golden {case}: CLI returned {rc}")
-            lp_t, _, par_t = parse_output(open(os.path.join(work, "out")).read())
-            lp_g, _, par_g = parse_output(open(os.path.join(work, golden)).read())
+            lp_t, _, par_t = parse_output(open("out").read())
+            lp_g, _, par_g = parse_output(open(golden).read())
         require(len(lp_t) == len(lp_g) > 0, f"golden {case}: image count")
         d = float(np.max(np.abs(lp_t - lp_g)))
         ok = d <= atol
@@ -553,6 +630,133 @@ def phase_tuned(problem, res_p, res_k, k4_tile: int) -> None:
     require(rel <= 1e-12 and same, "the resumed run differs from the straight run")
 
 
+def phase_probes() -> dict:
+    """P1–P3 through the probe tool's functions, each held to its check;
+    returns their kernel rows."""
+    from bioem_tpu_torch.tools import kernel_probe as kp
+
+    log = lambda msg: say(f"[probes] {msg}")  # noqa: E731
+    p1 = kp.probe_f32_accuracy(say=log)
+    for scheme in ("fma", "3xtf32"):
+        require(p1["err"][scheme][0] < 1e-6,
+                f"P1 {scheme}: median relative error {p1['err'][scheme][0]:.2e} ≥ 1e-6")
+    require(p1["err"]["f64tc"][0] <= p1["err"]["fma"][0],
+            "P1: the FP64 tensor cores are less accurate than FP32 FMA")
+    require(p1["err"]["tf32"][0] > 1e-5, "P1: 1xTF32 looks f32-accurate; the probe is wrong")
+    for shape, errs in p1["plain_err"].items():
+        for scheme in ("fma", "3xtf32", "f64tc"):
+            require(errs[scheme][0] < 1e-6 and p1["copies_equal"][shape][scheme],
+                    f"P1 {scheme} at {p1['shapes'][shape]}: median relative error "
+                    f"{errs[scheme][0]:.2e} from the plain version (limit 1e-6), batch copies "
+                    f"{'equal' if p1['copies_equal'][shape][scheme] else 'DIFFER'}")
+    p2 = kp.probe_issue_overhead(say=log)
+    for st in ("loop", "batched"):
+        require(p2["err"][st] <= p2["tol"][st], f"P2 {st}: beyond its f32 summation tolerance")
+    p3 = kp.probe_body_ablation(say=log)
+    require(all(p3["bit_equal"].values()),
+            f"P3: the full variant differs from the production kernel: {p3['bit_equal']}")
+
+    sm, sk, sn, batch = p1["shapes"]["k4_stage1"]
+    b1 = bound({"tf32": 3 * 2 * sm * sk * sn * batch}, 4 * (sm * sk + sk * sn + batch * sm * sn))
+    m, k, n, n_img, reps = p2["shape"]
+    b2 = bound({"bf16": 2 * m * k * n * n_img * reps}, 2 * (m * k + n_img * k * n) + 4 * m * n)
+    b3 = compare_bound(*p3["dims"], tensor_cores=True)
+    src = "bioem_tpu_torch/csrc/"
+    return {
+        "P1": dict(name="f32_product (3xTF32, at K4's stage-1 shape)", route="cuda",
+                   source=src + "probe.cu", replaces="tools/kernel_probe.py:34",
+                   max_abs_err=p1["plain_err"]["k4_stage1"]["3xtf32"][1],
+                   ms=p1["ms"]["k4_stage1"]["3xtf32"], plain_ms=p1["plain_ms"]["k4_stage1"],
+                   bound_ms=b1[0], bound_by=b1[1], library_ms=p1["library_ms"]["k4_stage1"]),
+        "P2": dict(name="product_sum (batched)", route="cuda", source=src + "probe.cu",
+                   replaces="tools/kernel_probe.py:68", max_abs_err=p2["err"]["batched"],
+                   ms=p2["ms"]["batched"], plain_ms=p2["plain_ms"], bound_ms=b2[0],
+                   bound_by=b2[1], library_ms=p2["library_ms"]),
+        "P3": dict(name="body_ablation (K4 full, tile 8)", route="cuda",
+                   source=src + "compare_batched.cu", replaces="tools/kernel_probe.py:152",
+                   max_abs_err=p3["max_abs_err"], ms=p3["ms"][("k4", "full")],
+                   plain_ms=p3["plain_ms"], bound_ms=b3[0], bound_by=b3[1], library_ms=None),
+    }
+
+
+def phase_bestmap() -> None:
+    """--PrintBestCalMap on case M against the reference binary's BESTMAP
+    (tests/test_golden.py:206-240: token structure identical, floats within
+    2.5e-3 abs + 2.5e-3 rel)."""
+    from tests.test_torch_golden import BESTMAP_TOL, bestmap_error
+    from bioem_tpu_torch.cli import main
+
+    with _in_case("case_m_bestmap", {}):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = main(["--Modelfile", "model.txt", "--PrintBestCalMap", "best.txt"])
+        require(rc == 0, f"--PrintBestCalMap returned {rc}")
+        worst, n_float = bestmap_error(open("BESTMAP").read(), open("BESTMAP.golden").read())
+    say(f"[bestmap] case_m_bestmap: {n_float} values, max |Δ|/(1+|golden|) {worst:.2e} "
+        f"(limit {BESTMAP_TOL})")
+    require(worst <= BESTMAP_TOL and n_float >= 2 * 16 * 16, "BESTMAP values out of tolerance")
+
+
+def phase_debug_prob(image: int = 1, atol: float = 1e-3) -> None:
+    """Case L (N=64) through the port's CLI on the card twice, dumping
+    ``image`` on the plain branch and through K3; the dumps diffed with
+    the port's entry point at ``atol`` log-units, and each dump's
+    log-sum-exp plus the log normalisation constant held to the image's
+    LogProb within 1e-6·|logP| + 5e-5 (tests/test_debug_prob.py:39-59's
+    rule plus the output's 4-decimal print)."""
+    from tests.test_golden import CASES, parse_output
+    from bioem_tpu_torch import debug_prob
+    from bioem_tpu_torch.cli import main
+    from bioem_tpu_torch.core.orientations import build_orientations
+    from bioem_tpu_torch.ops.compare_cuda import fused_displacement_cc
+    from bioem_tpu_torch.params import (
+        log_normalization_constant, make_ctf_grid, orientation_volume_quirked, read_parameters,
+    )
+
+    case = "case_l_n64"
+    model_file, maps_file, extra, *_ = CASES[case]
+    dumps, k3 = {}, {}
+    with tempfile.TemporaryDirectory() as keep:
+        for kernel in ("plain", "kernel"):
+            path = os.path.join(keep, f"dump_{kernel}.txt")
+            env = {"BIOEM_TPU_DEBUG_PROB": str(image), "BIOEM_TPU_DEBUG_PROB_FILE": path,
+                   "BIOEM_TPU_DEBUG_PROB_KERNEL": kernel}
+            # The dump hook is wrapped to see the engine that ran: the kernel
+            # dump launches K3 once per block of its orientations.
+            with _in_case(case, env), mock.patch.object(
+                    debug_prob, "maybe_dump_from_env",
+                    wraps=debug_prob.maybe_dump_from_env) as hook:
+                before = fused_displacement_cc.launches
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = main(["--Modelfile", model_file, "--Particlesfile", maps_file,
+                               "--Inputfile", "param.txt", "--OutputFile", "out", *extra])
+                k3[kernel] = fused_displacement_cc.launches - before
+                n_blocks = hook.call_args.args[0].ang_blocks.shape[0]
+                require(rc == 0, f"DEBUG_PROB {kernel}: CLI returned {rc}")
+                logp = parse_output(open("out").read())[0][image]
+                p = read_parameters("param.txt", not_uniform_angles=True)
+                orients = build_orientations(p, extra[extra.index("--ReadOrientation") + 1])
+            k_norm = log_normalization_constant(
+                p, orientation_volume_quirked(p, orients.voluang, make_ctf_grid(p)))
+            dumps[kernel] = path
+            lp = np.array([v[1] for v in debug_prob.read_dump(path).values()])
+            mx = lp.max()
+            lse = float(mx + np.log(np.exp(lp - mx).sum())) + k_norm
+            tol = 1e-6 * abs(logp) + 5e-5
+            say(f"[debug_prob] {kernel} dump of image {image}: {lp.size} evaluations, K3 launches "
+                f"in the run {k3[kernel]}; log-sum-exp + log norm. const {lse:.5f} vs LogProb "
+                f"{logp:.4f} (|Δ| {abs(lse - logp):.2e}, tol {tol:.2e})")
+            require(lp.size > 0 and abs(lse - logp) <= tol,
+                    f"DEBUG_PROB {kernel}: the dump's log-sum-exp is not the image's logP")
+        require(k3["kernel"] - k3["plain"] == n_blocks,
+                f"the kernel dump launched K3 {k3['kernel'] - k3['plain']} times, "
+                f"expected one per orientation block ({n_blocks})")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = debug_prob.main([dumps["plain"], dumps["kernel"], "--atol", str(atol)])
+        say("[debug_prob] diff plain vs kernel: " + "; ".join(out.getvalue().splitlines()))
+        require(rc == 0, f"the plain and kernel dumps differ beyond atol {atol}")
+
+
 def main() -> int:
     try:
         import torch
@@ -608,7 +812,8 @@ def main() -> int:
             require(all(counters[k].launches > 0 for k in kernels),
                     f"a kernel of {name} ({', '.join(kernels)}) was never launched")
             for k, fn in counters.items():
-                rows[k]["launches"] = rows[k].get("launches", 0) + fn.launches
+                if k in rows:
+                    rows[k]["launches"] = rows[k].get("launches", 0) + fn.launches
             return out
 
         def goldens_and_k1():
@@ -618,6 +823,15 @@ def main() -> int:
         res_p, res_k = main_path("goldens + production K1", goldens_and_k1, ("K1", "K2", "K3"))
         main_path("production K4 + autotuned + checkpoint",
                   lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]), ("K2", "K4"))
+        from bioem_tpu_torch.ops import probe_cuda
+
+        counters.update(P1=probe_cuda.f32_product, P2=probe_cuda.product_sum,
+                        P3=probe_cuda.body_ablation)
+        probe_rows = main_path("probe tool", phase_probes, ("P1", "P2", "P3"))
+        for k, r in probe_rows.items():
+            rows[k] = {**r, "launches": counters[k].launches}
+        phase_bestmap()
+        main_path("DEBUG_PROB", phase_debug_prob, ("K3",))
     except Exception as e:  # every phase failure ends the run with a nonzero code
         import traceback
 
@@ -627,11 +841,9 @@ def main() -> int:
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     say(f"[done] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [dict(name=r["name"], route=r["route"], source=r["source"],
-                                     replaces=r["replaces"], launches=r["launches"],
-                                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                                     plain_ms=r["plain_ms"])
-                                for r in rows.values()]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    say(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -12,7 +12,11 @@ chip_smoke.py makes the same comparisons at the production shapes.
 Tolerances: m, se rtol 1e-5 at these small shapes, the argmax exact away
 from near-ties (two best lattice values within 1e-5·|a_coef|); cc and the
 projection spectra < 5e-5 of their max magnitude. The image-batched
-kernel (K4, 3xTF32 tensor cores) is held to K1's tolerances.
+kernel (K4, 3xTF32 tensor cores) is held to K1's tolerances. The probes:
+P1's FMA and 3xTF32 schemes at a median relative error below 1e-6 from
+f64 (the TPU probe's "multi-pass" line); P2's two structures within the
+f32 summation bound the probe tool states; P3's full body bit-equal to
+K1 and K4.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ import torch
 
 from bioem_tpu_torch.core.posterior import displacement_dft_weights
 from bioem_tpu_torch.ops import compare_cuda as C
+from bioem_tpu_torch.ops import probe_cuda as PR
 from bioem_tpu_torch.ops import project_cuda as P
 
 pytestmark = pytest.mark.cuda
@@ -198,3 +203,102 @@ def test_engine_k4_tile_on_the_card(rng, dev):
         BioEMEngine(*problem, RunConfig(**kw, forced=frozenset({"kernel_img_tile"})), device=dev)
     eng = BioEMEngine(*problem, RunConfig(**kw), device=dev)
     assert eng.fused_batched and eng.i_block == 16 and eng.n_img_pad == 32
+
+
+@pytest.mark.parametrize("scheme", ["fma", "3xtf32", "f64tc"])
+def test_probe_f32_product_schemes(rng, dev, scheme):
+    """P1 at the TPU probe's shape: the f32-accurate schemes against f64,
+    at a second batch copy too; 1xTF32 is not f32-accurate."""
+    a = rng.normal(0, 1, (96, 112)).astype(np.float32)
+    b = rng.normal(0, 1, (112, 113)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    ta, tb = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    before = PR.f32_product.launches
+    out = PR.f32_product(ta, tb, scheme=scheme, batch=2)
+    one = PR.f32_product(ta, tb, scheme="tf32")[0].cpu().numpy()
+    torch.cuda.synchronize()
+    assert PR.f32_product.launches == before + 2
+    rel = lambda x: np.abs(x - ref) / np.maximum(np.abs(ref), 1e-30)  # noqa: E731
+    assert np.median(rel(out[0].cpu().numpy())) < 1e-6
+    assert torch.equal(out[0], out[1])
+    assert np.median(rel(one)) > 1e-5
+
+
+@pytest.mark.parametrize("scheme", ["fma", "3xtf32", "f64tc"])
+def test_probe_f32_product_at_k4_stage1(rng, dev, scheme):
+    """P1 at the shape the probe tool times, K4's stage 1 over a production
+    block (whole 48×64 tiles, grid z = 512): every batch copy equals copy
+    0, and copy 0 is within median relative error 1e-6 of the plain version."""
+    from bioem_tpu_torch.tools.kernel_probe import K4_STAGE1
+
+    m, k, n, batch = K4_STAGE1
+    ta = torch.as_tensor(rng.normal(0, 1, (m, k)).astype(np.float32), device=dev)
+    tb = torch.as_tensor(rng.normal(0, 1, (k, n)).astype(np.float32), device=dev)
+    out = PR.f32_product(ta, tb, scheme=scheme, batch=batch)
+    want = PR.f32_product_plain(ta, tb, batch)
+    assert out.shape == (batch, m, n)
+    assert torch.equal(out, out[:1].expand_as(out))
+    assert float(((out[0] - want[0]).abs() / want[0].abs().clamp_min(1e-30)).median()) < 1e-6
+
+
+@pytest.mark.parametrize("structure", ["loop", "batched"])
+def test_probe_product_sum_structures(rng, dev, structure):
+    """P2 against its plain version within the probe tool's bound
+    2·updates·2⁻²³·max|out| (a small image count here)."""
+    n_img, reps = 9, 2
+    a = torch.as_tensor(rng.normal(0, 1, (96, 112)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.as_tensor(rng.normal(0, 1, (n_img, 112, 128)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    got = PR.product_sum(a, b, reps=reps, structure=structure)
+    want = PR.product_sum_plain(a, b, reps)
+    torch.cuda.synchronize()
+    updates = n_img * reps * 7 if structure == "loop" else reps * 7 + n_img
+    assert float((got - want).abs().max()) <= 2 * updates * 2.0 ** -23 * float(want.abs().max())
+
+
+def test_probe_body_ablation_full_is_production(rng, dev):
+    """P3: the full body is the production K1/K4 instance, bit for bit;
+    every ablated variant launches and writes finite, not all-zero outputs
+    (a checksum in m; no_gemm's m is 0 by design, its cc being 0, and its
+    se the lattice size)."""
+    from bioem_tpu_torch.core.posterior import displacement_dft_weights
+
+    n, n_fold, o, c, i = 48, 2, 2, 2, 8
+    f, m = n // 2 + 1, n // n_fold
+    disp = np.concatenate([np.arange(0, 21, 2), np.arange(-20, 0, 2)]).astype(np.int32)
+    wx, wy = displacement_dft_weights(n, disp)
+    g = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)  # noqa: E731
+    r = lambda *s: g(rng.normal(0, 1, s))  # noqa: E731
+    args = (r(o, n, f), r(o, n, f), r(c, n, f), r(c, n, f), r(i, n, f), r(i, n, f),
+            g(wx.real[:, :m]), g(wx.imag[:, :m]), g(wy.real), g(wy.imag),
+            g(np.abs(rng.normal(0, 1e-5, (o * c, i)))), g(np.abs(rng.normal(0, 1e-8, (o * c, i)))))
+    kw = dict(a_coef=-1151.5, n_fold=n_fold)
+    prod = {"k1": C.fused_compare_block(*args, **kw),
+            "k4": C.fused_compare_block_batched(*args, **kw, img_tile=8)}
+    for body in ("k1", "k4"):
+        full = PR.body_ablation(*args, **kw, body=body, variant="full")
+        assert all(torch.equal(x, y) for x, y in zip(full, prod[body])), body
+        for variant in ("no_lse", "mm_only") + (("no_gemm",) if body == "k4" else ()):
+            outs = PR.body_ablation(*args, **kw, body=body, variant=variant)
+            torch.cuda.synchronize()
+            assert all(bool(torch.isfinite(t.float()).all()) for t in outs), (body, variant)
+            assert any(bool((t != 0).any()) for t in outs), (body, variant)
+    with pytest.raises(RuntimeError, match="body_ablation"):
+        PR.body_ablation(*_cmp_inputs(rng, dev, n_disp=9, i=8), **kw, body="k4", variant="full")
+
+
+def test_debug_prob_kernel_path_launches_k3(rng, dev):
+    """The DEBUG_PROB dump's kernel path runs K3 once per orientation
+    block and agrees with the plain path's dump on the card."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.debug_prob import dump_logpro
+
+    eng = BioEMEngine(*_engine_problem(rng), RunConfig(orient_block=3), device=dev)
+    before = C.fused_displacement_cc.launches
+    lp_k, cc_k = dump_logpro(eng, 1, kernel="kernel")
+    assert C.fused_displacement_cc.launches - before == eng.ang_blocks.shape[0]
+    lp_p, cc_p = dump_logpro(eng, 1, kernel="plain")
+    assert C.fused_displacement_cc.launches - before == eng.ang_blocks.shape[0]
+    assert np.abs(cc_k - cc_p).max() < 5e-5 * np.abs(cc_p).max()
+    assert np.abs(lp_k - lp_p).max() < 1e-3

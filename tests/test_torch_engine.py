@@ -129,14 +129,17 @@ def test_block_step_on_jax_banks(rng, kernels):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-8, err_msg=k)
 
 
-def test_run_bioem_end_to_end(rng):
-    """run_bioem of both packages: the public entry point, defaults."""
+def test_run_bioem_end_to_end(rng, monkeypatch):
+    """run_bioem of both packages: the public entry point, defaults (the
+    port's on the CPU because BIOEM_TPU_FORCE_CPU asks for it)."""
     from bioem_tpu.run import run_bioem as j_run
     from bioem_tpu_torch.run import run_bioem as t_run
 
+    monkeypatch.setenv("BIOEM_TPU_FORCE_CPU", "1")
     p, model, images = _problem(rng, 3)
     rj, _ = j_run(p, j_orients(p), model, images, JConfig(autotune=False))
     rt, perf = t_run(p, t_orients(p), model, images, TConfig())
     assert perf["device"] == "cpu" and perf["comparisons"] == 8 * p.n_ctf * 3
+    assert perf["engine"].device.type == "cpu"
     _compare(rj, rt, SUITE)
     assert rt.grid is not None

@@ -6,7 +6,10 @@ branch (the CPU default) and the kernel branch (``use_kernels=True``; on
 CPU tensors every kernel wrapper takes its plain version), so the kernel
 branch's host logic — separable convolution sums, the f64 max repair, the
 cc-out route for DC-dominated banks — is pinned to the reference binary
-here too. The same cases run on the card through chip_smoke.py.
+here too. The same cases run on the card through chip_smoke.py. The CLI
+runs on the card unless asked for the CPU, so these set
+BIOEM_TPU_FORCE_CPU=1. --PrintBestCalMap (golden case M) is host NumPy
+and is held to the reference binary's BESTMAP and to the JAX simulator.
 """
 
 import os
@@ -17,6 +20,11 @@ import numpy as np
 import pytest
 
 from .test_golden import CASE_ATOL, CASES, DATA, F64_CASES, LOGP_ATOL, parse_output
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv("BIOEM_TPU_FORCE_CPU", "1")
 
 
 @pytest.fixture(params=["plain", "kernel"])
@@ -101,11 +109,9 @@ def test_port_golden_f64_external_truth(case, tmp_path, branch):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--PrintBestCalMap", "best.txt", "--Modelfile", "m.txt"], {}),
     (["--Refine"], {}),
     (["--RefineCTF"], {}),
     ([], {"BIOEM_TPU_MESH_ORIENT": "2"}),
-    ([], {"BIOEM_TPU_DEBUG_PROB": "0"}),
     ([], {"BIOEM_TPU_NATIVE_IO": "1"}),
 ])
 def test_not_ported_features_refuse(argv, env, monkeypatch):
@@ -126,3 +132,90 @@ def test_single_device_mesh_is_accepted(monkeypatch):
     monkeypatch.setenv("BIOEM_TPU_MESH_IMAGES", "1")
     monkeypatch.setenv("BIOEM_TPU_MESH_ORIENT", "1")
     assert not_ported_env() == []
+
+
+BESTMAP_TOL = 2.5e-3
+
+
+def bestmap_error(ours: str, golden: str) -> tuple:
+    """tests/test_golden.py:206-240's BESTMAP comparison, shared with
+    chip_smoke.py: the line and token structure must be identical and the
+    labels exact (else ValueError). Returns (max |Δ|/(1+|golden|) over the
+    float tokens, their count); the rule's 2.5e-3 abs + 2.5e-3 rel is that
+    maximum ≤ BESTMAP_TOL."""
+    if len(ours.splitlines()) != len(golden.splitlines()):
+        raise ValueError("BESTMAP: line structure differs")
+    ot, gt = ours.split(), golden.split()
+    if not len(ot) == len(gt) > 0:
+        raise ValueError("BESTMAP: token count differs")
+    worst, n_float = 0.0, 0
+    for a, b in zip(ot, gt):
+        if ("." in b) or ("e" in b and b not in ("MAP", "MAPddx")):
+            worst = max(worst, abs(float(a) - float(b)) / (1 + abs(float(b))))
+            n_float += 1
+        elif a != b:
+            raise ValueError(f"BESTMAP: token {a!r} where the golden has {b!r}")
+    return worst, n_float
+
+
+def test_port_golden_bestmap_values(tmp_path):
+    """--PrintBestCalMap through the port's CLI against the reference
+    binary's BESTMAP, at tests/test_golden.py:206-240's rule: token
+    structure identical, floats within 2.5e-3 abs + 2.5e-3 rel."""
+    from bioem_tpu_torch.cli import main
+
+    work = tmp_path / "case_m_bestmap"
+    shutil.copytree(os.path.join(DATA, "case_m_bestmap"), work)
+    old = os.getcwd()
+    os.chdir(work)
+    try:
+        assert main(["--Modelfile", "model.txt", "--PrintBestCalMap", "best.txt"]) == 0
+    finally:
+        os.chdir(old)
+    worst, n_float = bestmap_error((work / "BESTMAP").read_text(),
+                                   (work / "BESTMAP.golden").read_text())
+    assert worst <= BESTMAP_TOL and n_float >= 2 * 16 * 16
+
+
+BEST_FILES = {
+    # tests/test_cli.py:120-134's case: Euler angles, CTF, a displacement
+    "euler_ctf": ("PIXEL_SIZE 1.5\nNUMBER_PIXELS 16\n"
+                  "BEST_ALPHA 0.1\nBEST_BETA 0.2\nBEST_GAMMA 0.3\n"
+                  "BEST_CTF_B_ENV 10.0\nBEST_CTF_DEFOCUS 1.0\nBEST_CTF_AMP 0.1\n"
+                  "BEST_DX 1\nBEST_DY -1\nBEST_NORM 2.0\nBEST_OFFSET 0.5\n"),
+    "quat_psf": ("PIXEL_SIZE 1.5\nNUMBER_PIXELS 16\nUSE_QUATERNIONS\n"
+                 "BEST_Q1 0.1\nBEST_Q2 -0.3\nBEST_Q3 0.5\nBEST_Q4 0.8\nUSE_PSF\n"
+                 "BEST_PSF_ENVELOPE 20.0\nBEST_PSF_PHASE 2.0\nBEST_PSF_AMP 0.3\n"
+                 "BEST_DX -2\nBEST_DY 0\nBEST_NORM 1.2\nBEST_OFFSET -0.1\n"),
+    "shift": ("PIXEL_SIZE 1.5\nNUMBER_PIXELS 16\nBEST_ALPHA 0.7\nBEST_BETA 1.1\n"
+              "BEST_GAMMA -0.4\nBEST_CTF_B_ENV 80.0\nBEST_CTF_DEFOCUS 2.0\n"
+              "BEST_CTF_AMP 0.2\nSHIFT_X 1\nSHIFT_Y -1\nBEST_DX 3\nBEST_DY 2\n"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BEST_FILES))
+def test_port_print_best_map_matches_jax(name, tmp_path, rng):
+    """The port's --PrintBestCalMap writes the JAX CLI's BESTMAP byte for
+    byte (both are host NumPy on the same copied code)."""
+    from bioem_tpu.cli import main as j_main
+    from bioem_tpu_torch.cli import main as t_main
+
+    pts = rng.uniform(-6, 6, (10, 3))
+    radii = rng.uniform(1.0, 3.0, 10)
+    dens = rng.uniform(40, 100, 10)
+    with open(tmp_path / "model.txt", "w") as f:
+        for k in range(10):
+            f.write(f"{pts[k, 0]:.4f} {pts[k, 1]:.4f} {pts[k, 2]:.4f} "
+                    f"{radii[k]:.4f} {dens[k]:.4f}\n")
+    (tmp_path / "best.txt").write_text(BEST_FILES[name])
+    out = {}
+    old = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        for tag, main in (("jax", j_main), ("port", t_main)):
+            assert main(["--Modelfile", "model.txt", "--PrintBestCalMap", "best.txt"]) == 0
+            out[tag] = (tmp_path / "BESTMAP").read_text()
+    finally:
+        os.chdir(old)
+    assert "\nMAP " in out["port"] and "MAPddx" in out["port"]
+    assert out["port"] == out["jax"]

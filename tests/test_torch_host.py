@@ -1,7 +1,7 @@
 """The port's NumPy host layer equals bioem_tpu's, exactly, on the golden
 inputs: parameters, CTF bank, orientation grids, displacement lists, image
-ingest (text, MRC, multi-MRC), model ingest (text, PDB, voxel MRC) and the
-output writers. The port carries its own copies of these modules (the JAX
+ingest (text, MRC, multi-MRC), model ingest (text, PDB, voxel MRC), the
+output writers, and the forward simulator's BEST_* parameters and maps. The port carries its own copies of these modules (the JAX
 package imports JAX at package import), so this pins them together.
 """
 
@@ -18,12 +18,14 @@ import bioem_tpu.io.map_io as j_map
 import bioem_tpu.io.model_io as j_model
 import bioem_tpu.io.output as j_out
 import bioem_tpu.params as j_params
+import bioem_tpu.simulator as j_sim
 import bioem_tpu_torch.core.ctf as t_ctf
 import bioem_tpu_torch.core.orientations as t_or
 import bioem_tpu_torch.io.map_io as t_map
 import bioem_tpu_torch.io.model_io as t_model
 import bioem_tpu_torch.io.output as t_out
 import bioem_tpu_torch.params as t_params
+import bioem_tpu_torch.simulator as t_sim
 
 from .test_golden import CASES, DATA
 
@@ -140,3 +142,58 @@ def test_output_writers(case, rng):
         j_out.write_angle_probabilities(fj, p, orients, res)
         t_out.write_angle_probabilities(ft, p, orients, res)
         assert fj.getvalue() == ft.getvalue() and fj.getvalue()
+
+
+BEST_EXTRA = {
+    "golden_case_m": None,  # tests/golden/data/case_m_bestmap/best.txt itself
+    "quat_psf_noise": ("PIXEL_SIZE 2.0\nNUMBER_PIXELS 16\nUSE_QUATERNIONS\nBEST_Q1 0.1\n"
+                       "BEST_Q2 -0.3\nBEST_Q3 0.5\nBEST_Q4 0.8\nUSE_PSF\n"
+                       "BEST_PSF_ENVELOPE 20.0\nBEST_PSF_PHASE 2.0\nBEST_PSF_AMP 0.3\n"
+                       "WITHNOISE 0.5\nNO_PROJECT_RADIUS\n# a comment\n\n"),
+    "shift_dx": ("PIXEL_SIZE 1.5\nNUMBER_PIXELS 16\nBEST_ALPHA 0.7\nBEST_BETA 1.1\n"
+                 "BEST_GAMMA -0.4\nBEST_CTF_B_ENV 80.0\nBEST_CTF_DEFOCUS 2.0\n"
+                 "BEST_CTF_AMP 0.2\nSHIFT_X 1\nSHIFT_Y -1\nBEST_DX 3\nBEST_DY -2\n"
+                 "BEST_NORM 0.7\nBEST_OFFSET 1.5\n"),
+}
+
+
+def _best_path(name, tmp_path):
+    if BEST_EXTRA[name] is None:
+        return os.path.join(DATA, "case_m_bestmap", "best.txt")
+    path = tmp_path / "best.txt"
+    path.write_text(BEST_EXTRA[name])
+    return str(path)
+
+
+@pytest.mark.parametrize("name", sorted(BEST_EXTRA))
+def test_best_params_and_simulator(name, tmp_path):
+    """BestParams parsing, best_to_params, the synthesised map, the BESTMAP
+    text (noise from one seed) and BestmapCalcCC equal the JAX package's."""
+    path = _best_path(name, tmp_path)
+    bj, bt = j_params.read_best_params(path), t_params.read_best_params(path)
+    _same(bj, bt)
+    pj, pt = j_params.best_to_params(bj), t_params.best_to_params(bt)
+    _same(pj, pt)
+    assert pj._finalized and pt._finalized
+    model = _in_case_dir("case_m_bestmap", lambda: t_model.read_model(
+        "model.txt", pixel_size=bt.pixel_size, center_mass=not bt.no_center_mass))
+    rj, rt = j_sim.synthesize_best_map(bj, model), t_sim.synthesize_best_map(bt, model)
+    _same(rj, rt)
+    fj, ft = io.StringIO(), io.StringIO()
+    j_sim.write_best_map(bj, model, fj, rng=np.random.default_rng(7))
+    t_sim.write_best_map(bt, model, ft, rng=np.random.default_rng(7))
+    assert fj.getvalue() == ft.getvalue() and "MAP " in ft.getvalue()
+    ref_map = np.random.default_rng(3).normal(0, 1, (bt.n_pixels, bt.n_pixels))
+    assert j_sim.bestmap_cc(bj, model, ref_map) == t_sim.bestmap_cc(bt, model, ref_map)
+
+
+@pytest.mark.parametrize("text,match", [
+    ("USE_PSF\nBEST_CTF_AMP 0.1\n", "PSF and CTF"),
+    ("USE_QUATERNIONS\nBEST_Q1 1.5\n", "Quaternion"),
+])
+def test_best_params_errors(text, match, tmp_path):
+    path = tmp_path / "best.txt"
+    path.write_text("PIXEL_SIZE 1.0\nNUMBER_PIXELS 8\n" + text)
+    for mod in (j_params, t_params):
+        with pytest.raises(mod.ParamError, match=match):
+            mod.read_best_params(str(path))

@@ -47,8 +47,9 @@ RULES = [
 
 def test_lint_sees_the_port():
     names = {os.path.basename(f) for f in FILES}
-    assert {"compare.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "engine.py",
-            "compare_cuda.py", "project_cuda.py", "chip_smoke.py"} <= names
+    assert {"compare.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "probe.cu",
+            "tf32x3.cuh", "engine.py", "compare_cuda.py", "project_cuda.py", "probe_cuda.py",
+            "debug_prob.py", "simulator.py", "kernel_probe.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=IDS)

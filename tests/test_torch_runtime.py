@@ -468,3 +468,68 @@ def test_refused_env_raises_in_cli(name, monkeypatch):
 def test_passing_and_tpu_only_env_do_not_refuse(name, value, monkeypatch):
     monkeypatch.setenv(name, value)
     assert tconfig.not_ported_env() == []
+
+
+# ---------------------------------------------------------------------------
+# device: the card, or the CPU only when asked
+# ---------------------------------------------------------------------------
+
+def _no_card(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("BIOEM_TPU_FORCE_CPU", raising=False)
+
+
+def test_resolve_device(monkeypatch):
+    import torch
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match=r"device='cpu'.*BIOEM_TPU_FORCE_CPU=1"):
+        tconfig.resolve_device()
+    assert tconfig.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("BIOEM_TPU_FORCE_CPU", "1")
+    assert tconfig.resolve_device() == torch.device("cpu")
+    # the switch beats a card; an explicit device beats the switch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tconfig.resolve_device() == torch.device("cpu")
+    assert tconfig.resolve_device("cuda:1") == torch.device("cuda:1")
+    monkeypatch.delenv("BIOEM_TPU_FORCE_CPU")
+    assert tconfig.resolve_device() == torch.device("cuda")
+
+
+def test_entry_points_raise_without_card(rng, monkeypatch):
+    """With no card and no switch, the engine, run_bioem, the autotuner and
+    the CLI raise instead of running on the CPU; the CLI before it reads
+    any input (the files named here do not exist)."""
+    from bioem_tpu_torch import cli
+    from bioem_tpu_torch.run import run_bioem
+
+    p, model, images, orients = _problem(rng)
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BioEMEngine(p, orients, model, images, RunConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_bioem(p, orients, model, images, RunConfig(autotune=False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune_config(p, orients, model, images, RunConfig(),
+                        candidates=[RunConfig(orient_block=1)], blocks=1, repeats=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--Modelfile", "absent_model.txt", "--Particlesfile", "absent.txt",
+                  "--Inputfile", "absent_param.txt"])
+
+
+def test_force_cpu_is_honoured(rng, monkeypatch):
+    """BIOEM_TPU_FORCE_CPU (the JAX package's switch) puts the engine and
+    run_bioem on the CPU, on its plain branch."""
+    from bioem_tpu_torch.run import run_bioem
+
+    p, model, images, orients = _problem(rng)
+    _no_card(monkeypatch)
+    monkeypatch.setenv("BIOEM_TPU_FORCE_CPU", "1")
+    assert "BIOEM_TPU_FORCE_CPU" in tconfig.HONOURED_ENV
+    eng = BioEMEngine(p, orients, model, images, RunConfig(orient_block=2))
+    assert eng.device.type == "cpu" and not eng.use_kernels
+    res, perf = run_bioem(p, orients, model, images, RunConfig(orient_block=2, autotune=False))
+    assert perf["device"] == "cpu" and perf["engine"].device.type == "cpu"
+    np.testing.assert_array_equal(res.log_prob, eng.results(eng.run()).log_prob)
