@@ -243,16 +243,21 @@ class BioEMEngine:
         # The comparison the kernel branch runs: K4, K1 or the hybrid.
         fused = self.use_kernels and self.fused_lse and self._f32_corr_ok
         self.fused_batched = fused and cfg.fused_batched
+        if self.fused_batched and self.device.type == "cuda":
+            # K4 has instances for D ≤ 32 whose operands fit shared memory
+            # (the kernel library answers, so this builds it); elsewhere K1
+            # runs, whose contract is the same. On the CPU K4's wrapper runs
+            # its plain version, which takes any lattice.
+            from ..ops.compare_cuda import batched_fits
+
+            self.fused_batched = batched_fits(disp.shape[0], n // self.n_fold, nf)
 
         # --- block sizes ---
         self.o_block = max(1, min(cfg.orient_block, n_orient))
         if self.use_kernels:
-            # K4's image tile; for K1 and the hybrid (one block per
-            # (o·c, image)) only the image padding granularity. On the CPU
-            # K4's wrapper runs its plain version, which ignores the tile.
+            # The image padding granularity, and K4's tile (the JAX
+            # kernel's contract I % tile = 0; it shapes no kernel's work).
             self.i_block = min(max(cfg.kernel_img_tile, 1), self.n_img)
-            if self.fused_batched and self.device.type == "cuda":
-                self.i_block = self._k4_tile(self.i_block, disp.shape[0], n // self.n_fold, nf)
         elif cfg.image_block > 0:
             self.i_block = min(cfg.image_block, self.n_img)
         else:
@@ -301,26 +306,6 @@ class BioEMEngine:
         from ..runtime.checkpoint import problem_fingerprint
 
         self._fingerprint = problem_fingerprint(p, orients, model, images, cfg)
-
-    def _k4_tile(self, tile: int, d: int, m: int, nf: int) -> int:
-        """K4's image tile: ``tile`` if it fits the kernel's shared memory;
-        a forced tile that does not fit raises, a default one is clamped
-        down to the largest that fits (the tile never changes results).
-        The kernel library answers, so this builds it."""
-        from ..ops.compare_cuda import batched_smem_bytes, batched_tile_fits
-
-        if batched_tile_fits(d, m, nf, tile):
-            return tile
-        if "kernel_img_tile" in self.cfg.forced:
-            raise ValueError(
-                f"kernel_img_tile={tile} (forced) does not fit the batched comparison "
-                f"kernel at D={d}, M={m}: {batched_smem_bytes(d, m, nf, tile)} bytes of "
-                "shared memory (0 = no kernel instance for this tile)"
-            )
-        for t in range(tile - 1, 0, -1):
-            if batched_tile_fits(d, m, nf, t):
-                return t
-        raise ValueError(f"the batched comparison kernel fits no image tile at D={d}, M={m}")
 
     # ------------------------------------------------------------------
     def _image_arrays(self, maps: np.ndarray) -> dict:

@@ -9,7 +9,7 @@
 // C = A·B in each scheme the port runs or could run,
 //   kFma     FP32 FMA on the CUDA cores (K1's stage 1),
 //   kTf32x3  3xTF32 wmma m16n16k8, each k-step added in IEEE f32
-//            (K4's stage 1, the same code: tf32x3.cuh),
+//            (tf32x3.cuh; K4's stage 1 runs the same scheme on wgmma),
 //   kTf32    1xTF32 wmma chained through one accumulator (the precision
 //            trap of ROADMAP's precision rules),
 //   kF64Tc   FP64 tensor cores (mma.sync m8n8k4 f64) on operands widened
@@ -29,23 +29,36 @@
 //
 // P2 replaces tools/kernel_probe.py:_loop_mm_kernel and _batched_mm_kernel
 // (probe_issue_overhead): reps × Σ_i A·B_i over n_img images, bf16 inputs,
-// f32 accumulation (wmma m16n16k16), computed in one block (one SM, as the
-// TPU probe runs on one core) in two structures with one output:
-//   kLoop     one accumulator per output tile; every image's product is
-//             issued in turn and added in (K1's per-image structure);
-//   kBatched  one wide product A·[B_0 … B_{n−1}] whose tiles are independent
-//             accumulators, written to a scratch buffer and then reduced
-//             over the column blocks (K4's structure).
-// What bounds it: on one SM the issue of mma.sync and of the fragment
-// loads, which is the quantity the probe measures; the card-wide bound
-// (2·M·K·N·n_img·reps at 989 TFLOP/s bf16) is far below it by design.
+// f32 accumulation, on warpgroup wgmma (wgmma.cuh) across the card, in two
+// structures with one output:
+//   kLoop     the image × rep products in the TPU kernel's order, reps
+//             outer and images inner (product q is image q mod n_img), are
+//             split into contiguous slices, one per CTA; each CTA stages
+//             each of its products' B_i in turn and issues the product into
+//             one running register accumulator (K1's per-image structure),
+//             and a second pass sums the per-CTA partials;
+//   kBatched  the wide product W = A·[B_0 … B_{n−1}] (96 × n_img·128), one
+//             column block per CTA (its B_i staged once, an accumulator
+//             over the reps), then the column-block reduction (K4's
+//             structure).
+// Both second passes add in a fixed order (no atomics), so a result is the
+// same on every run. Layout: 96 rows are not a multiple of wgmma's 64, so
+// each CTA computes outᵀ (128 × 96) as two m64n96k16 tiles, one per
+// warpgroup: wgmma's A is B_iᵀ (rows n, K-major: B_i is transposed while
+// it is staged into shared memory) and its B is A itself (rows m, K
+// contiguous as stored). Both operands K-major keeps one descriptor form
+// for P2 and K4 (TF32 takes K-major only). What bounds it: 2·M·K·N·
+// n_img·reps at 989 TFLOP/s bf16 is under a microsecond, as is reading B
+// once; at the probe's size the launch, the staging of each B_i and the
+// partials' round trip through L2 are what remain, which is what the
+// probe compares between the two structures.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -208,80 +221,130 @@ int launch_product(const float* A, const float* B, float* C, int M, int K, int N
 
 enum Structure : int { kLoop = 0, kBatched = 1 };
 
-constexpr int kMT = 6;             // 16-row tiles of A: M = 96
-constexpr int kNT = 8;             // 16-column tiles per image: N = 128, one per warp
-constexpr int kSThreads = kNT * 32;
-constexpr int kMaxK = 128;         // A is staged whole in shared memory
+constexpr int kP2M = 96, kP2N = 128;  // A (96, K), B_i (K, 128)
+constexpr int kSThreads = 256;        // two warpgroups: outᵀ rows [64h, 64h + 64)
+constexpr int kMaxK = 128;
+constexpr int kMaxSlices = 128;       // loop: CTAs (per-CTA partials) at most
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int ST>
+// CTA b sums the products q ∈ [b·per, (b + 1)·per) ∩ [0, n_img·reps) into
+// one accumulator and writes it (96 × 128, f32) to dst + b·bstride with row
+// stride rs. Product q is of image q mod n_img (rep_major: the loop) or
+// q / reps (the batched structure's column blocks).
 __global__ void __launch_bounds__(kSThreads)
-product_sum_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-                   float* __restrict__ out, float* __restrict__ wide, int K, int n_img,
-                   int reps) {
-  constexpr int M = kMT * 16, N = kNT * 16;
-  __shared__ __align__(32) __nv_bfloat16 As[M * kMaxK];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  for (int q = tid; q < M * K; q += kSThreads) As[q] = A[q];
-  __syncthreads();
-  const int n_ks = K / 16;
-  FragA a;
-  FragB b;
-  FragC acc[kMT];
-
-  if constexpr (ST == kLoop) {
-    // Warp w owns output columns [16w, 16w + 16): one accumulator per row
-    // tile, every image's product added in turn.
+product_sum_kernel(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
+                   float* __restrict__ dst, int K, int n_img, int reps, int per,
+                   bool rep_major, size_t bstride, int rs) {
+  namespace wg = bioem_wgmma;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t kb = 2u * K;  // bytes of K per row
+  unsigned char* As = smem;
+  unsigned char* Bs = smem + kP2M * kb;
+  const int tid = threadIdx.x, h = tid >> 7, lane = tid & 31, warp = (tid & 127) >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kc = K / 8;  // 16-byte chunks per row
+  // Staging: every load of a pass is issued before its stores.
+  constexpr int kAIt = (kP2M * (kMaxK / 8) + kSThreads - 1) / kSThreads;
+  constexpr int kBIt = (kMaxK * (kP2N / 8) + kSThreads - 1) / kSThreads;
+  {
+    uint4 v[kAIt];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) wmma::fill_fragment(acc[mt], 0.f);
-    for (int r = 0; r < reps; ++r)
-      for (int i = 0; i < n_img; ++i)
-        for (int ks = 0; ks < n_ks; ++ks) {
-          wmma::load_matrix_sync(b, B + ((size_t)i * K + ks * 16) * N + warp * 16, N);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            wmma::load_matrix_sync(a, As + mt * 16 * K + ks * 16, K);
-            wmma::mma_sync(acc[mt], a, b, acc[mt]);
-          }
-        }
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-      wmma::store_matrix_sync(out + mt * 16 * N + warp * 16, acc[mt], N, wmma::mem_row_major);
-  } else {
-    // The wide product W = A·[B_0 … B_{n−1}] (M × n_img·N): warp w takes the
-    // column tiles w, w + 8, …, each an independent accumulator over the
-    // reps, stored to W; then out = Σ_i W[:, i·N : (i+1)·N].
-    const int ldw = n_img * N;
-    for (int nt = warp; nt < n_img * kNT; nt += kNT) {
-      const int i = nt / kNT, c = nt - i * kNT;
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) wmma::fill_fragment(acc[mt], 0.f);
-      for (int r = 0; r < reps; ++r)
-        for (int ks = 0; ks < n_ks; ++ks) {
-          wmma::load_matrix_sync(b, B + ((size_t)i * K + ks * 16) * N + c * 16, N);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            wmma::load_matrix_sync(a, As + mt * 16 * K + ks * 16, K);
-            wmma::mma_sync(acc[mt], a, b, acc[mt]);
-          }
-        }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        wmma::store_matrix_sync(wide + (size_t)mt * 16 * ldw + nt * 16, acc[mt], ldw,
-                                wmma::mem_row_major);
+    for (int r = 0; r < kAIt; ++r) {
+      const int q = tid + r * kSThreads;
+      if (q < kP2M * kc) v[r] = reinterpret_cast<const uint4*>(A + (size_t)(q / kc) * K)[q % kc];
     }
-    __syncthreads();
-    for (int q = tid; q < M * N; q += kSThreads) {
-      const int r = q / N, c = q - r * N;
-      const float* w = wide + (size_t)r * ldw + c;
-      float s = 0.f;
-      for (int i = 0; i < n_img; ++i) s += w[i * N];
-      out[q] = s;
+#pragma unroll
+    for (int r = 0; r < kAIt; ++r) {
+      const int q = tid + r * kSThreads;
+      if (q < kP2M * kc)
+        *reinterpret_cast<uint4*>(As + wg::offset_km(q / kc, 16 * (q % kc), kb)) = v[r];
     }
   }
+  const int q0 = blockIdx.x * per;
+  const int q1 = min(q0 + per, n_img * reps);
+  float acc[48];
+#pragma unroll
+  for (int r = 0; r < 48; ++r) acc[r] = 0.f;
+  int cur = -1;
+  for (int q = q0; q < q1; ++q) {
+    const int i = rep_major ? q % n_img : q / reps;
+    if (i != cur) {
+      __syncthreads();  // both warpgroups are done reading the last B_i
+      // B_i (K × 128, n contiguous) → B_iᵀ rows n, K-major. Neighbouring
+      // threads take neighbouring k, so that their 2-byte stores spread
+      // over the banks.
+      const uint16_t* Bi = B + (size_t)i * K * kP2N;
+      uint4 v[kBIt];
+#pragma unroll
+      for (int r = 0; r < kBIt; ++r) {
+        const int q = tid + r * kSThreads;
+        if (q < K * (kP2N / 8))
+          v[r] = *reinterpret_cast<const uint4*>(Bi + (size_t)(q % K) * kP2N + 8 * (q / K));
+      }
+#pragma unroll
+      for (int r = 0; r < kBIt; ++r) {
+        const int q = tid + r * kSThreads;
+        if (q < K * (kP2N / 8)) {
+          const int n0 = 8 * (q / K), k = q % K;
+          const uint16_t* e = reinterpret_cast<const uint16_t*>(&v[r]);
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            *reinterpret_cast<uint16_t*>(Bs + wg::offset_km(n0 + u, 2 * k, kb)) = e[u];
+        }
+      }
+      wg::fence_proxy_async();
+      __syncthreads();
+      cur = i;
+    }
+    wg::fence();
+    for (int ks = 0; ks < K / 16; ++ks)
+      wg::Bf16SS<96>::mma(acc, wg::desc(Bs + 64u * h * kb + 256 * ks, 128, 8 * kb),
+                          wg::desc(As + 256 * ks, 128, 8 * kb), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+  }
+  // acc (row n = 64h + 16·warp + g (+8), column m = 8j + 2t (+1)) → dst[m][n]
+  float* out = dst + blockIdx.x * bstride;
+#pragma unroll
+  for (int j = 0; j < 12; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 64 * h + 16 * warp + g + 8 * (e >> 1), m = 8 * j + 2 * t + (e & 1);
+      out[(size_t)m * rs + n] = acc[4 * j + e];
+    }
+}
+
+// out[m][n] = Σ_b src[b·bstride + m·rs + n], in a fixed order (the same
+// bits on every run): a block takes 64 outputs; thread (z, o) sums the
+// quarter z of the b range for output o in eight running sums (b mod 8,
+// each in order of b), and thread (0, o) adds the eight, then the four
+// quarters, in order. Eight loads per thread in flight, four threads per
+// output.
+constexpr int kSumOut = 64;
+
+__global__ void __launch_bounds__(4 * kSumOut)
+sum_blocks_kernel(const float* __restrict__ src, float* __restrict__ out, int nb,
+                  size_t bstride, int rs) {
+  __shared__ float part[4][kSumOut];
+  const int o = threadIdx.x % kSumOut, z = threadIdx.x / kSumOut;
+  const int q = blockIdx.x * kSumOut + o;  // kP2M·kP2N is a multiple of kSumOut
+  const float* s = src + (size_t)(q / kP2N) * rs + q % kP2N;
+  const int per = (nb + 3) / 4;
+  const int b0 = z * per, b1 = min(b0 + per, nb);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int b = b0;
+  for (; b + 8 <= b1; b += 8)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc[u] += s[(size_t)(b + u) * bstride];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    if (b + u < b1) acc[u] += s[(size_t)(b + u) * bstride];
+  float total = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) total += acc[u];
+  part[z][o] = total;
+  __syncthreads();
+  if (z == 0) out[q] = ((part[0][o] + part[1][o]) + part[2][o]) + part[3][o];
 }
 
 }  // namespace
@@ -305,26 +368,43 @@ int bioem_probe_f32_product(int scheme, const float* A, const float* B, float* C
 
 // P2: out = reps · Σ_i A·B_i, A (96, K) and B (n_img, K, 128) bf16
 // row-major, out (96, 128) f32, in structure ``structure`` (0 loop,
-// 1 batched; the batched one needs ``wide``, 96 × n_img·128 f32). One block.
+// 1 batched), ``per`` products per CTA (loop: in order reps outer, images
+// inner; batched: per = reps, one image per CTA). ``scratch`` holds the CTAs' partials: ⌈n_img·reps / per⌉ blocks of
+// 96 × 128 f32 for the loop, the wide product (96 × n_img·128 f32) for
+// the batched structure.
 int bioem_probe_product_sum(int structure, const void* A, const void* B, float* out,
-                            float* wide, int M, int K, int N, int n_img, int reps,
+                            float* scratch, int M, int K, int N, int n_img, int reps, int per,
                             void* stream) {
-  if (M != kMT * 16 || N != kNT * 16 || K < 16 || K % 16 || K > kMaxK || n_img < 1 ||
-      reps < 1)
+  if (M != kP2M || N != kP2N || K < 16 || K % 16 || K > kMaxK || n_img < 1 || reps < 1 ||
+      per < 1 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  const auto* a = static_cast<const __nv_bfloat16*>(A);
-  const auto* b = static_cast<const __nv_bfloat16*>(B);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (structure) {
-    case kLoop:
-      product_sum_kernel<kLoop><<<1, kSThreads, 0, s>>>(a, b, out, wide, K, n_img, reps);
-      return (int)cudaGetLastError();
-    case kBatched:
-      if (wide == nullptr) return (int)cudaErrorInvalidValue;
-      product_sum_kernel<kBatched><<<1, kSThreads, 0, s>>>(a, b, out, wide, K, n_img, reps);
-      return (int)cudaGetLastError();
+  const int n_cta = (n_img * reps + per - 1) / per;
+  size_t bstride;
+  int rs;
+  if (structure == kLoop) {
+    if (n_cta > kMaxSlices) return (int)cudaErrorInvalidValue;
+    bstride = (size_t)kP2M * kP2N;
+    rs = kP2N;
+  } else if (structure == kBatched) {
+    if (per != reps) return (int)cudaErrorInvalidValue;
+    bstride = kP2N;
+    rs = n_img * kP2N;
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  const int smem = (kP2M + kP2N) * 2 * K;
+  cudaError_t err = cudaFuncSetAttribute(product_sum_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  product_sum_kernel<<<n_cta, kSThreads, smem, s>>>(
+      static_cast<const uint16_t*>(A), static_cast<const uint16_t*>(B), scratch, K, n_img, reps,
+      per, structure == kLoop, bstride, rs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_blocks_kernel<<<kP2M * kP2N / kSumOut, 4 * kSumOut, 0, s>>>(scratch, out, n_cta, bstride,
+                                                                   rs);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// 3xTF32 on the tensor cores: the f32-accurate product step shared by the
-// image-batched comparison kernel (compare_batched.cu, K4) and the product
-// precision probe (probe.cu, P1), so that the probe measures the scheme K4
-// runs and not a second copy of it.
+// 3xTF32 on the tensor cores with `wmma`: the f32-accurate product step of
+// the product precision probe (probe.cu, P1). The image-batched comparison
+// kernel (compare_batched.cu, K4) runs the same scheme on `wgmma`: the
+// same split, the same three products per k-step in a zeroed accumulator,
+// the same IEEE add.
 //
 // Each operand is split x = hi + lo with hi = tf32(x), lo = tf32(x − hi).
 // One k-step forms lo·hi + hi·lo + hi·hi (the dropped lo·lo term is

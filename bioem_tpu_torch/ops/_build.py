@@ -51,9 +51,9 @@ SIGNATURES = {
     "bioem_probe_compare": [I] + [P] * 12 + [F] + [I] * 8 + [P] * 4 + [P],
     "bioem_probe_compare_batched": [I] + [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
     "bioem_probe_f32_product": [I, P, P, P, I, I, I, I, P],
-    "bioem_probe_product_sum": [I, P, P, P, P, I, I, I, I, I, P],
+    "bioem_probe_product_sum": [I, P, P, P, P, I, I, I, I, I, I, P],
     "bioem_compare_smem_bytes": [I, I, I],
-    "bioem_compare_batched_smem_bytes": [I, I, I, I],
+    "bioem_compare_batched_smem_bytes": [I, I, I],
     "bioem_error_string": [I],
 }
 RESTYPES = {

@@ -5,8 +5,8 @@ Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 ``fused_compare_block_batched``) and ``_fused_cc_kernel`` (entry
 ``fused_displacement_cc``). K1 and K3 are one CUDA kernel,
 ``csrc/compare.cu``, the cc-lattice entry being its cc-out mode; K4 is
-``csrc/compare_batched.cu``, which takes a tile of images per block and
-runs stage 1 on the tensor cores in 3xTF32 (see each source's header for
+``csrc/compare_batched.cu``, whose persistent blocks walk groups of four
+images and run stage 1 on warpgroup wgmma in 3xTF32 (see each source's header for
 what bounds it on the card and how the design answers that). K1 and K4
 share one contract, so their plain version is one function.
 
@@ -224,17 +224,18 @@ fused_displacement_cc.launches = 0
 # K4: the image-batched fused comparison (csrc/compare_batched.cu)
 # ---------------------------------------------------------------------------
 
-def batched_smem_bytes(d: int, m: int, f: int, it: int) -> int:
-    """Dynamic shared memory of the batched kernel at (D, M, F, IT), or 0
-    when it has no instance for (D, IT), as the kernel library computes it
-    (``bioem_compare_batched_smem_bytes``; builds the library on first use)."""
-    return int(_build.load().bioem_compare_batched_smem_bytes(d, m, f, it))
+def batched_smem_bytes(d: int, m: int, f: int) -> int:
+    """Dynamic shared memory of the batched kernel at (D, M, F), or 0 when
+    it has no instance for D, as the kernel library computes it
+    (``bioem_compare_batched_smem_bytes``; builds the library on first use).
+    The image tile does not enter."""
+    return int(_build.load().bioem_compare_batched_smem_bytes(d, m, f))
 
 
-def batched_tile_fits(d: int, m: int, f: int, it: int) -> bool:
-    """The batched kernel has an instance for this tile and its shared
-    memory fits one block on Hopper."""
-    return 0 < batched_smem_bytes(d, m, f, it) <= MAX_SMEM
+def batched_fits(d: int, m: int, f: int) -> bool:
+    """The batched kernel has an instance for D and its shared memory fits
+    one block on Hopper (D ≤ 32 and W resident: see compare_batched.cu)."""
+    return 0 < batched_smem_bytes(d, m, f) <= MAX_SMEM
 
 
 def fused_compare_block_batched(
@@ -255,9 +256,13 @@ def fused_compare_block_batched(
     n_fold: int = 1,
     img_tile: int = 8,
 ):
-    """K4: :func:`fused_compare_block`'s contract, computed ``img_tile``
-    images per block with stage 1 on the tensor cores (3xTF32). The image
-    count must be a multiple of the tile (as the JAX kernel requires)."""
+    """K4: :func:`fused_compare_block`'s contract with stage 1 on the
+    tensor cores (3xTF32). The image count must be a multiple of
+    ``img_tile`` (as the JAX kernel requires); the kernel's schedule and
+    shared memory do not depend on the tile, so every tile runs the same
+    work. The kernel has instances for D ≤ 32 where its operands fit
+    shared memory (:func:`batched_fits`); elsewhere it raises before any
+    launch."""
     args = (proj_re, proj_im, ctf_re, ctf_im, img_re, img_im,
             wx_re, wx_im, wy_re, wy_im, a_u, b_u)
     i_n = img_re.shape[0]
@@ -273,12 +278,9 @@ def fused_compare_block_batched(
         raise ValueError(f"fused_compare_block_batched: unsupported device {dev}")
     fn = "fused_compare_block_batched"
     o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
-    smem = batched_smem_bytes(d, m, f, it)
+    smem = batched_smem_bytes(d, m, f)
     if smem == 0:
-        raise ValueError(
-            f"{fn}: no kernel instance for D={d} at tile {it} (tiles 1..16, "
-            "at most four 16-row tiles of t1 per warp)"
-        )
+        raise ValueError(f"{fn}: no kernel instance for D={d} (D ≤ 32: wgmma n16..n64)")
     _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
     outs = _summary_outputs(o_n * c_n, i_n, dev)
     with torch.cuda.device(dev):

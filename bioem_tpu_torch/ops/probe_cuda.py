@@ -10,8 +10,11 @@ for P3):
 * P1 :func:`f32_product` — one f32 product in a named scheme (FP32 FMA,
   3xTF32, 1xTF32, FP64 tensor cores), for its accuracy and its cost;
 * P2 :func:`product_sum` — reps · Σ_i A·B_i in bf16 with f32
-  accumulation, looped (one accumulator) or batched (one wide product,
-  then a reduction over its column blocks);
+  accumulation across the card, looped (contiguous slices of the image ×
+  rep products in the TPU kernel's order, reps outer and images inner,
+  each slice into one accumulator, then a sum of the slices' partials) or
+  batched (one wide product, then a reduction over its
+  column blocks);
 * P3 :func:`body_ablation` — the production comparison body of K1 or K4
   with pieces removed; only ``full`` (the production instance itself)
   has a result, the other variants write a checksum into ``m``.
@@ -96,10 +99,36 @@ def product_sum_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tens
     return (a.float() @ b.float()).sum(dim=0) * reps
 
 
+# The loop structure's CTAs (each one partial) at most: csrc/probe.cu kMaxSlices.
+P2_MAX_SLICES = 128
+
+
+def product_sum_split(structure: str, n_img: int, reps: int) -> tuple:
+    """(products per CTA, CTAs) of P2's ``structure``: the loop splits the
+    n_img·reps products, in :func:`product_image`'s order, into at most
+    :data:`P2_MAX_SLICES` contiguous slices of equal length (the last may
+    be shorter); the batched structure gives each image (its ``reps``
+    products) a CTA."""
+    if structure == "batched":
+        return reps, n_img
+    total = n_img * reps
+    per = -(-total // P2_MAX_SLICES)
+    return per, -(-total // per)
+
+
+def product_image(structure: str, q: int, n_img: int, reps: int) -> int:
+    """The image of P2's product ``q``: the loop takes the products in the
+    TPU kernel's order, reps outer and images inner (a CTA's slice chains
+    the products of different images, each B_i staged in turn); the
+    batched structure's CTA ``q // reps`` issues one image's reps."""
+    return q % n_img if structure == "loop" else q // reps
+
+
 def product_sum(a: torch.Tensor, b: torch.Tensor, *, reps: int, structure: str) -> torch.Tensor:
     """P2: reps · Σ_i a·b[i], a (96, K) and b (n_img, K, 128) bf16, f32
-    accumulation, in one block of the card, looped or batched (one of
-    :data:`STRUCTURES`); returns (96, 128) f32."""
+    accumulation, on the card's warpgroup tensor cores, looped or batched
+    (one of :data:`STRUCTURES`, split as :func:`product_sum_split` says);
+    returns (96, 128) f32."""
     if structure not in STRUCTURES:
         raise ValueError(f"product_sum: structure {structure!r} not in {STRUCTURES}")
     dev = a.device
@@ -117,13 +146,14 @@ def product_sum(a: torch.Tensor, b: torch.Tensor, *, reps: int, structure: str) 
             raise ValueError(f"product_sum: {name} must be contiguous bfloat16 on {dev}")
     if b.shape[1] != k or reps < 1:
         raise ValueError("product_sum: b's depth must be a's, reps ≥ 1")
+    per, n_cta = product_sum_split(structure, n_img, reps)
     out = torch.empty((m, n), dtype=F32, device=dev)
-    wide = (torch.empty((m, n_img * n), dtype=F32, device=dev) if structure == "batched"
-            else None)
+    # the CTAs' partials (loop) or the wide product (batched), as many floats either way
+    scratch = torch.empty((n_cta, m, n), dtype=F32, device=dev)
     with torch.cuda.device(dev):
         status = _build.load().bioem_probe_product_sum(
             STRUCTURES.index(structure), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            wide.data_ptr() if wide is not None else None, m, k, n, n_img, reps, _stream(dev))
+            scratch.data_ptr(), m, k, n, n_img, reps, per, _stream(dev))
     _build.check(status, "product_sum")
     product_sum.launches += 1
     return out
@@ -144,8 +174,7 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
     Returns (m, se, ds, ccs) as the production kernel does for ``full``;
     for the ablated variants ``m`` holds a checksum and the rest is zero.
     The variants exist at the production tiling only: D = 17..24 for K1,
-    and for K4 three t1 row tiles per warp at one image tile per warp
-    (D = 21 at tile 8)."""
+    and for K4 2·Dp = 48 (D = 17..24), wgmma's n48, at any tile."""
     if body not in ("k1", "k4") or variant not in VARIANTS or (
             body == "k1" and variant == "no_gemm"):
         raise ValueError(f"body_ablation: no variant {variant!r} of {body!r}")
@@ -165,7 +194,7 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
     else:
         if img_tile < 1 or i_n % img_tile:
             raise ValueError(f"{fn}: image count {i_n} not a multiple of tile {img_tile}")
-        smem = batched_smem_bytes(d, m, f, img_tile)
+        smem = batched_smem_bytes(d, m, f)
     _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
     outs = _summary_outputs(o_n * c_n, i_n, dev)
     if variant != "full":

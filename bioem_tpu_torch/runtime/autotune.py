@@ -25,8 +25,10 @@ Differences from the JAX module:
 * each candidate is timed over a fixed number of comparisons, not over
   1024 orientations, so a large image set does not multiply the tuner's
   cost (the two agree on the production problem);
-* Mosaic's lane rule for fused tiles is TPU-only and gone; K4's tiles are
-  filtered by its shared memory instead;
+* Mosaic's lane rule for fused tiles is TPU-only and gone, and so is the
+  search over K4's image tile: the CUDA K4's work does not depend on it.
+  K4 is a candidate where the kernel takes the problem (its lattice
+  width and shared memory, :func:`k4_runs`);
 * the TPU health gate (``runtime/health.py``) is not ported, so every
   timed winner is stored;
 * a candidate that the engine refuses (ValueError) or that runs out of
@@ -50,9 +52,6 @@ from ..config import RunConfig, resolve_device
 # Tuned fields persisted across processes.
 _CACHED_FIELDS = ("orient_block", "image_block", "use_kernels",
                   "kernel_img_tile", "fused_lse", "fused_batched")
-
-# Image tiles K4 is tried at (the two largest that fit are timed).
-K4_TILES = (1, 2, 4, 8, 16)
 
 # Comparisons each candidate's timed span covers: 1024 orientations of the
 # production problem (8 CTFs × 64 images). A span fixed in comparisons, not
@@ -134,36 +133,33 @@ def _cache_store(key: str, fields: dict) -> None:
         pass  # the cache is an optimisation only
 
 
-def k4_tiles(cfg: RunConfig, p, n_img: int, device=None) -> List[int]:
-    """The two largest of :data:`K4_TILES` that divide the image count as
-    the kernel branch pads it and, on the card, fit K4's shared memory (the
-    kernel library answers; on the CPU K4 runs its plain version, which
-    ignores the tile)."""
+def k4_runs(p, device=None) -> bool:
+    """K4 takes the problem: on the card where the kernel library has an
+    instance for its lattice and the operands fit shared memory
+    (``compare_cuda.batched_fits``; elsewhere the engine runs K1, so a K4
+    candidate would time K1 twice); on the CPU always (its plain
+    version)."""
+    if resolve_device(device).type != "cuda":
+        return True
     from ..core.posterior import stride_fold
-    from ..ops.compare_cuda import batched_tile_fits
+    from ..ops.compare_cuda import batched_fits
     from ..params import displacement_lists
 
-    i0 = min(max(cfg.kernel_img_tile, 1), max(n_img, 1))
-    n_pad = -(-max(n_img, 1) // i0) * i0
-    tiles = [t for t in K4_TILES if n_pad % t == 0]
-    if resolve_device(device).type == "cuda":
-        disp, _ = displacement_lists(p)
-        n = p.n_pixels
-        m = n // stride_fold(p.grid_space_center, n, disp)
-        tiles = [t for t in tiles if batched_tile_fits(len(disp), m, p.n_fft_1d, t)]
-    return tiles[-2:]
+    disp, _ = displacement_lists(p)
+    n = p.n_pixels
+    return batched_fits(len(disp), n // stride_fold(p.grid_space_center, n, disp), p.n_fft_1d)
 
 
-def default_candidates(cfg: RunConfig, p=None, n_img: int = 0, device=None) -> List[RunConfig]:
+def default_candidates(cfg: RunConfig, p=None, device=None) -> List[RunConfig]:
     """Shape-derived candidate set (reference analogue: the autotuner's
     bisection domain, autotuner.cpp:118-149).
 
     On the kernel branch: orient_block ∈ {cfg.orient_block, 16} ×
     fused_lse ∈ {False, True} × fused_batched ∈ {False, True} (only with
-    fused_lse), and K4 at :func:`k4_tiles`. K1 and the hybrid keep
-    cfg.kernel_img_tile, which only pads the image count for them. On the
-    plain branch only the orientation block matters: {4, 8, 16}. Forced
-    knobs keep their value."""
+    fused_lse, and only where :func:`k4_runs`), all at
+    cfg.kernel_img_tile, which only pads the image count. On the plain
+    branch only the orientation block matters: {4, 8, 16}. Forced knobs
+    keep their value."""
     use_kernels = (cfg.use_kernels if cfg.use_kernels is not None
                    else resolve_device(device).type == "cuda")
     forced = cfg.forced
@@ -175,21 +171,17 @@ def default_candidates(cfg: RunConfig, p=None, n_img: int = 0, device=None) -> L
                 else tuple(dict.fromkeys((cfg.orient_block, 16))))
     lse_variants = (cfg.fused_lse,) if "fused_lse" in forced else (False, True)
     batched_variants = (cfg.fused_batched,) if "fused_batched" in forced else (False, True)
-    if "kernel_img_tile" in forced or p is None:
-        tiles = [cfg.kernel_img_tile]
-    else:
-        tiles = k4_tiles(cfg, p, n_img, device)
+    k4 = p is None or k4_runs(p, device)
     cands = []
     for o_block in o_blocks:
         for fused_lse in lse_variants:
             for fb in batched_variants:
-                if fb and fused_lse is False:
+                if fb and (fused_lse is False or not k4):
                     continue  # the batched body exists only with the fused LSE
-                for t in (tiles if fb else [cfg.kernel_img_tile]):
-                    cands.append(replace(
-                        cfg, autotune=False, use_kernels=True, orient_block=o_block,
-                        fused_lse=fused_lse, fused_batched=fb, kernel_img_tile=t,
-                    ))
+                cands.append(replace(
+                    cfg, autotune=False, use_kernels=True, orient_block=o_block,
+                    fused_lse=fused_lse, fused_batched=fb,
+                ))
     return cands
 
 
@@ -229,7 +221,7 @@ def autotune_config(
             print(f"autotune: cached config for {key}: {cached}")
         return replace(cfg, autotune=False, **cached)
     candidates = (list(candidates) if candidates is not None
-                  else default_candidates(cfg, p=p, n_img=n_img, device=device))
+                  else default_candidates(cfg, p=p, device=device))
     best_cfg, best_t = cfg, float("inf")
     # Same orientation span for every candidate (blocks is in units of the
     # baseline cfg.orient_block): SPAN_COMPARISONS by default.

@@ -11,9 +11,12 @@ P1  Which f32-product scheme holds the accuracy contract, and at what cost?
     products of (48×224)·(224×1024)), each scheme's output against the
     plain version (every batch copy) and its time.
 P2  What does a looped small product cost against one wide product? Σ of
-    64 bf16 products (96,112)·(112,128), 4 times, in one block: one
-    accumulator (K1's structure) vs one wide product and a column-block
-    reduction (K4's structure).
+    64 bf16 products (96,112)·(112,128), 4 times, on wgmma across the
+    card: the products in the TPU kernel's order (reps outer, images
+    inner) cut into slices, each slice's products of different images
+    chained into one accumulator, then a sum of the slices (K1's
+    structure), vs one wide product and a column-block reduction (K4's
+    structure); beside one cuBLAS GEMM that does all 256 products.
 P3  Where does the production body spend its time? K1 and K4 (tile 8) at
     the production block (O=8, C=8, I=64, N=224, F=113, D=21, n_fold=2)
     with pieces removed: ``full``, ``no_lse``, ``mm_only`` and K4's
@@ -24,7 +27,8 @@ answer is a measurement of the card):
 
     python -m bioem_tpu_torch.tools.kernel_probe
 
-Every time is a mean over timed launches after a warm-up, from CUDA events.
+Every time is a mean over timed launches after a warm-up, from CUDA events;
+P2's are the card's own time, its calls queued behind a spin of the card.
 """
 
 from __future__ import annotations
@@ -50,6 +54,26 @@ def time_ms(fn, reps: int = 10) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call of the card's own time: the calls are
+    queued behind a ~20 ms spin of the card (``torch.cuda._sleep``), so the
+    host's time to launch them, which the queue hides, does not enter. For
+    calls of tens of microseconds, where :func:`time_ms` times the host.
+    (A ~2 ms spin did not always cover 20 calls issued at up to ~60 µs
+    each: one P2 reading came out 4× its neighbours.)"""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -123,16 +147,38 @@ def probe_f32_accuracy(say=print) -> dict:
     return out
 
 
+def p2_updates(structure: str, n_img: int, reps: int, k: int) -> int:
+    """Rounded accumulator updates behind one output of P2's ``structure``:
+    each CTA chains its products' K/16 wgmma steps into one accumulator,
+    then the second pass adds the CTAs' partials one by one
+    (probe_cuda.product_sum_split gives the split). The count does not
+    depend on which image each product is of (probe_cuda.product_image):
+    the loop's rep-major order changes the terms, not their number."""
+    per, n_cta = probe_cuda.product_sum_split(structure, n_img, reps)
+    return per * (k // 16) + n_cta
+
+
 def probe_issue_overhead(say=print) -> dict:
-    """P2. Returns {"ms": {structure: ms}, "err": {structure: max |Δ|},
-    "tol": {structure: tolerance}, "plain_ms", "library_ms", "shape"}.
+    """P2. Returns {"ms": {structure: ms}, "host_ms": {structure: ms},
+    "err": {structure: max |Δ|}, "tol": {structure: tolerance}, "plain_ms",
+    "library_ms", "library_host_ms", "library_err", "shape"}: "ms" and
+    "library_ms" are the card's time (:func:`device_ms`), the "host_ms"
+    ones the rate at which the host issues the calls (:func:`time_ms`),
+    which a call this short does not outrun.
 
     Tolerance: bf16 products are exact in f32, so the two structures and
     the plain version differ only in the f32 rounding of their running
     sums. Each accumulator update rounds by at most 2⁻²³ of the partial sum
     (the tensor cores truncate), and the partial sums stay within ~2·max|out|,
-    so |Δ| ≤ 2 · updates · 2⁻²³ · max|out|, with updates = images·reps·K/16
-    for the loop and reps·K/16 + images for the batched structure."""
+    so |Δ| ≤ 2 · updates · 2⁻²³ · max|out|, with updates from
+    :func:`p2_updates`: per·K/16 + CTAs, where the loop puts ⌈images·reps /
+    128⌉ consecutive products of its rep-major order (two images' at the
+    probe's shape) in each of its CTAs and the batched structure an image's
+    reps in each of its n_img CTAs.
+
+    The library time is one cuBLAS GEMM doing every product: [A … A] (96 ×
+    images·reps·K) times the images' B stacked reps times ((images·reps·K)
+    × 128), bf16 in and out (it rounds its f32 sum to bf16)."""
     dev = _require_card()
     m, k, n, n_img, reps = P2_SHAPE
     rng = np.random.default_rng(1)
@@ -140,21 +186,30 @@ def probe_issue_overhead(say=print) -> dict:
     b = torch.as_tensor(rng.normal(0, 1, (n_img, k, n)).astype(np.float32)).to(dev, torch.bfloat16)
     plain = probe_cuda.product_sum_plain(a, b, reps)
     scale = float(plain.abs().max())
-    updates = {"loop": n_img * reps * (k // 16), "batched": reps * (k // 16) + n_img}
-    out = {"ms": {}, "err": {}, "tol": {}, "shape": P2_SHAPE}
+    out = {"ms": {}, "host_ms": {}, "err": {}, "tol": {}, "shape": P2_SHAPE}
     for st in probe_cuda.STRUCTURES:
         got = probe_cuda.product_sum(a, b, reps=reps, structure=st)
         out["err"][st] = float((got - plain).abs().max())
-        out["tol"][st] = 2 * updates[st] * 2.0 ** -23 * scale
-        out["ms"][st] = time_ms(lambda st=st: probe_cuda.product_sum(a, b, reps=reps, structure=st))
+        out["tol"][st] = 2 * p2_updates(st, n_img, reps, k) * 2.0 ** -23 * scale
+        call = lambda st=st: probe_cuda.product_sum(a, b, reps=reps, structure=st)  # noqa: E731
+        out["ms"][st] = device_ms(call)
+        out["host_ms"][st] = time_ms(call)
         us = out["ms"][st] * 1e3
-        say(f"P2 {st}: {us:.1f} us/call ({us * 1e3 / (n_img * reps):.0f} ns per "
-            f"{m}x{k}x{n} product-equivalent); max |Δ| vs plain {out['err'][st]:.3e} "
+        say(f"P2 {st}: {us:.1f} us/call on the card ({us * 1e3 / (n_img * reps):.0f} ns per "
+            f"{m}x{k}x{n} product-equivalent; {out['host_ms'][st] * 1e3:.1f} us per call "
+            f"issued from the host); max |Δ| vs plain {out['err'][st]:.3e} "
             f"(tol {out['tol'][st]:.3e})")
     out["plain_ms"] = time_ms(lambda: probe_cuda.product_sum_plain(a, b, reps))
-    out["library_ms"] = time_ms(lambda: torch.einsum("mk,ikn->mn", a, b))
+    a_wide = a.repeat(1, n_img * reps)
+    b_tall = b.repeat(reps, 1, 1).reshape(n_img * reps * k, n)
+    lib = torch.mm(a_wide, b_tall)
+    out["library_err"] = float((lib.float() - plain).abs().max())
+    out["library_ms"] = device_ms(lambda: torch.mm(a_wide, b_tall))
+    out["library_host_ms"] = time_ms(lambda: torch.mm(a_wide, b_tall))
     say(f"P2 issue-overhead ratio loop/batched: {out['ms']['loop'] / out['ms']['batched']:.2f}x; "
-        f"plain {out['plain_ms'] * 1e3:.1f} us, torch.einsum bf16 {out['library_ms'] * 1e3:.1f} us")
+        f"plain {out['plain_ms'] * 1e3:.1f} us, torch.mm bf16 over all {n_img * reps} products "
+        f"{out['library_ms'] * 1e3:.1f} us on the card ({out['library_host_ms'] * 1e3:.1f} us "
+        f"issued from the host; max |Δ| vs plain {out['library_err']:.3e}, bf16 output)")
     return out
 
 

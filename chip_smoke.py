@@ -13,7 +13,9 @@ the port's main path on the card, in phases (each prints its own lines):
 3. kernels vs their plain torch versions at the production shapes
    (bench.py's BASELINE config-2 problem) and one odd shape, with each
    kernel's time beside the plain version's; the image-batched comparison
-   (K4) at every image tile the autotuner would try;
+   (K4) at the image tile the production passes run, launched twice and
+   once at tile 8, all held to the same bits, and at lattice strides that
+   fold the rows three and four times;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
    images at N=224) through run_bioem: on the kernel branch with K1, with
@@ -25,8 +27,9 @@ the port's main path on the card, in phases (each prints its own lines):
    resume in a fresh engine) against the straight run;
 6. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
    f32 product's accuracy and time by scheme), P2 (looped vs batched
-   product issue) and P3 (the K1/K4 body ablation at the production
-   block), each held to its check;
+   products on wgmma across the card, beside one cuBLAS GEMM doing all
+   of them) and P3 (the K1/K4 body ablation at the production block),
+   each held to its check;
 7. --PrintBestCalMap on golden case M through the port's CLI, held to
    tests/test_golden.py's BESTMAP rule;
 8. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
@@ -232,7 +235,8 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s, "
         f"cached={info['cached']})")
     for line in info.get("log", "").splitlines():
-        if "entry function" in line or "Used" in line or "spill" in line:
+        if ("entry function" in line or "Used" in line or "spill" in line
+                or "wgmma" in line or "warning" in line.lower()):
             say(f"[build] {line.strip()}")
 
 
@@ -377,13 +381,25 @@ def phase_kernels(torch, eng) -> dict:
         f"D={eng.disp.shape[0]} n_fold={eng.n_fold} G={eng.fspec.n_groups} "
         f"Pp={eng.fspec.group_pad}")
     err1 = check_compare(torch, "K1 fused_compare_block", k1_args, x["a_coef"], eng.n_fold)
+    # K4 at the tile every production pass runs it at (the default tile:
+    # the autotuner does not search K4's tile, whose work it does not
+    # change), held to its plain version; then two launches at that tile
+    # and one at tile 8 (the tile of earlier measurements) must give the
+    # same bits: a fixed order of adds (no atomics), the tile only a
+    # contract.
     from bioem_tpu_torch.config import RunConfig
-    from bioem_tpu_torch.runtime.autotune import k4_tiles
 
-    tiles = k4_tiles(RunConfig(), eng.p, eng.n_img, device=DEVICE)
-    require(len(tiles) == 2, f"the autotuner would try K4 at {tiles}, expected two tiles")
-    err4 = {t: check_compare(torch, f"K4 fused_compare_block_batched tile {t}", k1_args,
-                             x["a_coef"], eng.n_fold, img_tile=t) for t in tiles}
+    k4_tile = min(RunConfig().kernel_img_tile, eng.n_img)
+    err4 = check_compare(torch, f"K4 fused_compare_block_batched tile {k4_tile}", k1_args,
+                         x["a_coef"], eng.n_fold, img_tile=k4_tile)
+    runs = [cc_mod.fused_compare_block_batched(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold,
+                                               img_tile=t) for t in (k4_tile, k4_tile, 8)]
+    same = [all(torch.equal(a, b) for a, b in zip(runs[0], r)) for r in runs[1:]]
+    say(f"[kernels] K4 tile {k4_tile}: two launches bit-equal: {same[0]}; "
+        f"tile 8 bit-equal to it: {same[1]}")
+    require(same[0], f"K4 tile {k4_tile}: two launches on the same inputs differ")
+    require(same[1], f"K4: tile 8 differs from tile {k4_tile}")
+    del runs
     conv_re = (x["pr"][:, None] * bk.ctf_re[None] + x["pi"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     conv_im = (x["pi"][:, None] * bk.ctf_re[None] - x["pr"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     k3_args = (conv_re, conv_im, bk.img_re, bk.img_im, x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im)
@@ -393,25 +409,39 @@ def phase_kernels(torch, eng) -> dict:
 
     # odd shape: N=15, n_fold=1, D=5 from a numpy seed
     rng = np.random.default_rng(SEED)
-    on, cn, inn, nn, dd = 3, 2, 5, 15, 5
-    fn = nn // 2 + 1
     r = lambda *s: torch.as_tensor(rng.normal(0, 1, s).astype(np.float32), device=dev)  # noqa: E731
     from bioem_tpu_torch.core.posterior import displacement_dft_weights
 
-    wx, wy = displacement_dft_weights(nn, np.arange(-2, 3))
-    w = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
-         for a in (wx.real, wx.imag, wy.real, wy.imag)]
-    au = torch.as_tensor(np.abs(rng.normal(0, 1e-4, (on * cn, inn))).astype(np.float32), device=dev)
-    bu = torch.as_tensor(np.abs(rng.normal(0, 1e-6, (on * cn, inn))).astype(np.float32), device=dev)
-    odd = (r(on, nn, fn), r(on, nn, fn), r(cn, nn, fn), r(cn, nn, fn), r(inn, nn, fn),
-           r(inn, nn, fn), *w, au, bu)
+    def small_inputs(on, cn, inn, nn, disp):
+        """Random comparison inputs at (O, C, I, N) on the lattice ``disp``."""
+        fn = nn // 2 + 1
+        n_fold = int(np.gcd.reduce(np.append(np.abs(disp), nn)))
+        wx, wy = displacement_dft_weights(nn, np.asarray(disp))
+        w = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+             for a in (wx.real[:, :nn // n_fold], wx.imag[:, :nn // n_fold], wy.real, wy.imag)]
+        au = torch.as_tensor(np.abs(rng.normal(0, 1e-4, (on * cn, inn))).astype(np.float32),
+                             device=dev)
+        bu = torch.as_tensor(np.abs(rng.normal(0, 1e-6, (on * cn, inn))).astype(np.float32),
+                             device=dev)
+        return (r(on, nn, fn), r(on, nn, fn), r(cn, nn, fn), r(cn, nn, fn), r(inn, nn, fn),
+                r(inn, nn, fn), *w, au, bu), n_fold
+
+    odd, _ = small_inputs(3, 2, 5, 15, np.arange(-2, 3))
     check_compare(torch, "K1 odd N=15 D=5", odd, -111.0, 1)
     for t in (1, 5):
         check_compare(torch, f"K4 odd N=15 D=5 tile {t}", odd, -111.0, 1, img_tile=t)
-    check_cc(torch, "K3 odd N=15 D=5", r(6, nn, fn), r(6, nn, fn), odd[4], odd[5], *w, 1, inn)
+    # K4 where the stride folds the rows three and four times (its folds
+    # past the second take their own path)
+    for nn, s in ((48, 3), (64, 4)):
+        args, n_fold = small_inputs(2, 3, 16, nn, s * np.arange(-4, 5))
+        require(n_fold == s, f"the lattice at stride {s} folds {n_fold} times")
+        check_compare(torch, f"K4 N={nn} D=9 n_fold={s} tile 8", args, -0.5 * nn * nn, s,
+                      img_tile=8)
+    w = odd[6:10]
+    check_cc(torch, "K3 odd N=15 D=5", r(6, 15, 8), r(6, 15, 8), odd[4], odd[5], *w, 1, 5)
     gi = lambda *s: torch.as_tensor(rng.integers(-20, 40, s).astype(np.int32), device=dev)  # noqa: E731
     check_project(torch, "K2 odd N=15", gi(3, 4, 8), gi(3, 4, 8), r(3, 4, 8).abs(),
-                  r(3, nn, fn), r(3, nn, fn), nn)
+                  r(3, 15, 8), r(3, 15, 8), 15)
 
     # times at the production shapes, kernel beside plain version
     t = {}
@@ -421,16 +451,10 @@ def phase_kernels(torch, eng) -> dict:
                time_ms(lambda: cc_mod.displacement_cc_plain(*k3_args, n_fold=eng.n_fold), 3))
     t["K2"] = (time_ms(lambda: pj.fourier_project_block(*k2_args, n=n)),
                time_ms(lambda: pj.fourier_project_block_plain(*k2_args, n=n), 3))
-    for tile in tiles:
-        t[f"K4 tile {tile}"] = (time_ms(lambda tile=tile: cc_mod.fused_compare_block_batched(
-            *k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold, img_tile=tile)), t["K1"][1])
+    t["K4"] = (time_ms(lambda: cc_mod.fused_compare_block_batched(
+        *k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold, img_tile=k4_tile)), t["K1"][1])
     for k, (a, b) in t.items():
         say(f"[kernels] {k} production-shape time: kernel {a:.3f} ms, plain {b:.3f} ms")
-    # K4's row: the tile the forced-K4 production pass runs (the default
-    # tile, clamped to what fits); every tried tile is printed above.
-    k4_tile = eng._k4_tile(min(eng.cfg.kernel_img_tile, eng.n_img), eng.disp.shape[0],
-                           n // eng.n_fold, f)
-    require(k4_tile in tiles, f"the forced K4 pass runs tile {k4_tile}, not a checked one {tiles}")
 
     # Bounds from this block's shapes. K2 counts the model's points (the
     # zero-density group padding is work the data does not need).
@@ -466,7 +490,7 @@ def phase_kernels(torch, eng) -> dict:
         "K4": dict(name="fused_compare_block_batched", route="cuda",
                    source="bioem_tpu_torch/csrc/compare_batched.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:367",
-                   max_abs_err=err4[k4_tile], ms=t[f"K4 tile {k4_tile}"][0],
+                   max_abs_err=err4, ms=t["K4"][0],
                    plain_ms=t["K1"][1], tile=k4_tile, bound_ms=b4[0], bound_by=b4[1], **none),
     }
 

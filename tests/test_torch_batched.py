@@ -98,26 +98,22 @@ def test_engine_comparison_paths_match_jax(rng, fused_lse, fused_batched):
         np.testing.assert_array_equal(getattr(rt, f), getattr(rj, f), err_msg=f)
 
 
-def test_engine_k4_tile_forced_or_clamped(rng, monkeypatch):
-    """On the CPU the engine keeps K4's tile (the plain version ignores
-    it). On the card the kernel library sizes each tile (here a stand-in
-    with instances up to 16): a forced tile that does not fit raises, the
-    unforced default is clamped down to the largest tile that fits."""
+@pytest.mark.parametrize("forced", [False, True], ids=["default", "forced"])
+def test_engine_k4_keeps_its_tile(rng, forced):
+    """K4's tile is only the image padding granularity and the contract
+    I % tile = 0 (the kernel's work and shared memory do not depend on it,
+    csrc/compare_batched.cu): the engine keeps any tile as given, forced or
+    not, and pads the images to it; K1 keeps it as its padding
+    granularity."""
     p, model, images = _problem(rng, n_img=20)
-    kw = dict(use_kernels=True, fused_batched=True, kernel_img_tile=20)
+    kw = dict(use_kernels=True, fused_batched=True, kernel_img_tile=12)
+    if forced:
+        kw["forced"] = frozenset({"kernel_img_tile", "fused_batched"})
     eng = TEngine(p, t_orients(p), model, images, TConfig(**kw), device="cpu")
-    assert eng.fused_batched and eng.i_block == 20 and eng.n_img_pad == 20
-    monkeypatch.setattr(C, "batched_smem_bytes", lambda d, m, f, it: 1000 * (it <= 16))
-    dims = (eng.disp.shape[0], p.n_pixels // eng.n_fold, p.n_fft_1d)
-    assert (eng._k4_tile(20, *dims), eng._k4_tile(8, *dims)) == (16, 8)
-    forced = TEngine(p, t_orients(p), model, images,
-                     TConfig(**kw, forced=frozenset({"kernel_img_tile"})), device="cpu")
-    with pytest.raises(ValueError, match="forced"):
-        forced._k4_tile(20, *dims)
-    # K1 keeps the tile as its padding granularity only
+    assert eng.fused_batched and eng.i_block == 12 and eng.n_img_pad == 24
     eng1 = TEngine(p, t_orients(p), model, images,
                    TConfig(use_kernels=True, kernel_img_tile=20), device="cpu")
-    assert not eng1.fused_batched and eng1.i_block == 20
+    assert not eng1.fused_batched and eng1.i_block == 20 and eng1.n_img_pad == 20
 
 
 def test_engine_batched_needs_fused_normalised_images(rng):

@@ -12,11 +12,12 @@ chip_smoke.py makes the same comparisons at the production shapes.
 Tolerances: m, se rtol 1e-5 at these small shapes, the argmax exact away
 from near-ties (two best lattice values within 1e-5·|a_coef|); cc and the
 projection spectra < 5e-5 of their max magnitude. The image-batched
-kernel (K4, 3xTF32 tensor cores) is held to K1's tolerances. The probes:
-P1's FMA and 3xTF32 schemes at a median relative error below 1e-6 from
-f64 (the TPU probe's "multi-pass" line); P2's two structures within the
-f32 summation bound the probe tool states; P3's full body bit-equal to
-K1 and K4.
+kernel (K4, 3xTF32 on warpgroup wgmma) is held to K1's tolerances at
+every width it has (D ≤ 32), every fold count and several tiles, and to
+the same bits across two launches. The probes: P1's FMA and 3xTF32 schemes at a median
+relative error below 1e-6 from f64 (the TPU probe's "multi-pass" line);
+P2's two structures within the f32 summation bound the probe tool states
+(``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4.
 """
 
 import numpy as np
@@ -128,26 +129,67 @@ def test_batched_kernel_vs_plain(rng, dev, n_fold, n_disp, it):
 
 
 def test_batched_wrapper_rejects_bad_tiles(rng, dev):
-    """I % IT != 0 and a tile whose operands exceed the shared memory of a
-    block raise before any launch. The library sizes the production tiles
-    within a block's shared memory and has no instance past tile 16 or
-    past four t1 row tiles per warp."""
-    for d, m, it, fits in [(21, 112, 8, True), (21, 112, 16, True), (5, 15, 5, True),
-                           (21, 112, 17, False), (61, 112, 16, False), (61, 112, 4, True),
-                           (21, 448, 16, False)]:
-        assert C.batched_tile_fits(d, m, 113, it) == fits, (d, m, it)
-    assert C.batched_smem_bytes(21, 112, 113, 17) == 0
+    """I % IT != 0, a lattice wider than the instances (D > 32) and a shape
+    whose operands exceed the shared memory of a block raise before any
+    launch. The library has instances for D ≤ 32 (wgmma n16..n64) at any
+    tile, with W split hi/lo at 2·Dp × 2·M resident: it fits at M = 112
+    and not at M = 224 (D = 21) or 448."""
+    for d, m, fits in [(21, 112, True), (5, 15, True), (30, 112, True), (32, 112, True),
+                       (5, 224, True), (33, 112, False), (61, 112, False), (21, 224, False),
+                       (21, 448, False)]:
+        assert C.batched_fits(d, m, 113) == fits, (d, m)
+    assert C.batched_smem_bytes(33, 112, 113) == 0
     args = _cmp_inputs(rng, dev, n=32, n_fold=2, n_disp=9, i=6)
     before = C.fused_compare_block_batched.launches
     with pytest.raises(ValueError, match="not a multiple of tile 4"):
         C.fused_compare_block_batched(*args, a_coef=-1.0, n_fold=2, img_tile=4)
+    args = _cmp_inputs(rng, dev, n=80, n_fold=1, n_disp=33, o=1, c=1, i=4)
+    with pytest.raises(ValueError, match="no kernel instance for D=33"):
+        C.fused_compare_block_batched(*args, a_coef=-1.0, n_fold=1, img_tile=4)
     args = _cmp_inputs(rng, dev, n=448, n_fold=1, n_disp=21, o=1, c=1, i=16)
     with pytest.raises(ValueError, match="shared memory"):
         C.fused_compare_block_batched(*args, a_coef=-1.0, n_fold=1, img_tile=16)
     assert C.fused_compare_block_batched.launches == before
 
 
-def _engine_problem(rng, n_img=5):
+# K4's widths (2·Dp = 16, 32, 48, 64) at folds 1 and 2, with an odd N, and
+# lattice strides 3 and 4 (the folds past the second are formed outside
+# the conv buffer the warpgroup shares): every tile below divides the 80
+# images.
+K4_SHAPES = [(5, 1, 15), (5, 2, 32), (9, 1, 32), (9, 2, 32), (21, 1, 48), (21, 2, 48),
+             (30, 1, 64), (30, 2, 64), (9, 3, 48), (9, 4, 64)]
+
+
+@pytest.mark.parametrize("it", [1, 5, 8, 16])
+@pytest.mark.parametrize("n_disp,n_fold,n", K4_SHAPES)
+def test_batched_kernel_widths_and_tiles(rng, dev, n_disp, n_fold, n, it):
+    """K4 against its plain version at every wgmma width it has, fold
+    counts 1 to 4 and the tiles 1, 5, 8 and 16 (ragged frequency tiles:
+    F = 8, 17, 25, 33)."""
+    args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=2, c=3, i=80)
+    a_coef = -0.5 * n * n
+    km, ks, kd, kc = C.fused_compare_block_batched(*args, a_coef=a_coef, n_fold=n_fold,
+                                                   img_tile=it)
+    pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=0)
+    ok = kd == pd
+    assert float(ok.float().mean()) >= 0.9
+    torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("it", [8, 16])
+def test_batched_kernel_is_deterministic(rng, dev, it):
+    """Two K4 launches on the same inputs give the same bits (no atomics)."""
+    args = _cmp_inputs(rng, dev, n=64, n_fold=2, n_disp=21, o=3, c=4, i=32)
+    runs = [C.fused_compare_block_batched(*args, a_coef=-2047.5, n_fold=2, img_tile=it)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def _engine_problem(rng, n_img=5, n_pix=16, max_disp=4, stride=2):
     """A small problem with a stride-folded lattice and per-angle slabs."""
     from bioem_tpu_torch.core.orientations import build_orientations
     from bioem_tpu_torch.io.map_io import ImageStack, _normalize_stack
@@ -155,16 +197,17 @@ def _engine_problem(rng, n_img=5):
     from bioem_tpu_torch.params import BioEMParams
 
     p = BioEMParams(
-        pixel_size=1.5, n_pixels=16, n_amp=1, start_amp=0.1, end_amp=0.1,
+        pixel_size=1.5, n_pixels=n_pix, n_amp=1, start_amp=0.1, end_amp=0.1,
         n_phase=2, start_defocus=0.5, end_defocus=1.5, n_env=2,
-        start_bfactor=1.0, end_bfactor=100.0, max_displace_center=4,
-        grid_space_center=2, grid_points_alpha=2, grid_points_beta=2,
+        start_bfactor=1.0, end_bfactor=100.0, max_displace_center=max_disp,
+        grid_space_center=stride, grid_points_alpha=2, grid_points_beta=2,
         write_angles=3,
     ).finalize_ctf_mode()
     dens = rng.uniform(40.0, 100.0, 12).astype(np.float32)
     model = Model(rng.uniform(-6, 6, (12, 3)).astype(np.float32),
                   rng.uniform(1.0, 3.2, 12).astype(np.float32), dens, float(dens.sum()))
-    images = ImageStack(_normalize_stack(rng.normal(0, 1, (n_img, 16, 16)).astype(np.float32)))
+    images = ImageStack(_normalize_stack(
+        rng.normal(0, 1, (n_img, n_pix, n_pix)).astype(np.float32)))
     return p, build_orientations(p), model, images
 
 
@@ -191,18 +234,31 @@ def test_engine_kernel_branch_vs_plain_branch(rng, dev):
 
 
 def test_engine_k4_tile_on_the_card(rng, dev):
-    """On the card the kernel library sizes K4's tile: a forced tile it has
-    no instance for raises at construction, the unforced default is clamped
-    down to the largest tile that fits (16 here)."""
+    """On the card the engine keeps K4's tile as given (20 here, forced or
+    not: the kernel's work does not depend on it) and runs K4; on a lattice
+    K4 has no instance for (D = 35 > 32) it runs K1, even with K4 forced,
+    and agrees with the plain branch."""
     from bioem_tpu_torch.config import RunConfig
     from bioem_tpu_torch.core.engine import BioEMEngine
 
     problem = _engine_problem(rng, n_img=20)
     kw = dict(use_kernels=True, fused_batched=True, kernel_img_tile=20)
-    with pytest.raises(ValueError, match="forced"):
-        BioEMEngine(*problem, RunConfig(**kw, forced=frozenset({"kernel_img_tile"})), device=dev)
-    eng = BioEMEngine(*problem, RunConfig(**kw), device=dev)
-    assert eng.fused_batched and eng.i_block == 16 and eng.n_img_pad == 32
+    for forced in (frozenset(), frozenset({"kernel_img_tile", "fused_batched"})):
+        eng = BioEMEngine(*problem, RunConfig(**kw, forced=forced), device=dev)
+        assert eng.fused_batched and eng.i_block == 20 and eng.n_img_pad == 20
+    wide = _engine_problem(rng, n_img=4, n_pix=48, max_disp=17, stride=1)
+    res = {}
+    for name, cfg in (("plain", RunConfig(use_kernels=False)),
+                      ("k4", RunConfig(**kw, forced=frozenset({"fused_batched"})))):
+        eng = BioEMEngine(*wide, cfg, device=dev)
+        before = (C.fused_compare_block.launches, C.fused_compare_block_batched.launches)
+        res[name] = eng.results(eng.run())
+    assert eng.disp.shape[0] == 35 and not eng.fused_batched
+    assert C.fused_compare_block.launches > before[0]
+    assert C.fused_compare_block_batched.launches == before[1]
+    np.testing.assert_allclose(res["k4"].log_prob, res["plain"].log_prob, rtol=0, atol=1e-4)
+    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+        np.testing.assert_array_equal(getattr(res["k4"], f), getattr(res["plain"], f))
 
 
 @pytest.mark.parametrize("scheme", ["fma", "3xtf32", "f64tc"])
@@ -245,6 +301,8 @@ def test_probe_f32_product_at_k4_stage1(rng, dev, scheme):
 def test_probe_product_sum_structures(rng, dev, structure):
     """P2 against its plain version within the probe tool's bound
     2·updates·2⁻²³·max|out| (a small image count here)."""
+    from bioem_tpu_torch.tools.kernel_probe import p2_updates
+
     n_img, reps = 9, 2
     a = torch.as_tensor(rng.normal(0, 1, (96, 112)).astype(np.float32)).to(dev, torch.bfloat16)
     b = torch.as_tensor(rng.normal(0, 1, (n_img, 112, 128)).astype(np.float32)).to(
@@ -252,8 +310,28 @@ def test_probe_product_sum_structures(rng, dev, structure):
     got = PR.product_sum(a, b, reps=reps, structure=structure)
     want = PR.product_sum_plain(a, b, reps)
     torch.cuda.synchronize()
-    updates = n_img * reps * 7 if structure == "loop" else reps * 7 + n_img
+    updates = p2_updates(structure, n_img, reps, 112)
     assert float((got - want).abs().max()) <= 2 * updates * 2.0 ** -23 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n_img", [64, 201])
+@pytest.mark.parametrize("structure", ["loop", "batched"])
+def test_probe_product_sum_image_counts(rng, dev, structure, n_img):
+    """P2 at the probe's image count and at one whose loop slices are
+    ragged (804 products in slices of 7), within the probe tool's bound."""
+    from bioem_tpu_torch.tools.kernel_probe import p2_updates
+
+    reps = 4
+    a = torch.as_tensor(rng.normal(0, 1, (96, 112)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.as_tensor(rng.normal(0, 1, (n_img, 112, 128)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    before = PR.product_sum.launches
+    got = PR.product_sum(a, b, reps=reps, structure=structure)
+    want = PR.product_sum_plain(a, b, reps)
+    torch.cuda.synchronize()
+    assert PR.product_sum.launches == before + 1
+    tol = 2 * p2_updates(structure, n_img, reps, 112) * 2.0 ** -23 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
 
 
 def test_probe_body_ablation_full_is_production(rng, dev):

@@ -81,6 +81,71 @@ def test_product_sum_rejects_unknown_structure():
         P.product_sum(a, b, reps=1, structure="tiled")
 
 
+@pytest.mark.parametrize("n_img,reps", [(64, 4), (9, 2), (201, 4), (1, 1), (40, 3)])
+def test_product_sum_split_covers_every_product(n_img, reps):
+    """P2's split (csrc/probe.cu): the loop cuts the n_img·reps products
+    into at most 128 contiguous slices of equal length, the last possibly
+    shorter and none empty; the batched structure gives each image its
+    reps products."""
+    total = n_img * reps
+    per, n_cta = P.product_sum_split("loop", n_img, reps)
+    assert n_cta <= P.P2_MAX_SLICES and per * (n_cta - 1) < total <= per * n_cta
+    assert P.product_sum_split("batched", n_img, reps) == (reps, n_img)
+
+
+def test_p2_updates_at_the_probe_shape():
+    """The rounded updates behind one output at the probe's shape (K=112,
+    64 images, 4 reps): the loop chains 2 products' 7 wgmma steps, then
+    adds 128 partials; the batched structure chains 4 products, then adds
+    64 column blocks."""
+    assert kernel_probe.p2_updates("loop", 64, 4, 112) == 2 * 7 + 128
+    assert kernel_probe.p2_updates("batched", 64, 4, 112) == 4 * 7 + 64
+
+
+@pytest.mark.parametrize("n_img,reps", [(64, 4), (201, 4), (9, 2)])
+def test_product_sum_loop_is_rep_major(n_img, reps):
+    """The loop takes the products in the TPU kernel's order
+    (tools/kernel_probe.py:_loop_mm_kernel: reps outer, images inner), so
+    a CTA's slice chains products of different images (two at the probe's
+    shape), each image comes back once per rep, and every (image, rep)
+    product is issued once; the batched structure's CTA b issues image b's
+    reps."""
+    total = n_img * reps
+    order = [P.product_image("loop", q, n_img, reps) for q in range(total)]
+    assert order == [i for _ in range(reps) for i in range(n_img)]
+    per, n_cta = P.product_sum_split("loop", n_img, reps)
+    for blk in range(n_cta):
+        imgs = order[blk * per:(blk + 1) * per]
+        assert len(set(imgs)) == len(imgs) == min(per, total - blk * per)
+    bper, _ = P.product_sum_split("batched", n_img, reps)
+    assert [P.product_image("batched", q, n_img, reps) for q in range(total)] == [
+        q // bper for q in range(total)]
+
+
+@pytest.mark.parametrize("structure", P.STRUCTURES)
+def test_product_sum_split_order_within_bound(structure):
+    """The kernel's summation order, replayed in f32 on the CPU (each CTA's
+    products added in turn, the loop's in rep-major order, then the CTAs'
+    partials in order), stays within the probe tool's bound
+    2·updates·2⁻²³·max|out| of the plain version."""
+    n_img, reps = 24, 3
+    a, b = _p2_inputs(n_img=n_img)
+    per, n_cta = P.product_sum_split(structure, n_img, reps)
+    prods = (a.float() @ b.float()).numpy()  # exact: bf16 products in f32
+    parts = []
+    for blk in range(n_cta):
+        acc = np.zeros((96, 128), np.float32)
+        for q in range(blk * per, min((blk + 1) * per, n_img * reps)):
+            acc = (acc + prods[P.product_image(structure, q, n_img, reps)]).astype(np.float32)
+        parts.append(acc)
+    got = np.zeros((96, 128), np.float32)
+    for part in parts:
+        got = (got + part).astype(np.float32)
+    want = P.product_sum_plain(a, b, reps).numpy()
+    tol = 2 * kernel_probe.p2_updates(structure, n_img, reps, 112) * 2.0 ** -23 * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol
+
+
 def _small_compare_args(rng, n=48, n_fold=2, o=2, c=2, i=8):
     """K1/K4 inputs at D = 21 (the variants' tiling), a small N."""
     from bioem_tpu_torch.core.posterior import displacement_dft_weights
@@ -140,3 +205,15 @@ def test_probe_tool_refuses_without_card(monkeypatch, probe):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(kernel_probe, probe)()
+
+
+def test_kernel_ab_refuses_without_card(monkeypatch, tmp_path):
+    """The A/B tool times the card: no CPU mode; a root without the port
+    is refused before anything is built."""
+    from bioem_tpu_torch.tools import kernel_ab
+
+    with pytest.raises(FileNotFoundError, match="_build.py"):
+        kernel_ab.other_library(str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_ab.main([str(tmp_path)])

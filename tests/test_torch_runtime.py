@@ -302,45 +302,41 @@ def test_autotune_debug_caps_shape_key(rng, tmp_path, monkeypatch):
 
 
 def test_default_candidates_cross_on_the_kernel_branch(monkeypatch):
-    """The CUDA cross: orient_block ∈ {cfg, 16} × {hybrid, K1, K4 at the two
-    largest tiles of {1, 2, 4, 8, 16} that divide the padded image count
-    and fit K4's shared memory}. The kernel library sizes each tile on the
-    card; here a stand-in fits every tile at D=21 and only tiles ≤ 4 at
-    D=61 (whose t1 needs eight row tiles per warp at tiles 8 and 16)."""
+    """The CUDA cross: orient_block ∈ {cfg, 16} × {hybrid, K1, K4}, all at
+    cfg.kernel_img_tile (K4's work does not depend on its tile). K4 is a
+    candidate only where the kernel library has an instance for the
+    lattice and its shared memory fits (asked once per call, at D, M =
+    N/n_fold, F); here a stand-in has instances up to D = 32 (the
+    library's rule). On the CPU K4 runs its plain version: always a
+    candidate, the library never asked."""
     from bioem_tpu_torch.ops import compare_cuda
 
     asked = []
 
-    def smem(d, m, f, it):
-        asked.append((d, m, f, it))
-        return 1000 * (d <= 21 or it <= 4)
+    def smem(d, m, f):
+        asked.append((d, m, f))
+        return 1000 * (d <= 32)
 
     monkeypatch.setattr(compare_cuda, "batched_smem_bytes", smem)
     p = tiny_params(n_pixels=224, max_displace_center=20, grid_space_center=2)  # D=21
     cfg = RunConfig(orient_block=8, use_kernels=True)
-    cands = default_candidates(cfg, p=p, n_img=64, device="cuda")
+    cands = default_candidates(cfg, p=p, device="cuda")
     combos = [(c.orient_block, c.fused_lse, c.fused_batched, c.kernel_img_tile) for c in cands]
-    assert combos == [(o, lse, fb, t) for o in (8, 16)
-                      for lse, fb, t in ((False, False, 32), (True, False, 32),
-                                         (True, True, 8), (True, True, 16))]
+    assert combos == [(o, lse, fb, 32) for o in (8, 16)
+                      for lse, fb in ((False, False), (True, False), (True, True))]
     assert all(c.use_kernels and c.autotune is False for c in cands)
-    assert asked[0] == (21, 112, 113, 1)  # D, M = N/n_fold, F, tile
-    # 24 images pad to 24 at the default tile: 16 does not divide it
-    assert {c.kernel_img_tile for c in default_candidates(cfg, p=p, n_img=24, device="cuda")
-            if c.fused_batched} == {4, 8}
+    assert asked == [(21, 112, 113)]
     p61 = tiny_params(n_pixels=224, max_displace_center=60, grid_space_center=2)  # D=61
-    assert {c.kernel_img_tile for c in default_candidates(cfg, p=p61, n_img=64, device="cuda")
-            if c.fused_batched} == {2, 4}
-    # on the CPU K4 runs its plain version: no tile is dropped for its size
+    assert not any(c.fused_batched for c in default_candidates(cfg, p=p61, device="cuda"))
+    assert asked[-1] == (61, 112, 113)
     n_asked = len(asked)
-    assert {c.kernel_img_tile for c in default_candidates(cfg, p=p61, n_img=64, device="cpu")
-            if c.fused_batched} == {8, 16}
+    assert sum(c.fused_batched for c in default_candidates(cfg, p=p61, device="cpu")) == 2
     assert len(asked) == n_asked
-    # forced knobs keep their value
-    forced = RunConfig(orient_block=8, use_kernels=True, fused_lse=True,
-                       forced=frozenset({"orient_block", "fused_lse"}))
-    assert {(c.orient_block, c.fused_lse)
-            for c in default_candidates(forced, p=p, n_img=64, device="cuda")} == {(8, True)}
+    # forced knobs keep their value, the tile included
+    forced = RunConfig(orient_block=8, use_kernels=True, fused_lse=True, kernel_img_tile=4,
+                       forced=frozenset({"orient_block", "fused_lse", "kernel_img_tile"}))
+    assert {(c.orient_block, c.fused_lse, c.kernel_img_tile)
+            for c in default_candidates(forced, p=p, device="cuda")} == {(8, True, 4)}
 
 
 def test_autotune_span_is_fixed_in_comparisons(rng, tmp_path, monkeypatch):
@@ -366,7 +362,7 @@ def test_autotune_span_is_fixed_in_comparisons(rng, tmp_path, monkeypatch):
 
 def test_default_candidates_plain_branch():
     p = tiny_params()
-    cands = default_candidates(RunConfig(), p=p, n_img=4, device="cpu")
+    cands = default_candidates(RunConfig(), p=p, device="cpu")
     assert [(c.orient_block, c.use_kernels) for c in cands] == [(4, False), (8, False), (16, False)]
 
 
