@@ -180,6 +180,8 @@ class FourierProjectionSpec:
     shift_y: int
     n_groups: int  # radius groups G
     group_pad: int  # points per group after padding (Pp)
+    # model points in each group: its first slots, the padding after them
+    group_counts: tuple[int, ...]
 
 
 MAX_RADIUS_GROUPS = 32
@@ -244,6 +246,7 @@ def make_fourier_projection_spec(p, radii: np.ndarray):
         shift_y=p.shift_y,
         n_groups=g_out,
         group_pad=pp,
+        group_counts=tuple(len(m) for m in groups),
     )
     return spec, gather_idx, pad_mask, np.stack(dfts), sums
 
@@ -342,12 +345,14 @@ def project_fourier_batch_kernel(
     """Same contract as project_fourier_batch through the projection
     kernel (ops/project_cuda.py, the counterpart of the JAX package's
     project_fourier_batch_pallas): integer pixel positions go to the kernel,
-    which reads an exact N-entry twiddle table; the caller-side scale
+    which reads an exact N-entry twiddle table and, of each group, only the
+    spec's ``group_counts`` slots (not its padding); the caller-side scale
     norm_den/tempden is applied here."""
-    from ..ops.project_cuda import fourier_project_block
+    from ..ops.project_cuda import counts_tensor, fourier_project_block
 
     i0, j0, de = grouped_snap(fspec, rotmats, points, radii, densities)  # (G, O, Pp)
-    pr, pi = fourier_project_block(i0, j0, de, st_re, st_im, n=fspec.n_pixels)
+    counts = counts_tensor(fspec.group_counts, de.device)
+    pr, pi = fourier_project_block(i0, j0, de, st_re, st_im, n=fspec.n_pixels, counts=counts)
     tempden = torch.matmul(de.sum(dim=2).T, st_sums.to(F32))  # (O,)
     scale = (norm_den / tempden)[:, None, None]
     return pr * scale, pi * scale

@@ -1,5 +1,5 @@
 // Displacement log-sum-exp device code shared by the comparison kernels:
-// compare.cu (K1 and its cc-out mode K3) and compare_batched.cu (K4).
+// compare_fused.cu (K1) and compare_batched.cu (K4).
 //
 //   v   = a_coef · log1p(a_u·cc − b_u·cc²)
 //   out = (max v, Σ exp(v − max), first-occurrence flat argmax, cc there)
@@ -20,7 +20,7 @@ namespace bioem_lse {
 
 // kNoLse: the cc lattice without the log-sum-exp; kMmOnly: stage 1 alone,
 // fed from operands formed once (no conv product, fold or TF32 split);
-// kNoGemm (K4 only): everything but the tensor-core GEMM.
+// kNoGemm: everything but the tensor-core GEMM.
 enum Body : int { kFull = 0, kNoLse = 1, kMmOnly = 2, kNoGemm = 3 };
 
 // (v, q) ranks above (best, bidx): the larger value wins, NaN counts as

@@ -1,7 +1,8 @@
 // Hopper warpgroup matrix multiply (wgmma) for the port's kernels: the
 // shared-memory matrix descriptor, the warpgroup fences, and the
 // instruction wrappers the kernels use, m64nNk8 TF32 with A from
-// registers (the image-batched comparison K4, compare_batched.cu) and
+// registers (the comparisons K1, compare_fused.cu, and K4,
+// compare_batched.cu) and
 // m64nNk16 BF16 with both operands from shared memory (the product-issue
 // probe P2, probe.cu). sm_90a only.
 //

@@ -3,12 +3,16 @@
 Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 ``fused_compare_block``), ``_fused_block_kernel_batched`` (entry
 ``fused_compare_block_batched``) and ``_fused_cc_kernel`` (entry
-``fused_displacement_cc``). K1 and K3 are one CUDA kernel,
-``csrc/compare.cu``, the cc-lattice entry being its cc-out mode; K4 is
+``fused_displacement_cc``). K1 is ``csrc/compare_fused.cu``: a CTA per
+(orientation·ctf, run of images), conv formed once per orientation·ctf,
+stage 1 on warpgroup wgmma in 3xTF32 with W streamed through shared
+memory (any lattice width and fold; :func:`k1_plan` tiles it). K3 is
+``csrc/compare.cu``, the first K1's FP32 FMA body in its cc-out mode. K4 is
 ``csrc/compare_batched.cu``, whose persistent blocks walk groups of four
-images and run stage 1 on warpgroup wgmma in 3xTF32 (see each source's header for
-what bounds it on the card and how the design answers that). K1 and K4
-share one contract, so their plain version is one function.
+images and run stage 1 on warpgroup wgmma in 3xTF32 with W resident (see
+each source's header for what bounds it on the card and how the design
+answers that). K1 and K4 share one contract, so their plain version is
+one function.
 
     conv[o,c]       = proj[o] ⊙ conj(ctf[c])
     cc[o,c,i,d,e]   = Re( wx[d] @ fold(conv[o,c] ⊙ img_fc[i]) @ wy[e]ᵀ )
@@ -78,6 +82,41 @@ def fused_compare_block_plain(proj_re, proj_im, ctf_re, ctf_im, img_re, img_im,
     se = torch.sum(torch.exp(v - m[..., None]), dim=-1)
     ccs = torch.gather(cc, -1, ds[..., None])[..., 0]
     return m, se, ds.to(torch.int32), ccs
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _a128(x: int) -> int:
+    return _cdiv(x, 128) * 128
+
+
+def k1_smem_bytes(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> int:
+    """Dynamic shared memory of K1 with ``n_wg`` warpgroups and K chunks of
+    ``kc`` steps (csrc/compare_fused.cu ``plan``; the C entry
+    ``bioem_fused_compare_smem_bytes`` gives the same number): W's hi/lo
+    block and the chunk's conv rows, double-buffered; the t1 tiles; wy; the
+    lattices."""
+    dp = _cdiv(d, 8) * 8
+    n_nc = _cdiv(dp, 32)
+    n_p = 2 * _cdiv(_cdiv(dp, n_nc), 8) * 8
+    w_chunk = 2 * n_p * 32 * kc
+    cv_chunk = 8 * kc * n_fold * 4 * 68
+    return (2 * w_chunk + 2 * _a128(cv_chunk) + _a128(4 * n_wg * 64 * (n_p + 4))
+            + _a128(8 * d * f) + _a128(4 * n_wg * d * d))
+
+
+def k1_plan(d: int, m: int, f: int, n_fold: int):
+    """K1's tiling at (D, M, F, n_fold): (warpgroups, K-chunk steps, shared
+    bytes), four warpgroups before two and the longest K chunk first that
+    fits one block; None if none does."""
+    for n_wg in (4, 2):
+        for kc in (8, 4, 2, 1):
+            b = k1_smem_bytes(d, m, f, n_fold, n_wg, kc)
+            if b <= MAX_SMEM:
+                return n_wg, kc, b
+    return None
 
 
 def _check(fn: str, device, specs) -> None:
@@ -153,20 +192,40 @@ def fused_compare_block(
         return fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     if dev.type != "cuda":
         raise ValueError(f"fused_compare_block: unsupported device {dev}")
-    o_n, c_n, i_n, n, f, d, m = _compare_dims("fused_compare_block", args)
+    outs = launch_k1("fused_compare_block", args, a_coef, n_fold)
+    fused_compare_block.launches += 1
+    return outs
+
+
+def launch_k1(fn: str, args, a_coef: float, n_fold: int, variant: int | None = None,
+              outs=None):
+    """Check the twelve inputs on their CUDA device, tile the problem
+    (:func:`k1_plan`), allocate the scratch and launch K1 (or, with
+    ``variant``, its P3 body of that index); returns the four outputs."""
+    dev = args[0].device
+    o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
+    plan = k1_plan(d, m, f, n_fold)
+    if plan is None:
+        raise ValueError(f"{fn}: D={d}, M={m}, F={f}, n_fold={n_fold}: no K1 tiling fits "
+                         f"{MAX_SMEM} bytes of shared memory")
+    n_wg, kc, smem = plan
+    _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
+    if outs is None:
+        outs = _summary_outputs(o_n * c_n, i_n, dev)
     lib = _build.load()
-    _check_launch("fused_compare_block", lib.bioem_compare_smem_bytes(d, m, f),
-                  d, m, n, n_fold, o_n * c_n)
-    outs = _summary_outputs(o_n * c_n, i_n, dev)
+    # the conv bank (OC, N, 64·⌈F/64⌉ complex) and W's hi/lo blocks
+    scratch = torch.empty(lib.bioem_fused_compare_scratch_bytes(o_n * c_n, n, d, m, f, n_fold,
+                                                                n_wg, kc),
+                          dtype=torch.uint8, device=dev)
+    head = (*(t.data_ptr() for t in args), float(a_coef), o_n, c_n, i_n, n, f, d, m, n_fold,
+            n_wg, kc, *(t.data_ptr() for t in outs), scratch.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.bioem_fused_compare(
-            *(t.data_ptr() for t in args), float(a_coef),
-            o_n, c_n, i_n, n, f, d, m, n_fold,
-            *(t.data_ptr() for t in outs), stream,
-        )
-    _build.check(status, "fused_compare_block")
-    fused_compare_block.launches += 1
+        if variant is None:
+            status = lib.bioem_fused_compare(*head, stream)
+        else:
+            status = lib.bioem_probe_compare(variant, *head, stream)
+    _build.check(status, fn)
     return outs
 
 

@@ -4,7 +4,7 @@ Replaces the TPU micro-probes of ``tools/kernel_probe.py`` (P1
 ``_f32_dot_kernel``, P2 ``_loop_mm_kernel``/``_batched_mm_kernel``, P3
 ``probe_body_ablation``'s ``body(variant).kern``); each answers the TPU
 probe's question asked of the card (see ``csrc/probe.cu`` for P1 and P2,
-and the body variants of ``csrc/compare.cu`` and ``csrc/compare_batched.cu``
+and the body variants of ``csrc/compare_fused.cu`` and ``csrc/compare_batched.cu``
 for P3):
 
 * P1 :func:`f32_product` — one f32 product in a named scheme (FP32 FMA,
@@ -35,6 +35,7 @@ from .compare_cuda import (
     _summary_outputs,
     batched_smem_bytes,
     fused_compare_block_plain,
+    launch_k1,
 )
 
 F32 = torch.float32
@@ -169,14 +170,14 @@ product_sum.launches = 0
 def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
                   variant: str = "full", img_tile: int = 8):
     """P3: the comparison body of K1 (``body="k1"``) or K4 (``"k4"``, at
-    ``img_tile``) in ``variant`` (one of :data:`VARIANTS`; ``no_gemm`` is
-    K4's only) on the twelve inputs of ``compare_cuda.fused_compare_block``.
-    Returns (m, se, ds, ccs) as the production kernel does for ``full``;
-    for the ablated variants ``m`` holds a checksum and the rest is zero.
-    The variants exist at the production tiling only: D = 17..24 for K1,
-    and for K4 2·Dp = 48 (D = 17..24), wgmma's n48, at any tile."""
-    if body not in ("k1", "k4") or variant not in VARIANTS or (
-            body == "k1" and variant == "no_gemm"):
+    ``img_tile``) in ``variant`` (one of :data:`VARIANTS`) on the twelve
+    inputs of ``compare_cuda.fused_compare_block``. Returns (m, se, ds,
+    ccs) as the production kernel does for ``full``; for the ablated
+    variants ``m`` holds a checksum and the rest is zero (``no_gemm``
+    writes every output, its cc being 0). The variants exist at the
+    production tiling only, 2·Dp = 48 (D = 17..24), wgmma's n48: for K1
+    with four warpgroups (``compare_cuda.k1_plan``), for K4 at any tile."""
+    if body not in ("k1", "k4") or variant not in VARIANTS:
         raise ValueError(f"body_ablation: no variant {variant!r} of {body!r}")
     dev = args[0].device
     if dev.type == "cpu":
@@ -188,29 +189,23 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
         raise ValueError(f"body_ablation: unsupported device {dev}")
     fn = "body_ablation"
     o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
-    lib = _build.load()
-    if body == "k1":
-        smem = lib.bioem_compare_smem_bytes(d, m, f)
-    else:
-        if img_tile < 1 or i_n % img_tile:
-            raise ValueError(f"{fn}: image count {i_n} not a multiple of tile {img_tile}")
-        smem = batched_smem_bytes(d, m, f)
-    _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
     outs = _summary_outputs(o_n * c_n, i_n, dev)
     if variant != "full":
         for t in outs:  # an ablated body writes only m
             t.zero_()
-    ptrs = [t.data_ptr() for t in args]
-    with torch.cuda.device(dev):
-        if body == "k1":
-            status = lib.bioem_probe_compare(
-                VARIANTS.index(variant), *ptrs, float(a_coef), o_n, c_n, i_n, n, f, d, m,
-                n_fold, *(t.data_ptr() for t in outs), _stream(dev))
-        else:
-            status = lib.bioem_probe_compare_batched(
-                VARIANTS.index(variant), *ptrs, float(a_coef), o_n, c_n, i_n, n, f, d, m,
-                n_fold, img_tile, *(t.data_ptr() for t in outs), _stream(dev))
-    _build.check(status, f"{fn} ({body}, {variant})")
+    if body == "k1":
+        launch_k1(f"{fn} ({body}, {variant})", args, a_coef, n_fold,
+                  variant=VARIANTS.index(variant), outs=outs)
+    else:
+        if img_tile < 1 or i_n % img_tile:
+            raise ValueError(f"{fn}: image count {i_n} not a multiple of tile {img_tile}")
+        _check_launch(fn, batched_smem_bytes(d, m, f), d, m, n, n_fold, o_n * c_n)
+        with torch.cuda.device(dev):
+            status = _build.load().bioem_probe_compare_batched(
+                VARIANTS.index(variant), *(t.data_ptr() for t in args), float(a_coef), o_n,
+                c_n, i_n, n, f, d, m, n_fold, img_tile, *(t.data_ptr() for t in outs),
+                _stream(dev))
+        _build.check(status, f"{fn} ({body}, {variant})")
     body_ablation.launches += 1
     return outs
 

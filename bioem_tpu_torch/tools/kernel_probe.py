@@ -5,7 +5,7 @@ through the port's own kernels (``ops/probe_cuda.py``):
 
 P1  Which f32-product scheme holds the accuracy contract, and at what cost?
     The (96,112)·(112,113) product of the TPU probe's inputs in FP32 FMA
-    (K1's stage 1), 3xTF32 (K4's stage 1), 1xTF32 and FP64 tensor cores:
+    (K3's stage 1), 3xTF32 (K1's and K4's stage 1), 1xTF32 and FP64 tensor cores:
     median and max relative error against an f64 NumPy product; then, at
     that shape and at K4's stage-1 shape over a production block (512 tile
     products of (48×224)·(224×1024)), each scheme's output against the
@@ -19,8 +19,12 @@ P2  What does a looped small product cost against one wide product? Σ of
     structure); beside one cuBLAS GEMM that does all 256 products.
 P3  Where does the production body spend its time? K1 and K4 (tile 8) at
     the production block (O=8, C=8, I=64, N=224, F=113, D=21, n_fold=2)
-    with pieces removed: ``full``, ``no_lse``, ``mm_only`` and K4's
-    ``no_gemm``; ``full`` must equal the production kernel bit for bit.
+    with pieces removed: ``full``, ``no_lse``, ``mm_only`` and ``no_gemm``;
+    ``full`` must equal the production kernel bit for bit.
+
+Besides, K2's card time at the production projection block against the
+number of point slots it reads: none, the model's points, every slot
+(``probe_projection_points``): its fixed cost and its cost per point.
 
 Usage, on a machine with a CUDA card (there is no CPU mode: a probe's
 answer is a measurement of the card):
@@ -231,6 +235,65 @@ def production_block_inputs(dev, seed: int = 2):
     return args, (3.0 - n * n) * 0.5, n_fold
 
 
+PROJ_GROUP_POINTS = (80, 80, 60, 50, 40, 35, 30, 30, 25, 20, 20, 15, 10, 5)
+
+
+def production_projection_inputs(dev, seed: int = 3):
+    """Random inputs of one production projection block (O=8, N=224, a
+    500-point model in G=14 radius groups padded to Pp=80, as the
+    production problem's): i0, j0 (pixel positions within ±112, some
+    outside the grid), densities (zero on each group's padding and on ~5 %
+    of the points, as the bounds mask leaves them), the stencil bank and
+    the per-group point counts; the arguments of fourier_project_block."""
+    o, n, pp = 8, 224, 80
+    f, g = n // 2 + 1, len(PROJ_GROUP_POINTS)
+    rng = np.random.default_rng(seed)
+    counts = np.array(PROJ_GROUP_POINTS, np.int32)
+    live = np.arange(pp)[None, None, :] < counts[:, None, None]
+    dens = rng.uniform(0.5, 2.0, (g, o, pp)) * live * (rng.uniform(size=(g, o, pp)) > 0.05)
+    ij = lambda: rng.integers(-n // 2 - 8, n // 2 + 8, (g, o, pp)).astype(np.int32)  # noqa: E731
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    st = rng.normal(0, 1, (2, g, n, f)).astype(np.float32)
+    return (t(ij()), t(ij()), t(dens.astype(np.float32)), t(st[0]), t(st[1]), t(counts))
+
+
+def probe_projection_points(say=print) -> dict:
+    """K2's time against the point slots it reads, at the production
+    projection block: none (what it pays whatever the model: the twiddle
+    table, the partial spectra, the output), the model's 500 points (the
+    production counts) and every slot, padding included (1120). Returns
+    {"ms": {label: ms}, "points": {label: slots read}, "max_rel_diff": max
+    |Δ| between the model's and every slot's spectra over max|spectrum|
+    (the padding holds zero density, so only the order of the adds
+    differs)}."""
+    from ..ops import project_cuda
+
+    dev = _require_card()
+    i0, j0, dens, st_re, st_im, counts = production_projection_inputs(dev)
+    n, pp = st_re.shape[1], i0.shape[2]
+    runs = {"none": torch.zeros_like(counts), "model": counts,
+            "every slot": torch.full_like(counts, pp)}
+    out = {"ms": {}, "points": {}}
+    spectra = {}
+    for label, c in runs.items():
+        def call(c=c):
+            return project_cuda.fourier_project_block(i0, j0, dens, st_re, st_im, n=n, counts=c)
+
+        spectra[label] = call()
+        out["ms"][label] = device_ms(call)
+        out["points"][label] = int(c.sum())
+    scale = max(float(x.abs().max()) for x in spectra["model"])
+    out["max_rel_diff"] = max(float((x - y).abs().max())
+                              for x, y in zip(spectra["model"], spectra["every slot"])) / scale
+    slope = ((out["ms"]["every slot"] - out["ms"]["model"])
+             / (out["points"]["every slot"] - out["points"]["model"]))
+    say("K2 against the point slots it reads (production projection block, card time): "
+        + ", ".join(f"{k} ({out['points'][k]}) {t:.4f} ms" for k, t in out["ms"].items())
+        + f"; {slope * 1e6:.1f} ns per slot; model vs every slot max |Δ| "
+          f"{out['max_rel_diff']:.2e} of max|spectrum|")
+    return out
+
+
 def probe_body_ablation(say=print, img_tile: int = 8) -> dict:
     """P3. Returns {"ms": {(body, variant): ms}, "bit_equal": {body: bool},
     "comparisons": n, "dims": the block's (O, C, I, N, F, D, M, n_fold),
@@ -251,9 +314,6 @@ def probe_body_ablation(say=print, img_tile: int = 8) -> dict:
                *args, a_coef=a_coef, n_fold=n_fold), 3)}
     for body in ("k1", "k4"):
         for variant in probe_cuda.VARIANTS:
-            if body == "k1" and variant == "no_gemm":
-                continue
-
             def run(body=body, variant=variant):
                 return probe_cuda.body_ablation(*args, a_coef=a_coef, n_fold=n_fold, body=body,
                                                 variant=variant, img_tile=img_tile)
@@ -279,6 +339,7 @@ def main(argv=None) -> int:
     probe_f32_accuracy()
     probe_issue_overhead()
     probe_body_ablation()
+    probe_projection_points()
     return 0
 
 

@@ -9,16 +9,21 @@ It builds the port's CUDA kernels from ``bioem_tpu_torch/csrc`` and drives
 the port's main path on the card, in phases (each prints its own lines):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: nvcc of every kernel, with its seconds and ptxas resource lines;
+2. build: nvcc of every kernel, with its seconds and ptxas resource lines
+   (each kernel's registers, spills and static shared memory);
 3. kernels vs their plain torch versions at the production shapes
    (bench.py's BASELINE config-2 problem) and one odd shape, with each
-   kernel's time beside the plain version's; the image-batched comparison
-   (K4) at the image tile the production passes run, launched twice and
-   once at tile 8, all held to the same bits, and at lattice strides that
-   fold the rows three and four times;
+   kernel's time beside the plain version's; the per-image comparison
+   (K1) launched twice and held to the same bits, and at the shapes K4
+   does not take (D = 35, a stride-1 lattice at N = 224) and fold counts
+   3 and 4; the image-batched comparison (K4) at the image tile the
+   production passes run, launched twice and once at tile 8, all held to
+   the same bits, and at lattice strides that fold the rows three and four
+   times;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
-   images at N=224) through run_bioem: on the kernel branch with K1, with
+   images at N=224) through run_bioem: on the kernel branch with K1 (then
+   32 of its blocks under torch.profiler: the card's busy share), with
    K4 forced (BIOEM_TPU_FUSED_BATCHED), and autotuned twice (each
    candidate's time and the winner printed, then the winner from the
    cache; each pass with the seconds its tuning took; the autotune cache is
@@ -244,6 +249,8 @@ def _block_inputs(eng, b: int = 0):
     """The kernel branch's inputs for orientation block ``b`` of an engine,
     from the plain projection (so a kernel is compared on inputs no kernel
     made)."""
+    import torch
+
     from bioem_tpu_torch.core.engine import fused_coefficients
     from bioem_tpu_torch.core.orientations import rotation_matrices
     from bioem_tpu_torch.core.posterior import ctf_prior_term
@@ -260,6 +267,7 @@ def _block_inputs(eng, b: int = 0):
     m = p.n_pixels // eng.n_fold
     return dict(
         pr=pr, pi=pi, i0=i0, j0=j0, dens=de, a_u=a_u, b_u=b_u,
+        counts=torch.tensor(fs.group_counts, dtype=torch.int32, device=de.device),
         wx_re=bk.wx_re[:, :m].contiguous(), wx_im=bk.wx_im[:, :m].contiguous(),
         a_coef=(3.0 - p.n_total_pixels) * 0.5,
     )
@@ -353,11 +361,13 @@ def check_cc(torch, name, conv_re, conv_im, img_re, img_im, wx_re, wx_im, wy_re,
     return err
 
 
-def check_project(torch, name, i0, j0, dens, st_re, st_im, n):
+def check_project(torch, name, i0, j0, dens, st_re, st_im, n, counts, plain_counts):
+    """K2 given ``counts`` against its plain version given ``plain_counts``
+    (None: every slot, so the check also covers which slots K2 skips)."""
     from bioem_tpu_torch.ops import project_cuda as pj
 
-    kr, ki = pj.fourier_project_block(i0, j0, dens, st_re, st_im, n=n)
-    pr, pi = pj.fourier_project_block_plain(i0, j0, dens, st_re, st_im, n=n)
+    kr, ki = pj.fourier_project_block(i0, j0, dens, st_re, st_im, n=n, counts=counts)
+    pr, pi = pj.fourier_project_block_plain(i0, j0, dens, st_re, st_im, n=n, counts=plain_counts)
     torch.cuda.synchronize()
     err = float(max((kr - pr).abs().max(), (ki - pi).abs().max()))
     rel = err / float(max(pr.abs().max(), pi.abs().max()))
@@ -369,7 +379,7 @@ def check_project(torch, name, i0, j0, dens, st_re, st_im, n):
 def phase_kernels(torch, eng) -> dict:
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
     from bioem_tpu_torch.ops import project_cuda as pj
-    from bioem_tpu_torch.tools.kernel_probe import time_ms  # CUDA events, after a warm-up
+    from bioem_tpu_torch.tools.kernel_probe import device_ms, time_ms  # CUDA events
 
     dev = eng.device
     bk = eng.banks
@@ -381,6 +391,12 @@ def phase_kernels(torch, eng) -> dict:
         f"D={eng.disp.shape[0]} n_fold={eng.n_fold} G={eng.fspec.n_groups} "
         f"Pp={eng.fspec.group_pad}")
     err1 = check_compare(torch, "K1 fused_compare_block", k1_args, x["a_coef"], eng.n_fold)
+    runs = [cc_mod.fused_compare_block(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold)
+            for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    say(f"[kernels] K1: two launches bit-equal: {same}")
+    require(same, "K1: two launches on the same inputs differ")
+    del runs
     # K4 at the tile every production pass runs it at (the default tile:
     # the autotuner does not search K4's tile, whose work it does not
     # change), held to its plain version; then two launches at that tile
@@ -405,7 +421,8 @@ def phase_kernels(torch, eng) -> dict:
     k3_args = (conv_re, conv_im, bk.img_re, bk.img_im, x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im)
     err3 = check_cc(torch, "K3 fused_displacement_cc", *k3_args, eng.n_fold, 4)
     k2_args = (x["i0"], x["j0"], x["dens"], bk.st_re, bk.st_im)
-    err2 = check_project(torch, "K2 fourier_project_block", *k2_args, n)
+    # the spec's counts against every slot: the padding holds zero density
+    err2 = check_project(torch, "K2 fourier_project_block", *k2_args, n, x["counts"], None)
 
     # odd shape: N=15, n_fold=1, D=5 from a numpy seed
     rng = np.random.default_rng(SEED)
@@ -413,21 +430,32 @@ def phase_kernels(torch, eng) -> dict:
     from bioem_tpu_torch.core.posterior import displacement_dft_weights
 
     def small_inputs(on, cn, inn, nn, disp):
-        """Random comparison inputs at (O, C, I, N) on the lattice ``disp``."""
+        """Random comparison inputs at (O, C, I, N) on the lattice ``disp``;
+        a_u, b_u shrink with N as cc grows (kernel_probe's production block
+        uses 1e-6 and 1e-9 at N = 224), so that u stays above −1."""
+        au_sd, bu_sd = (1e-4, 1e-6) if nn < 128 else (1e-6, 1e-9)
         fn = nn // 2 + 1
         n_fold = int(np.gcd.reduce(np.append(np.abs(disp), nn)))
         wx, wy = displacement_dft_weights(nn, np.asarray(disp))
         w = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
              for a in (wx.real[:, :nn // n_fold], wx.imag[:, :nn // n_fold], wy.real, wy.imag)]
-        au = torch.as_tensor(np.abs(rng.normal(0, 1e-4, (on * cn, inn))).astype(np.float32),
+        au = torch.as_tensor(np.abs(rng.normal(0, au_sd, (on * cn, inn))).astype(np.float32),
                              device=dev)
-        bu = torch.as_tensor(np.abs(rng.normal(0, 1e-6, (on * cn, inn))).astype(np.float32),
+        bu = torch.as_tensor(np.abs(rng.normal(0, bu_sd, (on * cn, inn))).astype(np.float32),
                              device=dev)
         return (r(on, nn, fn), r(on, nn, fn), r(cn, nn, fn), r(cn, nn, fn), r(inn, nn, fn),
                 r(inn, nn, fn), *w, au, bu), n_fold
 
     odd, _ = small_inputs(3, 2, 5, 15, np.arange(-2, 3))
     check_compare(torch, "K1 odd N=15 D=5", odd, -111.0, 1)
+    # K1 where K4 has no instance or W does not fit (D = 35; D = 21 on a
+    # stride-1 lattice at N = 224, M = 224), and at folds 3 and 4
+    for on, cn, inn, nn, disp in ((2, 2, 6, 48, np.arange(-17, 18)),
+                                  (2, 2, 6, 224, np.arange(-10, 11)),
+                                  (2, 3, 5, 48, 3 * np.arange(-4, 5)),
+                                  (2, 3, 5, 64, 4 * np.arange(-4, 5))):
+        args, nf_ = small_inputs(on, cn, inn, nn, disp)
+        check_compare(torch, f"K1 N={nn} D={len(disp)} n_fold={nf_}", args, -0.5 * nn * nn, nf_)
     for t in (1, 5):
         check_compare(torch, f"K4 odd N=15 D=5 tile {t}", odd, -111.0, 1, img_tile=t)
     # K4 where the stride folds the rows three and four times (its folds
@@ -440,8 +468,9 @@ def phase_kernels(torch, eng) -> dict:
     w = odd[6:10]
     check_cc(torch, "K3 odd N=15 D=5", r(6, 15, 8), r(6, 15, 8), odd[4], odd[5], *w, 1, 5)
     gi = lambda *s: torch.as_tensor(rng.integers(-20, 40, s).astype(np.int32), device=dev)  # noqa: E731
+    odd_counts = torch.tensor([8, 0, 3], dtype=torch.int32, device=dev)
     check_project(torch, "K2 odd N=15", gi(3, 4, 8), gi(3, 4, 8), r(3, 4, 8).abs(),
-                  r(3, 15, 8), r(3, 15, 8), 15)
+                  r(3, 15, 8), r(3, 15, 8), 15, odd_counts, odd_counts)
 
     # times at the production shapes, kernel beside plain version
     t = {}
@@ -449,31 +478,36 @@ def phase_kernels(torch, eng) -> dict:
                time_ms(lambda: cc_mod.fused_compare_block_plain(*k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold), 3))
     t["K3"] = (time_ms(lambda: cc_mod.fused_displacement_cc(*k3_args, n_fold=eng.n_fold)),
                time_ms(lambda: cc_mod.displacement_cc_plain(*k3_args, n_fold=eng.n_fold), 3))
-    t["K2"] = (time_ms(lambda: pj.fourier_project_block(*k2_args, n=n)),
-               time_ms(lambda: pj.fourier_project_block_plain(*k2_args, n=n), 3))
+    # K2's launch is shorter than its wrapper's host time: the card's own time
+    t["K2"] = (device_ms(lambda: pj.fourier_project_block(*k2_args, n=n, counts=x["counts"])),
+               time_ms(lambda: pj.fourier_project_block_plain(*k2_args, n=n,
+                                                              counts=x["counts"]), 3))
     t["K4"] = (time_ms(lambda: cc_mod.fused_compare_block_batched(
         *k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold, img_tile=k4_tile)), t["K1"][1])
     for k, (a, b) in t.items():
         say(f"[kernels] {k} production-shape time: kernel {a:.3f} ms, plain {b:.3f} ms")
 
-    # Bounds from this block's shapes. K2 counts the model's points (the
-    # zero-density group padding is work the data does not need).
+    # Bounds from this block's shapes, each for the least time the card
+    # could take on its tensor cores at f32 accuracy (3xTF32 products).
+    # K2 counts the model's points (the zero-density group padding is work
+    # the data does not need): its group product, 8 per point-frequency,
+    # three TF32 passes, and the Ŝ epilogue in f32.
     i_n, d, m = bk.img_re.shape[0], eng.disp.shape[0], n // eng.n_fold
-    b1 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold)
-    b4 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold, tensor_cores=True)
+    b1 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold, tensor_cores=True)
+    b4 = b1
     w3 = compare_work(o, c, i_n, n, f, d, m, eng.n_fold, conv_in=True)
     b3 = bound({"f32": w3["stage1"] + w3["rest"]},
                4 * (2 * (o * c + i_n) * n * f + 2 * d * m + 2 * d * f + o * c * i_n * d * d))
     g = x["i0"].shape[0]
     n_pts = int((x["dens"] != 0).sum())
-    b2 = bound({"f32": 8 * n_pts * n * f + 8 * g * o * n * f},
+    b2 = bound({"tf32": 3 * 8 * n_pts * n * f, "f32": 8 * g * o * n * f},
                4 * (3 * x["i0"].numel() + 2 * g * n * f + 2 * o * n * f))
     for k, b in (("K1", b1), ("K2", b2), ("K3", b3), ("K4", b4)):
         say(f"[kernels] {k} bound {b[0]:.4f} ms ({b[1]}-bound)")
     none = dict(library_ms=None)  # no single PyTorch call computes K1–K4
     return {
         "K1": dict(name="fused_compare_block", route="cuda",
-                   source="bioem_tpu_torch/csrc/compare.cu",
+                   source="bioem_tpu_torch/csrc/compare_fused.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:301",
                    max_abs_err=err1, ms=t["K1"][0], plain_ms=t["K1"][1],
                    bound_ms=b1[0], bound_by=b1[1], **none),
@@ -606,7 +640,59 @@ def phase_production(problem):
     res_k, _, n = _run("kernel branch (K1)", problem, RunConfig(use_kernels=True, autotune=False))
     require(n[0] > 0 and n[1] > 0, "the kernel branch did not launch K1 and K2")
     check_against_plain("kernel branch (K1)", res_k, res_p, planted, orients)
+    phase_profile(problem)
     return res_p, res_k
+
+
+def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
+    """The default kernel pass (K1, o_block 8) over ``n_blocks`` blocks
+    under torch.profiler, after ``warm`` blocks: wall time per block, the
+    card's busy time per block (the sum of its kernels' times: one stream,
+    so they do not overlap) and its share of the wall time, K1's and K2's
+    time per block, and the kernels launched per block."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    p, orients, model, images, _ = problem
+    eng = BioEMEngine(p, orients, model, images, RunConfig(use_kernels=True, autotune=False),
+                      device=DEVICE)
+    state = eng.initial_state()
+
+    def step(b):
+        return eng._block_step(state, eng.banks, eng.ang_blocks[b], b * eng.o_block,
+                               eng.mask_blocks[b])
+
+    for b in range(warm):
+        state = step(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in range(warm, warm + n_blocks):
+            state = step(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_blocks
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "device_time_total", None) or e.cuda_time_total  # noqa: E731
+    busy = sum(dev_us(e) for e in kern) * 1e-3 / n_blocks
+    by = lambda key: sum(dev_us(e) for e in kern if key in e.key) * 1e-3 / n_blocks  # noqa: E731
+    count = lambda key: sum(e.count for e in kern if key in e.key) / n_blocks  # noqa: E731
+    # K1's launch is two kernels: its prologue (compare_fused_prep_kernel)
+    # and compare_fused_kernel
+    out = dict(wall_ms=wall, busy_ms=busy, share=busy / wall, k1_ms=by("compare_fused_"),
+               k2_ms=by("project_kernel"), launches=count(""))
+    out["other_ms"] = busy - out["k1_ms"] - out["k2_ms"]
+    out["other_launches"] = out["launches"] - count("compare_fused_") - count("project_kernel")
+    say(f"[profile] default kernel pass (K1, o_block {eng.o_block}), {n_blocks} blocks under "
+        f"torch.profiler: wall {wall:.3f} ms per block, card busy {busy:.3f} ms per block "
+        f"({100 * out['share']:.1f} %), K1 (prologue and main kernel) {out['k1_ms']:.3f} ms, "
+        f"K2 {out['k2_ms']:.3f} ms, the other {out['other_launches']:.1f} kernels "
+        f"{out['other_ms']:.3f} ms; {out['launches']:.1f} kernels per block")
+    require(out["k1_ms"] > 0 and out["k2_ms"] > 0, "the profiled pass shows no K1 or K2 time")
+    return out
 
 
 def phase_tuned(problem, res_p, res_k, k4_tile: int) -> None:

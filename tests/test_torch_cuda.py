@@ -12,9 +12,12 @@ chip_smoke.py makes the same comparisons at the production shapes.
 Tolerances: m, se rtol 1e-5 at these small shapes, the argmax exact away
 from near-ties (two best lattice values within 1e-5·|a_coef|); cc and the
 projection spectra < 5e-5 of their max magnitude. The image-batched
-kernel (K4, 3xTF32 on warpgroup wgmma) is held to K1's tolerances at
-every width it has (D ≤ 32), every fold count and several tiles, and to
-the same bits across two launches. The probes: P1's FMA and 3xTF32 schemes at a median
+kernel (K4) is held to K1's tolerances at every width it has (D ≤ 32),
+every fold count and several tiles; K1 at lattice widths up to D = 61,
+folds 1–4, odd N, M = 224 and image counts that end a run of four
+mid-way; both to the same bits across two launches. The projection (K2)
+also with per-group point counts that skip padding, at its largest N and
+to the same bits across two launches. The probes: P1's FMA and 3xTF32 schemes at a median
 relative error below 1e-6 from f64 (the TPU probe's "multi-pass" line);
 P2's two structures within the f32 summation bound the probe tool states
 (``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4.
@@ -90,12 +93,132 @@ def test_projection_kernel_vs_plain(rng, dev, n):
     gi = lambda *s: torch.as_tensor(rng.integers(-2 * n, 3 * n, s).astype(np.int32), device=dev)  # noqa: E731
     r = lambda *s: torch.as_tensor(rng.normal(0, 1, s).astype(np.float32), device=dev)  # noqa: E731
     args = (gi(3, 4, 40), gi(3, 4, 40), r(3, 4, 40).abs(), r(3, n, f), r(3, n, f))
-    kr, ki = P.fourier_project_block(*args, n=n)
+    every = torch.full((3,), 40, dtype=torch.int32, device=dev)
+    kr, ki = P.fourier_project_block(*args, n=n, counts=every)
     pr, pi = P.fourier_project_block_plain(*args, n=n)
     torch.cuda.synchronize()
     scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
     assert float((kr - pr).abs().max()) < 5e-5 * scale
     assert float((ki - pi).abs().max()) < 5e-5 * scale
+
+
+# K1 (wgmma, conv formed once per orientation·ctf) at the lattice widths
+# and folds its reach covers: D = 5…61 (one and two N chunks), folds 1–4,
+# odd N, a stride-1 lattice at N = 224 (M = 224), image counts that end a
+# run of four mid-way.
+K1_SHAPES = [  # (n_disp, n_fold, n, images)
+    (5, 1, 15, 5), (5, 2, 32, 1), (9, 1, 32, 64), (9, 3, 48, 5), (9, 4, 64, 5),
+    (21, 2, 48, 201), (21, 1, 224, 5), (30, 1, 64, 5), (35, 1, 48, 5), (35, 2, 80, 7),
+    (61, 1, 64, 3)]
+
+
+@pytest.mark.parametrize("n_disp,n_fold,n,n_img", K1_SHAPES)
+def test_k1_widths_folds_and_image_counts(rng, dev, n_disp, n_fold, n, n_img):
+    """K1 against its plain version at every shape above (m, se rtol 1e-5,
+    the argmax exact on ≥ 90 % of the comparisons, cc there rtol 1e-5)."""
+    args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=2, c=2, i=n_img)
+    a_coef = -0.5 * n * n
+    before = C.fused_compare_block.launches
+    km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
+    torch.cuda.synchronize()
+    assert C.fused_compare_block.launches == before + 1
+    pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
+    torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
+    # se carries v's absolute f32 error, |a_coef|·δcc: at N = 224 (a_coef
+    # −25088) chip_smoke's production limit, 1.5e-4, applies.
+    torch.testing.assert_close(ks, ps, rtol=1e-5 if n <= 80 else 1.5e-4, atol=0)
+    ok = kd == pd
+    assert float(ok.float().mean()) >= 0.9
+    torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
+
+
+def test_k1_is_deterministic(rng, dev):
+    """Two K1 launches on the same inputs give the same bits (no atomics)."""
+    args = _cmp_inputs(rng, dev, n=64, n_fold=2, n_disp=21, o=3, c=4, i=30)
+    runs = [C.fused_compare_block(*args, a_coef=-2047.5, n_fold=2) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_k1_plan_matches_the_library(dev):
+    """The wrapper's tiling rule (compare_cuda.k1_smem_bytes) gives the
+    kernel library's shared memory."""
+    from bioem_tpu_torch.ops import _build
+
+    lib = _build.load()
+    for d, m, f, n_fold in [(21, 112, 113, 2), (5, 15, 8, 1), (35, 48, 41, 1), (61, 64, 33, 1),
+                            (21, 224, 113, 1), (9, 12, 25, 4)]:
+        for n_wg in (2, 4):
+            for kc in (1, 2, 4, 8):
+                assert (lib.bioem_fused_compare_smem_bytes(d, m, f, n_fold, n_wg, kc)
+                        == C.k1_smem_bytes(d, m, f, n_fold, n_wg, kc)), (d, m, n_wg, kc)
+
+
+@pytest.mark.parametrize("n", [15, 64, 224])
+def test_projection_kernel_counts_and_padding(rng, dev, n):
+    """K2 with per-group point counts against its plain version: a group
+    whose points are all masked, a group of one point, negative snapped
+    positions and Pp = 13, not a multiple of 8 (the slots past a group's
+    count hold garbage densities the kernel must not read)."""
+    f, g, o, pp = n // 2 + 1, 4, 3, 13
+    counts = torch.tensor([13, 0, 1, 7], dtype=torch.int32, device=dev)
+    i0 = torch.as_tensor(rng.integers(-2 * n, n, (g, o, pp)).astype(np.int32), device=dev)
+    j0 = torch.as_tensor(rng.integers(-2 * n, n, (g, o, pp)).astype(np.int32), device=dev)
+    dens = rng.uniform(0.5, 2.0, (g, o, pp)).astype(np.float32)
+    dens[0, :, ::3] = 0.0  # out of bounds for some orientations
+    dens[1] = 0.0  # every point masked
+    st = [torch.as_tensor(rng.normal(0, 1, (g, n, f)).astype(np.float32), device=dev)
+          for _ in range(2)]
+    args = (i0, j0, torch.as_tensor(dens, device=dev), *st)
+    before = P.fourier_project_block.launches
+    kr, ki = P.fourier_project_block(*args, n=n, counts=counts)
+    assert P.fourier_project_block.launches == before + 1
+    pr, pi = P.fourier_project_block_plain(*args, n=n, counts=counts)
+    torch.cuda.synchronize()
+    scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
+    assert float((kr - pr).abs().max()) < 5e-5 * scale
+    assert float((ki - pi).abs().max()) < 5e-5 * scale
+
+
+def test_projection_kernel_reach_and_bits(rng, dev):
+    """K2's reach (project_cuda.MAX_N) is the library's, N = MAX_N runs and
+    one past it raises; two launches on the production-shaped inputs give
+    the same bits (a fixed order of adds, no atomics)."""
+    from bioem_tpu_torch.ops import _build
+    from bioem_tpu_torch.tools.kernel_probe import production_projection_inputs
+
+    assert _build.load().bioem_fourier_project_max_n() == P.MAX_N
+    i0, j0, dens, st_re, st_im, counts = production_projection_inputs(dev)
+    runs = [P.fourier_project_block(i0, j0, dens, st_re, st_im, n=224, counts=counts)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for n, ok in ((P.MAX_N, True), (P.MAX_N + 1, False)):
+        f = n // 2 + 1
+        ij = torch.as_tensor(rng.integers(-n, n, (1, 1, 8)).astype(np.int32), device=dev)
+        st = torch.ones((1, n, f), device=dev)
+        args = (ij, ij.flip(-1).contiguous(), torch.ones((1, 1, 8), device=dev), st, st)
+        one = torch.tensor([8], dtype=torch.int32, device=dev)
+        if ok:
+            kr, ki = P.fourier_project_block(*args, n=n, counts=one)
+            pr, pi = P.fourier_project_block_plain(*args, n=n)
+            torch.cuda.synchronize()
+            scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
+            assert float(torch.maximum((kr - pr).abs().max(), (ki - pi).abs().max())) < 5e-5 * scale
+        else:
+            with pytest.raises(ValueError, match="too large"):
+                P.fourier_project_block(*args, n=n, counts=one)
+
+
+def test_probe_projection_points(dev):
+    """The probe tool's K2 point scaling: reading every slot (the padding
+    holds zero density) gives the model's spectrum to 5e-5 of its max."""
+    from bioem_tpu_torch.tools.kernel_probe import probe_projection_points
+
+    out = probe_projection_points(say=lambda s: None)
+    assert out["points"] == {"none": 0, "model": 500, "every slot": 1120}
+    assert out["max_rel_diff"] < 5e-5
+    assert all(t > 0 for t in out["ms"].values())
 
 
 def test_wrapper_rejects_bad_input(rng, dev):
@@ -261,6 +384,27 @@ def test_engine_k4_tile_on_the_card(rng, dev):
         np.testing.assert_array_equal(getattr(res["k4"], f), getattr(res["plain"], f))
 
 
+def test_engine_k1_pass_on_a_wide_lattice(rng, dev):
+    """The engine's default kernel pass on a stride-1 D = 35 lattice (K4
+    has no instance above D = 32, so the pass runs K1) against the plain
+    branch: logP within 1e-4, argmax tuples equal."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    wide = _engine_problem(rng, n_img=6, n_pix=48, max_disp=17, stride=1)
+    res = {}
+    for name, cfg in (("plain", RunConfig(use_kernels=False)),
+                      ("k1", RunConfig(use_kernels=True, autotune=False))):
+        eng = BioEMEngine(*wide, cfg, device=dev)
+        before = C.fused_compare_block.launches
+        res[name] = eng.results(eng.run())
+    assert eng.disp.shape[0] == 35 and not eng.fused_batched
+    assert C.fused_compare_block.launches > before
+    np.testing.assert_allclose(res["k1"].log_prob, res["plain"].log_prob, rtol=0, atol=1e-4)
+    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+        np.testing.assert_array_equal(getattr(res["k1"], f), getattr(res["plain"], f))
+
+
 @pytest.mark.parametrize("scheme", ["fma", "3xtf32", "f64tc"])
 def test_probe_f32_product_schemes(rng, dev, scheme):
     """P1 at the TPU probe's shape: the f32-accurate schemes against f64,
@@ -356,7 +500,7 @@ def test_probe_body_ablation_full_is_production(rng, dev):
     for body in ("k1", "k4"):
         full = PR.body_ablation(*args, **kw, body=body, variant="full")
         assert all(torch.equal(x, y) for x, y in zip(full, prod[body])), body
-        for variant in ("no_lse", "mm_only") + (("no_gemm",) if body == "k4" else ()):
+        for variant in ("no_lse", "mm_only", "no_gemm"):
             outs = PR.body_ablation(*args, **kw, body=body, variant=variant)
             torch.cuda.synchronize()
             assert all(bool(torch.isfinite(t.float()).all()) for t in outs), (body, variant)

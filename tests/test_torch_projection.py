@@ -53,7 +53,13 @@ def _fourier_setup(rng, n_orient=4, **pkw):
     fs_t = TP.make_fourier_projection_spec(p, model.radii)
     for a, b in zip(fs_j[1:], fs_t[1:]):
         np.testing.assert_array_equal(a, b)
-    assert fs_j[0].__dict__ == fs_t[0].__dict__
+    # the port's spec also carries each group's point count (its kernel reads
+    # only those slots): the pad mask's leading ones
+    counts = fs_t[0].group_counts
+    assert fs_j[0].__dict__ == {k: v for k, v in fs_t[0].__dict__.items() if k != "group_counts"}
+    mask = fs_t[2].reshape(len(counts), -1)
+    assert [int(m.sum()) for m in mask] == list(counts)
+    assert all(m[:k].all() for m, k in zip(mask, counts))
     spec, gidx, pmask, st, st_sums = fs_t
     arrays = (model.points[gidx], model.radii[gidx], model.densities[gidx] * pmask,
               np.float32(model.norm_den), st.real.copy(), st.imag.copy(), st_sums)
@@ -105,7 +111,8 @@ def test_projection_kernel_plain_vs_pallas(rng):
         return x.reshape(rot.shape[0], g, pp).permute(1, 0, 2).contiguous()
 
     out = t_project_block(regroup_t(i0), regroup_t(j0), regroup_t(de_t),
-                          t(st_re), t(st_im), n=n)
+                          t(st_re), t(st_im), n=n,
+                          counts=torch.tensor(ft.group_counts, dtype=torch.int32))
     scale = max(np.abs(np.asarray(x)).max() for x in ref)
     err = max(np.abs(y.numpy() - np.asarray(x)).max() for x, y in zip(ref, out)) / scale
     assert err < 5e-5, err
