@@ -9,8 +9,8 @@ PyTorch counterpart of ``bioem_tpu.core.engine`` (reference main loop
 * one **block step** that projects an orientation block, compares it with
   the whole CTF bank and every image over the displacement lattice, and
   folds the result into the streaming per-image state;
-* a plain Python loop over orientation blocks that updates the state in
-  place (the JAX package's ``lax.scan`` with buffer donation).
+* a loop over orientation blocks that updates the state in place (the
+  JAX package's ``lax.scan`` with buffer donation).
 
 Two branches of the block step, chosen like the JAX package's
 ``use_pallas = (backend == "tpu")``: on a CUDA device the **kernel branch**
@@ -24,10 +24,22 @@ kernel K3 and the torch ``displacement_lse``. Without an explicit device
 the engine takes the card, or the CPU when ``BIOEM_TPU_FORCE_CPU`` asks
 (config.resolve_device); it never falls back to the CPU by itself.
 
+The loop, on the kernel branch on the card, is the port's counterpart of
+the jitted scan: the block step is captured once per engine in a
+``torch.cuda.CUDAGraph`` (after a warm-up step on a side stream, which
+builds the kernels and makes K2's count tensor and any cuFFT plan) on a
+static state and a device block index that the graph reads and advances,
+and each block is one replay: no host dispatch per kernel, no host copy.
+A failed capture raises; there is no eager fallback on the card. The
+graph's launches are added to the kernel wrappers' launch counters per
+replay. On the CPU, and on the plain branch on the card (a yardstick
+only), the loop stays an eager Python loop over ``_block_step``.
+
 ``run`` checkpoints and resumes the streaming state
 (runtime/checkpoint.py) and prints the TimeStat phase table at
-``debug_output >= 1``; ``time_blocks`` times the block loop for the
-autotuner (runtime/autotune.py).
+``debug_output >= 1``; ``time_blocks`` times the loop the pass runs (the
+replayed one on the card's kernel branch, capture and warm-up outside the
+timed span) for the autotuner (runtime/autotune.py).
 """
 
 from __future__ import annotations
@@ -160,6 +172,15 @@ def _same_shapes(a: PosteriorState, b: PosteriorState) -> bool:
     )
 
 
+def _kernel_wrappers() -> tuple:
+    """The kernel wrappers a block step can launch, each with its
+    ``launches`` counter."""
+    from ..ops import compare_cuda, project_cuda
+
+    return (compare_cuda.fused_compare_block, compare_cuda.fused_compare_block_batched,
+            compare_cuda.fused_displacement_cc, project_cuda.fourier_project_block)
+
+
 def fused_coefficients(f0, sum_c, sum_ref, ntot):
     """u(cc) = a_u·cc − b_u·cc² coefficients of the fused comparison,
     (O·C, I) f32 each: the division by F0 hoisted out of the kernel's
@@ -283,6 +304,11 @@ class BioEMEngine:
             ),
             self.device,
         )
+        # the block-invariant CTF prior (C,) f64
+        self._prior = ctf_prior_term(self.banks.amp, self.banks.pha, self.banks.env, p)
+        # (graph, static state, block index, launches per replay), captured
+        # at the first replayed pass (the kernel branch on the card)
+        self._graph = None
 
         # --- orientation blocks (padded with angle 0; the int mask kills
         # the padding lanes) ---
@@ -442,8 +468,12 @@ class BioEMEngine:
 
     def _block_step(
         self, state: PosteriorState, banks: Banks, angles: torch.Tensor,
-        orient_offset: int, mask: torch.Tensor,
+        orient_offset, mask: torch.Tensor,
     ) -> PosteriorState:
+        """Fold one orientation block into ``state`` in place. The offset of
+        its first orientation is an int or a 0-d device tensor; the step
+        holds no host synchronisation and allocates nothing whose size
+        depends on the block, so it can be captured."""
         p = self.p
         n = p.n_pixels
         ntot = p.n_total_pixels
@@ -452,8 +482,7 @@ class BioEMEngine:
         n_img_local = banks.img_re.shape[0]
 
         pr, pi = self._project_block(banks, angles)
-        prior = ctf_prior_term(banks.amp, banks.pha, banks.env, p)  # (C,) f64
-        prior_oc = prior[None, :].expand(o, c)
+        prior_oc = self._prior[None, :].expand(o, c)
 
         if self.use_kernels:
             sum_c, ssq_c, f0, k = self._kernel_constants(banks, pr, pi, prior_oc)
@@ -537,21 +566,86 @@ class BioEMEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _replayed(self) -> bool:
+        """The pass replays a captured block step: the kernel branch on the
+        card."""
+        return self.device.type == "cuda" and self.use_kernels
+
+    def _capture(self) -> None:
+        """Capture the block step once per engine: warm-up on a side
+        stream, then capture on it (PyTorch's rule), on a static state and
+        a device block index that each replay reads and advances. The
+        kernel wrappers counted the captured launches, which did not run:
+        they are taken off and added back per replay."""
+        if self._graph is not None:
+            return
+        dev = self.device
+        state = self.initial_state()
+        blk = torch.zeros(1, dtype=torch.long, device=dev)
+
+        def step():
+            self._block_step(state, self.banks, self.ang_blocks.index_select(0, blk)[0],
+                             blk[0] * self.o_block, self.mask_blocks.index_select(0, blk)[0])
+            blk.add_(1)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        wrappers = _kernel_wrappers()
+        before = [fn.launches for fn in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            step()
+        made = tuple((fn, fn.launches - b) for fn, b in zip(wrappers, before))
+        for fn, k in made:
+            fn.launches -= k
+        self._graph = (graph, state, blk, tuple((fn, k) for fn, k in made if k))
+
+    def _graph_load(self, state: PosteriorState, start: int) -> PosteriorState:
+        """Capture the step if need be, copy ``state`` into its static
+        state and point its block index at block ``start``; returns the
+        static state, which each replay updates."""
+        self._capture()
+        _graph, static, blk, _made = self._graph
+        for dst, src in zip(static, state):
+            if dst is not None:
+                dst.copy_(src)
+        blk.fill_(start)
+        return static
+
+    def _replay(self) -> None:
+        """One block: one replay of the captured step."""
+        graph, _static, _blk, made = self._graph
+        graph.replay()
+        for fn, k in made:
+            fn.launches += k
+
     def time_blocks(self, target_orients: int, repeats: int = 2) -> float:
-        """Best-of-``repeats`` seconds per orientation of the block loop
-        over ~``target_orients`` orientations, after one dropped warm-up
-        pass (the autotuner's probe; the warm-up builds the kernels)."""
+        """Best-of-``repeats`` seconds per orientation of the block loop the
+        pass runs, over ~``target_orients`` orientations, after one dropped
+        warm-up pass (the autotuner's probe; the warm-up builds the
+        kernels). On the card's kernel branch that is the replayed loop;
+        the capture (at the first pass's ``_graph_load``) precedes every
+        timed span."""
         nb = min(max(1, _cdiv(target_orients, self.o_block)), self.ang_blocks.shape[0])
+        replayed = self._replayed()
         best = float("inf")
         for rep in range(repeats + 1):
             state = self.initial_state()
+            if replayed:
+                self._graph_load(state, 0)
             self._sync()
             t0 = time.perf_counter()
             for b in range(nb):
-                state = self._block_step(
-                    state, self.banks, self.ang_blocks[b], b * self.o_block,
-                    self.mask_blocks[b],
-                )
+                if replayed:
+                    self._replay()
+                else:
+                    state = self._block_step(
+                        state, self.banks, self.ang_blocks[b], b * self.o_block,
+                        self.mask_blocks[b],
+                    )
             self._sync()
             if rep:
                 best = min(best, time.perf_counter() - t0)
@@ -566,7 +660,10 @@ class BioEMEngine:
         state has this engine's shapes: the fingerprint leaves out the
         image padding, which follows the kernel and its tile. At
         ``debug_output >= 1`` the BLOCK/CHECKPOINT phase table is printed;
-        at 2 every block is synchronised and timed."""
+        at 2 every block is synchronised and timed. On the card's kernel
+        branch each block is a replay of the captured step (a resumed run
+        starts the graph's block index at its first block), and the state
+        returned is a copy that no later pass of this engine overwrites."""
         from ..utils.timestat import TimeStat
 
         banks = self.banks
@@ -584,13 +681,19 @@ class BioEMEngine:
                 state, start = loaded
                 if debug >= 1:
                     print(f"Resuming from checkpoint at block {start}/{nblk}")
+        replayed = self._replayed()
+        if replayed:
+            state = self._graph_load(state, start)
         ts = TimeStat()
         for b in range(start, nblk):
             save = bool(ckpt) and ((b + 1) % every == 0 or b == nblk - 1)
             with ts.time("BLOCK"):
-                state = self._block_step(
-                    state, banks, self.ang_blocks[b], b * self.o_block, self.mask_blocks[b]
-                )
+                if replayed:
+                    self._replay()
+                else:
+                    state = self._block_step(
+                        state, banks, self.ang_blocks[b], b * self.o_block, self.mask_blocks[b]
+                    )
                 if debug >= 2 or save:
                     self._sync()
             if debug >= 2:
@@ -600,6 +703,8 @@ class BioEMEngine:
                     save_checkpoint(ckpt, state, b + 1, self._fingerprint)
         if debug >= 1 and ts.phases:
             print(ts.summary())
+        if replayed:
+            state = PosteriorState(*(x.clone() if x is not None else None for x in state))
         return state
 
     # ------------------------------------------------------------------

@@ -333,13 +333,16 @@ def merge_block(
     ssq_c: torch.Tensor,  # (O, C) f32
     sum_ref: torch.Tensor,  # (I,) f32
     disp_vals: torch.Tensor,  # (D,) i32 signed displacements in sweep order
-    orient_offset: int,  # global index of the block's first orientation
+    orient_offset,  # global index of the block's first orientation: an int
+    # or a 0-d integer tensor on the state's device (a captured block step)
     ntot: float,
     n_disp: int,
 ) -> PosteriorState:
     """Fold one (orientation-block × ctf-bank × image) result into the state,
     IN PLACE (the state's tensors are overwritten; the same state is
-    returned).
+    returned). The offset enters only through device arithmetic and device
+    indices, so a block step captured in a CUDA graph reads it from a
+    tensor the graph advances.
 
     Equivalent to the reference's sequential calProb loop
     (bioem_algorithm.h:94-141) merged hierarchically: same log-sum-exp
@@ -401,13 +404,13 @@ def merge_block(
         aex = torch.where(torch.isnan(adiff), torch.zeros_like(aex), aex)
         ang_sum = torch.sum(sumexp * aex, dim=1).to(F64)  # (O, I)
 
-        sl = slice(orient_offset, orient_offset + o)
-        sl_tot = state.ang_total[:, sl]
-        sl_con = state.ang_const[:, sl]
+        cols = torch.arange(o, device=m.device) + orient_offset  # the block's slab
+        sl_tot = state.ang_total.index_select(1, cols)
+        sl_con = state.ang_const.index_select(1, cols)
         am = ang_max.T  # (I, O)
         asum = ang_sum.T
         new_c = torch.maximum(sl_con, am)
         new_t = sl_tot * torch.exp(sl_con - new_c) + asum * torch.exp(am - new_c)
-        state.ang_total[:, sl] = new_t
-        state.ang_const[:, sl] = new_c
+        state.ang_total.index_copy_(1, cols, new_t)
+        state.ang_const.index_copy_(1, cols, new_c)
     return state

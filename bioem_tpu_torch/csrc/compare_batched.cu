@@ -3,7 +3,7 @@
 //
 // Replaces bioem_tpu/ops/compare_pallas.py:_fused_block_kernel_batched
 // (entry fused_compare_block(..., batched_stage1=True)). Same contract as
-// K1 (compare.cu): per (orientation·ctf oc, image i)
+// K1 (compare_fused.cu): per (orientation·ctf oc, image i)
 //   conv = proj[o] ⊙ conj(ctf[c]),  p = fold(conv ⊙ img[i])   (M = N/n_fold, F)
 //   t1   = wx · p                                              (D, F) complex
 //   cc   = Re(t1 · wyᵀ),  v = a_coef · log1p(a_u·cc − b_u·cc²)

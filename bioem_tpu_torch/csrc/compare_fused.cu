@@ -1,9 +1,12 @@
 // Per-image fused comparison kernel (K1) for Hopper (sm_90a): stage 1 of
 // the displacement-lattice DFT on warpgroup wgmma in 3xTF32, conv formed
-// once per orientation·CTF.
+// once per orientation·CTF. In its cc-out body the same kernel is the
+// cc-lattice kernel K3.
 //
 // Replaces bioem_tpu/ops/compare_pallas.py:_fused_block_kernel (with
-// _vector_lse and the _cc_tile_* bodies, entry fused_compare_block).
+// _vector_lse and the _cc_tile_* bodies, entry fused_compare_block) and,
+// as K3, _fused_cc_kernel (entry fused_displacement_cc: the lattice cc of
+// a conv bank given as (OC, N, F), written to (OC, I, D, D)).
 // Per (orientation·ctf oc, image i):
 //   conv = proj[o] ⊙ conj(ctf[c]),  p = fold(conv ⊙ img[i])   (M = N/n_fold, F)
 //   t1   = wx · p                                              (D, F) complex
@@ -17,7 +20,11 @@
 // n_fold=2); p (6·N·F), stage 2 (4·D²·F) and the log-sum-exp are f32 on
 // the CUDA cores. The earlier design (FP32 FMA, one CTA per (oc, image), conv
 // re-formed from three spectra by every CTA: ~2.5 GB of L2 reads per
-// block) took 1.03 ms; stage 1 on the CUDA cores was half of it.
+// block) took 1.03 ms; stage 1 on the CUDA cores was half of it. K3 does
+// the same stage 1 (3 × 8.71e9 TF32 operations per production block,
+// 0.053 ms), no conv product and no log-sum-exp (1.54e9 f32 operations,
+// 0.023 ms), and writes the lattice (7.2 MB) beside reading ~26 MB of
+// spectra: 0.076 ms, operations-bound.
 //
 // Design.
 // * Two kernels in one launch of the entry point. A prologue forms the conv
@@ -60,8 +67,14 @@
 //   lattices. The wrapper (ops/compare_cuda.k1_plan) picks the largest K
 //   chunk, with four warpgroups and then two, that fits a block; its
 //   formula is bioem_fused_compare_smem_bytes below.
-// The body variant V is kFull in production; the ablation probe P3
-// instantiates the others at NP = 48 with four warpgroups only.
+// * K3 (body kCcOut) runs all of the above but the log-sum-exp: its
+//   prologue copies the conv bank it is given into the padded interleaved
+//   scratch instead of forming it, and each warpgroup writes its image's
+//   lattice from shared memory to out_cc[(oc·I + i)·D² + q], coalesced.
+//   It takes every shape K1 takes, with K1's tiling.
+// The body variant V is kFull (K1) or kCcOut (K3) in production; the
+// ablation probe P3 instantiates the others at NP = 48 with four
+// warpgroups only.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +86,7 @@
 namespace {
 
 namespace wg = bioem_wgmma;
+using bioem_lse::kCcOut;
 using bioem_lse::kFull;
 using bioem_lse::kMmOnly;
 using bioem_lse::kNoGemm;
@@ -137,6 +151,9 @@ __device__ __forceinline__ void cp_wait() {
 // Prologue: the conv bank and the W blocks
 // ---------------------------------------------------------------------------
 
+// CONV_IN (K3): proj_re/proj_im hold the conv bank (OC, N, F) itself, which
+// is copied; otherwise conv = proj[o] ⊙ conj(ctf[c]) is formed (K1).
+template <bool CONV_IN>
 __global__ void __launch_bounds__(kPrepThreads)
 compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __restrict__ proj_im,
             const float* __restrict__ ctf_re, const float* __restrict__ ctf_im,
@@ -152,7 +169,10 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
       const size_t rq = q / P.Fp;
       const int r = (int)(rq % N), oc = (int)(rq / N);
       float2 v = make_float2(0.f, 0.f);
-      if (f < P.F) {
+      if (CONV_IN && f < P.F) {
+        const size_t ci = (size_t)oc * NF + (size_t)r * P.F + f;
+        v = make_float2(proj_re[ci], proj_im[ci]);
+      } else if (f < P.F) {
         const int o = oc / C, c = oc - (oc / C) * C;
         const size_t pi = o * NF + (size_t)r * P.F + f, ki = c * NF + (size_t)r * P.F + f;
         const float xr = proj_re[pi], xi = proj_im[pi], kr = ctf_re[ki], ki_ = ctf_im[ki];
@@ -466,6 +486,14 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
     return;
   }
   wg::wg_barrier(bar);  // the whole lattice is in ccw
+  if constexpr (V == kCcOut) {
+    // K3: the lattice out (out_ccs is the (OC, I, D, D) cc tensor)
+    if (has) {
+      float* dst = out_ccs + oi * DD;
+      for (int q = wt; q < DD; q += 128) dst[q] = ccw[q];
+    }
+    return;
+  }
   if constexpr (V == kNoLse) {
     float s = 0.f;
     for (int q = wt; q < DD; q += 128) s += ccw[q];
@@ -529,8 +557,9 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
       reinterpret_cast<unsigned char*>(scratch) + align128(sizeof(float2) * (size_t)OC * N * P.Fp);
   const size_t n_prep = (size_t)OC * N * P.Fp + (size_t)P.n_nc * P.n_kc * P.NP * 8 * P.KC;
   const size_t blocks = (n_prep + kPrepThreads - 1) / kPrepThreads;
-  compare_fused_prep_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kPrepThreads, 0, stream>>>(
-      proj_re, proj_im, ctf_re, ctf_im, wx_re, wx_im, P, C, OC, N, conv, wblk);
+  compare_fused_prep_kernel<V == kCcOut>
+      <<<(unsigned)(blocks < 4096 ? blocks : 4096), kPrepThreads, 0, stream>>>(
+          proj_re, proj_im, ctf_re, ctf_im, wx_re, wx_im, P, C, OC, N, conv, wblk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(compare_fused_kernel<NP, NWG, V>,
@@ -594,6 +623,37 @@ int bioem_fused_compare(const float* proj_re, const float* proj_im, const float*
   return (int)cudaErrorInvalidValue;
 }
 
+// K3: cc[oc, i, d, e] of the conv bank (OC, N, F) against the images, with
+// K1's tiling (n_wg, KC) and scratch (bioem_fused_compare_scratch_bytes at
+// OC pairs; its shared memory is bioem_fused_compare_smem_bytes).
+int bioem_fused_displacement_cc(const float* conv_re, const float* conv_im,
+                                const float* img_re, const float* img_im, const float* wx_re,
+                                const float* wx_im, const float* wy_re, const float* wy_im,
+                                int OC, int I, int N, int F, int D, int M, int n_fold, int n_wg,
+                                int KC, float* cc, void* scratch, void* stream) {
+  if (!valid(D, M, F, n_fold, n_wg, KC) || M * n_fold != N) return (int)cudaErrorInvalidValue;
+  const Plan P = plan(D, M, F, n_fold, n_wg, KC);
+  // The prologue copies the bank (one "orientation" per pair, no CTF); the
+  // body writes the lattice to ccs and reads no a_u, b_u or a_coef.
+  const float *proj_re = conv_re, *proj_im = conv_im, *ctf_re = nullptr, *ctf_im = nullptr;
+  const float *a_u = nullptr, *b_u = nullptr;
+  const float a_coef = 0.f;
+  const int O = OC, C = 1;
+  float *m = nullptr, *se = nullptr, *ccs = cc;
+  int* ds = nullptr;
+  switch (P.NP * 10 + n_wg) {
+    case 164: return launch<16, 4, kCcOut>(BIOEM_K1_ARGS);
+    case 324: return launch<32, 4, kCcOut>(BIOEM_K1_ARGS);
+    case 484: return launch<48, 4, kCcOut>(BIOEM_K1_ARGS);
+    case 644: return launch<64, 4, kCcOut>(BIOEM_K1_ARGS);
+    case 162: return launch<16, 2, kCcOut>(BIOEM_K1_ARGS);
+    case 322: return launch<32, 2, kCcOut>(BIOEM_K1_ARGS);
+    case 482: return launch<48, 2, kCcOut>(BIOEM_K1_ARGS);
+    case 642: return launch<64, 2, kCcOut>(BIOEM_K1_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // The kernel probe P3: body variant ``variant`` (bioem_lse::Body) of the
 // production instance (NP = 48: D = 17..24, four warpgroups). kFull is the
 // production instance itself; the other variants write a checksum into m
@@ -617,5 +677,7 @@ int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
   return (int)cudaErrorInvalidValue;
 }
 #undef BIOEM_K1_ARGS
+
+const char* bioem_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

@@ -8,8 +8,9 @@
 // amplifies any error in log1p).
 //
 // Also the body variants both kernels take as a template parameter: the
-// production instances are kFull; the others exist only for the ablation
-// probe P3 (ops/probe_cuda.py) and write a checksum in place of a result.
+// production instances are kFull, and K1's kernel in its kCcOut body is
+// the cc-lattice kernel K3; the others exist only for the ablation probe P3
+// (ops/probe_cuda.py) and write a checksum in place of a result.
 
 #pragma once
 
@@ -20,8 +21,9 @@ namespace bioem_lse {
 
 // kNoLse: the cc lattice without the log-sum-exp; kMmOnly: stage 1 alone,
 // fed from operands formed once (no conv product, fold or TF32 split);
-// kNoGemm: everything but the tensor-core GEMM.
-enum Body : int { kFull = 0, kNoLse = 1, kMmOnly = 2, kNoGemm = 3 };
+// kNoGemm: everything but the tensor-core GEMM; kCcOut (K1 only): the cc
+// lattice written out in place of the log-sum-exp.
+enum Body : int { kFull = 0, kNoLse = 1, kMmOnly = 2, kNoGemm = 3, kCcOut = 4 };
 
 // (v, q) ranks above (best, bidx): the larger value wins, NaN counts as
 // the largest (as jnp.max/argmax treat it), and ties go to the lower flat

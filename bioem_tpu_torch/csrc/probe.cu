@@ -1,5 +1,5 @@
 // Kernel probes P1 and P2 for Hopper (sm_90a). P3, the ablation of the
-// production comparison bodies, is a template parameter of compare.cu (K1)
+// production comparison bodies, is a template parameter of compare_fused.cu (K1)
 // and compare_batched.cu (K4) instead of a copy of them.
 //
 // P1 replaces tools/kernel_probe.py:_f32_dot_kernel (probe_f32_accuracy).
@@ -7,7 +7,7 @@
 // passes or casts it to one. The card's question is which product scheme
 // holds the port's f32 accuracy contract, and at what cost: the same
 // C = A·B in each scheme the port runs or could run,
-//   kFma     FP32 FMA on the CUDA cores (K1's stage 1),
+//   kFma     FP32 FMA on the CUDA cores (the earlier K1's and K3's stage 1),
 //   kTf32x3  3xTF32 wmma m16n16k8, each k-step added in IEEE f32
 //            (tf32x3.cuh; K4's stage 1 runs the same scheme on wgmma),
 //   kTf32    1xTF32 wmma chained through one accumulator (the precision

@@ -47,20 +47,18 @@ SIGNATURES = {
     "bioem_fourier_project": [P] * 6 + [I] * 5 + [P, P, P],
     "bioem_fourier_project_max_n": [],
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 10 + [P] * 5 + [P],
-    "bioem_fused_displacement_cc": [P] * 8 + [I] * 7 + [P] + [P],
+    "bioem_fused_displacement_cc": [P] * 8 + [I] * 9 + [P] * 2 + [P],
     "bioem_fused_compare_batched": [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
     "bioem_probe_compare": [I] + [P] * 12 + [F] + [I] * 10 + [P] * 5 + [P],
     "bioem_probe_compare_batched": [I] + [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
     "bioem_probe_f32_product": [I, P, P, P, I, I, I, I, P],
     "bioem_probe_product_sum": [I, P, P, P, P, I, I, I, I, I, I, P],
-    "bioem_compare_smem_bytes": [I, I, I],
     "bioem_fused_compare_smem_bytes": [I] * 6,
     "bioem_fused_compare_scratch_bytes": [I] * 8,
     "bioem_compare_batched_smem_bytes": [I, I, I],
     "bioem_error_string": [I],
 }
 RESTYPES = {
-    "bioem_compare_smem_bytes": ctypes.c_size_t,
     "bioem_fused_compare_smem_bytes": ctypes.c_size_t,
     "bioem_fused_compare_scratch_bytes": ctypes.c_size_t,
     "bioem_compare_batched_smem_bytes": ctypes.c_size_t,

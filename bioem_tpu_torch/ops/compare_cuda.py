@@ -6,8 +6,10 @@ Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 ``fused_displacement_cc``). K1 is ``csrc/compare_fused.cu``: a CTA per
 (orientation·ctf, run of images), conv formed once per orientation·ctf,
 stage 1 on warpgroup wgmma in 3xTF32 with W streamed through shared
-memory (any lattice width and fold; :func:`k1_plan` tiles it). K3 is
-``csrc/compare.cu``, the first K1's FP32 FMA body in its cc-out mode. K4 is
+memory (any lattice width and fold; :func:`k1_plan` tiles it). K3 is the
+same kernel in its cc-out body: its prologue copies the conv bank it is
+given, and each warpgroup writes its image's lattice in place of the
+log-sum-exp; it takes every shape K1 takes, with K1's tiling. K4 is
 ``csrc/compare_batched.cu``, whose persistent blocks walk groups of four
 images and run stage 1 on warpgroup wgmma in 3xTF32 with W resident (see
 each source's header for what bounds it on the card and how the design
@@ -197,26 +199,39 @@ def fused_compare_block(
     return outs
 
 
-def launch_k1(fn: str, args, a_coef: float, n_fold: int, variant: int | None = None,
-              outs=None):
-    """Check the twelve inputs on their CUDA device, tile the problem
-    (:func:`k1_plan`), allocate the scratch and launch K1 (or, with
-    ``variant``, its P3 body of that index); returns the four outputs."""
-    dev = args[0].device
-    o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
+def launch_plan(fn: str, d: int, m: int, f: int, n: int, n_fold: int, oc: int):
+    """K1's (and K3's) tiling of a launch, (warpgroups, K-chunk steps,
+    shared bytes) from :func:`k1_plan`, after the checks every launch
+    needs; raises ValueError where no tiling fits or the grid is too
+    large."""
     plan = k1_plan(d, m, f, n_fold)
     if plan is None:
         raise ValueError(f"{fn}: D={d}, M={m}, F={f}, n_fold={n_fold}: no K1 tiling fits "
                          f"{MAX_SMEM} bytes of shared memory")
-    n_wg, kc, smem = plan
-    _check_launch(fn, smem, d, m, n, n_fold, o_n * c_n)
+    _check_launch(fn, plan[2], d, m, n, n_fold, oc)
+    return plan
+
+
+def _scratch(lib, oc: int, n: int, d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int,
+             dev) -> torch.Tensor:
+    """K1's scratch: the conv bank (OC, N, 64·⌈F/64⌉ complex) and W's
+    hi/lo blocks."""
+    return torch.empty(lib.bioem_fused_compare_scratch_bytes(oc, n, d, m, f, n_fold, n_wg, kc),
+                       dtype=torch.uint8, device=dev)
+
+
+def launch_k1(fn: str, args, a_coef: float, n_fold: int, variant: int | None = None,
+              outs=None):
+    """Check the twelve inputs on their CUDA device, tile the problem
+    (:func:`launch_plan`), allocate the scratch and launch K1 (or, with
+    ``variant``, its P3 body of that index); returns the four outputs."""
+    dev = args[0].device
+    o_n, c_n, i_n, n, f, d, m = _compare_dims(fn, args)
+    n_wg, kc, _smem = launch_plan(fn, d, m, f, n, n_fold, o_n * c_n)
     if outs is None:
         outs = _summary_outputs(o_n * c_n, i_n, dev)
     lib = _build.load()
-    # the conv bank (OC, N, 64·⌈F/64⌉ complex) and W's hi/lo blocks
-    scratch = torch.empty(lib.bioem_fused_compare_scratch_bytes(o_n * c_n, n, d, m, f, n_fold,
-                                                                n_wg, kc),
-                          dtype=torch.uint8, device=dev)
+    scratch = _scratch(lib, o_n * c_n, n, d, m, f, n_fold, n_wg, kc, dev)
     head = (*(t.data_ptr() for t in args), float(a_coef), o_n, c_n, i_n, n, f, d, m, n_fold,
             n_wg, kc, *(t.data_ptr() for t in outs), scratch.data_ptr())
     with torch.cuda.device(dev):
@@ -245,33 +260,34 @@ def fused_displacement_cc(
     n_fold: int = 1,
 ) -> torch.Tensor:
     """cc[oc, i, d, e] — same contract as core.posterior.displacement_cc
-    on a flattened (OC, N, F) conv bank; the comparison kernel's cc-out
-    mode."""
+    on a flattened (OC, N, F) conv bank: K3, K1's kernel in its cc-out
+    body, tiled as K1 is (:func:`launch_plan`)."""
+    fn = "fused_displacement_cc"
     args = (conv_re, conv_im, img_re, img_im, wx_re, wx_im, wy_re, wy_im)
     dev = conv_re.device
     if dev.type == "cpu":
         return displacement_cc_plain(*args, n_fold=n_fold)
     if dev.type != "cuda":
-        raise ValueError(f"fused_displacement_cc: unsupported device {dev}")
+        raise ValueError(f"{fn}: unsupported device {dev}")
     oc, n, f = conv_re.shape
     i_n, d, m = img_re.shape[0], wy_re.shape[0], wx_re.shape[1]
-    _check("fused_displacement_cc", dev, [
+    _check(fn, dev, [
         ("conv_re", conv_re, (oc, n, f)), ("conv_im", conv_im, (oc, n, f)),
         ("img_re", img_re, (i_n, n, f)), ("img_im", img_im, (i_n, n, f)),
         ("wx_re", wx_re, (d, m)), ("wx_im", wx_im, (d, m)),
         ("wy_re", wy_re, (d, f)), ("wy_im", wy_im, (d, f)),
     ])
+    n_wg, kc, _smem = launch_plan(fn, d, m, f, n, n_fold, oc)
     lib = _build.load()
-    _check_launch("fused_displacement_cc", lib.bioem_compare_smem_bytes(d, m, f),
-                  d, m, n, n_fold, oc)
     cc = torch.empty((oc, i_n, d, d), dtype=F32, device=dev)
+    scratch = _scratch(lib, oc, n, d, m, f, n_fold, n_wg, kc, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.bioem_fused_displacement_cc(
-            *(t.data_ptr() for t in args), oc, i_n, n, f, d, m, n_fold,
-            cc.data_ptr(), stream,
+            *(t.data_ptr() for t in args), oc, i_n, n, f, d, m, n_fold, n_wg, kc,
+            cc.data_ptr(), scratch.data_ptr(), stream,
         )
-    _build.check(status, "fused_displacement_cc")
+    _build.check(status, fn)
     fused_displacement_cc.launches += 1
     return cc
 

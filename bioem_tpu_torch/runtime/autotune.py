@@ -8,6 +8,12 @@ the image-batched K4 at an image tile, or the hybrid K3 + torch
 displacement LSE) and K4's tile. The search is a timed argmin over a
 small candidate set, measured on the real problem's first orientation
 blocks (:data:`SPAN_COMPARISONS` comparisons) after a dropped warm-up pass.
+Like the JAX tuner, which times its jitted scan, each candidate is timed
+on the loop its pass runs: on the card's kernel branch, replays of the
+engine's captured block step (``BioEMEngine.time_blocks``; each
+candidate engine captures its own graph, released with the engine and
+``torch.cuda.empty_cache()``), so the host's dispatch of each kernel no
+longer enters the choice.
 
 Winners are cached per (device kind, problem shape) in the same file as
 the JAX package's (``.bioem_tpu_autotune.json`` in the working directory,

@@ -15,11 +15,11 @@ launch them does not enter, which matters for K2's tens of microseconds;
 mean over ``--reps`` launches after a warm-up) and the largest difference
 between the two libraries' outputs:
 |Δm| and the share of equal argmaxes for K1 and K4, max |Δ| for K2 and K3
-(K3 bit-equal when it is 0). K1 and K2 have changed their C signatures
-(K1 now takes its tiling and a scratch buffer, K2 per-group point counts);
-the other side is called with the signature its ``_build.SIGNATURES``
-declares (a K1 of the new signature with this checkout's tiling), so any
-checkout that has K4 can be the other side.
+(K3 bit-equal when it is 0). K1, K2 and K3 have changed their C
+signatures (K1 and K3 now take K1's tiling and a scratch buffer, K2
+per-group point counts); the other side is called with the signature its
+``_build.SIGNATURES`` declares (a K1 or K3 of the new signature with this
+checkout's tiling), so any checkout that has K4 can be the other side.
 """
 
 from __future__ import annotations
@@ -67,6 +67,8 @@ def main(argv=None) -> int:
     # The earlier K1 entry: twelve inputs, a_coef, eight ints, four outputs, the stream.
     other_k1_old = len(mod.SIGNATURES["bioem_fused_compare"]) == 26
     other_k2_old = len(mod.SIGNATURES["bioem_fourier_project"]) == 13
+    # The earlier K3 entry: eight inputs, seven ints, the output, the stream.
+    other_k3_old = len(mod.SIGNATURES["bioem_fused_displacement_cc"]) == 17
     inputs, a_coef, n_fold = production_block_inputs(dev)
     (o, n, f), c, i, (d, m) = inputs[0].shape, inputs[2].shape[0], inputs[4].shape[0], inputs[6].shape
     proj = production_projection_inputs(dev)
@@ -94,8 +96,14 @@ def main(argv=None) -> int:
             return out
         if kernel == "K3":
             cc = torch.empty((o * c, i, d, d), device=dev)
-            status = lib.bioem_fused_displacement_cc(*(t.data_ptr() for t in k3_in), o * c, i, n,
-                                                     f, d, m, n_fold, cc.data_ptr(), stream())
+            head = (*(t.data_ptr() for t in k3_in), o * c, i, n, f, d, m, n_fold)
+            if side == "other" and other_k3_old:
+                status = lib.bioem_fused_displacement_cc(*head, cc.data_ptr(), stream())
+            else:
+                n_wg, kc, _ = compare_cuda.k1_plan(d, m, f, n_fold)
+                scratch = compare_cuda._scratch(lib, o * c, n, d, m, f, n_fold, n_wg, kc, dev)
+                status = lib.bioem_fused_displacement_cc(*head, n_wg, kc, cc.data_ptr(),
+                                                         scratch.data_ptr(), stream())
             _build.check(status, f"{side} K3")
             return (cc,)
         if kernel == "K1" and side == "this":
@@ -104,9 +112,7 @@ def main(argv=None) -> int:
         if kernel == "K1" and not other_k1_old:
             # the other side has this checkout's K1 entry: this checkout's tiling
             n_wg, kc, _ = compare_cuda.k1_plan(d, m, f, n_fold)
-            scratch = torch.empty(lib.bioem_fused_compare_scratch_bytes(o * c, n, d, m, f, n_fold,
-                                                                        n_wg, kc),
-                                  dtype=torch.uint8, device=dev)
+            scratch = compare_cuda._scratch(lib, o * c, n, d, m, f, n_fold, n_wg, kc, dev)
             status = lib.bioem_fused_compare(
                 *(t.data_ptr() for t in inputs), float(a_coef), o, c, i, n, f, d, m, n_fold,
                 n_wg, kc, *(t.data_ptr() for t in outs), scratch.data_ptr(), stream())

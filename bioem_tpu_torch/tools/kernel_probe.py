@@ -5,8 +5,9 @@ through the port's own kernels (``ops/probe_cuda.py``):
 
 P1  Which f32-product scheme holds the accuracy contract, and at what cost?
     The (96,112)·(112,113) product of the TPU probe's inputs in FP32 FMA
-    (K3's stage 1), 3xTF32 (K1's and K4's stage 1), 1xTF32 and FP64 tensor cores:
-    median and max relative error against an f64 NumPy product; then, at
+    (the earlier K1 and K3 bodies), 3xTF32 (K1's, K3's and K4's stage 1),
+    1xTF32 and FP64 tensor cores: median and max relative error against
+    an f64 NumPy product; then, at
     that shape and at K4's stage-1 shape over a production block (512 tile
     products of (48×224)·(224×1024)), each scheme's output against the
     plain version (every batch copy) and its time.

@@ -19,17 +19,23 @@ the port's main path on the card, in phases (each prints its own lines):
    3 and 4; the image-batched comparison (K4) at the image tile the
    production passes run, launched twice and once at tile 8, all held to
    the same bits, and at lattice strides that fold the rows three and four
-   times;
+   times; the cc-lattice kernel (K3, K1's kernel writing the lattice)
+   against an f64 lattice at the production shapes, at N = 15 and on the
+   stride-1 ±30 lattice at N = 224 (D = 61, M = 224), and twice to the
+   same bits;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
    images at N=224) through run_bioem: on the kernel branch with K1 (then
-   32 of its blocks under torch.profiler: the card's busy share), with
-   K4 forced (BIOEM_TPU_FUSED_BATCHED), and autotuned twice (each
-   candidate's time and the winner printed, then the winner from the
-   cache; each pass with the seconds its tuning took; the autotune cache is
-   a temporary file, never the working directory's), each against the plain branch on the
-   same card; then a checkpoint round trip (stop after half the blocks,
-   resume in a fresh engine) against the straight run;
+   32 of its blocks as the eager loop and as replays of the captured
+   block step, each timed and under torch.profiler: wall time and the
+   card's busy share), with K4 forced (BIOEM_TPU_FUSED_BATCHED), and
+   autotuned three times from an empty cache and once more from the cache
+   (each candidate's time on its replayed loop, each winner and its pass
+   time printed; each pass with the seconds its tuning took; the autotune
+   cache is a temporary file, never the working directory's), each against
+   the plain branch on the same card; then a checkpoint round trip (stop
+   after half the blocks, resume under replay in a fresh engine) against
+   the straight run;
 6. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
    f32 product's accuracy and time by scheme), P2 (looped vs batched
    products on wgmma across the card, beside one cuBLAS GEMM doing all
@@ -420,6 +426,11 @@ def phase_kernels(torch, eng) -> dict:
     conv_im = (x["pi"][:, None] * bk.ctf_re[None] - x["pr"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     k3_args = (conv_re, conv_im, bk.img_re, bk.img_im, x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im)
     err3 = check_cc(torch, "K3 fused_displacement_cc", *k3_args, eng.n_fold, 4)
+    runs = [cc_mod.fused_displacement_cc(*k3_args, n_fold=eng.n_fold) for _ in range(2)]
+    same = torch.equal(*runs)
+    say(f"[kernels] K3: two launches bit-equal: {same}")
+    require(same, "K3: two launches on the same inputs differ")
+    del runs
     k2_args = (x["i0"], x["j0"], x["dens"], bk.st_re, bk.st_im)
     # the spec's counts against every slot: the padding holds zero density
     err2 = check_project(torch, "K2 fourier_project_block", *k2_args, n, x["counts"], None)
@@ -467,6 +478,11 @@ def phase_kernels(torch, eng) -> dict:
                       img_tile=8)
     w = odd[6:10]
     check_cc(torch, "K3 odd N=15 D=5", r(6, 15, 8), r(6, 15, 8), odd[4], odd[5], *w, 1, 5)
+    # K3 on the stride-1 ±30 lattice at N = 224 (D = 61, M = 224), which the
+    # earlier K3 refused for its shared memory
+    wide, nf_ = small_inputs(1, 1, 5, 224, np.arange(-30, 31))
+    check_cc(torch, f"K3 N=224 D=61 n_fold={nf_}", r(4, 224, 113), r(4, 224, 113), wide[4],
+             wide[5], *wide[6:10], nf_, 5)
     gi = lambda *s: torch.as_tensor(rng.integers(-20, 40, s).astype(np.int32), device=dev)  # noqa: E731
     odd_counts = torch.tensor([8, 0, 3], dtype=torch.int32, device=dev)
     check_project(torch, "K2 odd N=15", gi(3, 4, 8), gi(3, 4, 8), r(3, 4, 8).abs(),
@@ -495,8 +511,10 @@ def phase_kernels(torch, eng) -> dict:
     i_n, d, m = bk.img_re.shape[0], eng.disp.shape[0], n // eng.n_fold
     b1 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold, tensor_cores=True)
     b4 = b1
+    # K3: stage 1 on the tensor cores as K1's; conv and images read once,
+    # the lattice written once
     w3 = compare_work(o, c, i_n, n, f, d, m, eng.n_fold, conv_in=True)
-    b3 = bound({"f32": w3["stage1"] + w3["rest"]},
+    b3 = bound({"tf32": 3 * w3["stage1"], "f32": w3["rest"]},
                4 * (2 * (o * c + i_n) * n * f + 2 * d * m + 2 * d * f + o * c * i_n * d * d))
     g = x["i0"].shape[0]
     n_pts = int((x["dens"] != 0).sum())
@@ -517,7 +535,7 @@ def phase_kernels(torch, eng) -> dict:
                    max_abs_err=err2, ms=t["K2"][0], plain_ms=t["K2"][1],
                    bound_ms=b2[0], bound_by=b2[1], **none),
         "K3": dict(name="fused_displacement_cc", route="cuda",
-                   source="bioem_tpu_torch/csrc/compare.cu",
+                   source="bioem_tpu_torch/csrc/compare_fused.cu",
                    replaces="bioem_tpu/ops/compare_pallas.py:643",
                    max_abs_err=err3, ms=t["K3"][0], plain_ms=t["K3"][1],
                    bound_ms=b3[0], bound_by=b3[1], **none),
@@ -644,37 +662,28 @@ def phase_production(problem):
     return res_p, res_k
 
 
-def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
-    """The default kernel pass (K1, o_block 8) over ``n_blocks`` blocks
-    under torch.profiler, after ``warm`` blocks: wall time per block, the
-    card's busy time per block (the sum of its kernels' times: one stream,
-    so they do not overlap) and its share of the wall time, K1's and K2's
-    time per block, and the kernels launched per block."""
+def _profile_blocks(step, n_blocks: int) -> dict:
+    """``step()`` ``n_blocks`` times, timed without and then with
+    torch.profiler: wall time per block of each, the card's busy time per
+    block under the profiler (the sum of its kernels' times: one stream,
+    so they do not overlap), K1's and K2's time per block, and the kernels
+    launched per block."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bioem_tpu_torch.config import RunConfig
-    from bioem_tpu_torch.core.engine import BioEMEngine
-
-    p, orients, model, images, _ = problem
-    eng = BioEMEngine(p, orients, model, images, RunConfig(use_kernels=True, autotune=False),
-                      device=DEVICE)
-    state = eng.initial_state()
-
-    def step(b):
-        return eng._block_step(state, eng.banks, eng.ang_blocks[b], b * eng.o_block,
-                               eng.mask_blocks[b])
-
-    for b in range(warm):
-        state = step(b)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_blocks):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_blocks
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in range(warm, warm + n_blocks):
-            state = step(b)
+        for _ in range(n_blocks):
+            step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_blocks
+        wall_prof = (time.perf_counter() - t0) * 1e3 / n_blocks
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = lambda e: getattr(e, "device_time_total", None) or e.cuda_time_total  # noqa: E731
     busy = sum(dev_us(e) for e in kern) * 1e-3 / n_blocks
@@ -682,16 +691,60 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
     count = lambda key: sum(e.count for e in kern if key in e.key) / n_blocks  # noqa: E731
     # K1's launch is two kernels: its prologue (compare_fused_prep_kernel)
     # and compare_fused_kernel
-    out = dict(wall_ms=wall, busy_ms=busy, share=busy / wall, k1_ms=by("compare_fused_"),
-               k2_ms=by("project_kernel"), launches=count(""))
+    out = dict(wall_ms=wall, wall_prof_ms=wall_prof, busy_ms=busy, share=busy / wall_prof,
+               k1_ms=by("compare_fused_"), k2_ms=by("project_kernel"), launches=count(""))
     out["other_ms"] = busy - out["k1_ms"] - out["k2_ms"]
     out["other_launches"] = out["launches"] - count("compare_fused_") - count("project_kernel")
-    say(f"[profile] default kernel pass (K1, o_block {eng.o_block}), {n_blocks} blocks under "
-        f"torch.profiler: wall {wall:.3f} ms per block, card busy {busy:.3f} ms per block "
-        f"({100 * out['share']:.1f} %), K1 (prologue and main kernel) {out['k1_ms']:.3f} ms, "
-        f"K2 {out['k2_ms']:.3f} ms, the other {out['other_launches']:.1f} kernels "
-        f"{out['other_ms']:.3f} ms; {out['launches']:.1f} kernels per block")
-    require(out["k1_ms"] > 0 and out["k2_ms"] > 0, "the profiled pass shows no K1 or K2 time")
+    return out
+
+
+def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
+    """The default kernel pass (K1, o_block 8), ``n_blocks`` blocks timed
+    and ``n_blocks`` more profiled after ``warm``, two ways: as the eager
+    loop of block steps (a host dispatch per kernel) and as the pass runs
+    it, one replay of the captured block step per block. For each: wall
+    time per block without and under torch.profiler, the card's busy time
+    per block and its share of the profiled wall time, K1's and K2's time
+    per block, and the kernels launched per block. Where the profiler
+    attributes no kernel time to the graph's replays, the replayed loop's
+    wall time stands against the eager profile's busy time, and the line
+    says so."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    p, orients, model, images, _ = problem
+    eng = BioEMEngine(p, orients, model, images, RunConfig(use_kernels=True, autotune=False),
+                      device=DEVICE)
+    state = eng.initial_state()
+    blk = iter(range(warm + 2 * n_blocks))  # warm-up, then timed and profiled runs
+
+    def eager():
+        b = next(blk)
+        eng._block_step(state, eng.banks, eng.ang_blocks[b], b * eng.o_block,
+                        eng.mask_blocks[b])
+
+    for _ in range(warm):
+        eager()
+    out = {"eager": _profile_blocks(eager, n_blocks)}
+    eng._graph_load(eng.initial_state(), 0)
+    for _ in range(warm):
+        eng._replay()
+    out["replayed"] = _profile_blocks(eng._replay, n_blocks)
+    for name, r in out.items():
+        say(f"[profile] default kernel pass (K1, o_block {eng.o_block}), {n_blocks} blocks, "
+            f"{name}: wall {r['wall_ms']:.3f} ms per block ({r['wall_prof_ms']:.3f} under "
+            f"torch.profiler), card busy {r['busy_ms']:.3f} ms per block "
+            f"({100 * r['share']:.1f} %), K1 (prologue and main kernel) {r['k1_ms']:.3f} ms, "
+            f"K2 {r['k2_ms']:.3f} ms, the other {r['other_launches']:.1f} kernels "
+            f"{r['other_ms']:.3f} ms; {r['launches']:.1f} kernels per block")
+    e, g = out["eager"], out["replayed"]
+    require(e["k1_ms"] > 0 and e["k2_ms"] > 0, "the profiled eager loop shows no K1 or K2 time")
+    if g["busy_ms"] == 0:
+        say(f"[profile] torch.profiler attributes no kernel time to the graph's replays: the "
+            f"replayed wall time {g['wall_ms']:.3f} ms per block stands against the eager "
+            f"loop's busy time {e['busy_ms']:.3f} ms ({100 * e['busy_ms'] / g['wall_ms']:.1f} %)")
+    say(f"[profile] replayed against eager: wall {g['wall_ms']:.3f} against {e['wall_ms']:.3f} "
+        f"ms per block ({e['wall_ms'] / g['wall_ms']:.2f}x)")
     return out
 
 
@@ -709,8 +762,23 @@ def phase_tuned(problem, res_p, res_k, k4_tile: int) -> None:
             and perf_4["config"]["kernel_img_tile"] == k4_tile,
             f"the forced pass did not launch K4 at tile {k4_tile}")
     check_against_plain("K4 forced", res_4, res_p, planted, orients)
-    res_a, _, _ = _run("autotuned", problem, RunConfig(autotune=True, debug_output=1))
-    check_against_plain("autotuned", res_a, res_p, planted, orients)
+    # The autotuner three times from an empty cache: each candidate timed
+    # on its replayed loop; the winner and its pass time each time.
+    tuned = []
+    for k in range(3):
+        cache = os.environ["BIOEM_TPU_AUTOTUNE_CACHE"]
+        if os.path.exists(cache):
+            os.remove(cache)
+        res_a, perf_a, _ = _run(f"autotuned {k + 1} of 3 (empty cache)", problem,
+                                RunConfig(autotune=True, debug_output=1))
+        check_against_plain(f"autotuned {k + 1} of 3", res_a, res_p, planted, orients)
+        c = perf_a["config"]
+        tuned.append((("hybrid" if not c["fused_lse"] else "K4" if c["fused_batched"] else "K1"),
+                      c["orient_block"], perf_a["run_s"], perf_a["autotune_s"]))
+    say("[production] autotune winners from an empty cache: " + "; ".join(
+        f"{w} at o_block {ob} (pass {run_s:.3f} s after {tune_s:.3f} s of tuning)"
+        for w, ob, run_s, tune_s in tuned)
+        + f"; the same winner all three times: {len({t[:2] for t in tuned}) == 1}")
     # the same shape again: the winner comes from the cache, untimed
     res_a, _, _ = _run("autotuned, cached", problem, RunConfig(autotune=True, debug_output=1))
     check_against_plain("autotuned, cached", res_a, res_p, planted, orients)

@@ -17,7 +17,12 @@ every fold count and several tiles; K1 at lattice widths up to D = 61,
 folds 1–4, odd N, M = 224 and image counts that end a run of four
 mid-way; both to the same bits across two launches. The projection (K2)
 also with per-group point counts that skip padding, at its largest N and
-to the same bits across two launches. The probes: P1's FMA and 3xTF32 schemes at a median
+to the same bits across two launches. K3 (K1's kernel writing the
+lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, M = 224,
+to the same bits across two launches. The engine's replayed pass
+(a captured block step) bit-equal to its eager loop for K1, K4 and the
+hybrid, through a checkpoint resume too, with launch counters that count
+each replay. The probes: P1's FMA and 3xTF32 schemes at a median
 relative error below 1e-6 from f64 (the TPU probe's "multi-pass" line);
 P2's two structures within the f32 summation bound the probe tool states
 (``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4.
@@ -142,12 +147,13 @@ def test_k1_is_deterministic(rng, dev):
 
 def test_k1_plan_matches_the_library(dev):
     """The wrapper's tiling rule (compare_cuda.k1_smem_bytes) gives the
-    kernel library's shared memory."""
+    kernel library's shared memory (the C formula K1 and K3 both launch
+    with)."""
     from bioem_tpu_torch.ops import _build
 
     lib = _build.load()
     for d, m, f, n_fold in [(21, 112, 113, 2), (5, 15, 8, 1), (35, 48, 41, 1), (61, 64, 33, 1),
-                            (21, 224, 113, 1), (9, 12, 25, 4)]:
+                            (21, 224, 113, 1), (9, 12, 25, 4), (61, 224, 113, 1)]:
         for n_wg in (2, 4):
             for kc in (1, 2, 4, 8):
                 assert (lib.bioem_fused_compare_smem_bytes(d, m, f, n_fold, n_wg, kc)
@@ -524,3 +530,124 @@ def test_debug_prob_kernel_path_launches_k3(rng, dev):
     assert C.fused_displacement_cc.launches - before == eng.ang_blocks.shape[0]
     assert np.abs(cc_k - cc_p).max() < 5e-5 * np.abs(cc_p).max()
     assert np.abs(lp_k - lp_p).max() < 1e-3
+
+
+# K3 (K1's kernel in its cc-out body): D = 5…61 × folds 1–4 at N = 48,
+# N = 15 (folds 1 and 3) and the stride-1 ±30 lattice at N = 224 (M = 224).
+K3_SHAPES = ([(d, nf, 48) for d in (5, 9, 21, 35, 61) for nf in (1, 2, 3, 4)]
+             + [(5, 1, 15), (5, 3, 15), (61, 1, 224)])
+
+
+@pytest.mark.parametrize("n_disp,n_fold,n", K3_SHAPES)
+def test_k3_widths_and_folds_vs_plain(rng, dev, n_disp, n_fold, n):
+    """K3 against displacement_cc_plain within 5e-5 of max|cc|, with image
+    counts that end a run of four warpgroups mid-way."""
+    args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=3, c=2, i=7)
+    conv = (args[0], args[1])  # a bank of three "orientation·ctf" pairs
+    before = C.fused_displacement_cc.launches
+    k = C.fused_displacement_cc(*conv, *args[4:10], n_fold=n_fold)
+    torch.cuda.synchronize()
+    assert C.fused_displacement_cc.launches == before + 1
+    p = C.displacement_cc_plain(*conv, *args[4:10], n_fold=n_fold)
+    assert k.shape == (3, 7, n_disp, n_disp)
+    assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())
+
+
+def test_k3_is_deterministic(dev):
+    """Two K3 launches on the production block's conv bank give the same
+    bits (no atomics)."""
+    from bioem_tpu_torch.tools.kernel_probe import production_block_inputs
+
+    args, _a, n_fold = production_block_inputs(dev)
+    (o, n, f), c = args[0].shape, args[2].shape[0]
+    conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
+    conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
+    runs = [C.fused_displacement_cc(conv_re, conv_im, *args[4:10], n_fold=n_fold)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+ENGINE_PATHS = {"k1": dict(use_kernels=True),
+                "k4": dict(use_kernels=True, fused_batched=True, kernel_img_tile=5),
+                "hybrid": dict(use_kernels=True, fused_lse=False)}
+
+
+def _eager(eng, state=None, stop=None):
+    """The kernel branch's eager loop: _block_step block by block."""
+    state = eng.initial_state() if state is None else state
+    for b in range(eng.ang_blocks.shape[0] if stop is None else stop):
+        state = eng._block_step(state, eng.banks, eng.ang_blocks[b], b * eng.o_block,
+                                eng.mask_blocks[b])
+    return state
+
+
+def _same_state(a, b):
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_replayed_pass_is_bit_equal_to_the_eager_loop(rng, dev, path):
+    """run() on the card replays the captured block step; its state equals
+    the eager loop's bit for bit (per-angle slabs and the padded last block
+    included), so logP and the argmax tuples are equal."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    eng = BioEMEngine(*_engine_problem(rng), RunConfig(orient_block=3, **ENGINE_PATHS[path]),
+                      device=dev)
+    assert eng._replayed() and eng.fused_batched == (path == "k4")
+    assert eng.fused_lse == (path != "hybrid") and eng.n_orient_pad > eng.n_orient
+    got = eng.run()
+    assert eng._graph is not None
+    want = _eager(eng)
+    assert _same_state(got, want)
+    r_got, r_want = eng.results(got), eng.results(want)
+    np.testing.assert_array_equal(r_got.log_prob, r_want.log_prob)
+    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+        np.testing.assert_array_equal(getattr(r_got, f), getattr(r_want, f))
+
+
+def test_checkpoint_resume_under_replay(rng, dev, tmp_path):
+    """A run stopped after two blocks (eager) and resumed in a fresh engine
+    (replayed from block 2, saving every block) equals the straight
+    replayed run bit for bit."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+
+    problem = _engine_problem(rng)
+    straight = BioEMEngine(*problem, RunConfig(orient_block=3), device=dev)
+    want = straight.run()
+    cfg = RunConfig(orient_block=3, checkpoint_path=str(tmp_path / "s.npz"), checkpoint_every=1)
+    first = BioEMEngine(*problem, cfg, device=dev)
+    save_checkpoint(cfg.checkpoint_path, _eager(first, stop=2), 2, first._fingerprint)
+    resumed = BioEMEngine(*problem, cfg, device=dev)
+    got = resumed.run()
+    assert _same_state(got, want)
+    _st, nxt = load_checkpoint(cfg.checkpoint_path, resumed._fingerprint)
+    assert nxt == resumed.ang_blocks.shape[0]
+
+
+def test_launch_counters_count_replays(rng, dev):
+    """Capture launches nothing; the counters gain the warm-up step's
+    launches once and the captured step's at every replay, in run() and in
+    time_blocks; a later pass leaves the state an earlier run() returned
+    as it was."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    eng = BioEMEngine(*_engine_problem(rng), RunConfig(orient_block=3), device=dev)
+    nblk = eng.ang_blocks.shape[0]
+    fns = (C.fused_compare_block, P.fourier_project_block)
+    before = [fn.launches for fn in fns]
+    first = eng.run()
+    kept = [x.clone() if x is not None else None for x in first]
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk + 1] * 2
+    before = [fn.launches for fn in fns]
+    second = eng.run()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk] * 2
+    before = [fn.launches for fn in fns]
+    eng.time_blocks(2 * eng.o_block, repeats=1)
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [2 * 2] * 2
+    assert _same_state(first, kept) and _same_state(second, kept)

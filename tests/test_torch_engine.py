@@ -18,6 +18,7 @@ per-angle logP 5.5e-7 (asserted at 2.2e-6). Every argmax tuple is exact.
 
 import numpy as np
 import pytest
+import torch
 
 from bioem_tpu.config import RunConfig as JConfig
 from bioem_tpu.core.engine import BioEMEngine as JEngine
@@ -143,3 +144,39 @@ def test_run_bioem_end_to_end(rng, monkeypatch):
     assert perf["engine"].device.type == "cpu"
     _compare(rj, rt, SUITE)
     assert rt.grid is not None
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_run_equals_the_block_loop(rng, kernels):
+    """On the CPU run() is the eager loop: its state equals, bit for bit,
+    the state of _block_step called block by block with int offsets, on a
+    padded block with per-angle slabs."""
+    from bioem_tpu_torch.core.posterior import PosteriorState
+
+    p, model, images = _problem(rng, 5, write_angles=3, max_displace_center=4,
+                                grid_space_center=2)
+    cfg = TConfig(orient_block=3, **(KCFG_T if kernels else {}))
+    et = TEngine(p, t_orients(p), model, images, cfg, device="cpu")
+    assert et.n_orient_pad > et.n_orient and not et._replayed()
+    st = et.initial_state()
+    for b in range(et.ang_blocks.shape[0]):
+        st = et._block_step(st, et.banks, et.ang_blocks[b], b * et.o_block, et.mask_blocks[b])
+    got = et.run()
+    for key, a, b in zip(PosteriorState._fields, got, st):
+        assert a is not None and torch.equal(a, b), key
+
+
+def test_hoisted_prior_equals_the_per_block_prior(rng):
+    """The engine computes the CTF prior once: it equals the per-block
+    ctf_prior_term of the port on the engine's banks, bit for bit, and the
+    JAX package's on its banks (rtol 1e-13, test_torch_posterior's bound)."""
+    from bioem_tpu.core.posterior import ctf_prior_term as j_prior
+    from bioem_tpu_torch.core.posterior import ctf_prior_term
+
+    p, model, images = _problem(rng, 2)
+    ej, et = _engines(p, model, images, {}, {})
+    bk = et.banks
+    assert et._prior.dtype == torch.float64 and et._prior.shape == (et.n_ctf,)
+    assert torch.equal(et._prior, ctf_prior_term(bk.amp, bk.pha, bk.env, p))
+    want = np.asarray(j_prior(ej.banks.amp, ej.banks.pha, ej.banks.env, p))
+    np.testing.assert_allclose(et._prior.numpy(), want, rtol=1e-13)

@@ -47,7 +47,7 @@ RULES = [
 
 def test_lint_sees_the_port():
     names = {os.path.basename(f) for f in FILES}
-    assert {"compare.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "probe.cu",
+    assert {"compare_fused.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "probe.cu",
             "tf32x3.cuh", "engine.py", "compare_cuda.py", "project_cuda.py", "probe_cuda.py",
             "debug_prob.py", "simulator.py", "kernel_probe.py", "chip_smoke.py"} <= names
 

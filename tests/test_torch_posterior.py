@@ -193,3 +193,23 @@ def test_merge_block(rng, write_angles, masked):
         else:
             np.testing.assert_allclose(got[key], v, rtol=1e-12, err_msg=key)
     assert np.isfinite(got["total"]).all()
+
+
+@pytest.mark.parametrize("write_angles", [False, True])
+def test_merge_block_tensor_offset_is_bit_equal(rng, write_angles):
+    """merge_block with the offset as a 0-d integer tensor (what a captured
+    block step passes) gives the same bits as with an int, over three
+    blocks of two orientations into a state padded to six, the last block
+    half padding (its second orientation masked: k = −inf)."""
+    o, n_orient_pad = 2, 6
+    states = [T.init_state(4, n_orient_pad, write_angles) for _ in range(2)]
+    for blk in range(3):
+        args = [t(x) for x in _merge_inputs(rng, o=o)]
+        if blk == 2:
+            args[4][1] = -np.inf
+        states[0] = T.merge_block(states[0], *args, blk * o, 256.0, 5)
+        states[1] = T.merge_block(states[1], *args, torch.tensor(blk) * o, 256.0, 5)
+    for key, a, b in zip(T.PosteriorState._fields, *states):
+        assert (a is None) == (b is None) == (key.startswith("ang") and not write_angles), key
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), key

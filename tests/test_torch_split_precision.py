@@ -335,7 +335,7 @@ def test_project_kernel_has_no_two_n_squared_rule():
 # ---------------------------------------------------------------------------
 
 def _fma_k1_smem(d, m, f):
-    """The earlier FP32 FMA K1's shared memory (csrc/compare.cu
+    """The earlier FP32 FMA K1's and K3's shared memory (their
     smem_bytes): wx resident, wy and t1, two D² arrays."""
     dc = 8 if d <= 8 else (16 if d <= 16 else 24)
     dpad = -(-d // dc) * dc
@@ -403,3 +403,50 @@ def test_k1_plain_at_wide_and_folded_shapes_vs_pallas(rng, n_disp, n_fold, n):
     tie = ((top2[..., 0] - top2[..., 1]) <= 1e-5 * abs(a_coef)).numpy()
     assert tie.sum() <= 1
     np.testing.assert_array_equal(gd[~tie], rd[~tie])
+
+
+# ---------------------------------------------------------------------------
+# K3: K1's kernel in its cc-out body
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_fold", [1, 2, 3, 4])
+def test_k3_plan_takes_every_shape_k1_plan_takes(n_fold):
+    """K3 launches with K1's tiling (compare_cuda.launch_plan): every
+    (D, M, F) k1_plan tiles, K3 takes with the same plan, and it refuses
+    the rest before any launch. D = 61 at M = 224 (a stride-1 ±30 lattice
+    at N = 224), which the earlier FP32 FMA K3 refused, is taken."""
+    tiled = 0
+    for d in list(range(1, 40)) + [45, 61, 64, 90]:
+        for m in (4, 15, 16, 24, 48, 56, 112, 224, 448):
+            for f in (8, 9, 17, 33, 41, 57, 113, 225):
+                plan = C.k1_plan(d, m, f, n_fold)
+                if plan is None:
+                    with pytest.raises(ValueError, match="no K1 tiling fits"):
+                        C.launch_plan("fused_displacement_cc", d, m, f, m * n_fold, n_fold, 64)
+                    continue
+                tiled += 1
+                assert C.launch_plan("fused_displacement_cc", d, m, f, m * n_fold, n_fold,
+                                     64) == plan
+    assert tiled > 2000
+    assert _fma_k1_smem(61, 224, 113) > C.MAX_SMEM
+    n_wg, kc, smem = C.launch_plan("fused_displacement_cc", 61, 224, 113, 224 * n_fold,
+                                   n_fold, 64)
+    assert smem <= C.MAX_SMEM and (n_wg, kc) == C.k1_plan(61, 224, 113, n_fold)[:2]
+
+
+@pytest.mark.parametrize("d,n_fold,n", [(21, 2, 224), (5, 1, 15)])
+def test_3xtf32_k3_lattice_within_5e_5_of_f64(rng, d, n_fold, n):
+    """K3's lattice is K1's cc before the log-sum-exp: in emulated 3xTF32
+    (stage 1 in the kernel's k8 steps) it is within chip_smoke's 5e-5 of
+    max|cc| of the f64 lattice at the production shape and at N = 15; the
+    plain f32 version is too."""
+    x = _k1_problem(rng, d, n_fold, n=n, n_img=3)
+    args = [x[k] for k in ("conv_re", "conv_im", "img_re", "img_im", "wx_re", "wx_im",
+                           "wy_re", "wy_im")]
+    cc64 = C.displacement_cc_plain(*(t.double() for t in args), n_fold=n_fold)
+    scale = float(cc64.abs().max())
+    emu = _emulated_k1_cc(x, n_fold)
+    assert emu.shape == cc64.shape == (1, 3, d, d)
+    assert float((emu.double() - cc64).abs().max()) < 5e-5 * scale
+    plain = C.displacement_cc_plain(*args, n_fold=n_fold)
+    assert float((plain.double() - cc64).abs().max()) < 5e-5 * scale
