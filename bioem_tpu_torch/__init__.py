@@ -19,5 +19,7 @@ __version__ = "0.1.0"
 from . import defs
 from .config import RunConfig
 from .params import BioEMParams, read_parameters
+from .refine import RefineResult, refine_results
 
-__all__ = ["defs", "RunConfig", "BioEMParams", "read_parameters"]
+__all__ = ["defs", "RunConfig", "BioEMParams", "read_parameters", "RefineResult",
+           "refine_results"]

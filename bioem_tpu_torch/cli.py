@@ -15,10 +15,13 @@ the CPU, and with neither it raises before reading any input
 (config.resolve_device). ``BIOEM_TPU_DEBUG_PROB=<image>`` writes the
 per-evaluation dump of that image after the outputs (debug_prob.py).
 ``--PrintBestCalMap`` runs the forward simulator (simulator.py, host
-NumPy, no device). The parts of the JAX CLI that are not ported yet
-(--Refine*, a device mesh, multi-host runs, the native ingest;
-config.NOT_PORTED_ENV) raise NotImplementedError instead of running
-something else; the TPU-only knobs (config.TPU_ONLY_ENV) are ignored.
+NumPy, no device). ``--Refine`` (with ``--RefineCTF``/``--RefineCTFAmp``)
+polishes each image's maximizing parameters off-grid after the pass
+(refine.py, on the pass's engine and device) and writes
+``Output_Refined``. The parts of the JAX CLI that are not ported yet (a
+device mesh, multi-host runs, the native ingest; config.NOT_PORTED_ENV)
+raise NotImplementedError instead of running something else; the TPU-only
+knobs (config.TPU_ONLY_ENV) are ignored.
 """
 
 from __future__ import annotations
@@ -138,11 +141,39 @@ def write_rotated_models(model, orients, out) -> None:
             )
 
 
+def write_refined(f, out) -> None:
+    """Output_Refined writer (framework extension — the reference cannot
+    differentiate its pipeline; see refine.py), the JAX package's format."""
+    f.write(
+        "************************* HEADER: REFINED PARAMETERS "
+        "*******************************\n"
+    )
+    f.write(
+        "Refined Parameters: quaternions q1 q2 q3 q4, center displacement "
+        "x y, CTF phase & envelope & amplitude\n"
+    )
+    f.write(
+        "Columns: RefMap LogProSeed LogProRefined q1 q2 q3 q4 CentX CentY "
+        "Pha Env Amp GradNorm\n"
+    )
+    f.write(
+        "*********************************************************"
+        "****************************\n"
+    )
+    for i in range(out.rotmat.shape[0]):
+        q = out.quaternion[i]
+        f.write(
+            f"RefMap: {i} LogPro: {out.logpro_seed[i]:12.6f} -> "
+            f"{out.logpro_refined[i]:12.6f} Quat: {q[0]:12.6f} {q[1]:12.6f} "
+            f"{q[2]:12.6f} {q[3]:12.6f} Cent: {out.cent_x[i]:10.4f} "
+            f"{out.cent_y[i]:10.4f} Pha: {out.pha[i]:12.6f} Env: "
+            f"{out.env[i]:12.6f} Amp: {out.amp[i]:8.4f} "
+            f"GradNorm: {out.grad_norm[i]:.3e}\n"
+        )
+
+
 def _refuse_not_ported(args) -> None:
-    what = []
-    if args.Refine or args.RefineCTF or args.RefineCTFAmp:
-        what.append("--Refine/--RefineCTF/--RefineCTFAmp (continuous refinement)")
-    what += not_ported_env()
+    what = not_ported_env()
     if what:
         raise NotImplementedError(
             "not yet ported to bioem_tpu_torch: " + "; ".join(what)
@@ -248,6 +279,21 @@ def main(argv=None) -> int:
     from .debug_prob import maybe_dump_from_env
 
     maybe_dump_from_env(perf["engine"])
+
+    # ---- optional continuous refinement (no reference analogue) ----
+    if args.Refine:
+        from .refine import refine_results
+
+        t0 = time.perf_counter()
+        refined = refine_results(
+            perf["engine"], results, refine_ctf=args.RefineCTF,
+            refine_ctf_amp=args.RefineCTFAmp,
+        )
+        print(f"Refinement: {time.perf_counter() - t0:.2f}s "
+              f"({refined.image_chunk} images per batch)")
+        with open(defs.FILE_REFINED, "w") as f:
+            write_refined(f, refined)
+        print(f"Refined parameters written to: {defs.FILE_REFINED}")
     return 0
 
 

@@ -28,11 +28,13 @@ def _tensor(v, device) -> torch.Tensor:
 
 
 def banks_from_numpy(fields: Mapping[str, np.ndarray], device) -> Banks:
-    """Banks on ``device`` from NumPy arrays, dtypes kept."""
-    missing = set(Banks._fields) - set(fields)
+    """Banks on ``device`` from NumPy arrays, dtypes kept. ``counts``, the
+    port's own field, may be absent (the JAX package's Banks has none):
+    the projection then reads the spec's counts."""
+    missing = set(Banks._fields) - set(Banks._field_defaults) - set(fields)
     if missing:
         raise KeyError(f"banks_from_numpy: missing fields {sorted(missing)}")
-    return Banks(**{k: _tensor(fields[k], device) for k in Banks._fields})
+    return Banks(**{k: _tensor(fields[k], device) for k in Banks._fields if k in fields})
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], device) -> PosteriorState:

@@ -33,7 +33,7 @@ reduced-precision coordinate flips pixel snaps wholesale.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -52,7 +52,10 @@ class ProjectionSpec:
     stencil_half: int  # max irad over model points (0 if all point-like)
 
 
-def make_projection_spec(p, radii: np.ndarray) -> ProjectionSpec:
+def make_projection_spec(p, radii: np.ndarray, stencil_half_min: int = 0) -> ProjectionSpec:
+    """``stencil_half_min`` pads the stencil so one engine serves several
+    models (multi-model ranking swaps model banks; the extra stencil rows
+    carry zero weight)."""
     large = radii > p.pixel_size
     if large.any():
         irad_max = int(np.max((radii[large] / p.pixel_size).astype(np.int64)) + 1)
@@ -63,7 +66,7 @@ def make_projection_spec(p, radii: np.ndarray) -> ProjectionSpec:
         pixel_size=p.pixel_size,
         shift_x=p.shift_x,
         shift_y=p.shift_y,
-        stencil_half=irad_max,
+        stencil_half=max(irad_max, stencil_half_min),
     )
 
 
@@ -178,10 +181,13 @@ class FourierProjectionSpec:
     pixel_size: float
     shift_x: int
     shift_y: int
-    n_groups: int  # radius groups G
+    n_groups: int  # radius groups G (possibly padded, see n_groups_pad)
     group_pad: int  # points per group after padding (Pp)
-    # model points in each group: its first slots, the padding after them
-    group_counts: tuple[int, ...]
+    # Model points in each group: its first slots, the padding after them.
+    # Model data, not layout: two models on one layout may differ here, so
+    # it takes no part in the spec's equality (the engine carries it per
+    # model as Banks.counts).
+    group_counts: tuple[int, ...] = field(compare=False)
 
 
 MAX_RADIUS_GROUPS = 32
@@ -201,7 +207,9 @@ def _unit_stencil(radius: float, pix: float) -> np.ndarray:
     return np.where(dist < rad2, chord, 0.0)
 
 
-def make_fourier_projection_spec(p, radii: np.ndarray):
+def make_fourier_projection_spec(
+    p, radii: np.ndarray, n_groups_pad: int = 0, group_pad: int = 0
+):
     """(spec, gather_idx, pad_mask, stencil_dfts, stencil_sums) or None if
     too many radius groups (host NumPy, a copy of the JAX package's).
 
@@ -211,15 +219,19 @@ def make_fourier_projection_spec(p, radii: np.ndarray):
     ``pad_mask``); ``stencil_dfts`` is (G, N, F) complex64 and
     ``stencil_sums`` (G,) float32 (Σ of each group's unit-density stencil,
     feeding tempden).
+
+    ``n_groups_pad``/``group_pad`` pad the layout to a common shape so one
+    engine can serve several models (padded groups carry zero stencils,
+    zero-density points and a zero count).
     """
     uniq, inverse = np.unique(np.asarray(radii, np.float32), return_inverse=True)
-    if uniq.size > MAX_RADIUS_GROUPS:
+    if uniq.size > max(MAX_RADIUS_GROUPS, n_groups_pad):
         return None
     n, nf = p.n_pixels, p.n_fft_1d
     groups = [np.nonzero(inverse == g)[0] for g in range(uniq.size)]
-    g_out = uniq.size
+    g_out = max(uniq.size, n_groups_pad)
     pp = max(len(m) for m in groups)
-    pp = ((pp + 7) // 8) * 8
+    pp = max(((pp + 7) // 8) * 8, group_pad)
     gather_idx = np.zeros(g_out * pp, np.int64)
     pad_mask = np.zeros(g_out * pp, np.float32)
     dfts = [np.zeros((n, nf), np.complex64)] * g_out
@@ -246,7 +258,7 @@ def make_fourier_projection_spec(p, radii: np.ndarray):
         shift_y=p.shift_y,
         n_groups=g_out,
         group_pad=pp,
-        group_counts=tuple(len(m) for m in groups),
+        group_counts=tuple(len(m) for m in groups) + (0,) * (g_out - uniq.size),
     )
     return spec, gather_idx, pad_mask, np.stack(dfts), sums
 
@@ -283,15 +295,25 @@ def fourier_epilogue(
     st_re: torch.Tensor,
     st_im: torch.Tensor,
     st_sums: torch.Tensor,
+    signed_rows: bool = False,
 ):
-    """Radius-group contraction: spectrum = Σ_g stencilDFT_g ⊙
-    Σ_p dens_p·e^{i(θx_p k1 + θy_p k2)}, density-renormalised. Row
-    frequencies are the raw 0..N−1 layout (the JAX package's
-    ``signed_rows=False``: identical at integer pixel positions)."""
+    """Radius-group contraction shared by the snapped (grid engine) and
+    smooth (refine.py) prologues: spectrum = Σ_g stencilDFT_g ⊙
+    Σ_p dens_p·e^{i(θx_p k1 + θy_p k2)}, density-renormalised.
+
+    ``signed_rows``: row frequencies as signed integers (−N/2, N/2]. At the
+    snapped path's integer pixel positions both conventions are identical
+    (e^{iθk} is k-periodic mod N there), so the grid engine keeps the raw
+    0..N−1 layout. The smooth path must use signed rows: with raw indices
+    a fractional point position breaks the spectrum's Hermitian row
+    symmetry and the surrogate posterior ripples at subpixel scale."""
     n = fspec.n_pixels
     nf = n // 2 + 1
     dev = theta_x.device
-    k1 = torch.arange(n, dtype=F32, device=dev)
+    if signed_rows:
+        k1 = (torch.remainder(torch.arange(n, device=dev) + n // 2, n) - n // 2).to(F32)
+    else:
+        k1 = torch.arange(n, dtype=F32, device=dev)
     k2 = torch.arange(nf, dtype=F32, device=dev)
     ax = theta_x[..., :, None] * k1  # (..., P, N)
     ay = theta_y[..., :, None] * k2  # (..., P, F)
@@ -340,18 +362,22 @@ def grouped_snap(fspec: FourierProjectionSpec, rotmats, points, radii, densities
 
 
 def project_fourier_batch_kernel(
-    fspec, rotmats, points, radii, densities, norm_den, st_re, st_im, st_sums
+    fspec, rotmats, points, radii, densities, norm_den, st_re, st_im, st_sums,
+    counts=None,
 ):
     """Same contract as project_fourier_batch through the projection
     kernel (ops/project_cuda.py, the counterpart of the JAX package's
     project_fourier_batch_pallas): integer pixel positions go to the kernel,
     which reads an exact N-entry twiddle table and, of each group, only the
-    spec's ``group_counts`` slots (not its padding); the caller-side scale
-    norm_den/tempden is applied here."""
+    first ``counts[g]`` slots (not its padding); the caller-side scale
+    norm_den/tempden is applied here. ``counts`` is the model's (G,) int32
+    tensor (the engine's Banks.counts); None reads the spec's
+    ``group_counts``."""
     from ..ops.project_cuda import counts_tensor, fourier_project_block
 
     i0, j0, de = grouped_snap(fspec, rotmats, points, radii, densities)  # (G, O, Pp)
-    counts = counts_tensor(fspec.group_counts, de.device)
+    if counts is None:
+        counts = counts_tensor(fspec.group_counts, de.device)
     pr, pi = fourier_project_block(i0, j0, de, st_re, st_im, n=fspec.n_pixels, counts=counts)
     tempden = torch.matmul(de.sum(dim=2).T, st_sums.to(F32))  # (O,)
     scale = (norm_den / tempden)[:, None, None]

@@ -27,6 +27,7 @@ PROB = np.float64
 FILE_COORDREAD = "COORDREAD"
 FILE_ANG_PROB = "ANG_PROB"
 FILE_BESTMAP = "BESTMAP"
+FILE_REFINED = "Output_Refined"  # framework extension: --Refine continuous polish
 FILE_MAPS_DUMP = "maps.dump"
 FILE_MODEL_DUMP = "model.dump"
 DEFAULT_OUTPUT_FILE = "Output_Probabilities"

@@ -63,9 +63,12 @@ def make_engine(
     images: ImageStack,
     cfg: Optional[RunConfig] = None,
     device=None,
+    model_layout: Optional[dict] = None,
 ) -> BioEMEngine:
+    """The single-device engine; ``model_layout`` pads the model arrays to
+    a layout shared by several models (rank.common_model_layout)."""
     cfg = cfg or RunConfig.from_env()
-    return BioEMEngine(p, orients, model, images, cfg, device=device)
+    return BioEMEngine(p, orients, model, images, cfg, device=device, model_layout=model_layout)
 
 
 def run_bioem(

@@ -36,21 +36,38 @@ the port's main path on the card, in phases (each prints its own lines):
    the plain branch on the same card; then a checkpoint round trip (stop
    after half the blocks, resume under replay in a fresh engine) against
    the straight run;
-6. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
+6. streaming: the 64 production images through run_streaming in chunks of
+   16 on K1, one capture for all chunks, equal to the K1 run_bioem of
+   step 5; a checkpointed streamed run that dies reading chunk 2, resumed,
+   equal to the straight streamed run;
+7. ranking: rank_models with the production model against it jittered by
+   2 Å and with 50 points removed (other per-group point counts, which
+   K2 reads per model), one capture for the three, each candidate equal
+   to its own run_bioem, the production model first;
+8. refinement: refine_results after the tuned pass on as many production
+   images as fit its time budget (the cut printed), every refined logpro
+   at or above its seed; 8 images planted off-grid with the smooth
+   forward model at N = 224, the refined rotation and displacement closer
+   to the truth than the grid seed on ≥ 7; 2 of them refined on the card
+   and on the CPU, held to the CPU parity test's tolerances; --Refine
+   through the port's CLI on golden case A;
+9. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
    f32 product's accuracy and time by scheme), P2 (looped vs batched
    products on wgmma across the card, beside one cuBLAS GEMM doing all
    of them) and P3 (the K1/K4 body ablation at the production block),
    each held to its check;
-7. --PrintBestCalMap on golden case M through the port's CLI, held to
+10. --PrintBestCalMap on golden case M through the port's CLI, held to
    tests/test_golden.py's BESTMAP rule;
-8. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
+11. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
    one image on the plain branch and through K3, diffed with the port's
    diff entry point, and the dump's log-sum-exp held to the image's logP.
 
 The paths are driven in parts, each with every kernel's launch counter
 set to 0 just before it and read just after: the goldens with the plain
 and K1 passes must launch K1, K2 and K3; the K4, autotuned and checkpoint
-passes K2 and K4; the probe tool P1, P2 and P3; the DEBUG_PROB runs K3.
+passes K2 and K4; streaming and ranking K1 and K2; the refinement phase
+(its grid passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
+K3.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
 least time the card could take for the same work (``bound_ms``, from the
@@ -64,6 +81,7 @@ when the port's package is not next to this script.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -808,6 +826,330 @@ def phase_tuned(problem, res_p, res_k, k4_tile: int) -> None:
     require(rel <= 1e-12 and same, "the resumed run differs from the straight run")
 
 
+ARGMAX = ("best_orient", "best_conv", "best_cent_x", "best_cent_y")
+
+
+def _held(name, res, ref, tol=1e-6) -> None:
+    """Argmax tuples equal on every image and max |ΔlogP| ≤ ``tol``."""
+    same = np.all([getattr(res, f) == getattr(ref, f) for f in ARGMAX], axis=0)
+    dlp = float(np.max(np.abs(res.log_prob - ref.log_prob)))
+    say(f"[{name}] argmax tuples equal on {int(same.sum())}/{len(same)} images, "
+        f"max |ΔlogP| {dlp:.3e} (limit {tol:g})")
+    require(bool(same.all()) and dlp <= tol, f"{name}: differs beyond its limit")
+
+
+class _ReadFailure(Exception):
+    pass
+
+
+class _FailingSource:
+    """An image source whose reads from ``fail_at`` on raise: a streamed run
+    that dies while chunk ``fail_at // chunk`` is read."""
+
+    def __init__(self, maps, fail_at):
+        self.maps, self.fail_at = maps, fail_at
+
+    @property
+    def n_images(self):
+        return self.maps.shape[0]
+
+    def chunk(self, start, stop):
+        if start >= self.fail_at:
+            raise _ReadFailure(f"read of images [{start}, {stop}) failed")
+        return self.maps[start:stop]
+
+
+def phase_streaming(problem, res_k, card: str, chunk: int = 16) -> None:
+    """The production images streamed in chunks of ``chunk`` through
+    run_streaming on the kernel branch (K1): one capture for every chunk,
+    equal to run_bioem over all 64 images (res_k) to 1e-6 with the argmax
+    tuples exact; then a checkpointed streamed run that dies reading
+    chunk 2, resumed, equal to the straight streamed run (its chunks 0 and
+    1 loaded from their checkpoints, not recomputed)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.stream import ArraySource, run_streaming
+
+    p, orients, model, images, _ = problem
+    cfg = RunConfig(use_kernels=True, autotune=False)
+    t0 = time.perf_counter()
+    res, perf = run_streaming(p, orients, model, ArraySource(images.maps), cfg,
+                              chunk_images=chunk, device=DEVICE)
+    wall = time.perf_counter() - t0
+    say(f"[streaming] {card}: {images.n} images in {perf['chunks']} chunks of {chunk}: "
+        f"{wall:.3f} s ({perf['run_s'] / perf['chunks']:.3f} s per chunk, "
+        f"{perf['comparisons'] / perf['run_s']:.4e} comparisons/s), captures {perf['captures']}")
+    require(perf["captures"] == 1, "the streamed chunks did not share one capture")
+    _held("streaming", res, res_k)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = RunConfig(use_kernels=True, autotune=False,
+                       checkpoint_path=os.path.join(tmp, "stream.npz"))
+        try:
+            run_streaming(p, orients, model, _FailingSource(images.maps, 2 * chunk), ck,
+                          chunk_images=chunk, device=DEVICE)
+            require(False, "the failing source did not fail")
+        except _ReadFailure as e:
+            say(f"[streaming] checkpointed run stopped: {e}")
+        done = sorted(f for f in os.listdir(tmp) if ".chunk" in f)
+        before = cc_mod.fused_compare_block.launches
+        t0 = time.perf_counter()
+        res_r, _ = run_streaming(p, orients, model, ArraySource(images.maps), ck,
+                                 chunk_images=chunk, device=DEVICE)
+        k1 = cc_mod.fused_compare_block.launches - before
+    say(f"[streaming] resumed with checkpoints {done}: {time.perf_counter() - t0:.3f} s, "
+        f"K1 launches {k1} (the straight streamed run's chunks: {perf['chunks']})")
+    require(res_r.log_prob.tobytes() == res.log_prob.tobytes()
+            and all(np.array_equal(getattr(res_r, f), getattr(res, f)) for f in ARGMAX),
+            "the resumed streamed run differs from the straight one")
+    say("[streaming] resumed streamed run equal to the straight streamed run (logP bit-equal)")
+
+
+def phase_ranking(problem, card: str) -> None:
+    """rank_models on the production images: the production model against
+    the same model with its points jittered by 2 Å and with 50 points
+    removed (its per-group point counts differ: K2 reads them per model).
+    One capture for the three; each model's per-image logP and argmax
+    tuples equal an independent run_bioem of it to 1e-6; the production
+    model ranks first."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.io.model_io import Model
+    from bioem_tpu_torch.rank import rank_models
+    from bioem_tpu_torch.run import run_bioem
+
+    p, orients, model, images, _ = problem
+    rng = np.random.default_rng(SEED + 1)
+    step = rng.normal(size=model.points.shape)
+    step *= 2.0 / np.linalg.norm(step, axis=1, keepdims=True)
+    jittered = Model((model.points + step).astype(np.float32), model.radii, model.densities,
+                     model.norm_den)
+    # 50 points away, at least one kept in every radius group
+    keep = np.ones(model.n_points, bool)
+    for i in rng.permutation(model.n_points):
+        if (~keep).sum() == 50:
+            break
+        if (keep & (model.radii == model.radii[i])).sum() > 1:
+            keep[i] = False
+    dens = model.densities[keep]
+    removed = Model(model.points[keep], model.radii[keep], dens, float(dens.sum()))
+    models = [model, jittered, removed]
+    names = ["production", "jittered 2 A", "50 points removed"]
+    cfg = RunConfig(use_kernels=True, autotune=False)
+    t0 = time.perf_counter()
+    total, per_image, perf = rank_models(p, orients, models, images, cfg, device=DEVICE)
+    wall = time.perf_counter() - t0
+    say(f"[ranking] {card}: {len(models)} models × {images.n} images: {wall:.3f} s "
+        f"({perf['run_s'] / len(models):.3f} s per model), captures {perf['captures']}; "
+        + ", ".join(f"{n} lnP {t:.4f}" for n, t in zip(names, total)))
+    require(perf["captures"] == 1, "the ranked models did not share one capture")
+    require(int(np.argmax(total)) == 0, "the production model does not rank first")
+    for m in (1, 2):
+        own, _ = run_bioem(p, orients, models[m], images, cfg, device=DEVICE)
+        _held(f"ranking: {names[m]} vs its own run_bioem", perf["results"][m], own)
+
+
+def _angle(a, b) -> float:
+    tr = np.trace(np.asarray(a, np.float64) @ np.asarray(b, np.float64).T)
+    return float(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
+
+
+def _planted_offgrid(eng, n_img: int, rng, noise: float = 0.5):
+    """``n_img`` images of the port's smooth forward model (refine.py) at
+    N = 224: per image a grid orientation turned by half the grid's
+    nearest-neighbour step about a random axis, a grid CTF, and a sub-pixel
+    displacement; noise at ``noise`` times the signal's spread. Returns the
+    maps, the planted rotations and displacements, the half step and the
+    grid orientation each plant was turned from."""
+    import torch
+
+    from bioem_tpu_torch.core.orientations import rotation_matrices
+    from bioem_tpu_torch.core.projection import fourier_epilogue
+    from bioem_tpu_torch.io.map_io import _normalize_stack
+    from bioem_tpu_torch.refine import exp_so3, smooth_ctf_spectrum, smooth_projection_phases
+
+    p, b = eng.p, eng.banks
+    n = p.n_pixels
+    rots = rotation_matrices(torch.as_tensor(eng.orients.angles), True).double().numpy()
+    o_idx = rng.integers(0, eng.n_orient, n_img)
+    # the grid's nearest-neighbour step at the first planted orientation,
+    # from the quaternions in f64 (the grid holds each rotation twice, as q
+    # and −q: the angle 2·acos|q·q'| skips those)
+    q = eng.orients.angles.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    ang = 2.0 * np.arccos(np.clip(np.abs(q @ q[o_idx[0]]), 0.0, 1.0))
+    half = 0.5 * float(ang[ang > 1e-3].min())
+    maps, rot_star, d_star = [], [], []
+    k1 = ((np.arange(n) + n // 2) % n - n // 2)[:, None]
+    k2 = np.arange(n // 2 + 1)[None, :]
+    for o in o_idx:
+        axis = rng.normal(size=3)
+        w = half * axis / np.linalg.norm(axis)
+        r = exp_so3(torch.as_tensor(w)).numpy() @ rots[o]
+        c = int(rng.integers(0, eng.n_ctf))
+        d = rng.uniform(-3.0, 3.0, 2)
+        th_x, th_y = smooth_projection_phases(n, p.pixel_size, p.shift_x, p.shift_y,
+                                              torch.as_tensor(r, dtype=torch.float32,
+                                                              device=b.points.device),
+                                              b.points, b.radii)
+        pr, pi = fourier_epilogue(eng.fspec, th_x, th_y, b.dens, b.norm_den, b.st_re, b.st_im,
+                                  b.st_sums, signed_rows=True)
+        ctf = smooth_ctf_spectrum(n, p.pixel_size, p.use_psf, b.amp[c], b.pha[c], b.env[c])
+        spec = ((pr + 1j * pi) * ctf).cpu().numpy().astype(np.complex128)
+        spec = spec * np.exp(-2j * np.pi * (k1 * d[0] + k2 * d[1]) / n)
+        img = np.fft.irfft2(spec, s=(n, n))
+        img = img + rng.normal(0.0, noise * img.std(), img.shape)
+        maps.append(img)
+        rot_star.append(r)
+        d_star.append(d)
+    return (_normalize_stack(np.stack(maps).astype(np.float32)), np.stack(rot_star),
+            np.stack(d_star), half, o_idx)
+
+
+def _parse_refined(text: str) -> np.ndarray:
+    rows = []
+    for line in text.splitlines():
+        if line.startswith("RefMap:"):
+            tok = line.replace("->", " ").split()
+            rows.append([float(x) for x in tok if x[0].isdigit() or x[0] in "-."
+                         or x.lower() in ("nan", "inf", "-inf")])
+    return np.array(rows)
+
+
+def phase_refinement(problem, card: str, budget_s: float = 15.0) -> dict:
+    """Continuous refinement on the card:
+    1. refine_results after the tuned pass (the autotuner's cached winner),
+       on as many of the 64 production images as fit ``budget_s`` at the
+       rate of a first batch (the cut is printed): every logpro_refined ≥
+       its seed, every grad_norm finite;
+    2. 8 images planted off-grid with the smooth forward model (half a grid
+       step in rotation, a sub-pixel displacement): the refined rotation
+       and displacement closer to the truth than the grid seed on ≥ 7;
+    3. 2 of them (seeded at the orientation their plant was turned from)
+       refined from the seed to convergence on the card and by the port on
+       the CPU, held to the CPU parity test's tolerances
+       (tests/test_torch_refine.py);
+    4. --Refine through the port's CLI on golden case A: a finite
+       Output_Refined row per image."""
+    import torch
+
+    from bioem_tpu_torch.cli import main as cli_main
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.core.orientations import rotation_matrices
+    from bioem_tpu_torch.io.map_io import ImageStack
+    from bioem_tpu_torch.refine import refine_results
+    from bioem_tpu_torch.run import run_bioem
+
+    p, orients, model, images, _ = problem
+    out = {}
+    res_a, perf_a = run_bioem(p, orients, model, images, RunConfig(autotune=True), device=DEVICE)
+    eng = perf_a["engine"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = 8
+    t0 = time.perf_counter()
+    r1 = refine_results(eng, res_a, image_indices=np.arange(first))
+    t_first = time.perf_counter() - t0
+    per_img = t_first / first
+    n_more = int(min(images.n - first, max(0.0, budget_s - t_first) // per_img))
+    rs = [r1]
+    if n_more:
+        rs.append(refine_results(eng, res_a, image_indices=np.arange(first, first + n_more)))
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    n_ref = first + n_more
+    lp0 = np.concatenate([r.logpro_seed for r in rs])
+    lp1 = np.concatenate([r.logpro_refined for r in rs])
+    gn = np.concatenate([r.grad_norm for r in rs])
+    say(f"[refinement] {card}: production images after the tuned pass "
+        f"({'K4' if eng.fused_batched else 'K1'}, o_block {eng.o_block}): {n_ref} of {images.n} "
+        f"refined (cut to fit {budget_s:.0f} s at the first {first} images' rate), "
+        f"{t_all:.3f} s, {t_all / n_ref:.3f} s per image, image chunk {r1.image_chunk}, "
+        f"16 starts × 60 iterations, peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; logpro gain median "
+        f"{float(np.median(lp1 - lp0)):.3f}, min {float(np.min(lp1 - lp0)):.3e}; "
+        f"grad_norm max {float(np.max(gn)):.3e}")
+    require(bool(np.all(lp1 >= lp0)), "a refined logpro fell below its seed")
+    require(bool(np.all(np.isfinite(gn)) and np.all(np.isfinite(lp1))),
+            "non-finite refinement result")
+    out.update(n_ref=n_ref, s_per_image=t_all / n_ref, chunk=r1.image_chunk)
+    del eng, perf_a, rs, r1
+
+    # off-grid planted images at N = 224
+    rng = np.random.default_rng(SEED + 2)
+    boot = BioEMEngine(p, orients, model, ImageStack(images.maps[:1]),
+                       RunConfig(use_kernels=True, autotune=False), device=DEVICE)
+    maps, rot_star, d_star, half, o_base = _planted_offgrid(boot, 8, rng)
+    del boot
+    planted = ImageStack(maps)
+    res_g, perf_g = run_bioem(p, orients, model, planted, RunConfig(use_kernels=True,
+                              autotune=False), device=DEVICE)
+    eng = perf_g["engine"]
+    t0 = time.perf_counter()
+    ref = refine_results(eng, res_g)
+    t_pl = time.perf_counter() - t0
+    seed_rot = rotation_matrices(torch.as_tensor(orients.angles[res_g.best_orient]),
+                                 True).double().numpy()
+    a_seed = np.array([_angle(seed_rot[i], rot_star[i]) for i in range(8)])
+    a_ref = np.array([_angle(ref.rotmat[i], rot_star[i]) for i in range(8)])
+    d_seed = np.hypot(res_g.best_cent_x - d_star[:, 0], res_g.best_cent_y - d_star[:, 1])
+    d_ref = np.hypot(ref.cent_x - d_star[:, 0], ref.cent_y - d_star[:, 1])
+    closer = (a_ref < a_seed) & (d_ref < d_seed)
+    say(f"[refinement] 8 images planted off-grid (half step {half:.4f} rad, sub-pixel "
+        f"displacements): refined in {t_pl:.3f} s; rotation error seed → refined "
+        + ", ".join(f"{a:.4f}→{b:.4f}" for a, b in zip(a_seed, a_ref))
+        + "; displacement error " + ", ".join(f"{a:.3f}→{b:.3f}" for a, b in zip(d_seed, d_ref))
+        + f"; both closer on {int(closer.sum())}/8")
+    require(int(closer.sum()) >= 7, "refinement got closer to the truth on fewer than 7 of 8")
+
+    # 2 images on the card against the port on the CPU (same engine inputs),
+    # the seed start run to convergence (the parity tolerances hold for
+    # converged points; mid-climb the f32 paths' differences move values
+    # by 1e-3–1e-2): the first two whose grid seed is the orientation
+    # their plant was turned from, half a step away
+    base_rot = rotation_matrices(torch.as_tensor(orients.angles[o_base]), True).double().numpy()
+    sel = [i for i in range(8) if _angle(seed_rot[i], base_rot[i]) < 1e-3][:2]
+    require(len(sel) == 2, "fewer than two plants were seeded at their base orientation")
+    kw = dict(n_starts=1, iters=40)
+    card_r = refine_results(eng, res_g, image_indices=np.array(sel), **kw)
+    cpu_eng = BioEMEngine(p, orients, model, ImageStack(maps[sel]),
+                          RunConfig(use_kernels=True, autotune=False), device="cpu")
+    sub = copy.copy(res_g)
+    for f in ARGMAX:
+        setattr(sub, f, getattr(res_g, f)[sel])
+    t0 = time.perf_counter()
+    cpu_r = refine_results(cpu_eng, sub, **kw)
+    t_cpu = time.perf_counter() - t0
+    dlp = np.abs(card_r.logpro_refined - cpu_r.logpro_refined)
+    tol = 1e-4 + 2e-7 * np.abs(cpu_r.logpro_refined)
+    d_rot = max(_angle(card_r.rotmat[i], cpu_r.rotmat[i]) for i in range(2))
+    d_d = float(max(np.abs(card_r.cent_x - cpu_r.cent_x).max(),
+                    np.abs(card_r.cent_y - cpu_r.cent_y).max()))
+    dseed = float(np.max(np.abs(card_r.logpro_seed - cpu_r.logpro_seed)
+                         / np.abs(cpu_r.logpro_seed)))
+    say(f"[refinement] images {sel}, the seed start × 40 iterations, card vs CPU ({t_cpu:.1f} s "
+        f"on the CPU): logpro_refined {', '.join(f'{x:.4f}' for x in card_r.logpro_refined)} "
+        f"(grad_norm {', '.join(f'{x:.2e}' for x in card_r.grad_norm)}), "
+        f"|Δ logpro_refined| {', '.join(f'{x:.2e}' for x in dlp)} (limits "
+        f"{', '.join(f'{x:.2e}' for x in tol)}), rel |Δ logpro_seed| {dseed:.2e} (1e-6), "
+        f"rotation {d_rot:.2e} rad (2e-3), displacement {d_d:.2e} px (1e-2)")
+    require(bool(np.all(dlp <= tol)) and dseed <= 1e-6 and d_rot <= 2e-3 and d_d <= 1e-2,
+            "the card's refinement differs from the CPU's beyond the parity tolerances")
+    del eng, perf_g, cpu_eng
+
+    # --Refine through the CLI on golden case A
+    with _in_case("case_a_euler_ctf", {}):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["--Modelfile", "model.txt", "--Particlesfile", "maps.txt",
+                           "--Inputfile", "param.txt", "--Refine"])
+        require(rc == 0, f"--Refine returned {rc}")
+        rows = _parse_refined(open("Output_Refined").read())
+    say(f"[refinement] --Refine on golden case A through the CLI: {rows.shape[0]} rows of "
+        f"Output_Refined, all finite: {bool(np.isfinite(rows).all())}")
+    require(rows.shape[0] > 0 and rows.shape[1] == 13 and bool(np.isfinite(rows).all())
+            and bool(np.all(rows[:, 2] >= rows[:, 1])), "Output_Refined is not finite")
+    return out
+
+
 def phase_probes() -> dict:
     """P1–P3 through the probe tool's functions, each held to its check;
     returns their kernel rows."""
@@ -956,7 +1298,7 @@ def main() -> int:
     cache_dir = tempfile.mkdtemp(prefix="bioem_autotune_")
     os.environ["BIOEM_TPU_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "autotune.json")
     try:
-        phase_environment(torch)
+        card = phase_environment(torch)
         phase_build()
 
         from bioem_tpu_torch.config import RunConfig
@@ -1001,6 +1343,9 @@ def main() -> int:
         res_p, res_k = main_path("goldens + production K1", goldens_and_k1, ("K1", "K2", "K3"))
         main_path("production K4 + autotuned + checkpoint",
                   lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]), ("K2", "K4"))
+        main_path("streaming", lambda: phase_streaming(problem, res_k, card), ("K1", "K2"))
+        main_path("ranking", lambda: phase_ranking(problem, card), ("K1", "K2"))
+        main_path("refinement", lambda: phase_refinement(problem, card), ("K2",))
         from bioem_tpu_torch.ops import probe_cuda
 
         counters.update(P1=probe_cuda.f32_product, P2=probe_cuda.product_sum,

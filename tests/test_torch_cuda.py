@@ -22,7 +22,9 @@ lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, M = 224,
 to the same bits across two launches. The engine's replayed pass
 (a captured block step) bit-equal to its eager loop for K1, K4 and the
 hybrid, through a checkpoint resume too, with launch counters that count
-each replay. The probes: P1's FMA and 3xTF32 schemes at a median
+each replay; on swapped banks too (a streamed image chunk, a ranked model
+with more points per radius group, whose counts K2 reads), with one
+capture per engine under run_streaming and rank_models. The probes: P1's FMA and 3xTF32 schemes at a median
 relative error below 1e-6 from f64 (the TPU probe's "multi-pass" line);
 P2's two structures within the f32 summation bound the probe tool states
 (``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4.
@@ -651,3 +653,76 @@ def test_launch_counters_count_replays(rng, dev):
     eng.time_blocks(2 * eng.o_block, repeats=1)
     assert [fn.launches - b for fn, b in zip(fns, before)] == [2 * 2] * 2
     assert _same_state(first, kept) and _same_state(second, kept)
+
+
+def _more_per_group(rng, model):
+    """A model with each of ``model``'s radii twice (twice its points per
+    radius group), jittered positions."""
+    from bioem_tpu_torch.io.model_io import Model
+
+    pts = np.concatenate([model.points, model.points + rng.normal(0, 0.7, model.points.shape)])
+    dens = np.concatenate([model.densities, model.densities])
+    return Model(pts.astype(np.float32), np.concatenate([model.radii, model.radii]),
+                 dens.astype(np.float32), float(dens.sum()))
+
+
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_replayed_swapped_banks_equal_the_eager_loop(rng, dev, path):
+    """A streamed chunk (swap_images) and a ranked model with twice the
+    points per radius group (swap_model on a common layout), each replayed
+    through the engine's one captured step, equal the eager loop on those
+    banks bit for bit; K2's counts in the graph follow the swapped model;
+    the engine's own banks give its first pass again."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.io.map_io import _normalize_stack
+    from bioem_tpu_torch.rank import common_model_layout
+
+    p, orients, model, images = _engine_problem(rng)
+    big = _more_per_group(rng, model)
+    lay = common_model_layout(p, [model, big])
+    eng = BioEMEngine(p, orients, model, images, RunConfig(orient_block=3, **ENGINE_PATHS[path]),
+                      device=dev, model_layout=lay)
+    first = eng.run()
+    kept = [x.clone() if x is not None else None for x in first]
+    other = _normalize_stack(rng.normal(0, 1, images.maps.shape).astype(np.float32))
+    for banks in (eng.swap_images(other), eng.swap_model(big)):
+        got = eng.run(banks=banks)
+        state = eng.initial_state()
+        for b in range(eng.ang_blocks.shape[0]):
+            state = eng._block_step(state, banks, eng.ang_blocks[b], b * eng.o_block,
+                                    eng.mask_blocks[b])
+        assert _same_state(got, state)
+        assert torch.equal(eng._graph_banks.counts, banks.counts)
+    assert int(banks.counts.max()) == 2 * int(eng.banks.counts.max())
+    assert _same_state(eng.run(), kept)
+    assert eng.captures == 1
+
+
+def test_streaming_and_ranking_capture_once(rng, dev):
+    """run_streaming and rank_models on the card: one capture per engine
+    whatever the chunks or models; the streamed chunks equal the whole
+    pass and each ranked model its own engine on the same layout (logP to
+    1e-12 relative, argmax tuples exact)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.rank import common_model_layout, rank_models
+    from bioem_tpu_torch.stream import ArraySource, run_streaming
+
+    p, orients, model, images = _engine_problem(rng, n_img=7)
+    cfg = RunConfig(orient_block=3)
+    whole = BioEMEngine(p, orients, model, images, cfg, device=dev)
+    want = whole.results(whole.run())
+    res, perf = run_streaming(p, orients, model, ArraySource(images.maps), cfg, chunk_images=3,
+                              device=dev)
+    assert perf["chunks"] == 3 and perf["captures"] == 1
+    np.testing.assert_allclose(res.log_prob, want.log_prob, rtol=1e-12, atol=0)
+    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(want, f))
+    models = [model, _more_per_group(rng, model)]
+    _total, per_image, perf = rank_models(p, orients, models, images, cfg, device=dev)
+    assert perf["captures"] == 1
+    lay = common_model_layout(p, models)
+    for m, mod in enumerate(models):
+        own = BioEMEngine(p, orients, mod, images, cfg, device=dev, model_layout=lay)
+        np.testing.assert_allclose(per_image[m], own.results(own.run()).log_prob, rtol=1e-12, atol=0)
