@@ -9,7 +9,11 @@ the JAX package's, flag for flag, so existing BioEM invocations work:
 
 Performance env vars (BIOEM_DEBUG_*, BIOEM_TPU_*) are honoured via
 RunConfig.from_env: block sizes, the kernel switches, autotuning and its
-cache, checkpoint/resume and the profiler trace (config.HONOURED_ENV).
+cache, checkpoint/resume, the profiler trace, the (images × orientations)
+mesh and the native ingest (config.HONOURED_ENV). The CLI first joins a
+multi-process run when one is configured (parallel/distributed.initialize:
+the three BIOEM_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID names, or
+torchrun, SLURM, Open MPI); process 0 writes the outputs.
 The posterior run takes the CUDA card; ``BIOEM_TPU_FORCE_CPU=1`` asks for
 the CPU, and with neither it raises before reading any input
 (config.resolve_device). ``BIOEM_TPU_DEBUG_PROB=<image>`` writes the
@@ -18,20 +22,20 @@ per-evaluation dump of that image after the outputs (debug_prob.py).
 NumPy, no device). ``--Refine`` (with ``--RefineCTF``/``--RefineCTFAmp``)
 polishes each image's maximizing parameters off-grid after the pass
 (refine.py, on the pass's engine and device) and writes
-``Output_Refined``. The parts of the JAX CLI that are not ported yet (a
-device mesh, multi-host runs, the native ingest; config.NOT_PORTED_ENV)
-raise NotImplementedError instead of running something else; the TPU-only
-knobs (config.TPU_ONLY_ENV) are ignored.
+``Output_Refined``; a multi-process run skips the refinement and the dump
+with a warning, as the JAX CLI does. The TPU-only knobs
+(config.TPU_ONLY_ENV) are ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 from . import defs
-from .config import RunConfig, not_ported_env, resolve_device
+from .config import RunConfig, resolve_device
 from .params import read_best_params, read_parameters
 from .io.map_io import read_ref_maps
 from .io.model_io import read_model, write_coordread
@@ -172,19 +176,16 @@ def write_refined(f, out) -> None:
         )
 
 
-def _refuse_not_ported(args) -> None:
-    what = not_ported_env()
-    if what:
-        raise NotImplementedError(
-            "not yet ported to bioem_tpu_torch: " + "; ".join(what)
-            + " — run the JAX package (python -m bioem_tpu.cli) for these"
-        )
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = RunConfig.from_env()
-    _refuse_not_ported(args)
+
+    # Multi-process bootstrap (reference main.cpp:64-68 runs MPI_Init
+    # unconditionally; initialize() is a no-op in a single process). The
+    # (images × orientations) mesh comes from BIOEM_TPU_MESH_IMAGES/_ORIENT.
+    from .parallel.distributed import initialize, process_count, process_index
+
+    initialize()
 
     if args.ReadMultipleMRC and not args.ReadMRC:
         print("Error - For multiple MRCs command --ReadMRC is necessary too")
@@ -268,20 +269,36 @@ def main(argv=None) -> int:
             f"({perf['comparisons_per_s']:.3e} comparisons/s), config {perf['config']}"
         )
 
-    with open(args.OutputFile, "w") as f:
-        write_probabilities(f, p, orients, results.grid, results)
-    if p.write_angles:
-        with open(defs.FILE_ANG_PROB, "w") as f:
-            write_angle_probabilities(f, p, orients, results)
+    # Output on process 0 only (reference: MPI rank 0 writes,
+    # bioem.cpp:1046); every process holds the merged results.
+    if process_index() == 0:
+        with open(args.OutputFile, "w") as f:
+            write_probabilities(f, p, orients, results.grid, results)
+        if p.write_angles:
+            with open(defs.FILE_ANG_PROB, "w") as f:
+                write_angle_probabilities(f, p, orients, results)
     # Per-evaluation debug dump (reference DEBUG_PROB, defs.h:52):
     # BIOEM_TPU_DEBUG_PROB=<image index> writes every (orientation, ctf,
-    # displacement) logpro of that image for cross-path diffing.
-    from .debug_prob import maybe_dump_from_env
+    # displacement) logpro of that image for cross-path diffing. A
+    # multi-process run holds the image's slots in several processes.
+    if process_count() > 1:
+        if os.environ.get("BIOEM_TPU_DEBUG_PROB") is not None:
+            print("WARNING: BIOEM_TPU_DEBUG_PROB is not supported in multi-process "
+                  "runs; skipping the per-evaluation dump. Re-run in one process "
+                  "with the same inputs to produce it.")
+    else:
+        from .debug_prob import maybe_dump_from_env
 
-    maybe_dump_from_env(perf["engine"])
+        maybe_dump_from_env(perf["engine"])
 
     # ---- optional continuous refinement (no reference analogue) ----
-    if args.Refine:
+    if args.Refine and process_count() > 1:
+        # refine_results runs in one process; skip loudly rather than fail
+        # the run after its pass.
+        print("WARNING: --Refine is not supported in multi-process runs; "
+              "skipping refinement. Re-run in one process (a mesh of slots on "
+              "one process's devices refines).")
+    elif args.Refine:
         from .refine import refine_results
 
         t0 = time.perf_counter()

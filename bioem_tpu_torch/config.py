@@ -4,10 +4,9 @@ The PyTorch port's counterpart of ``bioem_tpu.config.RunConfig``: the
 reference separates physics parameters (keyword file) from performance
 knobs (env vars, reference bioem.cpp:97-138). The port reads the same
 ``BIOEM_*`` environment names as the JAX package. Every name the JAX
-package reads is in exactly one of three sets below: honoured here
-(:data:`HONOURED_ENV`), refused by the CLI because its feature is not
-ported yet (:data:`NOT_PORTED_ENV`), or ignored by design because it only
-steers the TPU or JAX (:data:`TPU_ONLY_ENV`). The JAX package's
+package reads is in exactly one of two sets below: honoured here
+(:data:`HONOURED_ENV`), or ignored by design because it only steers the
+TPU or JAX (:data:`TPU_ONLY_ENV`). The JAX package's
 ``use_pallas``/``pallas_img_tile``/``pallas_projection`` are
 ``use_kernels``/``kernel_img_tile``/``kernel_projection`` here.
 
@@ -68,6 +67,10 @@ class RunConfig:
     # The image-batched comparison kernel (K4) instead of K1 when the
     # log-sum-exp is fused. BIOEM_TPU_FUSED_BATCHED=0/1 forces.
     fused_batched: bool = False
+    # (images × orientations) device mesh (parallel/mesh.py); 1×1 = the
+    # single-device engine.
+    mesh_images: int = 1
+    mesh_orient: int = 1
     # Tuned fields the user pinned explicitly (env var or caller): the
     # autotuner never overrides these (performance knobs are obeyed
     # verbatim, reference doc/index.rst:1535-1653).
@@ -84,6 +87,8 @@ class RunConfig:
             "BIOEM_DEBUG_OUTPUT": "debug_output",
             "BIOEM_TPU_PALLAS_IMG_TILE": "kernel_img_tile",
             "BIOEM_TPU_CHECKPOINT_EVERY": "checkpoint_every",
+            "BIOEM_TPU_MESH_IMAGES": "mesh_images",
+            "BIOEM_TPU_MESH_ORIENT": "mesh_orient",
         }
         forced = set()
         tunable = {"orient_block", "image_block", "kernel_img_tile"}
@@ -133,9 +138,11 @@ def resolve_device(device=None):
     return torch.device("cuda")
 
 
-# Every BIOEM_* name the JAX package reads, in exactly one of three sets.
+# Every BIOEM_* name the JAX package reads, in exactly one of two sets.
 # Honoured: RunConfig.from_env above, resolve_device, the autotuner's cache
-# path and the DEBUG_PROB dump (debug_prob.maybe_dump_from_env).
+# path, the DEBUG_PROB dump (debug_prob.maybe_dump_from_env), the native
+# ingest (runtime/native.py) and the multi-process bootstrap
+# (parallel/distributed.initialize).
 HONOURED_ENV = frozenset({
     "BIOEM_DEBUG_BREAK", "BIOEM_DEBUG_NMAPS", "BIOEM_DEBUG_OUTPUT",
     "BIOEM_TPU_ORIENT_BLOCK", "BIOEM_TPU_IMAGE_BLOCK", "BIOEM_TPU_PALLAS_IMG_TILE",
@@ -144,18 +151,9 @@ HONOURED_ENV = frozenset({
     "BIOEM_TPU_PALLAS", "BIOEM_TPU_PROJ_PALLAS", "BIOEM_TPU_FUSED_BATCHED",
     "BIOEM_TPU_FUSED_LSE", "BIOEM_TPU_FORCE_CPU",
     "BIOEM_TPU_DEBUG_PROB", "BIOEM_TPU_DEBUG_PROB_FILE", "BIOEM_TPU_DEBUG_PROB_KERNEL",
+    "BIOEM_TPU_MESH_IMAGES", "BIOEM_TPU_MESH_ORIENT", "BIOEM_TPU_NATIVE_IO",
+    "BIOEM_TPU_COORDINATOR", "BIOEM_TPU_NUM_PROCESSES", "BIOEM_TPU_PROCESS_ID",
 })
-
-# Not ported yet: the CLI refuses them rather than silently running
-# something else.
-NOT_PORTED_ENV = {
-    "BIOEM_TPU_MESH_IMAGES": "the device mesh",
-    "BIOEM_TPU_MESH_ORIENT": "the device mesh",
-    "BIOEM_TPU_COORDINATOR": "multi-host runs",
-    "BIOEM_TPU_NUM_PROCESSES": "multi-host runs",
-    "BIOEM_TPU_PROCESS_ID": "multi-host runs",
-    "BIOEM_TPU_NATIVE_IO": "the native C++ ingest",
-}
 
 # Ignored by design: they steer the TPU or JAX, which the port does not use.
 TPU_ONLY_ENV = {
@@ -165,22 +163,3 @@ TPU_ONLY_ENV = {
     "BIOEM_TPU_ACCURATE_LOG1P": "TPU log1p workaround; the port uses a true log1p",
     "BIOEM_TPU_NO_X64": "JAX x64 switch; the port keeps probabilities in f64 always",
 }
-
-# Values that ask for what the port already does.
-_PASSING = {
-    "BIOEM_TPU_MESH_IMAGES": "1",  # a 1×1 mesh is the single device
-    "BIOEM_TPU_MESH_ORIENT": "1",
-    "BIOEM_TPU_NATIVE_IO": "0",  # the NumPy readers the port has
-}
-
-
-def not_ported_env() -> list[str]:
-    """Names of set environment variables whose feature is not ported
-    (a value that asks for what the port already does passes)."""
-    bad = []
-    for name, what in NOT_PORTED_ENV.items():
-        v = os.environ.get(name)
-        if v is None or v == "" or v.strip() == _PASSING.get(name):
-            continue
-        bad.append(f"{name} ({what})")
-    return bad

@@ -35,6 +35,11 @@ graph's launches are added to the kernel wrappers' launch counters per
 replay. On the CPU, and on the plain branch on the card (a yardstick
 only), the loop stays an eager Python loop over ``_block_step``.
 
+An engine may also be one slot of an (images × orientations) mesh
+(``Slot``, parallel/mesh.py): it then holds only its image rows and its
+orientation blocks of the mesh's padded problem, and its state is merged
+with the other slots' after the pass.
+
 ``run`` checkpoints and resumes the streaming state
 (runtime/checkpoint.py) and prints the TimeStat phase table at
 ``debug_output >= 1``; ``time_blocks`` times the loop the pass runs (the
@@ -157,6 +162,20 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+class Slot(NamedTuple):
+    """Where an engine sits in an (images × orientations) mesh
+    (parallel/mesh.py): image shard ``i`` of ``n_i`` and orientation shard
+    ``o`` of ``n_o``, with the comparison gate (:func:`f32_corr_gate`)
+    computed once over the whole image stack, so that every slot takes the
+    branch a single engine would."""
+
+    i: int
+    o: int
+    n_i: int
+    n_o: int
+    f32_corr_ok: bool
+
+
 def f32_corr_gate(maps: np.ndarray, p: BioEMParams) -> bool:
     """Data-driven gate for the f32 log1p shortcut in logpro_constants and
     for the fused comparison (K1/K4), whose log-sum-exp evaluates u in f32.
@@ -215,12 +234,22 @@ class BioEMEngine:
         cfg: Optional[RunConfig] = None,
         device=None,
         model_layout: Optional[dict] = None,
+        slot: Optional[Slot] = None,
     ):
         """``model_layout`` pads the model-dependent array shapes to a
         common layout so that one engine (and its captured block step)
         serves several models through :meth:`swap_model` (multi-model
         ranking, rank.py). Keys: ``n_points_pad``, ``n_groups_pad``,
-        ``group_pad``, ``stencil_half``, ``force_raster``."""
+        ``group_pad``, ``stencil_half``, ``force_raster``.
+
+        ``slot`` makes this engine one slot of a mesh (parallel/mesh.py):
+        images and orientations are padded for the whole mesh (to
+        multiples of ``i_block·n_i`` and ``o_block·n_o``, as the JAX
+        engine pads for its shards), and the engine holds only its image
+        shard's rows (``img_rows``) and its orientation shard's blocks
+        (from ``orient_base``). Its state is the slot's pre-merge state:
+        ``best_orient`` carries global orientation indices, the per-angle
+        slabs the shard's own columns."""
         from ..convert import banks_from_numpy
 
         cfg = cfg or RunConfig()
@@ -283,7 +312,8 @@ class BioEMEngine:
         wx, wy = displacement_dft_weights(n, disp)
         self.n_fold = stride_fold(p.grid_space_center, n, disp)
         self._h = hermitian_weights(n)
-        self._f32_corr_ok = f32_corr_gate(maps, p)
+        self.slot = slot
+        self._f32_corr_ok = f32_corr_gate(maps, p) if slot is None else slot.f32_corr_ok
         # The comparison the kernel branch runs: K4, K1 or the hybrid.
         fused = self.use_kernels and self.fused_lse and self._f32_corr_ok
         self.fused_batched = fused and cfg.fused_batched
@@ -309,8 +339,17 @@ class BioEMEngine:
             budget = 1 << 27  # elements
             per_img = self.o_block * n_ctf * n * nf
             self.i_block = int(np.clip(budget // max(per_img, 1), 1, self.n_img))
-        self.n_img_pad = _cdiv(self.n_img, self.i_block) * self.i_block
-        self.n_orient_pad = _cdiv(n_orient, self.o_block) * self.o_block
+        si, so, n_i, n_o = slot[:4] if slot is not None else (0, 0, 1, 1)
+        img_mult = self.i_block * n_i
+        self.n_img_pad = _cdiv(self.n_img, img_mult) * img_mult
+        blk_mult = self.o_block * n_o
+        self.n_orient_pad = _cdiv(n_orient, blk_mult) * blk_mult
+        # this engine's rows of the padded image axis, its first orientation
+        # and its orientation count (all of them alone)
+        rows = self.n_img_pad // n_i
+        self.img_rows = (si * rows, (si + 1) * rows)
+        self.n_orient_local = self.n_orient_pad // n_o
+        self.orient_base = so * self.n_orient_local
 
         img = self._image_arrays(maps)
         self.fspec = None
@@ -348,10 +387,13 @@ class BioEMEngine:
         )
         nblk = self.n_orient_pad // self.o_block
         self._ang = ang
+        blks = slice(self.orient_base // self.o_block,
+                     (self.orient_base + self.n_orient_local) // self.o_block)
         self.ang_blocks = torch.as_tensor(
-            ang_p.reshape(nblk, self.o_block, 4).astype(np.float32), device=self.device
+            ang_p.reshape(nblk, self.o_block, 4)[blks].astype(np.float32), device=self.device
         )
-        self.mask_blocks = torch.as_tensor(mask.reshape(nblk, self.o_block), device=self.device)
+        self.mask_blocks = torch.as_tensor(mask.reshape(nblk, self.o_block)[blks],
+                                           device=self.device)
 
         self._check_projection_bounds(model)
 
@@ -360,6 +402,8 @@ class BioEMEngine:
         from ..runtime.checkpoint import problem_fingerprint
 
         self._fingerprint = problem_fingerprint(p, orients, model, images, cfg)
+        if slot is not None:
+            self._fingerprint += f"|mesh:{n_i}x{n_o}|slot:{si}x{so}"
 
     # ------------------------------------------------------------------
     def _image_arrays(self, maps: np.ndarray) -> dict:
@@ -379,6 +423,13 @@ class BioEMEngine:
                 "comparison for near-zero-mean images; rebuild the engine with "
                 "(a chunk of) these images so that the f64 path is chosen"
             )
+        if self.slot is not None:
+            # the slot's rows of the padded stack (padding rows replicate
+            # image 0, as below); it holds them all, so it pads none
+            r0, r1 = self.img_rows
+            rows = np.arange(r0, r1)
+            maps = maps[np.where(rows < n_img, rows, 0)]
+            n_img = maps.shape[0]
         flat = maps.reshape(n_img, -1).astype(np.float64)
         sum_ref = flat.sum(axis=1).astype(np.float32)
         ssq_ref = (flat**2).sum(axis=1).astype(np.float32)
@@ -386,7 +437,7 @@ class BioEMEngine:
         img_fc = (
             np.conj(img_fft) * (self._h[None, None, :] / np.float32(n * n))
         ).astype(np.complex64)
-        pad_i = self.n_img_pad - n_img
+        pad_i = self.img_rows[1] - self.img_rows[0] - n_img
         if pad_i:
             # Replicate image 0 into the padding lanes to keep all values
             # finite; padded lanes are dropped at extraction time.
@@ -619,12 +670,14 @@ class BioEMEngine:
 
     def _block_step(
         self, state: PosteriorState, banks: Banks, angles: torch.Tensor,
-        orient_offset, mask: torch.Tensor,
+        orient_offset, mask: torch.Tensor, ang_offset=None,
     ) -> PosteriorState:
-        """Fold one orientation block into ``state`` in place. The offset of
-        its first orientation is an int or a 0-d device tensor; the step
-        holds no host synchronisation and allocates nothing whose size
-        depends on the block, so it can be captured."""
+        """Fold one orientation block into ``state`` in place. The (global)
+        index of its first orientation is an int or a 0-d device tensor,
+        as is ``ang_offset``, its column in the state's per-angle slabs
+        (None: the same; a mesh slot's slabs hold only its shard's
+        columns). The step holds no host synchronisation and allocates
+        nothing whose size depends on the block, so it can be captured."""
         p = self.p
         n = p.n_pixels
         ntot = p.n_total_pixels
@@ -704,14 +757,23 @@ class BioEMEngine:
         k = torch.where(mask[:, None, None] != 0, k, torch.full_like(k, -torch.inf))
         return merge_block(
             state, m, se, ds, ccs, k, sum_c, ssq_c, banks.sum_ref,
-            banks.disp, orient_offset, ntot, d,
+            banks.disp, orient_offset, ntot, d, ang_offset=ang_offset,
         )
 
     # ------------------------------------------------------------------
     def initial_state(self) -> PosteriorState:
         return init_state(
-            self.n_img_pad, self.n_orient_pad, self.p.write_angles > 0, self.device
+            self.img_rows[1] - self.img_rows[0], self.n_orient_local,
+            self.p.write_angles > 0, self.device,
         )
+
+    def _offsets(self, b):
+        """(orient_offset, ang_offset) of local block ``b`` (an int or a
+        0-d device tensor): a mesh slot's blocks start at orient_base."""
+        local = b * self.o_block
+        if not self.orient_base:
+            return local, None
+        return local + self.orient_base, local
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -739,8 +801,9 @@ class BioEMEngine:
         self._graph_banks = gb
 
         def step():
-            self._block_step(state, gb, self.ang_blocks.index_select(0, blk)[0],
-                             blk[0] * self.o_block, self.mask_blocks.index_select(0, blk)[0])
+            off, ang_off = self._offsets(blk[0])
+            self._block_step(state, gb, self.ang_blocks.index_select(0, blk)[0], off,
+                             self.mask_blocks.index_select(0, blk)[0], ang_offset=ang_off)
             blk.add_(1)
 
         side = torch.cuda.Stream(dev)
@@ -806,9 +869,10 @@ class BioEMEngine:
                 if replayed:
                     self._replay()
                 else:
+                    off, ang_off = self._offsets(b)
                     state = self._block_step(
-                        state, self.banks, self.ang_blocks[b], b * self.o_block,
-                        self.mask_blocks[b],
+                        state, self.banks, self.ang_blocks[b], off, self.mask_blocks[b],
+                        ang_offset=ang_off,
                     )
             self._sync()
             if rep:
@@ -884,8 +948,10 @@ class BioEMEngine:
                 if replayed:
                     self._replay()
                 else:
+                    off, ang_off = self._offsets(b)
                     state = self._block_step(
-                        state, banks, self.ang_blocks[b], b * self.o_block, self.mask_blocks[b]
+                        state, banks, self.ang_blocks[b], off, self.mask_blocks[b],
+                        ang_offset=ang_off,
                     )
                 if debug >= 2 or save:
                     self._sync()

@@ -337,6 +337,9 @@ def merge_block(
     # or a 0-d integer tensor on the state's device (a captured block step)
     ntot: float,
     n_disp: int,
+    ang_offset=None,  # the block's first column in the per-angle slabs
+    # (an int or a 0-d tensor); None: orient_offset (the slabs hold every
+    # orientation; a mesh slot's hold only its shard's)
 ) -> PosteriorState:
     """Fold one (orientation-block × ctf-bank × image) result into the state,
     IN PLACE (the state's tensors are overwritten; the same state is
@@ -404,7 +407,8 @@ def merge_block(
         aex = torch.where(torch.isnan(adiff), torch.zeros_like(aex), aex)
         ang_sum = torch.sum(sumexp * aex, dim=1).to(F64)  # (O, I)
 
-        cols = torch.arange(o, device=m.device) + orient_offset  # the block's slab
+        cols = torch.arange(o, device=m.device) + (
+            orient_offset if ang_offset is None else ang_offset)  # the block's slab
         sl_tot = state.ang_total.index_select(1, cols)
         sl_con = state.ang_const.index_select(1, cols)
         am = ang_max.T  # (I, O)

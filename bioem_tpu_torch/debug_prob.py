@@ -121,18 +121,23 @@ def dump_logpro(engine, image_index: int, kernel: Optional[str] = None):
     image: every posterior evaluation the engine integrates over.
 
     ``kernel``: ``"plain"`` | ``"kernel"`` (or the JAX names ``"xla"`` |
-    ``"pallas"``); None = the engine's own branch (``engine.use_kernels``)."""
+    ``"pallas"``); None = the engine's own branch (``engine.use_kernels``).
+    A mesh engine dumps through the slots holding the image, in
+    orientation order (all in this process)."""
     if kernel is None:
         kernel = "kernel" if engine.use_kernels else "plain"
     if kernel not in _ALIASES:
         raise ValueError(f"kernel={kernel!r}: expected one of {sorted(_ALIASES)}")
     if not 0 <= image_index < engine.n_img:
         raise ValueError(f"image index {image_index} outside [0, {engine.n_img})")
+    parts = (engine.image_slots(image_index) if hasattr(engine, "image_slots")
+             else [(engine, image_index)])
     out_lp, out_cc = [], []
-    for b in range(engine.ang_blocks.shape[0]):
-        lp, cc = _block_logpro(engine, engine.ang_blocks[b], image_index, _ALIASES[kernel])
-        out_lp.append(lp.cpu().numpy())
-        out_cc.append(cc.cpu().numpy())
+    for eng, row in parts:
+        for b in range(eng.ang_blocks.shape[0]):
+            lp, cc = _block_logpro(eng, eng.ang_blocks[b], row, _ALIASES[kernel])
+            out_lp.append(lp.cpu().numpy())
+            out_cc.append(cc.cpu().numpy())
     lp = np.concatenate(out_lp, axis=0)[: engine.n_orient]
     cc = np.concatenate(out_cc, axis=0)[: engine.n_orient]
     return lp, cc

@@ -51,8 +51,14 @@ def read_text_maps(path: str, n_pixels: int) -> ImageStack:
     """PARTICLE-separated text format ``%8d%8d%16.8f`` (map.cpp:268-518).
 
     Text maps are *not* normalised (parity with the reference, which only
-    normalises MRC input).
+    normalises MRC input). Parsed by the multithreaded C++ reader
+    (runtime/native.py) when it is available (reference READ_PARALLEL).
     """
+    from ..runtime import native
+
+    fast = native.read_text_maps(path, n_pixels)
+    if fast is not None:
+        return ImageStack(fast)
     with open(path) as f:
         content = f.read()
     if not content.startswith("PARTICLE"):
@@ -86,8 +92,14 @@ def read_mrc_maps(path: str, n_pixels: int, normalize: bool = True) -> ImageStac
 
     The reference reads the file sequentially into ``maps[i·N + j]`` with j
     (row) outer and i (column) inner — i.e. the stored map is the transpose
-    of the file section. Reproduced here via a transpose.
+    of the file section. Reproduced here via a transpose. Read by the C++
+    reader (runtime/native.py) when it is available.
     """
+    from ..runtime import native
+
+    fast = native.read_mrc_stack(path, n_pixels, normalize)
+    if fast is not None:
+        return ImageStack(fast)
     hdr = read_mrc_header(path)
     if hdr.nr != n_pixels or hdr.nc != n_pixels:
         raise ValueError(

@@ -62,7 +62,11 @@ def read_text_model(path: str, ignore_pdb: bool = False) -> Model:
             f"PDB detected in file name: {path}. Are you sure you do not need "
             "--ReadPDB? If so include the keyword IGNORE_PDB in inputfile"
         )
-    data = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    from ..runtime import native
+
+    data = native.read_text_model(path)  # the C++ reader, when available
+    if data is None:
+        data = np.loadtxt(path, dtype=np.float64, ndmin=2)
     if data.shape[1] < 5:
         raise ValueError(f"Model file {path} needs 5 columns: x y z radius density")
     if (data[:, 3] < 0).any():

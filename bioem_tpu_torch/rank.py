@@ -27,7 +27,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from .config import RunConfig, not_ported_env, resolve_device
+from .config import RunConfig, resolve_device
 from .core.orientations import build_orientations
 from .core.projection import MAX_RADIUS_GROUPS
 from .io.map_io import read_ref_maps
@@ -68,7 +68,8 @@ def common_model_layout(p, models: Sequence, projection: str = "auto") -> dict:
     return lay
 
 
-def rank_models(p, orients, models: Sequence, images, cfg=None, names=None, device=None):
+def rank_models(p, orients, models: Sequence, images, cfg=None, names=None, device=None,
+                mesh=None):
     """Returns (total_logp[m], per_image_logp[m, i], perf) for each model.
 
     The engine (image FFT bank, CTF bank, orientation blocks, captured
@@ -77,12 +78,16 @@ def rank_models(p, orients, models: Sequence, images, cfg=None, names=None, devi
     projection kernel reads those slots). ``perf["captures"]`` is the
     engine's captures of its block step: one on the card's kernel branch,
     whatever the number of models; ``perf["results"]`` each model's
-    Results (its argmax tuples)."""
+    Results (its argmax tuples). With ``cfg.mesh_images × cfg.mesh_orient
+    > 1`` every candidate runs on the mesh (``mesh``: its slots, as in
+    run.make_engine), each slot copying the model and its counts into its
+    own graph's banks."""
     from .run import make_engine
 
     cfg = cfg or RunConfig()
     layout = common_model_layout(p, models, cfg.projection)
-    eng = make_engine(p, orients, models[0], images, cfg, device=device, model_layout=layout)
+    eng = make_engine(p, orients, models[0], images, cfg, device=device, model_layout=layout,
+                      mesh=mesh)
     per_image = []
     perf_all = {"run_s": 0.0, "comparisons": 0, "results": []}
     for m, model in enumerate(models):
@@ -137,12 +142,9 @@ def main(argv=None) -> int:
     ap.add_argument("--OutputFile", default="Model_Ranking")
     args = ap.parse_args(argv)
 
-    bad = not_ported_env()
-    if bad:
-        raise NotImplementedError(
-            "not yet ported to bioem_tpu_torch: " + "; ".join(bad)
-            + " — run the JAX package (python -m bioem_tpu.rank) for these"
-        )
+    from .parallel.distributed import initialize, process_index
+
+    initialize()  # a multi-process run, when one is configured
     device = resolve_device()  # the card, or the CPU when asked; else raise
     cfg = RunConfig.from_env()
     p = read_parameters(args.Inputfile, not_uniform_angles=args.ReadOrientation is not None)
@@ -166,6 +168,8 @@ def main(argv=None) -> int:
     print(report)
     print(f"Total time: {time.perf_counter() - t0:.2f}s "
           f"({perf['comparisons'] / max(perf['run_s'], 1e-9):.3e} comparisons/s)")
+    if process_index() != 0:  # process 0 writes
+        return 0
     with open(args.OutputFile, "w") as f:
         f.write(report + "\n")
         f.write("\nPer-image ln P:\n")

@@ -364,9 +364,29 @@ def _rotmat_to_quaternion(r: np.ndarray) -> np.ndarray:
     return out
 
 
-def refine_static(engine, refine_ctf: bool = False, refine_ctf_amp: bool = False) -> dict:
+def engine_banks(engine):
+    """The banks refinement reads: the engine's own, or a mesh engine's
+    with every image shard's rows gathered to its first slot's device (as
+    the JAX package gathers a mesh engine's sharded banks). Refinement runs
+    in one process: under several it raises before any work."""
+    if not hasattr(engine, "gathered_banks"):
+        return engine.banks
+    from .parallel.distributed import process_count
+
+    if process_count() > 1:
+        raise NotImplementedError(
+            "refine_results runs in one process (it gathers the mesh's image "
+            "rows to one device); in a multi-process run refine in one process "
+            "with the same inputs"
+        )
+    return engine.gathered_banks()
+
+
+def refine_static(engine, refine_ctf: bool = False, refine_ctf_amp: bool = False,
+                  banks=None) -> dict:
     """The objective's problem constants and model banks (on the engine's
-    device) for ``engine``: ``static`` of :func:`_logpro_smooth`."""
+    device) for ``engine``: ``static`` of :func:`_logpro_smooth`.
+    ``banks``: :func:`engine_banks` when None."""
     if engine.fspec is None:
         raise ValueError(
             "refine_results requires the Fourier projection layout "
@@ -375,7 +395,7 @@ def refine_static(engine, refine_ctf: bool = False, refine_ctf_amp: bool = False
             "groups."
         )
     p = engine.p
-    b = engine.banks
+    b = engine_banks(engine) if banks is None else banks
     n = p.n_pixels
     static = {
         "n": n,
@@ -442,8 +462,9 @@ def refine_results(
 ) -> RefineResult:
     """Polish each image's grid-argmax parameters by multi-start damped
     Newton on the smooth log posterior. ``engine`` is a run
-    :class:`BioEMEngine` (its banks are reused, on its device); ``results``
-    its :class:`Results`.
+    :class:`BioEMEngine` (its banks are reused, on its device) or a mesh
+    engine in one process (:func:`engine_banks`); ``results`` its
+    :class:`Results`.
 
     Start 0 is the grid seed; the other ``n_starts−1`` jitter ω by
     N(0, jitter_rot) per axis and d uniformly within ±jitter_disp
@@ -456,10 +477,10 @@ def refine_results(
     (default: all on the CPU, :func:`auto_image_chunk` on the card); the
     result records it.
     """
-    static = refine_static(engine, refine_ctf, refine_ctf_amp)
+    banks = engine_banks(engine)
+    static = refine_static(engine, refine_ctf, refine_ctf_amp, banks)
     p = engine.p
     dev = engine.device
-    banks = engine.banks
     idx = np.arange(engine.n_img) if image_indices is None else np.asarray(image_indices)
     ang = engine.orients.angles[np.asarray(results.best_orient)[idx]]
     rot0 = rotation_matrices(torch.as_tensor(ang.astype(np.float32), device=dev),

@@ -92,6 +92,10 @@ def _cache_key(p, n_orient: int, n_img: int, cfg=None, device=None) -> str:
         # Forced knobs change which candidates are comparable — fold them
         # into the key so a forced run never poisons the free-tuning entry.
         forced = "|F" + ",".join(f"{f}={getattr(cfg, f)}" for f in sorted(cfg.forced))
+    if cfg is not None and cfg.mesh_images * cfg.mesh_orient != 1:
+        # a slot's shapes differ from the single device's: a mesh run must
+        # never reuse (or poison) the single-device entry
+        forced += f"|M{cfg.mesh_images}x{cfg.mesh_orient}"
     # BIOEM_DEBUG_BREAK caps n_ctf as well as n_orient: key at the CTF
     # count actually run, or a debug-capped tune poisons the production entry.
     return (

@@ -20,11 +20,12 @@ Overlap, as the reference's async pipeline overlaps H2D with compute
 its FFT bank (``_image_arrays``) and pins it while chunk k runs; on the
 card its H2D copy then runs on a side stream under chunk k's replays
 (``BioEMEngine._place_banks``). ``results()`` is the only synchronisation
-per chunk.
+per chunk (on a mesh, ``run()`` ends in the merge, which synchronises).
 
-One process: the JAX package's per-host ingest of a multi-host run
-(``_read_chunk_local``) waits for the port's device mesh; here a chunk is
-``source.chunk``.
+On a mesh (``cfg.mesh_images × cfg.mesh_orient > 1``) each chunk runs on
+every slot, each slot's banks swapped in; in a multi-process run each
+process reads from the source only the rows its slots own
+(:func:`_read_chunk_local`), as the JAX package's per-host ingest does.
 """
 
 from __future__ import annotations
@@ -138,6 +139,28 @@ def _concat_results(parts: list) -> Results:
     )
 
 
+def _read_chunk_local(source: ImageSource, start: int, stop: int, eng) -> np.ndarray:
+    """Chunk [start, stop), reading from the source only the rows this
+    process's slots own (multi-process per-process ingest). Unowned rows
+    hold a finite placeholder (a copy of the first row read): no local
+    slot computes on them, they only keep the host FFT and sums finite."""
+    from .parallel.distributed import process_count
+
+    n = stop - start
+    if process_count() == 1 or not hasattr(eng, "owned_image_rows"):
+        return source.chunk(start, stop)
+    ranges = [(max(a, 0), min(b, n)) for a, b in eng.owned_image_rows()]
+    ranges = [(a, b) for a, b in ranges if a < b]
+    if not ranges:  # this process owns only padding rows of a short chunk
+        ranges = [(0, 1)]
+    first = source.chunk(start + ranges[0][0], start + ranges[0][1])
+    maps = np.broadcast_to(first[:1], (n,) + first.shape[1:]).copy()
+    maps[ranges[0][0]:ranges[0][1]] = first
+    for a, b in ranges[1:]:
+        maps[a:b] = source.chunk(start + a, start + b)
+    return maps
+
+
 def run_streaming(
     p,
     orients,
@@ -147,13 +170,15 @@ def run_streaming(
     chunk_images: int = 1024,
     progress: bool = False,
     device=None,
+    mesh=None,
 ) -> tuple:
     """Full posterior over an image set streamed in chunks.
 
     Returns (results, perf) with results equal, image for image, to a
     non-streamed run over the whole set on the same branch. ``device``
     None is the card, or the CPU with ``BIOEM_TPU_FORCE_CPU``
-    (config.resolve_device). ``perf`` holds the pass seconds, comparisons,
+    (config.resolve_device); ``mesh`` places a mesh run's slots
+    (run.make_engine). ``perf`` holds the pass seconds, comparisons,
     chunks and the engine's captures of its block step (one on the card's
     kernel branch, whatever the number of chunks; 0 elsewhere).
 
@@ -161,7 +186,9 @@ def run_streaming(
     (``cfg.checkpoint_path + '.chunk<k>'``) under a fingerprint tied to the
     chunk's image range, so a restarted run resumes chunk-accurate — a
     completed earlier chunk is loaded, never recomputed, and never
-    mistaken for a later chunk's result.
+    mistaken for a later chunk's result. On a mesh the engine is a
+    :class:`~bioem_tpu_torch.parallel.mesh.ShardedBioEMEngine` and each
+    slot's file gets ``.slot<i>x<o>`` appended.
     """
     from .run import make_engine
 
@@ -176,15 +203,18 @@ def run_streaming(
     def _prepare(start: int, stop: int) -> dict:
         # host read + normalisation + FFT precompute + pinning of a chunk;
         # _image_arrays reads only engine constants (thread-safe)
-        return eng.pin_fields(eng._image_arrays(source.chunk(start, stop)))
+        return eng.pin_fields(eng._image_arrays(_read_chunk_local(source, start, stop, eng)))
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         pending = None
         banks_next = None
         for ci, (start, stop) in enumerate(spans):
             if eng is None:
+                # The first chunk is read whole on every process: the engine
+                # hashes its images into the checkpoint fingerprint, which
+                # must not depend on the process.
                 eng = make_engine(p, orients, model, ImageStack(source.chunk(start, stop)), cfg,
-                                  device=device)
+                                  device=device, mesh=mesh)
                 banks = eng.banks
             else:
                 banks = banks_next if banks_next is not None else eng._place_banks(
@@ -199,7 +229,8 @@ def run_streaming(
             # is the chunk's one synchronisation. The first prefetch starts
             # only now: the first run() captures the block step, and the
             # prefetch thread's pinned allocation (cudaHostAlloc) during a
-            # capture invalidates it.
+            # capture invalidates it (on a mesh run() has run every local
+            # slot, so every slot's capture precedes it).
             if ci + 1 < len(spans):
                 if pending is None:
                     pending = pool.submit(_prepare, *spans[ci + 1])

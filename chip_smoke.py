@@ -60,13 +60,29 @@ the port's main path on the card, in phases (each prints its own lines):
    tests/test_golden.py's BESTMAP rule;
 11. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
    one image on the plain branch and through K3, diffed with the port's
-   diff entry point, and the dump's log-sum-exp held to the image's logP.
+   diff entry point, and the dump's log-sum-exp held to the image's logP;
+12. the (images × orientations) mesh (after ranking): the production
+   problem on a 2×2 mesh of four slots on the one card (K1, each slot its
+   own captured graph), held to the single engine's K1 pass at |ΔlogP| ≤
+   1e-10·max|logP| (and the per-angle logP), argmax tuples equal, four
+   captures, twice (the second pass replays only), each pass's wait for
+   the card, merge and garbage-collector pauses printed; then 2×2, 1×4
+   and 4×1 at 1088 orientations, held the same way;
+13. multi-process: two processes of this script (``--mp-worker``) on the
+   card over gloo, two slots each of a global 2×2 mesh at 1088
+   orientations: the pass bit-equal to the one-process 2×2 run; a run
+   streamed in 2 chunks in which each process reads only its rows; a
+   checkpointed run stopped mid-slot and resumed;
+14. the native C++ ingest: a 2048-image 224² MRC stack (~411 MB) and a
+   500-point text model read natively and with NumPy, bit-equal, both
+   times printed.
 
 The paths are driven in parts, each with every kernel's launch counter
 set to 0 just before it and read just after: the goldens with the plain
 and K1 passes must launch K1, K2 and K3; the K4, autotuned and checkpoint
-passes K2 and K4; streaming and ranking K1 and K2; the refinement phase
-(its grid passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
+passes K2 and K4; streaming, ranking and the mesh K1 and K2 (the
+multi-process workers report theirs); the refinement phase (its grid
+passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
 K3.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
@@ -947,6 +963,380 @@ def phase_ranking(problem, card: str) -> None:
         _held(f"ranking: {names[m]} vs its own run_bioem", perf["results"][m], own)
 
 
+# ---------------------------------------------------------------------------
+# The (images × orientations) mesh, multi-process runs, the native ingest
+# ---------------------------------------------------------------------------
+
+MESH_DEPTH = 1088  # orientations of the reduced-depth mesh runs (a quarter)
+
+
+def _held_rel(name, res, ref, rel=1e-10, angles=True) -> bool:
+    """|ΔlogP| ≤ ``rel`` × max|logP| (and for the per-angle logP), the
+    argmax tuples equal; returns whether logP is bit-equal."""
+    same = np.all([getattr(res, f) == getattr(ref, f) for f in ARGMAX], axis=0)
+    dlp = float(np.max(np.abs(res.log_prob - ref.log_prob)))
+    lim = rel * float(np.max(np.abs(ref.log_prob)))
+    ok = bool(same.all()) and dlp <= lim
+    msg = (f"[{name}] argmax tuples equal on {int(same.sum())}/{len(same)} images, "
+           f"max |ΔlogP| {dlp:.3e} (limit {lim:.3e})")
+    if angles and ref.angle_log is not None:
+        da = float(np.max(np.abs(res.angle_log - ref.angle_log)))
+        lim_a = rel * float(np.max(np.abs(ref.angle_log)))
+        msg += f", max |Δ angle logP| {da:.3e} (limit {lim_a:.3e})"
+        ok &= da <= lim_a
+    bits = res.log_prob.tobytes() == ref.log_prob.tobytes()
+    say(msg + f", logP bit-equal {bits}")
+    require(ok, f"{name}: differs beyond its limit")
+    return bits
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """Yields a dict that holds, on exit, the collections of Python's
+    garbage collector inside the block and their seconds."""
+    import gc
+
+    out, started = {"n": 0, "s": 0.0}, []
+
+    def cb(phase, _info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            out["n"] += 1
+            out["s"] += time.perf_counter() - started.pop()
+
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def _mesh_pass(eng) -> tuple:
+    """(results, seconds of run + results, the line's timing text) of one
+    pass of ``eng``: the slots' queueing, the wait for the card, the merge
+    and the garbage collector's pauses inside the pass."""
+    import torch
+
+    with _gc_pauses() as gcp:
+        t0 = time.perf_counter()
+        res = eng.results(eng.run())
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    return res, t, (f"{t:.3f} s run + results (waiting for the card {eng.wait_s * 1e3:.1f} "
+                    f"ms, merge {eng.merge_s * 1e3:.2f} ms; {gcp['n']} garbage collections, "
+                    f"{gcp['s'] * 1e3:.1f} ms), captures {eng.captures}")
+
+
+def _mesh_run(problem, mi: int, mo: int, cfg):
+    """A ShardedBioEMEngine with ``mi × mo`` slots all on cuda:0 and its
+    first pass; returns (results, seconds of construction, seconds of run +
+    results, the pass's timing text, engine)."""
+    from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine, make_bioem_mesh
+
+    p, orients, model, images, _ = problem
+    t0 = time.perf_counter()
+    eng = ShardedBioEMEngine(p, orients, model, images, cfg,
+                             mesh=make_bioem_mesh(mi, mo, devices=["cuda:0"] * (mi * mo)))
+    t_setup = time.perf_counter() - t0
+    res, t, text = _mesh_pass(eng)
+    return res, t_setup, t, text, eng
+
+
+def phase_mesh(problem, res_k, card: str) -> object:
+    """The production problem on a 2×2 mesh of four slots on the one card
+    (K1, the default branch), with the per-angle slabs on: held to the
+    single engine's K1 pass (phase_production's res_k, and a single pass
+    with the slabs) at |ΔlogP| ≤ 1e-10·max|logP|, the argmax tuples equal,
+    four captures; then 1×4 and 4×1 meshes at MESH_DEPTH orientations held
+    the same way to a single pass at that depth. Returns the 2×2 mesh's
+    results at MESH_DEPTH (the multi-process phase's reference)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.run import run_bioem
+
+    p, orients, model, images, planted = problem
+    pa = copy.copy(p)
+    pa.write_angles = 1
+    prob_a = (pa, orients, model, images, planted)
+    cfg = RunConfig(use_kernels=True, autotune=False)
+    single, perf_s = run_bioem(pa, orients, model, images, cfg, device=DEVICE)
+    res, t_setup, t_run, text, eng = _mesh_run(prob_a, 2, 2, RunConfig(
+        use_kernels=True, autotune=False, mesh_images=2, mesh_orient=2))
+    say(f"[mesh] {card}: production problem on a 2×2 mesh of 4 slots on cuda:0 (K1), "
+        f"{len(eng.slots)} slots of {eng.n_img_pad // 2} image rows × "
+        f"{eng.n_orient_pad // 2} orientations, set-up {t_setup:.3f} s; first pass {text} "
+        f"({eng.n_orient * eng.n_ctf * eng.n_img / t_run:.4e} comparisons/s; the single "
+        f"engine's pass with the slabs {perf_s['run_s']:.3f} s)")
+    require(eng.captures == 4, "the 2×2 mesh did not capture once per slot")
+    require(not eng.fused_batched and eng.fused_lse, "the mesh left the default K1 branch")
+    _held_rel("mesh 2×2 vs the single engine (slabs on)", res, single)
+    _held_rel("mesh 2×2 vs phase_production's K1 pass", res, res_k, angles=False)
+    res, t_run, text = _mesh_pass(eng)
+    say(f"[mesh] the same engine's second pass (replays only): {text} "
+        f"({eng.n_orient * eng.n_ctf * eng.n_img / t_run:.4e} comparisons/s)")
+    require(eng.captures == 4, "the second pass captured again")
+    _held_rel("mesh 2×2, second pass, vs the single engine (slabs on)", res, single)
+    del eng
+    depth = RunConfig(use_kernels=True, autotune=False, debug_break=MESH_DEPTH)
+    ref, _ = run_bioem(p, orients, model, images, depth, device=DEVICE)
+    out = None
+    for mi, mo in ((2, 2), (1, 4), (4, 1)):
+        r, t_setup, _t, text, eng = _mesh_run(problem, mi, mo, RunConfig(
+            use_kernels=True, autotune=False, debug_break=MESH_DEPTH, mesh_images=mi,
+            mesh_orient=mo))
+        say(f"[mesh] {mi}×{mo} at {MESH_DEPTH} orientations: set-up {t_setup:.3f} s, "
+            f"first pass {text}")
+        require(eng.captures == mi * mo, f"the {mi}×{mo} mesh did not capture once per slot")
+        _held_rel(f"mesh {mi}×{mo} at {MESH_DEPTH} vs the single engine", r, ref)
+        out = r if (mi, mo) == (2, 2) else out
+        del eng
+    return out
+
+
+RESULT_FIELDS = ("log_prob", "best_orient", "best_conv", "best_cent_x", "best_cent_y",
+                 "best_norm", "best_mu")
+
+
+class _Stop(Exception):
+    """Raised by the worker's checkpoint hook: a run that dies mid-slot."""
+
+
+def mp_worker(rank: int, port: int, out_dir: str) -> int:
+    """One of two processes on cuda:0 (``chip_smoke.py --mp-worker``): two
+    slots of a global 2×2 mesh at MESH_DEPTH orientations over gloo. Runs
+    (1) the pass; (2) the images streamed in 2 chunks of 32 at image tile
+    16, each process reading only the rows its slots own; (3) a
+    checkpointed pass that dies after its second slot's first save (both
+    processes, before the merge), then the same pass resumed in a fresh
+    engine. The images are the parent's (``out_dir/maps.npy``), as the
+    processes of a real run read the same files: on the card's host the
+    seed-made images have come out different in one of two processes
+    building them at once (the line says whether this process's own build
+    equals the parent's). Process 0 writes each result to ``out_dir``; each
+    process prints one JSON line with its reads and kernel launches."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.io.map_io import ImageStack
+    from bioem_tpu_torch.ops import _build
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.ops import project_cuda as pj
+    from bioem_tpu_torch.parallel import distributed
+    from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine, make_bioem_mesh
+    from bioem_tpu_torch.runtime import checkpoint
+    from bioem_tpu_torch.stream import ArraySource, run_streaming
+
+    _build.load(verbose=True)  # the library the parent built (its flags key it)
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, timeout_s=240)
+    p, orients, model, own, _ = build_problem()
+    images = ImageStack(np.load(os.path.join(out_dir, "maps.npy")))
+    own_equal = own.maps.tobytes() == images.maps.tobytes()
+    mesh = make_bioem_mesh(2, 2, devices=["cuda:0"] * 2)
+    base = dict(use_kernels=True, autotune=False, debug_break=MESH_DEPTH, mesh_images=2,
+                mesh_orient=2)
+
+    def save(name, res):
+        if rank == 0:
+            np.savez(os.path.join(out_dir, name), **{f: getattr(res, f) for f in RESULT_FIELDS})
+
+    times = {}
+    t0 = time.perf_counter()
+    eng = ShardedBioEMEngine(p, orients, model, images, RunConfig(**base), mesh=mesh)
+    res = eng.results(eng.run())
+    times["run"] = time.perf_counter() - t0
+    save("run.npz", res)
+    del eng
+
+    reads = []
+
+    class Recording(ArraySource):
+        def chunk(self, start, stop):
+            reads.append((start, stop))
+            return super().chunk(start, stop)
+
+    t0 = time.perf_counter()
+    res, perf = run_streaming(p, orients, model, Recording(images.maps),
+                              RunConfig(**base, kernel_img_tile=16), chunk_images=32,
+                              device="cuda:0", mesh=mesh)
+    times["stream"] = time.perf_counter() - t0
+    save("stream.npz", res)
+
+    ck = RunConfig(**base, checkpoint_path=os.path.join(out_dir, f"ck{rank}.npz"),
+                   checkpoint_every=16)
+    real_save = checkpoint.save_checkpoint
+    saves = []
+
+    def dying_save(path, state, nxt, fp):
+        real_save(path, state, nxt, fp)
+        saves.append(path)
+        if path.endswith(("slot0x1", "slot1x1")):  # this process's second slot
+            raise _Stop(f"stopped after {path} block {nxt}")
+
+    checkpoint.save_checkpoint = dying_save
+    try:
+        ShardedBioEMEngine(p, orients, model, images, ck, mesh=mesh).run()
+        stopped = "did not stop"
+    except _Stop as e:
+        stopped = str(e)
+    finally:
+        checkpoint.save_checkpoint = real_save
+    k1 = cc_mod.fused_compare_block.launches
+    t0 = time.perf_counter()
+    eng = ShardedBioEMEngine(p, orients, model, images, ck, mesh=mesh)
+    res = eng.results(eng.run())
+    times["resumed"] = time.perf_counter() - t0
+    k1_resumed = cc_mod.fused_compare_block.launches - k1
+    save("resumed.npz", res)
+    print(json.dumps({"rank": rank, "reads": reads, "stopped": stopped, "own_images_equal": own_equal,
+                      "captures_stream": perf["captures"], "times": times,
+                      "k1_resumed": k1_resumed, "blocks_per_slot": eng.slots[
+                          next(iter(eng.slots))].ang_blocks.shape[0],
+                      "launches": {"K1": cc_mod.fused_compare_block.launches,
+                                   "K2": pj.fourier_project_block.launches,
+                                   "K3": cc_mod.fused_displacement_cc.launches,
+                                   "K4": cc_mod.fused_compare_block_batched.launches}}),
+          flush=True)
+    torch.cuda.synchronize()
+    distributed.shutdown()
+    return 0
+
+
+def phase_multiprocess(ref_2x2, maps, card: str) -> dict:
+    """Two processes on the one card (``--mp-worker``), a free TCP port,
+    gloo, two slots each of a global 2×2 mesh at MESH_DEPTH orientations,
+    on the parent's images ``maps``:
+    the pass equal to the one-process 2×2 run (``ref_2x2``, phase_mesh's)
+    bit for bit; the streamed run (process 1 reading only its rows of the
+    second chunk) and the checkpointed run resumed after a stop held to it
+    at 1e-10 relative with the argmax tuples equal. Returns the kernel
+    launches the two workers made."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        np.save(os.path.join(out_dir, "maps.npy"), maps)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker",
+                                   str(r), str(port), out_dir],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for pr in procs:
+                logs.append(pr.communicate(timeout=400)[0])
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.communicate()
+        wall = time.perf_counter() - t0
+        for r, (pr, log) in enumerate(zip(procs, logs)):
+            require(pr.returncode == 0, f"worker {r} exited {pr.returncode}:\n{log[-4000:]}")
+        info = [json.loads([ln for ln in log.splitlines() if ln.startswith('{"rank"')][-1])
+                for log in logs]
+        got = {k: dict(np.load(os.path.join(out_dir, f"{k}.npz")))
+               for k in ("run", "stream", "resumed")}
+    say(f"[multiprocess] {card}: 2 processes × 2 slots on cuda:0 over gloo, {wall:.1f} s "
+        f"wall; per process: " + "; ".join(
+            f"rank {i['rank']} run {i['times']['run']:.3f} s, streamed {i['times']['stream']:.3f} s "
+            f"(captures {i['captures_stream']}), resumed {i['times']['resumed']:.3f} s "
+            f"({i['stopped']}; K1 launches {i['k1_resumed']} for {i['blocks_per_slot']} blocks "
+            f"per slot; its own seed-made images equal the parent's: {i['own_images_equal']})"
+            for i in info))
+    for i in info:
+        require(i["stopped"].startswith("stopped"), f"rank {i['rank']}: the run did not stop")
+        require(i["captures_stream"] == 2, f"rank {i['rank']}: streaming captured "
+                f"{i['captures_stream']} times for its 2 slots")
+        # the resumed pass replays only what the stopped one did not finish
+        require(i["k1_resumed"] < 2 * i["blocks_per_slot"],
+                f"rank {i['rank']}: the resumed pass recomputed everything")
+    later = [sorted((a, b) for a, b in i["reads"] if a >= 32) for i in info]
+    say(f"[multiprocess] second chunk's reads: rank 0 {later[0]}, rank 1 {later[1]}")
+    require(later[0] == [(32, 48)] and later[1] == [(48, 64)],
+            "a process read rows of the second chunk that its slots do not own")
+
+    from types import SimpleNamespace
+
+    for k in ("run", "stream", "resumed"):
+        bits = _held_rel(f"multiprocess {k} vs the one-process 2×2 run",
+                         SimpleNamespace(**got[k], angle_log=None), ref_2x2)
+        if k == "run":
+            same = all(np.array_equal(got[k][f], getattr(ref_2x2, f)) for f in RESULT_FIELDS)
+            say(f"[multiprocess] run: every field bit-equal to the one-process run: {same}")
+            require(bits and same, "the two-process run is not bit-equal to the one-process run")
+    out = {k: sum(i["launches"][k] for i in info) for k in ("K1", "K2", "K3", "K4")}
+    say("[multiprocess] the workers' launches: " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    require(out["K1"] > 0 and out["K2"] > 0, "the workers did not launch K1 and K2")
+    return out
+
+
+def phase_native(card: str, n_img: int = 2048, n_pix: int = 224) -> None:
+    """The native C++ ingest against the NumPy readers on a production-size
+    stack (``n_img`` images of 224², f32 MRC, ~411 MB) and a 500-point text
+    model, written under a temporary directory: bit-equal, the native
+    reader run (its call counter), both times printed (host seconds)."""
+    from bioem_tpu_torch.io.map_io import read_mrc_maps
+    from bioem_tpu_torch.io.model_io import read_text_model
+    from bioem_tpu_torch.io.mrc import write_mrc
+    from bioem_tpu_torch.runtime import native
+
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    t_build = time.perf_counter() - t0
+    require(lib is not None, "the native ingest did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        stack = rng.normal(0.1, 1.3, (n_img, n_pix, n_pix)).astype(np.float32)
+        mrc = os.path.join(tmp, "stack.mrc")
+        write_mrc(mrc, stack)
+        del stack
+        model = os.path.join(tmp, "model.txt")
+        with open(model, "w") as f:
+            for row in np.column_stack([rng.uniform(-80, 80, (500, 3)), rng.uniform(1, 4, 500),
+                                        rng.uniform(20, 120, 500)]):
+                f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+        gb = os.path.getsize(mrc) / 1e9
+        saved = os.environ.get("BIOEM_TPU_NATIVE_IO")
+        times = {}
+        try:
+            def model_rows():
+                m = read_text_model(model)
+                return np.concatenate([m.points.ravel(), m.radii, m.densities])
+
+            for what, path, read in (("MRC stack", mrc, lambda: read_mrc_maps(mrc, n_pix).maps),
+                                     ("text model", model, model_rows)):
+                key = "mrc_stack" if what == "MRC stack" else "text_model"
+                os.environ["BIOEM_TPU_NATIVE_IO"] = "1"
+                before = native.calls[key]
+                t0 = time.perf_counter()
+                fast = read()
+                t_fast = time.perf_counter() - t0
+                require(native.calls[key] == before + 1, f"{what}: the native reader did not run")
+                os.environ["BIOEM_TPU_NATIVE_IO"] = "0"
+                t0 = time.perf_counter()
+                slow = read()
+                t_slow = time.perf_counter() - t0
+                require(native.calls[key] == before + 1, f"{what}: NumPy read went native")
+                equal = fast.tobytes() == slow.tobytes()
+                times[what] = (t_fast, t_slow)
+                say(f"[native] {what} ({os.path.getsize(path) / 1e6:.1f} MB): native "
+                    f"{t_fast:.3f} s, NumPy {t_slow:.3f} s, bit-equal {equal}")
+                require(equal, f"{what}: the native and NumPy readers differ")
+                del fast, slow
+        finally:
+            if saved is None:
+                os.environ.pop("BIOEM_TPU_NATIVE_IO", None)
+            else:
+                os.environ["BIOEM_TPU_NATIVE_IO"] = saved
+    t_fast, t_slow = times["MRC stack"]
+    say(f"[native] {card}: library load/build {t_build:.2f} s; MRC ingest "
+        f"{gb / t_fast:.2f} GB/s native, {gb / t_slow:.2f} GB/s NumPy "
+        f"({n_img} images of {n_pix}², normalised, host {os.cpu_count()} cores)")
+
+
 def _angle(a, b) -> float:
     tr = np.trace(np.asarray(a, np.float64) @ np.asarray(b, np.float64).T)
     return float(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
@@ -1278,6 +1668,8 @@ def phase_debug_prob(image: int = 1, atol: float = 1e-3) -> None:
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--mp-worker":  # phase_multiprocess's workers
+        return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     try:
         import torch
     except ImportError:
@@ -1345,6 +1737,11 @@ def main() -> int:
                   lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]), ("K2", "K4"))
         main_path("streaming", lambda: phase_streaming(problem, res_k, card), ("K1", "K2"))
         main_path("ranking", lambda: phase_ranking(problem, card), ("K1", "K2"))
+        ref_2x2 = main_path("mesh", lambda: phase_mesh(problem, res_k, card), ("K1", "K2"))
+        # the two worker processes' counters start at 0 with the processes
+        for k, n in phase_multiprocess(ref_2x2, problem[3].maps, card).items():
+            rows[k]["launches"] = rows[k].get("launches", 0) + n
+        phase_native(card)
         main_path("refinement", lambda: phase_refinement(problem, card), ("K2",))
         from bioem_tpu_torch.ops import probe_cuda
 

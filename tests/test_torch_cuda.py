@@ -24,7 +24,9 @@ to the same bits across two launches. The engine's replayed pass
 hybrid, through a checkpoint resume too, with launch counters that count
 each replay; on swapped banks too (a streamed image chunk, a ranked model
 with more points per radius group, whose counts K2 reads), with one
-capture per engine under run_streaming and rank_models. The probes: P1's FMA and 3xTF32 schemes at a median
+capture per engine under run_streaming and rank_models; a 2×2 mesh of
+four slots on one card (one capture each) equal to the single engine on
+each branch, streamed and ranked. The probes: P1's FMA and 3xTF32 schemes at a median
 relative error below 1e-6 from f64 (the TPU probe's "multi-pass" line);
 P2's two structures within the f32 summation bound the probe tool states
 (``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4.
@@ -726,3 +728,72 @@ def test_streaming_and_ranking_capture_once(rng, dev):
     for m, mod in enumerate(models):
         own = BioEMEngine(p, orients, mod, images, cfg, device=dev, model_layout=lay)
         np.testing.assert_allclose(per_image[m], own.results(own.run()).log_prob, rtol=1e-12, atol=0)
+
+
+def _one_card_mesh(dev, mi=2, mo=2):
+    from bioem_tpu_torch.parallel.mesh import make_bioem_mesh
+
+    return make_bioem_mesh(mi, mo, devices=[torch.device("cuda", dev.index or 0)] * (mi * mo))
+
+
+def _held_results(got, want, rtol=1e-12):
+    np.testing.assert_allclose(got.log_prob, want.log_prob, rtol=rtol, atol=0)
+    np.testing.assert_allclose(got.angle_log, want.angle_log, rtol=rtol, atol=0)
+    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_mesh_on_one_card_matches_single(rng, dev, path):
+    """A 2×2 mesh of four slots on one card, each slot its own captured
+    graph, equals the single engine on the same branch (logP and the
+    per-angle logP to 1e-12 relative, argmax tuples exact)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine
+
+    p, orients, model, images = _engine_problem(rng, n_img=7)
+    kw = dict(orient_block=3, **ENGINE_PATHS[path])
+    single = BioEMEngine(p, orients, model, images, RunConfig(**kw), device=dev)
+    want = single.results(single.run())
+    eng = ShardedBioEMEngine(p, orients, model, images,
+                             RunConfig(mesh_images=2, mesh_orient=2, **kw), mesh=_one_card_mesh(dev))
+    got = eng.results(eng.run())
+    assert eng.captures == 4 and all(e._graph is not None for e in eng.slots.values())
+    _held_results(got, want)
+
+
+def test_streamed_mesh_captures_once_per_slot(rng, dev):
+    """run_streaming through a 2×2 mesh on one card: one capture per slot
+    whatever the chunks, equal to the whole mesh run."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine
+    from bioem_tpu_torch.stream import ArraySource, run_streaming
+
+    p, orients, model, images = _engine_problem(rng, n_img=8)
+    cfg = RunConfig(orient_block=3, mesh_images=2, mesh_orient=2, kernel_img_tile=2)
+    whole = ShardedBioEMEngine(p, orients, model, images, cfg, mesh=_one_card_mesh(dev))
+    want = whole.results(whole.run())
+    res, perf = run_streaming(p, orients, model, ArraySource(images.maps), cfg, chunk_images=4,
+                              device=dev, mesh=_one_card_mesh(dev))
+    assert perf["chunks"] == 2 and perf["captures"] == 4
+    _held_results(res, want)
+
+
+def test_ranked_mesh_run(rng, dev):
+    """rank_models on a 2×2 mesh on one card: each slot copies every model
+    and its K2 counts into its own graph's banks (one capture per slot),
+    each model equal to the single engine's ranking."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.rank import rank_models
+
+    p, orients, model, images = _engine_problem(rng, n_img=6)
+    models = [model, _more_per_group(rng, model)]
+    _t1, _per_1, perf_1 = rank_models(p, orients, models, images, RunConfig(orient_block=3),
+                                      device=dev)
+    _tm, _per_m, perf = rank_models(
+        p, orients, models, images, RunConfig(orient_block=3, mesh_images=2, mesh_orient=2),
+        device=dev, mesh=_one_card_mesh(dev))
+    assert perf["captures"] == 4
+    for got, want in zip(perf["results"], perf_1["results"]):
+        _held_results(got, want)

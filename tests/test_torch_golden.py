@@ -108,24 +108,35 @@ def test_port_golden_f64_external_truth(case, tmp_path, branch):
         np.testing.assert_array_equal(pt[n_ang + 4: n_ang + 6], pg[n_ang + 4: n_ang + 6])
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--Refine"], {"BIOEM_TPU_MESH_IMAGES": "2"}),
-    (["--RefineCTF"], {"BIOEM_TPU_NATIVE_IO": "1"}),
-    ([], {"BIOEM_TPU_MESH_ORIENT": "2"}),
-    ([], {"BIOEM_TPU_NATIVE_IO": "1"}),
-])
-def test_not_ported_features_refuse(argv, env, monkeypatch):
-    """Features of the JAX CLI that the port lacks (the device mesh,
-    multi-host runs, the native ingest) raise NotImplementedError before
-    any work starts, with or without the refinement flags, which the port
-    has: the message names only what is missing."""
-    from bioem_tpu_torch.cli import main
+@pytest.mark.parametrize("env", [
+    {"BIOEM_TPU_MESH_IMAGES": "2"}, {"BIOEM_TPU_MESH_ORIENT": "2"},
+    {"BIOEM_TPU_MESH_IMAGES": "2", "BIOEM_TPU_MESH_ORIENT": "2"},
+    {"BIOEM_TPU_NATIVE_IO": "1"},
+], ids=["mesh2x1", "mesh1x2", "mesh2x2", "native_io"])
+def test_mesh_and_native_cli_match_single(env, tmp_path, monkeypatch):
+    """The JAX CLI's features the port refused until this slice (the device
+    mesh, the native ingest) run through the port's CLI on golden case A:
+    a 2×1, 1×2 and 2×2 mesh of CPU slots, and the C++ reader, each
+    matching the single-device run on the NumPy readers (logP rtol 1e-9,
+    the parameter columns equal) and the reference binary's golden."""
+    from bioem_tpu_torch.runtime import native
 
+    case = "case_a_euler_ctf"
+    monkeypatch.setenv("BIOEM_TPU_NATIVE_IO", "0")
+    single, golden, _ = run_port_cli(case, tmp_path / "single")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not yet ported") as err:
-        main(argv)
-    assert "Refine" not in str(err.value)
+    before = native.calls["text_maps"]
+    ours, _, _ = run_port_cli(case, tmp_path / "env")
+    assert (native.calls["text_maps"] > before) == (env.get("BIOEM_TPU_NATIVE_IO") == "1")
+    lp, _, par = parse_output(ours)
+    lp_1, _, par_1 = parse_output(single)
+    lp_g, _, _ = parse_output(golden)
+    assert len(lp) == len(lp_1) == len(lp_g) > 0
+    np.testing.assert_allclose(lp, lp_1, rtol=1e-9, atol=0)
+    np.testing.assert_allclose(lp, lp_g, atol=CASE_ATOL.get(case, LOGP_ATOL))
+    for a, b in zip(par, par_1):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("flags", [["--Refine"], ["--Refine", "--RefineCTF"],
@@ -140,13 +151,23 @@ def test_refine_flags_are_ported(flags, monkeypatch):
     assert main(flags) == 1
 
 
-def test_single_device_mesh_is_accepted(monkeypatch):
-    """A 1×1 mesh is the single device the port runs on."""
-    from bioem_tpu_torch.config import not_ported_env
+def test_single_device_mesh_is_accepted(tmp_path, monkeypatch):
+    """A 1×1 mesh is the single device: the CLI's engine is a BioEMEngine."""
+    from bioem_tpu_torch import run as trun
+    from bioem_tpu_torch.core.engine import BioEMEngine
 
     monkeypatch.setenv("BIOEM_TPU_MESH_IMAGES", "1")
     monkeypatch.setenv("BIOEM_TPU_MESH_ORIENT", "1")
-    assert not_ported_env() == []
+    made = []
+    original = trun.make_engine
+
+    def make_engine(*a, **kw):
+        made.append(original(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(trun, "make_engine", make_engine)
+    run_port_cli("case_a_euler_ctf", tmp_path)
+    assert len(made) == 1 and type(made[0]) is BioEMEngine
 
 
 BESTMAP_TOL = 2.5e-3

@@ -416,14 +416,17 @@ def _jax_env_names():
 
 def test_every_jax_env_name_is_honoured_refused_or_tpu_only():
     """Every name the JAX package reads (a string literal) is in exactly one
-    of the port's three sets. The other matches are prose: the prefixes
-    BIOEM_DEBUG_* and BIOEM_TPU_*, and the reference binary's own
-    BIOEM_PROB_DOUBLE and BIOEM_PROJ_CONV_AT_ONCE, which no code reads."""
+    of the port's two sets, honoured or TPU-only: nothing is refused any
+    more (the mesh, multi-process runs and the native ingest are ported).
+    The other matches are prose: the prefixes BIOEM_DEBUG_* and
+    BIOEM_TPU_*, and the reference binary's own BIOEM_PROB_DOUBLE and
+    BIOEM_PROJ_CONV_AT_ONCE, which no code reads."""
     names, every = _jax_env_names()
     assert every - names == {"BIOEM_DEBUG_", "BIOEM_TPU_", "BIOEM_PROB_DOUBLE",
                              "BIOEM_PROJ_CONV_AT_ONCE"}
     assert len(names) >= 30
-    sets = (tconfig.HONOURED_ENV, set(tconfig.NOT_PORTED_ENV), set(tconfig.TPU_ONLY_ENV))
+    assert not hasattr(tconfig, "NOT_PORTED_ENV")
+    sets = (tconfig.HONOURED_ENV, set(tconfig.TPU_ONLY_ENV))
     for name in sorted(names):
         assert sum(name in s for s in sets) == 1, name
     assert set().union(*sets) == names  # no stale entry either
@@ -436,6 +439,7 @@ def test_env_settings_parse(monkeypatch):
         "BIOEM_TPU_FUSED_BATCHED": "1", "BIOEM_TPU_FUSED_LSE": "1",
         "BIOEM_TPU_AUTOTUNE": "0", "BIOEM_TPU_CHECKPOINT": "c.npz",
         "BIOEM_TPU_CHECKPOINT_EVERY": "4", "BIOEM_TPU_PROFILE_DIR": "prof",
+        "BIOEM_TPU_MESH_IMAGES": "2", "BIOEM_TPU_MESH_ORIENT": "4",
     }
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -446,24 +450,72 @@ def test_env_settings_parse(monkeypatch):
         16, 8, True, False, True, True, False, "c.npz", 4, "prof")
     assert cfg.forced == {"orient_block", "kernel_img_tile", "use_kernels",
                           "kernel_projection", "fused_batched", "fused_lse"}
-    assert tconfig.not_ported_env() == []
+    assert (cfg.mesh_images, cfg.mesh_orient) == (2, 4)
 
 
-@pytest.mark.parametrize("name", sorted(tconfig.NOT_PORTED_ENV))
-def test_refused_env_raises_in_cli(name, monkeypatch):
-    from bioem_tpu_torch.cli import main
+def _tiny_engine(rng, monkeypatch):
+    """make_engine on a tiny problem with RunConfig.from_env, on the CPU."""
+    from bioem_tpu_torch.run import make_engine
 
-    monkeypatch.setenv(name, "2")
-    with pytest.raises(NotImplementedError, match=name):
-        main([])
+    monkeypatch.setenv("BIOEM_TPU_FORCE_CPU", "1")
+    p = tiny_params()
+    return make_engine(p, build_orientations(p), tiny_model(rng),
+                       tiny_images(rng, 3, p.n_pixels), RunConfig.from_env())
+
+
+@pytest.mark.parametrize("name", ["BIOEM_TPU_MESH_IMAGES", "BIOEM_TPU_MESH_ORIENT",
+                                  "BIOEM_TPU_NATIVE_IO", "BIOEM_TPU_COORDINATOR",
+                                  "BIOEM_TPU_NUM_PROCESSES", "BIOEM_TPU_PROCESS_ID"])
+def test_mesh_native_and_process_env_honoured(name, rng, tmp_path, monkeypatch):
+    """The six names the port refused until the mesh, multi-process runs
+    and the native ingest were ported are now parsed and honoured: a mesh
+    side of 2 builds a two-slot mesh engine; BIOEM_TPU_NATIVE_IO=1 reads
+    through the C++ reader and 0 through NumPy; one of the three
+    multi-process names alone is a partial configuration, which
+    initialize() (the CLI's first step) refuses."""
+    from bioem_tpu_torch.parallel import distributed
+    from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine
+    from bioem_tpu_torch.runtime import native
+
+    assert name in tconfig.HONOURED_ENV
+    if name.startswith("BIOEM_TPU_MESH"):
+        monkeypatch.setenv(name, "2")
+        eng = _tiny_engine(rng, monkeypatch)
+        assert isinstance(eng, ShardedBioEMEngine) and len(eng.slots) == 2
+        assert eng.mesh.shape == ((2, 1) if name.endswith("IMAGES") else (1, 2))
+    elif name == "BIOEM_TPU_NATIVE_IO":
+        from bioem_tpu_torch.io.map_io import read_mrc_maps
+        from bioem_tpu_torch.io.mrc import write_mrc
+
+        path = str(tmp_path / "s.mrc")
+        write_mrc(path, rng.normal(0, 1, (2, 8, 8)).astype(np.float32))
+        before = native.calls["mrc_stack"]
+        monkeypatch.setenv(name, "1")
+        fast = read_mrc_maps(path, 8).maps
+        assert native.calls["mrc_stack"] == before + 1
+        monkeypatch.setenv(name, "0")
+        assert native.get_lib() is None
+        np.testing.assert_array_equal(read_mrc_maps(path, 8).maps, fast)
+        assert native.calls["mrc_stack"] == before + 1
+    else:
+        value = {"BIOEM_TPU_COORDINATOR": "127.0.0.1:1", "BIOEM_TPU_NUM_PROCESSES": "2",
+                 "BIOEM_TPU_PROCESS_ID": "0"}[name]
+        monkeypatch.setenv(name, value)
+        with pytest.raises(ValueError, match=f"partial multi-process.*{value}"):
+            distributed.initialize()
+        assert not distributed.is_initialized()
 
 
 @pytest.mark.parametrize("name,value", [("BIOEM_TPU_MESH_IMAGES", "1"),
                                         ("BIOEM_TPU_NATIVE_IO", "0"),
                                         *((n, "1") for n in sorted(tconfig.TPU_ONLY_ENV))])
-def test_passing_and_tpu_only_env_do_not_refuse(name, value, monkeypatch):
+def test_passing_and_tpu_only_env_do_not_refuse(name, value, rng, monkeypatch):
+    """A 1×1 mesh, the NumPy readers and the TPU-only knobs all leave the
+    run on the single-device engine of the default configuration."""
     monkeypatch.setenv(name, value)
-    assert tconfig.not_ported_env() == []
+    cfg = RunConfig.from_env()
+    assert (cfg.mesh_images, cfg.mesh_orient, cfg.forced) == (1, 1, frozenset())
+    assert type(_tiny_engine(rng, monkeypatch)) is BioEMEngine
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,7 @@ exact, against the JAX functions and against an independent port engine
 per chunk or model. The streamed plain branch is not bit-equal to the
 whole run on the CPU (the einsums' batch of images differs; measured
 4.5e-8 at |logP| ≈ 300), so it is held to the same tolerance. The
-sharded cases of tests/test_stream_rank.py wait for the port's device
-mesh.
+sharded cases of tests/test_stream_rank.py are in tests/test_torch_sharding.py.
 """
 
 import os
