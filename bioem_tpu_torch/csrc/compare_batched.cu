@@ -60,7 +60,8 @@
 //   accumulator (the first product does not add) and adds it to the f32
 //   sum with IEEE adds: the tensor cores truncate when they accumulate, and
 //   chaining all 84 products of a tile through one accumulator loses ~5×
-//   (measured on the earlier wmma design; the same scheme as tf32x3.cuh).
+//   (measured on the earlier wmma design; the step is wgmma.cuh tf32x3_step,
+//   which P1's 3xTF32 runs too).
 // * Stage 2 (cc = Re(t1·wyᵀ), 4·D²·F per comparison) stays f32 FMA on the
 //   CUDA cores, per warp on its own image: the warp's 16 rows of t1 go to
 //   shared memory once per tile, lane e sums its lattice column cc[·, e]
@@ -130,18 +131,13 @@ using bioem_lse::kNoGemm;
 using bioem_lse::kNoLse;
 
 // acc ← lo·W_hi + hi·W_lo + hi·W_hi for k-step s (acc's old value is not
-// read), issued asynchronously.
+// read), issued asynchronously (wgmma.cuh tf32x3_step).
 template <int NP>
 __device__ __forceinline__ void chain(float (&acc)[NP / 2], const uint32_t (&hi)[4],
                                       const uint32_t (&lo)[4], const unsigned char* w_hi,
                                       const unsigned char* w_lo, int s, uint32_t kb) {
-  const uint64_t dh = wg::desc(w_hi + 256 * s, 128, 8 * kb);
-  const uint64_t dl = wg::desc(w_lo + 256 * s, 128, 8 * kb);
-  wg::fence();
-  wg::Tf32RS<NP>::mma(acc, lo, dh, 0);
-  wg::Tf32RS<NP>::mma(acc, hi, dl, 1);
-  wg::Tf32RS<NP>::mma(acc, hi, dh, 1);
-  wg::commit();
+  wg::tf32x3_step<NP>(acc, hi, lo, wg::desc(w_hi + 256 * s, 128, 8 * kb),
+                      wg::desc(w_lo + 256 * s, 128, 8 * kb));
 }
 
 template <int NP, int V>

@@ -7,25 +7,60 @@
 // passes or casts it to one. The card's question is which product scheme
 // holds the port's f32 accuracy contract, and at what cost: the same
 // C = A·B in each scheme the port runs or could run,
-//   kFma     FP32 FMA on the CUDA cores (the earlier K1's and K3's stage 1),
-//   kTf32x3  3xTF32 wmma m16n16k8, each k-step added in IEEE f32
-//            (tf32x3.cuh; K4's stage 1 runs the same scheme on wgmma),
-//   kTf32    1xTF32 wmma chained through one accumulator (the precision
-//            trap of ROADMAP's precision rules),
-//   kF64Tc   FP64 tensor cores (mma.sync m8n8k4 f64) on operands widened
-//            from f32, rounded to f32 once at the end.
-// What bounds it: the operations of the scheme (2·M·K·N per product in f32
-// on the CUDA cores at 67 TFLOP/s, three TF32 products at 495 TFLOP/s,
-// FP64 tensor cores at 67 TFLOP/s). Design: one block of four warps per
-// 48×64 output tile (48 rows: K4's 2·Dp stage-1 rows, and half the TPU
-// probe's 96), A and B staged through shared memory in 32-deep chunks,
-// zero-padded at the ragged edges, and each thread or warp holding a
-// register tile that reuses every staged value several times (FMA: 6×4
-// outputs per thread; wmma: three 16×16 tiles per warp; FP64: twelve 8×8
-// tiles per warp), so that the scheme's arithmetic and not the staging
-// sets the time. ``batch`` blocks of the grid's z dimension repeat the
-// product into separate outputs, so that the scheme is timed at the size
-// of K4's stage 1 over a production block, not where the launch dominates.
+//   kFma     FP32 FMA on the CUDA cores, a register-tiled product;
+//   kTf32x3  3xTF32 on warpgroup wgmma, K4's step (wgmma.cuh
+//            tf32x3_step): per k8 step lo·hi + hi·lo + hi·hi in a zeroed
+//            accumulator, added to the f32 sum with IEEE adds;
+//   kTf32    1xTF32 on wgmma chained through one accumulator (the precision
+//            trap of ROADMAP's precision rules);
+//   kF64Tc   FP64 tensor cores (mma.sync m16n8k16 f64, sm_90's largest
+//            f64 shape; PERF.md gives its time against m8n8k4, m16n8k4 and
+//            m16n8k8) on operands widened from f32 once, as they are
+//            staged, rounded to f32 once at the end.
+// What bounds it, at K4's stage-1 shape (512 products of (48×224)·
+// (224×1024)): the operations of the scheme (2·M·K·N per product in f32 on
+// the CUDA cores or on the FP64 tensor cores at 67 TFLOP/s, three TF32
+// products at 495) or, for 1xTF32, writing C (99 % of the bytes).
+//
+// Design. Persistent CTAs, one per SM, walk the output tiles (48 rows ×
+// 256 columns of one of the ``batch`` copies; 48 rows are K4's 2·Dp
+// stage-1 rows) in a fixed order, columns fastest:
+// * A is resident. Each CTA forms A's rows of its tile once, over a slab
+//   of up to 224 of K (the whole of K at the probe's shapes), in the
+//   scheme's own form: split into TF32 hi and lo in wgmma's K-major layout,
+//   widened to f64, or transposed in f32 for FMA. It is formed again only
+//   when a tile of other rows or a deeper slab comes (M > 48, K > 224),
+//   as K4 forms its W once per CTA.
+// * B streams through a ring of four stages of 32 rows of K × 256
+//   columns, filled by cp.async (16-byte copies when N % 4 = 0, else
+//   4-byte ones; the ragged edge zero-filled by the copy) three stages
+//   ahead of their use, so that loads overlap the products. Stages of 16
+//   rows, which left room for a C tile of its own, measured slower: the
+//   wait and barrier per stage, not the depth of the ring, cost time.
+// * Warpgroups work apart: each loads, computes and stores its own
+//   columns of the tile and waits on its own named barrier, so that one
+//   warpgroup's loads, waits and adds overlap another's products. The
+//   tensor-core schemes run four warpgroups (64 columns each), FMA two.
+// * TF32. TF32 wgmma reads its shared-memory operand K-major only, and B
+//   (K×N, row-major) is N-major, so each warpgroup computes its tile
+//   transposed, Cᵀ = Bᵀ·Aᵀ, as K4's stage 1 does, with m64n48k8
+//   (wgmma.cuh Tf32RS<48>): the register operand is 64 columns of B, read
+//   from the stage and split (cvt.rna) in registers; the shared-memory
+//   operand is A's 48 rows, K-major as stored. 3xTF32 issues a step's
+//   products while the next step's fragments are formed.
+// * FP64: warp w takes 16 columns of the 48 rows, A's f64 fragments from
+//   the resident slab (row stride ≡ 4 doubles mod 16: two wavefronts per
+//   load, the least for 8-byte loads), B's widened in registers as they
+//   are read from the stage.
+// * FMA: each thread holds 6 rows × 8 columns; a warp takes 12 rows ×
+//   128 columns, so a k reads A as three 8-byte loads of two distinct
+//   addresses and B as two float4 loads of 16.
+// * The tensor-core schemes' tiles go out as rows through shared memory,
+//   the warpgroup's columns of the stage it has just consumed, 24 rows at
+//   a time; FMA's register tile is rows already. Stores are float4 and
+//   streaming when N % 4 = 0.
+// Each copy is computed, and in the same order as every other copy of the
+// same tile, so copies are equal bit for bit.
 //
 // P2 replaces tools/kernel_probe.py:_loop_mm_kernel and _batched_mm_kernel
 // (probe_issue_overhead): reps × Σ_i A·B_i over n_img images, bf16 inputs,
@@ -54,164 +89,418 @@
 // probe compares between the two structures.
 
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "tf32x3.cuh"
 #include "wgmma.cuh"
 
-using namespace nvcuda;
-
 namespace {
+
+namespace wg = bioem_wgmma;
 
 // ---------------------------------------------------------------------------
 // P1
 // ---------------------------------------------------------------------------
 
-enum Scheme : int { kFma = 0, kTf32x3 = 1, kTf32 = 2, kF64Tc = 3 };
+enum Scheme : int { kFma = 0, kTf32x3 = 1, kTf32 = 2, kF64Tc = 3 };  // ops/probe_cuda.py SCHEMES
 
-constexpr int kPThreads = 128;  // four warps
-constexpr int TM = 48, TN = 64, TK = 32;
-constexpr int LDA = TK + 4, LDB = TN + 4, LDC = TN + 4;  // wmma: multiples of 4 floats
-constexpr int FR = TM / 8, FC = TN / 16;  // FMA register tile: rows ty + 8r, columns tx + 16c
+constexpr int TM = 48;          // output rows per tile
+constexpr int TN = 256;         // output columns per tile
+constexpr int TK = 32;          // rows of K per ring stage
+constexpr int NS = 4;           // ring stages
+constexpr int LDB = TN + 8;     // row stride of a stage: fragment reads (k t, column g) hit 32 banks
+constexpr int kMaxKA = 224;     // depth of A's resident slab (a multiple of TK)
 
-__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
+__host__ __device__ constexpr bool is_tf32(int S) { return S == kTf32x3 || S == kTf32; }
+// Threads per CTA: FMA's register tile wants two warpgroups of 6×8
+// outputs per thread; the tensor-core schemes take four, each a 64-column
+// quarter, for more warpgroups to hide each other's waits.
+__host__ __device__ constexpr int threads(int S) { return S == kFma ? 256 : 512; }
+
+// Shared-memory carve-up, the same on the host and in the kernel: A's
+// slab, then the ring of B stages (the C tile goes out through the stage
+// just consumed).
+struct P1Layout {
+  int ka, lda;         // slab depth; FP64 row stride in doubles (≡ 4 mod 16)
+  size_t ring, bytes;  // byte offset of the ring; the total
+};
+
+__host__ __device__ inline P1Layout p1_layout(int S, int K) {
+  P1Layout L;
+  const int kr = (K + TK - 1) / TK * TK;
+  L.ka = kr < kMaxKA ? kr : kMaxKA;
+  L.lda = L.ka + 4;
+  if (S == kFma || S == kTf32) L.ring = (size_t)TM * L.ka * 4;
+  else if (S == kTf32x3) L.ring = 2 * (size_t)TM * L.ka * 4;  // hi, lo
+  else L.ring = (size_t)TM * L.lda * 8;
+  L.bytes = L.ring + (size_t)NS * TK * LDB * 4;
+  return L;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// FP64 mma.sync m16n8k16: d += a·b. Fragments (g = lane / 4, t = lane %
+// 4): a[i] is (row g + 8·(i mod 2), k t + 4·(i / 2)), b[i] (k t + 4i,
+// column g), d[0..1] (row g, columns 2t, 2t + 1), d[2..3] the same at row
+// g + 8.
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[8],
+                                        const double (&b)[4]) {
   asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(c[0]), "+d"(c[1])
-      : "d"(a), "d"(b));
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+        "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 template <int S>
-__global__ void __launch_bounds__(kPThreads)
+__global__ void __launch_bounds__(threads(S), 1)
 product_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-               int M, int K, int N) {
-  __shared__ __align__(32) float As[TM * LDA];
-  __shared__ __align__(32) float Bs[TK * LDB];
-  __shared__ __align__(32) float Cs[TM * LDC];
+               int M, int K, int N, int batch, bool vec) {
+  constexpr int NT = threads(S);
+  constexpr int WC = TN * 128 / NT;  // columns per warpgroup (TF32: one m64 tile)
+  constexpr int NJ = WC / 32;        // FP64: n8 tiles per warp
+  constexpr int MT = TM / 16;        // FP64: m16 tiles per warp
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const P1Layout L = p1_layout(S, K);
+  unsigned char* As = smem;
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  const uint32_t kb = 4u * L.ka;  // TF32: bytes of K per row of A
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  float* Cb = C + (size_t)blockIdx.z * M * N;
+  const int g = lane >> 2, t = lane & 3, wgi = warp >> 2, wt = tid & 127;
+  const int n_nt = (N + TN - 1) / TN, n_mt = (M + TM - 1) / TM, n_kc = (K + TK - 1) / TK;
+  const int n_items = n_mt * batch * n_nt;
 
-  // FMA: thread (tx, ty) = (tid % 16, tid / 16) owns FR × FC outputs.
-  // wmma: warp w owns columns [16w, 16w + 16) in three 16-row tiles.
-  // FP64: warp w owns the same columns as 2 × 6 tiles of 8×8.
-  const int tx = tid & 15, ty = tid >> 4;
-  const int g = lane >> 2, tg = lane & 3;  // FP64 fragment coordinates
-  float fa[FR][FC];
-  double da[TM / 8][2][2];
-  wmma::fragment<wmma::accumulator, 16, 16, 8, float> acc[TM / 16], step;
-  if constexpr (S == kFma) {
+  // Items (row tile, copy, column tile), columns fastest: this CTA's are
+  // blockIdx.x + r·gridDim.x, each n_kc stages of B in turn. The issue
+  // cursor (item, stage) runs NS − 1 stages ahead of the products. Each
+  // warpgroup loads, computes and stores its own WC columns and waits only
+  // for itself (named barrier 1 + wgi), so that the warpgroups drift apart
+  // and fill each other's gaps.
+  int is_it = blockIdx.x, is_c = 0, is_n0 = (blockIdx.x % n_nt) * TN;
+  auto issue = [&](float* dst) {
+    if (is_it < n_items) {
+      const int k0 = is_c * TK, n0 = is_n0;
+      if (vec) {
 #pragma unroll
-    for (int r = 0; r < FR; ++r)
-#pragma unroll
-      for (int c = 0; c < FC; ++c) fa[r][c] = 0.f;
-  } else if constexpr (S == kF64Tc) {
-#pragma unroll
-    for (int r = 0; r < TM / 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) da[r][c][0] = da[r][c][1] = 0.0;
-  } else {
-#pragma unroll
-    for (int mt = 0; mt < TM / 16; ++mt) wmma::fill_fragment(acc[mt], 0.f);
-  }
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int q = tid; q < TM * TK; q += kPThreads) {
-      const int r = q / TK, c = q - r * TK;
-      As[r * LDA + c] = (m0 + r < M && k0 + c < K) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
-    }
-    for (int q = tid; q < TK * TN; q += kPThreads) {
-      const int r = q / TN, c = q - r * TN;
-      Bs[r * LDB + c] = (k0 + r < K && n0 + c < N) ? B[(size_t)(k0 + r) * N + n0 + c] : 0.f;
-    }
-    __syncthreads();
-    if constexpr (S == kFma) {
+        for (int u = 0; u < TK * WC / 4 / 128; ++u) {
+          const int e = wt + u * 128;
+          const int r = e / (WC / 4), c4 = WC * wgi + 4 * (e - r * (WC / 4));
+          const bool ok = k0 + r < K && n0 + c4 < N;  // N % 4 = 0: all four or none
+          cp_async16(dst + r * LDB + c4, ok ? B + (size_t)(k0 + r) * N + n0 + c4 : B, ok ? 16 : 0);
+        }
+      } else {
 #pragma unroll 4
-      for (int k = 0; k < TK; ++k) {
-        float a[FR], b[FC];
-#pragma unroll
-        for (int r = 0; r < FR; ++r) a[r] = As[(ty + 8 * r) * LDA + k];
-#pragma unroll
-        for (int c = 0; c < FC; ++c) b[c] = Bs[k * LDB + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < FR; ++r)
-#pragma unroll
-          for (int c = 0; c < FC; ++c) fa[r][c] = fmaf(a[r], b[c], fa[r][c]);
+        for (int u = 0; u < TK * WC / 128; ++u) {
+          const int e = wt + u * 128;
+          const int r = e / WC, cc = WC * wgi + e - r * WC;
+          const bool ok = k0 + r < K && n0 + cc < N;
+          cp_async4(dst + r * LDB + cc, ok ? B + (size_t)(k0 + r) * N + n0 + cc : B, ok ? 4 : 0);
+        }
       }
-    } else if constexpr (S == kF64Tc) {
+      if (++is_c == n_kc) {
+        is_c = 0;
+        is_it += gridDim.x;
+        is_n0 = (is_it % n_nt) * TN;
+      }
+    }
+    cp_commit();  // an empty group past the end keeps the count of groups
+  };
+
+  // A's rows [48·mt, 48·mt + 48) × K [k_base, k_base + ka) in the scheme's
+  // form, zero outside A; U loads in flight per thread.
+  auto form_a = [&](int mt, int k_base) {
+    const int ka = L.ka;
+    constexpr int U = 16;
+    for (int e0 = tid; e0 < TM * ka; e0 += U * NT) {
+      float xs[U];
 #pragma unroll
-      for (int ks = 0; ks < TK / 4; ++ks) {
-        double b[2];
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * NT, r = e / ka, gm = mt * TM + r, gk = k_base + e - r * ka;
+        xs[u] = e < TM * ka && gm < M && gk < K ? A[(size_t)gm * K + gk] : 0.f;
+      }
 #pragma unroll
-        for (int c = 0; c < 2; ++c) b[c] = (double)Bs[(ks * 4 + tg) * LDB + warp * 16 + c * 8 + g];
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * NT, r = e / ka, k = e - r * ka;
+        if (e >= TM * ka) break;
+        if constexpr (S == kFma) {
+          reinterpret_cast<float*>(As)[k * TM + r] = xs[u];
+        } else if constexpr (is_tf32(S)) {
+          const uint32_t hi = wg::to_tf32(xs[u]);
+          const uint32_t off = wg::offset_km(r, 4 * k, kb);
+          *reinterpret_cast<uint32_t*>(As + off) = hi;
+          if constexpr (S == kTf32x3)
+            *reinterpret_cast<uint32_t*>(As + (size_t)TM * kb + off) =
+                wg::to_tf32(xs[u] - __uint_as_float(hi));
+        } else {
+          reinterpret_cast<double*>(As)[r * L.lda + k] = (double)xs[u];
+        }
+      }
+    }
+  };
+
+  // Register tiles, in warpgroup wgi's columns [WC·wgi, WC·wgi + WC). FMA:
+  // rows fr + r (r < 6), columns fc + u and fc + 64 + u (u < 4), a warp 12
+  // rows × 128 columns. TF32: an m64 tile of Cᵀ, rows (columns n of C) tn
+  // (+8), columns m 8j + 2t (+1). FP64: warp w takes
+  // columns (WC/4)·w + 8j + 2t (+1), j < NJ, rows 16i + g (+8).
+  const int fr = (warp & 3) * 12 + (lane >> 4) * 6, fc = WC * wgi + (lane & 15) * 4;
+  const int tn = WC * wgi + 16 * (warp & 3) + g;
+  float fa[6][8];
+  float sum[24], st[24];
+  double da[MT][NJ][4];
+  auto zero = [&]() {
+    if constexpr (S == kFma) {
 #pragma unroll
-        for (int r = 0; r < TM / 8; ++r) {
-          const double a = (double)As[(r * 8 + g) * LDA + ks * 4 + tg];
+      for (int r = 0; r < 6; ++r)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) mma_f64(da[r][c], a, b[c]);
+        for (int u = 0; u < 8; ++u) fa[r][u] = 0.f;
+    } else if constexpr (is_tf32(S)) {
+#pragma unroll
+      for (int r = 0; r < 24; ++r) sum[r] = 0.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[i][j][e] = 0.0;
+    }
+  };
+
+  // The products of one stage: its rows [0, depth) hold K (depth ≥ 1), at
+  // k_off of A's slab.
+  auto compute = [&](const float* Bs, int k_off, int depth) {
+    if constexpr (S == kFma) {
+      const float* Af = reinterpret_cast<const float*>(As) + (size_t)k_off * TM + fr;
+#pragma unroll 8
+      for (int k = 0; k < TK; ++k) {
+        const float2 a0 = *reinterpret_cast<const float2*>(Af + k * TM);
+        const float2 a1 = *reinterpret_cast<const float2*>(Af + k * TM + 2);
+        const float2 a2 = *reinterpret_cast<const float2*>(Af + k * TM + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * LDB + fc);
+        const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * LDB + fc + 64);
+        const float a[6] = {a0.x, a0.y, a1.x, a1.y, a2.x, a2.y};
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+#pragma unroll
+          for (int u = 0; u < 8; ++u) fa[r][u] = fmaf(a[r], b[u], fa[r][u]);
+      }
+    } else if constexpr (is_tf32(S)) {
+      constexpr int NSTEP = TK / 8;
+      const unsigned char* a_hi = As + 256 * (k_off / 8);
+      const unsigned char* a_lo = a_hi + (size_t)TM * kb;
+      const int n_s = (min(depth, TK) + 7) / 8;  // k8 steps holding K
+      // Fragment of step s: rows n = g, g + 8 and k = t, t + 4 of Bᵀ, split
+      // into TF32 hi (and lo).
+      uint32_t h[NSTEP][4], l[NSTEP][4];
+      auto frag = [&](int s, uint32_t (&hs)[4], uint32_t (&ls)[4]) {
+        const float* b = Bs + (8 * s + t) * LDB + tn;
+        const float x[4] = {b[0], b[8], b[4 * LDB], b[4 * LDB + 8]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hs[e] = wg::to_tf32(x[e]);
+          if constexpr (S == kTf32x3) ls[e] = wg::to_tf32(x[e] - __uint_as_float(hs[e]));
+        }
+      };
+      auto dsc = [&](const unsigned char* a, int s) { return wg::desc(a + 256 * s, 128, 8 * kb); };
+      if constexpr (S == kTf32) {
+        // One accumulator through every step: the stage's steps issued
+        // together.
+#pragma unroll
+        for (int s = 0; s < NSTEP; ++s)
+          if (s < n_s) frag(s, h[s], l[s]);
+        wg::fence();
+#pragma unroll
+        for (int s = 0; s < NSTEP; ++s)
+          if (s < n_s) wg::Tf32RS<48>::mma(sum, h[s], dsc(a_hi, s), 1);
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(sum);
+      } else {
+        // K4's order: step s's products, into a zeroed accumulator, run
+        // while step s + 1's fragment is formed; then they are added to
+        // the sum. (Two accumulators in turn, wait<1> overlapping the adds
+        // with the next step, spill at 512 threads' 128 registers and ptxas
+        // serialises the wgmma: 4.7–5.1× slower, PERF.md §6.)
+        frag(0, h[0], l[0]);
+#pragma unroll
+        for (int s = 0; s < NSTEP; ++s) {
+          if (s < n_s) {
+            wg::tf32x3_step<48>(st, h[s], l[s], dsc(a_hi, s), dsc(a_lo, s));
+            constexpr int kLast = NSTEP - 1;
+            if (s + 1 < n_s) frag(s + 1, h[s < kLast ? s + 1 : kLast], l[s < kLast ? s + 1 : kLast]);
+            wg::wait<0>();
+            wg::fence_operand(st);
+#pragma unroll
+            for (int r = 0; r < 24; ++r) sum[r] += st[r];
+          }
         }
       }
     } else {
+      const double* Ad = reinterpret_cast<const double*>(As) + k_off;
+      const float* bcol = Bs + WC / 4 * warp + g;
 #pragma unroll
-      for (int ks = 0; ks < TK / 8; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major> a_hi, a_lo;
-        wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> b_hi, b_lo;
-        wmma::load_matrix_sync(b_hi, Bs + ks * 8 * LDB + warp * 16, LDB);
-        if constexpr (S == kTf32x3) {
-          bioem_tf32x3::split(b_hi, b_lo);
-        } else {
+      for (int kk = 0; kk < TK; kk += 16) {
+        if (kk < depth) {
+          double b[NJ][4];
 #pragma unroll
-          for (int t = 0; t < b_hi.num_elements; ++t) b_hi.x[t] = wmma::__float_to_tf32(b_hi.x[t]);
-        }
+          for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int mt = 0; mt < TM / 16; ++mt) {
-          wmma::load_matrix_sync(a_hi, As + mt * 16 * LDA + ks * 8, LDA);
-          if constexpr (S == kTf32x3) {
-            bioem_tf32x3::split(a_hi, a_lo);
-            bioem_tf32x3::mma_step(acc[mt], step, a_hi, a_lo, b_hi, b_lo);
-          } else {
+            for (int i = 0; i < 4; ++i) b[j][i] = (double)bcol[(kk + t + 4 * i) * LDB + 8 * j];
 #pragma unroll
-            for (int t = 0; t < a_hi.num_elements; ++t) a_hi.x[t] = wmma::__float_to_tf32(a_hi.x[t]);
-            wmma::mma_sync(acc[mt], a_hi, b_hi, acc[mt]);
+          for (int i = 0; i < MT; ++i) {
+            double a[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              a[e] = Ad[(size_t)(16 * i + g + 8 * (e % 2)) * L.lda + kk + t + 4 * (e / 2)];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) mma_f64(da[i][j], a, b[j]);
           }
         }
       }
     }
-    __syncthreads();
-  }
+  };
 
-  // The block's tile to shared memory, then its in-range part out.
-  if constexpr (S == kFma) {
+  // The tile of item (mt, z, nt) out. FMA's register tile is rows already
+  // (a half-warp writes 256 contiguous bytes of a row); the others go out
+  // as rows through Cs, the warpgroup's columns of the stage it has just
+  // consumed (the next copy into it follows the next barrier), 24 rows at
+  // a time.
+  auto store = [&](int mt, int z, int nt, float* Cs) {
+    const int m0 = mt * TM, n0 = nt * TN;
+    const int rows = min(TM, M - m0), cols = min(TN, N - n0);
+    float* Cz = C + (size_t)z * M * N + (size_t)m0 * N + n0;
+    if constexpr (S == kFma) {
 #pragma unroll
-    for (int r = 0; r < FR; ++r)
+      for (int r = 0; r < 6; ++r) {
+        if (fr + r >= rows) break;
 #pragma unroll
-      for (int c = 0; c < FC; ++c) Cs[(ty + 8 * r) * LDC + tx + 16 * c] = fa[r][c];
-  } else if constexpr (S == kF64Tc) {
+        for (int h = 0; h < 2; ++h) {
+          const int c0 = fc + 64 * h;
+          float* dst = Cz + (size_t)(fr + r) * N + c0;
+          if (vec) {
+            if (c0 < cols)
+              __stcs(reinterpret_cast<float4*>(dst), make_float4(fa[r][4 * h], fa[r][4 * h + 1],
+                                                                 fa[r][4 * h + 2], fa[r][4 * h + 3]));
+          } else {
 #pragma unroll
-    for (int r = 0; r < TM / 8; ++r)
+            for (int u = 0; u < 4; ++u)
+              if (c0 + u < cols) dst[u] = fa[r][4 * h + u];
+          }
+        }
+      }
+      return;
+    }
+    constexpr int HR = TM / 2;  // rows per pass
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+    for (int pass = 0; pass < 2; ++pass) {
+      wg::wg_barrier(1 + wgi);  // the stage's (or the last pass's) reads are done
+      if constexpr (is_tf32(S)) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          Cs[(r * 8 + g) * LDC + warp * 16 + c * 8 + tg * 2 + h] = (float)da[r][c][h];
-  } else {
+        for (int j = 3 * pass; j < 3 * pass + 3; ++j)
 #pragma unroll
-    for (int mt = 0; mt < TM / 16; ++mt)
-      wmma::store_matrix_sync(Cs + mt * 16 * LDC + warp * 16, acc[mt], LDC, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int q = tid; q < TM * TN; q += kPThreads) {
-    const int r = q / TN, c = q - r * TN;
-    if (m0 + r < M && n0 + c < N) Cb[(size_t)(m0 + r) * N + n0 + c] = Cs[r * LDC + c];
+          for (int e = 0; e < 4; ++e)
+            Cs[(8 * j + 2 * t + (e & 1) - HR * pass) * LDB + tn + 8 * (e >> 1)] = sum[4 * j + e];
+      } else {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if ((16 * i + 8 * h) / HR != pass) continue;  // rows 16i + 8h + g lie in one pass
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              *reinterpret_cast<float2*>(Cs + (16 * i + g + 8 * h - HR * pass) * LDB +
+                                         WC / 4 * warp + 8 * j + 2 * t) =
+                  make_float2((float)da[i][j][2 * h], (float)da[i][j][2 * h + 1]);
+          }
+      }
+      wg::wg_barrier(1 + wgi);
+      const int pr = min(HR, rows - HR * pass);  // rows of this pass in C
+      float* Cp = Cz + (size_t)HR * pass * N;
+      if (vec) {
+#pragma unroll
+        for (int u = 0; u < HR * WC / 4 / 128; ++u) {
+          const int e = wt + u * 128;
+          const int r = e / (WC / 4), c4 = WC * wgi + 4 * (e - r * (WC / 4));
+          if (r < pr && c4 < cols)
+            __stcs(reinterpret_cast<float4*>(Cp + (size_t)r * N + c4),
+                   *reinterpret_cast<const float4*>(Cs + r * LDB + c4));
+        }
+      } else {
+        for (int e = wt; e < HR * WC; e += 128) {
+          const int r = e / WC, cc = WC * wgi + e - r * WC;
+          if (r < pr && cc < cols) Cp[(size_t)r * N + cc] = Cs[r * LDB + cc];
+        }
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int q = 0; q < NS - 1; ++q) issue(ring + q * TK * LDB);
+  int q = 0, res_mt = -1, res_kb = -1;
+#pragma unroll 1
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int nt = it % n_nt, z = (it / n_nt) % batch, mt = it / n_nt / batch;
+    zero();
+#pragma unroll 1
+    for (int c = 0; c < n_kc; ++c, ++q) {
+      cp_wait<NS - 2>();         // stage q has landed (this thread's copies) …
+      wg::wg_barrier(1 + wgi);  // … the warpgroup's; its columns of stage q − 1 are free
+      issue(ring + (q + NS - 1) % NS * TK * LDB);
+      const int k_base = c * TK / L.ka * L.ka;
+      if (mt != res_mt || k_base != res_kb) {
+        // Every warpgroup reaches this stage: once all are done with the
+        // old slab, all threads form the new one.
+        __syncthreads();
+        form_a(mt, k_base);
+        if constexpr (is_tf32(S)) wg::fence_proxy_async();
+        __syncthreads();
+        res_mt = mt;
+        res_kb = k_base;
+      }
+      compute(ring + q % NS * TK * LDB, c * TK - k_base, K - c * TK);
+    }
+    store(mt, z, nt, ring + (q - 1) % NS * TK * LDB);
   }
 }
 
 template <int S>
 int launch_product(const float* A, const float* B, float* C, int M, int K, int N, int batch,
                    cudaStream_t stream) {
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, batch);
-  product_kernel<S><<<grid, kPThreads, 0, stream>>>(A, B, C, M, K, N);
+  const size_t smem = p1_layout(S, K).bytes;
+  cudaError_t err = cudaFuncSetAttribute(product_kernel<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_items = (long long)((M + TM - 1) / TM) * batch * ((N + TN - 1) / TN);
+  const int grid = (int)(n_items < n_sm ? n_items : n_sm);
+  if (n_items > INT_MAX || (n_items + grid - 1) / grid * ((K + TK - 1) / TK) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(C)) % 16 == 0;
+  product_kernel<S><<<grid, threads(S), smem, stream>>>(A, B, C, M, K, N, batch, vec);
   return (int)cudaGetLastError();
 }
 
@@ -234,7 +523,6 @@ __global__ void __launch_bounds__(kSThreads)
 product_sum_kernel(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
                    float* __restrict__ dst, int K, int n_img, int reps, int per,
                    bool rep_major, size_t bstride, int rs) {
-  namespace wg = bioem_wgmma;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t kb = 2u * K;  // bytes of K per row
   unsigned char* As = smem;

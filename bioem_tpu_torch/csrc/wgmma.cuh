@@ -2,7 +2,8 @@
 // shared-memory matrix descriptor, the warpgroup fences, and the
 // instruction wrappers the kernels use, m64nNk8 TF32 with A from
 // registers (the comparisons K1, compare_fused.cu, and K4,
-// compare_batched.cu) and
+// compare_batched.cu, and the f32-product probe P1, probe.cu) with the
+// 3xTF32 step K4 and P1 share, and
 // m64nNk16 BF16 with both operands from shared memory (the product-issue
 // probe P2, probe.cu). sm_90a only.
 //
@@ -165,6 +166,23 @@ struct Tf32RS<64> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
 };
+
+// One 3xTF32 k8 step, issued asynchronously: acc ← lo·B_hi + hi·B_lo +
+// hi·B_hi (acc's old value is not read), a (hi, lo) split register operand
+// against the split shared-memory operand at descriptors dh (hi) and dl
+// (lo). The caller waits and adds acc to its f32 sum with IEEE adds: the
+// tensor cores truncate when they accumulate, so a fresh accumulator per
+// step keeps the sum f32-accurate. K4's stage 1 (compare_batched.cu) and
+// P1's 3xTF32 scheme (probe.cu) both run it.
+template <int N>
+__device__ __forceinline__ void tf32x3_step(float (&acc)[N / 2], const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4], uint64_t dh, uint64_t dl) {
+  fence();
+  Tf32RS<N>::mma(acc, lo, dh, 0);
+  Tf32RS<N>::mma(acc, hi, dl, 1);
+  Tf32RS<N>::mma(acc, hi, dh, 1);
+  commit();
+}
 
 template <>
 struct Bf16SS<96> {

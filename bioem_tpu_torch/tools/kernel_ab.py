@@ -1,6 +1,6 @@
-"""A/B of the kernels K1–K4 against another checkout's, on one card.
+"""A/B of the kernels K1–K4 and the probe P1 against another checkout's, on one card.
 
-    python -m bioem_tpu_torch.tools.kernel_ab OTHER_ROOT [--reps 20] [--kernels K1,K2,K3,K4]
+    python -m bioem_tpu_torch.tools.kernel_ab OTHER_ROOT [--reps 20] [--kernels K1,K2,K3,K4,P1]
 
 Builds the kernel library of ``OTHER_ROOT/bioem_tpu_torch`` with that
 checkout's own ``ops/_build.py`` and times its K1 (``bioem_fused_compare``),
@@ -20,6 +20,10 @@ signatures (K1 and K3 now take K1's tiling and a scratch buffer, K2
 per-group point counts); the other side is called with the signature its
 ``_build.SIGNATURES`` declares (a K1 or K3 of the new signature with this
 checkout's tiling), so any checkout that has K4 can be the other side.
+P1 (``bioem_probe_f32_product``, whose C signature has not changed) is
+timed scheme by scheme at K4's stage-1 shape (``kernel_probe.K4_STAGE1``:
+512 products of (48×224)·(224×1024)), with the largest difference between
+the two libraries' outputs; it runs only when named in ``--kernels``.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import sys
 
 import torch
 
-from ..ops import _build, compare_cuda
+from ..ops import _build, compare_cuda, probe_cuda
 from .kernel_probe import (
+    K4_STAGE1,
     _require_card,
     device_ms,
     production_block_inputs,
@@ -58,7 +63,7 @@ def main(argv=None) -> int:
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
-                    help="comma-separated subset of K1,K2,K3,K4 (default: all)")
+                    help="comma-separated subset of K1,K2,K3,K4,P1 (default: K1–K4)")
     args = ap.parse_args(argv)
     chosen = set(args.kernels.split(","))
     dev = _require_card()
@@ -142,7 +147,36 @@ def main(argv=None) -> int:
         name = kernel + (f" tile {tile}" if tile else "")
         print(f"{name}: other {times[0]:.4f} ms, this {times[1]:.4f} ms, this {times[2]:.4f} ms, "
               f"other {times[3]:.4f} ms; {diff}", flush=True)
+    if "P1" in chosen:
+        ab_p1(libs, dev, args.reps)
     return 0
+
+
+def ab_p1(libs: dict, dev, reps: int) -> None:
+    """P1 of both libraries, scheme by scheme, at K4's stage-1 shape."""
+    m, k, n, batch = K4_STAGE1
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((m, k), generator=gen).to(dev)
+    b = torch.randn((k, n), generator=gen).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(side: str, code: int):
+        out = torch.empty((batch, m, n), device=dev)
+        status = libs[side].bioem_probe_f32_product(code, a.data_ptr(), b.data_ptr(),
+                                                    out.data_ptr(), m, k, n, batch, stream)
+        _build.check(status, f"{side} P1")
+        return out
+
+    for code, scheme in enumerate(probe_cuda.SCHEMES):
+        x, y = call("other", code), call("this", code)
+        torch.cuda.synchronize()
+        diff = float((x - y).abs().max()) / float(x.abs().max())
+        del x, y
+        times = [device_ms(lambda s=s: call(s, code), reps)
+                 for s in ("other", "this", "this", "other")]
+        print(f"P1 {scheme} ({m}x{k})·({k}x{n}) × {batch}: other {times[0]:.4f} ms, "
+              f"this {times[1]:.4f} ms, this {times[2]:.4f} ms, other {times[3]:.4f} ms; "
+              f"max |Δ| {diff:.3e} of max|C|", flush=True)
 
 
 if __name__ == "__main__":

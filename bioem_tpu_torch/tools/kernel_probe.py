@@ -10,7 +10,9 @@ P1  Which f32-product scheme holds the accuracy contract, and at what cost?
     an f64 NumPy product; then, at
     that shape and at K4's stage-1 shape over a production block (512 tile
     products of (48×224)·(224×1024)), each scheme's output against the
-    plain version (every batch copy) and its time.
+    plain version (every batch copy; 1xTF32 against its rounding bound,
+    :func:`tf32_bound`) and its time on the card, beside torch.matmul
+    f32's.
 P2  What does a looped small product cost against one wide product? Σ of
     64 bf16 products (96,112)·(112,128), 4 times, on wgmma across the
     card: the products in the TPU kernel's order (reps outer, images
@@ -33,7 +35,8 @@ answer is a measurement of the card):
     python -m bioem_tpu_torch.tools.kernel_probe
 
 Every time is a mean over timed launches after a warm-up, from CUDA events;
-P2's are the card's own time, its calls queued behind a spin of the card.
+P1's and P2's are the card's own time, their calls queued behind a spin of
+the card.
 """
 
 from __future__ import annotations
@@ -94,6 +97,16 @@ def _require_card() -> torch.device:
     return torch.device("cuda")
 
 
+def tf32_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise |Δ| bound of a 1xTF32 product a (M, K) · b (K, N) from
+    the exact product rounded to f32, in units of |a|·|b|: 2⁻¹⁰ for the
+    operands' rounding to TF32 (2⁻¹¹ each), 2⁻²¹ for the cross term and the
+    reference's own rounding, and 2⁻²² for each of the K/8 + 1 adds into
+    the accumulator, which truncate."""
+    scale = a.abs().double() @ b.abs().double()
+    return ((2.0 ** -10 + 2.0 ** -21 + (a.shape[1] // 8 + 1) * 2.0 ** -22) * scale).float()
+
+
 def probe_f32_accuracy(say=print) -> dict:
     """P1. Returns {"err": {scheme: (median, max) relative to f64 at the
     TPU probe's shape}, and for each shape name in "shapes" ({shape: (M, K,
@@ -101,7 +114,10 @@ def probe_f32_accuracy(say=print) -> dict:
     of every batch copy from the plain version}}, "copies_equal" {shape:
     {scheme: every copy equal to copy 0}}, "ms" {shape: {scheme: ms}},
     "plain_ms" {shape: ms} and "library_ms" {shape: ms}, each timing all
-    ``batch`` products."""
+    ``batch`` products; "tf32_bound_ratio" {shape: the largest |Δ| of
+    1xTF32's copy 0 from the plain version over :func:`tf32_bound`, ≤ 1
+    when it holds}. Kernel and library times are the card's own (:func:`device_ms`), the
+    plain version's host-timed (:func:`time_ms`)."""
     dev = _require_card()
     m, k, n = 96, 112, 113
     rng = np.random.default_rng(0)
@@ -110,7 +126,8 @@ def probe_f32_accuracy(say=print) -> dict:
     ref = a.astype(np.float64) @ b.astype(np.float64)
     ta, tb = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
     out = {"err": {}, "plain_err": {}, "copies_equal": {}, "ms": {}, "plain_ms": {},
-           "library_ms": {}, "shapes": {"probe": (m, k, n, 1), "k4_stage1": K4_STAGE1}}
+           "library_ms": {}, "tf32_bound_ratio": {},
+           "shapes": {"probe": (m, k, n, 1), "k4_stage1": K4_STAGE1}}
     for scheme in probe_cuda.SCHEMES:
         got = probe_cuda.f32_product(ta, tb, scheme=scheme)[0].cpu().numpy()
         rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
@@ -132,21 +149,26 @@ def probe_f32_accuracy(say=print) -> dict:
                 out["plain_err"][shape][s] = (float(rel.median()),
                                               float((got - plain).abs().max()))
                 out["copies_equal"][shape][s] = bool(torch.equal(got, got[:1].expand_as(got)))
+                if s == "tf32":
+                    out["tf32_bound_ratio"][shape] = float(
+                        ((got[0] - plain[0]).abs() / tf32_bound(xa, xb)).max())
                 del got
             del plain
             say(f"P1 at ({sm},{sk})·({sk},{sn}) × {batch} vs the plain version: "
                 + ", ".join(f"{s} median rel {e[0]:.2e} max |Δ| {e[1]:.2e}"
                             f"{'' if out['copies_equal'][shape][s] else ' (COPIES DIFFER)'}"
-                            for s, e in out["plain_err"][shape].items()))
-            out["ms"][shape] = {s: time_ms(lambda s=s: probe_cuda.f32_product(
+                            for s, e in out["plain_err"][shape].items())
+                + f"; tf32 at {out['tf32_bound_ratio'][shape]:.3f} of its rounding bound")
+            out["ms"][shape] = {s: device_ms(lambda s=s: probe_cuda.f32_product(
                 xa, xb, scheme=s, batch=batch)) for s in probe_cuda.SCHEMES}
             out["plain_ms"][shape] = time_ms(lambda: probe_cuda.f32_product_plain(xa, xb, batch), 3)
             xa_b = xa.expand(batch, sm, sk)
-            out["library_ms"][shape] = time_ms(lambda: torch.matmul(xa_b, xb))
-            say(f"P1 times at ({sm},{sk})·({sk},{sn}) × {batch}: "
+            out["library_ms"][shape] = device_ms(lambda: torch.matmul(xa_b, xb))
+            say(f"P1 times at ({sm},{sk})·({sk},{sn}) × {batch} (card time): "
                 + ", ".join(f"{s} {t:.4f} ms" for s, t in out["ms"][shape].items())
-                + f"; plain (f64, all {batch} products) {out['plain_ms'][shape]:.4f} ms, "
-                  f"torch.matmul f32 {out['library_ms'][shape]:.4f} ms")
+                + f"; plain (f64, all {batch} products, host-timed) "
+                  f"{out['plain_ms'][shape]:.4f} ms, torch.matmul f32 "
+                  f"{out['library_ms'][shape]:.4f} ms")
     finally:
         torch.set_float32_matmul_precision(prec)
     return out

@@ -52,9 +52,10 @@ the port's main path on the card, in phases (each prints its own lines):
    and on the CPU, held to the CPU parity test's tolerances; --Refine
    through the port's CLI on golden case A;
 9. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
-   f32 product's accuracy and time by scheme), P2 (looped vs batched
-   products on wgmma across the card, beside one cuBLAS GEMM doing all
-   of them) and P3 (the K1/K4 body ablation at the production block),
+   f32 product's accuracy by scheme, and each scheme's card time at K4's
+   stage-1 shape beside its bound and torch.matmul f32's), P2 (looped vs
+   batched products on wgmma across the card, beside one cuBLAS GEMM
+   doing all of them) and P3 (the K1/K4 body ablation at the production block),
    each held to its check;
 10. --PrintBestCalMap on golden case M through the port's CLI, held to
    tests/test_golden.py's BESTMAP rule;
@@ -117,7 +118,7 @@ DEVICE = "cuda"
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet) and its
 # memory rate, for bound_ms.
-PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "f64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -145,6 +146,17 @@ def bound(ops: dict, nbytes: float) -> tuple:
     t_ops = sum(n / PEAK[ty] for ty, n in ops.items())
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def p1_bounds(m, k, n, batch) -> dict:
+    """{scheme: (ms, by)} of P1's ``batch`` products (M, K)·(K, N): 2·M·K·N
+    per product in f32 on the CUDA cores (FMA), three TF32 products
+    (3xTF32), one (1xTF32), or on the FP64 tensor cores; A and B read once,
+    every copy of C written."""
+    flops = 2 * m * k * n * batch
+    nbytes = 4 * (m * k + k * n + batch * m * n)
+    return {"fma": bound({"f32": flops}, nbytes), "3xtf32": bound({"tf32": 3 * flops}, nbytes),
+            "tf32": bound({"tf32": flops}, nbytes), "f64tc": bound({"f64": flops}, nbytes)}
 
 
 def compare_work(o, c, i, n, f, d, m, n_fold, conv_in: bool = False) -> dict:
@@ -1559,6 +1571,18 @@ def phase_probes() -> dict:
                     f"P1 {scheme} at {p1['shapes'][shape]}: median relative error "
                     f"{errs[scheme][0]:.2e} from the plain version (limit 1e-6), batch copies "
                     f"{'equal' if p1['copies_equal'][shape][scheme] else 'DIFFER'}")
+        ratio = p1["tf32_bound_ratio"][shape]
+        require(ratio <= 1.0 and p1["copies_equal"][shape]["tf32"],
+                f"P1 tf32 at {p1['shapes'][shape]}: largest |Δ| from the plain version "
+                f"{ratio:.3f} of its rounding bound (limit 1), batch copies "
+                f"{'equal' if p1['copies_equal'][shape]['tf32'] else 'DIFFER'}")
+    bounds = p1_bounds(*p1["shapes"]["k4_stage1"])
+    lib = p1["library_ms"]["k4_stage1"]
+    for scheme, (b_ms, b_by) in bounds.items():
+        t = p1["ms"]["k4_stage1"][scheme]
+        log(f"P1 {scheme} at K4's stage-1 shape: {t:.4f} ms on the card, bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / t:.1f} % of bound; torch.matmul f32 {lib:.4f} ms "
+            f"({t / lib:.2f}x its time)")
     p2 = kp.probe_issue_overhead(say=log)
     for st in ("loop", "batched"):
         require(p2["err"][st] <= p2["tol"][st], f"P2 {st}: beyond its f32 summation tolerance")
@@ -1566,8 +1590,7 @@ def phase_probes() -> dict:
     require(all(p3["bit_equal"].values()),
             f"P3: the full variant differs from the production kernel: {p3['bit_equal']}")
 
-    sm, sk, sn, batch = p1["shapes"]["k4_stage1"]
-    b1 = bound({"tf32": 3 * 2 * sm * sk * sn * batch}, 4 * (sm * sk + sk * sn + batch * sm * sn))
+    b1 = bounds["3xtf32"]
     m, k, n, n_img, reps = p2["shape"]
     b2 = bound({"bf16": 2 * m * k * n * n_img * reps}, 2 * (m * k + n_img * k * n) + 4 * m * n)
     b3 = compare_bound(*p3["dims"], tensor_cores=True)

@@ -1,17 +1,27 @@
 """The kernel probes P1–P3 (``ops/probe_cuda.py``,
 ``bioem_tpu_torch.tools.kernel_probe``) on the CPU: the plain versions
-against NumPy in f64, the wrappers taking their plain versions on CPU
-tensors, and the probe tool refusing to run without a card. The kernels
-themselves run in tests/test_torch_cuda.py and chip_smoke.py.
+against NumPy in f64 and P1's against the JAX probe's Pallas kernel (in
+interpret mode), P1's 3xTF32 and 1xTF32 steps emulated on the CPU, the
+wrappers taking their plain versions on CPU tensors, P1's bounds, and the
+probe tools refusing to run without a card. The kernels themselves run in
+tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from bioem_tpu_torch.ops import compare_cuda as C
 from bioem_tpu_torch.ops import probe_cuda as P
 from bioem_tpu_torch.tools import kernel_probe
+
+from .test_torch_split_precision import gemm_3xtf32_chained, round_toward_zero, tf32
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
 def _p1_inputs():
@@ -51,6 +61,112 @@ def test_f32_product_rejects_unknown_scheme():
     a, b = (torch.as_tensor(x) for x in _p1_inputs())
     with pytest.raises(ValueError, match="scheme"):
         P.f32_product(a, b, scheme="bf16x6")
+
+
+def _jax_probe_module():
+    """tools/kernel_probe.py, the JAX probe (it imports JAX and Pallas)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_kernel_probe", os.path.join(ROOT, "tools", "kernel_probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_f32_product_plain_vs_jax_p1():
+    """P1's plain version against the JAX P1 (tools/kernel_probe.py:
+    _f32_dot_kernel through pl.pallas_call in interpret mode) on the TPU
+    probe's inputs: median relative difference below 1e-6, max |Δ| ≤
+    1e-5·max|C|."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    jp = _jax_probe_module()
+    a, b = _p1_inputs()
+    want = np.asarray(pl.pallas_call(
+        jp._f32_dot_kernel, out_shape=jax.ShapeDtypeStruct((96, 113), jnp.float32),
+        interpret=True)(jnp.asarray(a), jnp.asarray(b)))
+    got = P.f32_product_plain(torch.as_tensor(a), torch.as_tensor(b))[0].numpy()
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    assert np.median(rel) < 1e-6
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _tf32_chained_once(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (R, K) · b (K, S) in 1xTF32 as P1 runs it: both operands rounded to
+    TF32, every k8 step added into one accumulator, each add truncated."""
+    ah, bh = tf32(a), tf32(b)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        acc = round_toward_zero(acc.double() + ah[:, s].double() @ bh[s].double())
+    return acc
+
+
+P1_EMULATED = [(48, 224, 1024), (96, 112, 113)]  # K4's stage 1, the TPU probe's shape
+
+
+@pytest.mark.parametrize("shape", P1_EMULATED, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("scheme", ["3xtf32", "tf32"])
+def test_p1_tf32_steps_emulated(shape, scheme):
+    """P1's TF32 schemes in the kernel's order (csrc/probe.cu), emulated:
+    the kernel computes Cᵀ = Bᵀ·Aᵀ with B in registers and A in shared
+    memory, both split by cvt.rna into TF32 hi (and lo). 3xTF32 forms each
+    k8 step's b_lo·a_hi, b_hi·a_lo, b_hi·a_hi in a zeroed accumulator
+    (each add truncated) and adds it to the f32 sum: within median
+    relative error 1e-6 of f64. 1xTF32 chains every step through one
+    accumulator: above 1e-5, the trap the probe shows."""
+    m, k, n = shape
+    rng = np.random.default_rng(7)
+    a = torch.as_tensor(rng.normal(0, 1, (m, k)).astype(np.float32))
+    b = torch.as_tensor(rng.normal(0, 1, (k, n)).astype(np.float32))
+    ref = a.double() @ b.double()
+    if scheme == "3xtf32":
+        got = gemm_3xtf32_chained(b.T.contiguous(), a.T.contiguous(), 1).T
+    else:
+        got = _tf32_chained_once(b.T.contiguous(), a.T.contiguous()).T
+    med = float(((got.double() - ref).abs() / ref.abs().clamp_min(1e-30)).median())
+    assert (med < 1e-6) if scheme == "3xtf32" else (med > 1e-5)
+
+
+def _broken(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A faulty 1xTF32 product, as a kernel could get it wrong."""
+    if name == "zeros":
+        return torch.zeros(a.shape[0], b.shape[1])
+    if name == "rows_swapped":  # the two 24-row halves of the tile exchanged
+        return torch.roll(_tf32_chained_once(a, b), a.shape[0] // 2, 0)
+    return _tf32_chained_once(a[:, :-8], b[:-8])  # the last k8 step dropped
+
+
+@pytest.mark.parametrize("case", ["emulated", "zeros", "rows_swapped", "last_step_dropped"])
+def test_tf32_bound_at_k4_stage1(case):
+    """chip_smoke's 1xTF32 check (largest |Δ| from the plain version over
+    kernel_probe.tf32_bound ≤ 1) at K4's stage-1 shape: the kernel's order,
+    emulated, passes it; a product with a fault of the kinds a kernel can
+    have does not."""
+    m, k, n, _ = kernel_probe.K4_STAGE1
+    rng = np.random.default_rng(11)
+    a = torch.as_tensor(rng.normal(0, 1, (m, k)).astype(np.float32))
+    b = torch.as_tensor(rng.normal(0, 1, (k, n)).astype(np.float32))
+    plain = P.f32_product_plain(a, b)[0]
+    if case == "emulated":
+        got = _tf32_chained_once(b.T.contiguous(), a.T.contiguous()).T
+    else:
+        got = _broken(case, a, b)
+    ratio = float(((got - plain).abs() / kernel_probe.tf32_bound(a, b)).max())
+    assert (ratio <= 1.0) if case == "emulated" else (ratio > 1.0)
+
+
+@pytest.mark.parametrize("scheme,ms,by", [("fma", 0.1683, "operations"),
+                                          ("3xtf32", 0.0683, "operations"),
+                                          ("tf32", 0.0303, "bytes"),
+                                          ("f64tc", 0.1683, "operations")])
+def test_p1_bounds_at_k4_stage1(scheme, ms, by):
+    """chip_smoke's P1 bounds at K4's stage-1 shape (512 × (48×224)·
+    (224×1024)): 11.27 GFLOP per scheme in f32 or FP64 at 67 TFLOP/s, three
+    TF32 products at 495; 1xTF32 by writing C's 100.7 MB at 3.35 TB/s."""
+    got_ms, got_by = chip_smoke.p1_bounds(*kernel_probe.K4_STAGE1)[scheme]
+    assert got_by == by and abs(got_ms - ms) < 5e-5
 
 
 def test_product_sum_plain_vs_numpy():
