@@ -56,6 +56,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import RunConfig, resolve_device
 from ..params import (
@@ -677,7 +678,11 @@ class BioEMEngine:
         as is ``ang_offset``, its column in the state's per-angle slabs
         (None: the same; a mesh slot's slabs hold only its shard's
         columns). The step holds no host synchronisation and allocates
-        nothing whose size depends on the block, so it can be captured."""
+        nothing whose size depends on the block, so it can be captured. Its
+        phases are ``torch.profiler`` ranges (``bioem.projection``,
+        ``.constants``, ``.compare``, ``.max_repair``, ``.merge``), which
+        tools/trace_step.py groups the glue by; they cost nothing in a
+        graph replay."""
         p = self.p
         n = p.n_pixels
         ntot = p.n_total_pixels
@@ -685,80 +690,87 @@ class BioEMEngine:
         d = self.disp.shape[0]
         n_img_local = banks.img_re.shape[0]
 
-        pr, pi = self._project_block(banks, angles)
+        with record_function("bioem.projection"):
+            pr, pi = self._project_block(banks, angles)
         prior_oc = self._prior[None, :].expand(o, c)
 
         if self.use_kernels:
-            sum_c, ssq_c, f0, k = self._kernel_constants(banks, pr, pi, prior_oc)
-            m_cols = n // self.n_fold
-            wx_re = banks.wx_re[:, :m_cols].contiguous()
-            wx_im = banks.wx_im[:, :m_cols].contiguous()
+            with record_function("bioem.constants"):
+                sum_c, ssq_c, f0, k = self._kernel_constants(banks, pr, pi, prior_oc)
+                m_cols = n // self.n_fold
+                wx_re = banks.wx_re[:, :m_cols].contiguous()
+                wx_im = banks.wx_im[:, :m_cols].contiguous()
             # The fused kernels evaluate u in f32; DC-dominated image banks
             # need the f64 u, so they take the hybrid: the cc-lattice
             # kernel and the f64 displacement_lse (as does fused_lse=False).
             if self.fused_lse and self._f32_corr_ok:
                 from ..ops import compare_cuda
 
-                a_u, b_u = fused_coefficients(f0, sum_c, banks.sum_ref, ntot)
-                args = (pr, pi, banks.ctf_re, banks.ctf_im, banks.img_re, banks.img_im,
-                        wx_re, wx_im, banks.wy_re, banks.wy_im, a_u, b_u)
-                if self.fused_batched:
-                    m, se, ds, ccs = compare_cuda.fused_compare_block_batched(
-                        *args, a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
-                        img_tile=self.i_block,
-                    )
-                else:
-                    m, se, ds, ccs = compare_cuda.fused_compare_block(
-                        *args, a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
-                    )
-                se = se.reshape(o, c, n_img_local)
-                ds = ds.reshape(o, c, n_img_local)
-                ccs = ccs.reshape(o, c, n_img_local)
-                # f64 repair of the kernel's f32 max at the argmax cc.
-                m = refine_varying_max(ccs, sum_c, banks.sum_ref, f0, ntot)
+                with record_function("bioem.compare"):
+                    a_u, b_u = fused_coefficients(f0, sum_c, banks.sum_ref, ntot)
+                    args = (pr, pi, banks.ctf_re, banks.ctf_im, banks.img_re, banks.img_im,
+                            wx_re, wx_im, banks.wy_re, banks.wy_im, a_u, b_u)
+                    if self.fused_batched:
+                        m, se, ds, ccs = compare_cuda.fused_compare_block_batched(
+                            *args, a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
+                            img_tile=self.i_block,
+                        )
+                    else:
+                        m, se, ds, ccs = compare_cuda.fused_compare_block(
+                            *args, a_coef=(3.0 - ntot) * 0.5, n_fold=self.n_fold,
+                        )
+                    se = se.reshape(o, c, n_img_local)
+                    ds = ds.reshape(o, c, n_img_local)
+                    ccs = ccs.reshape(o, c, n_img_local)
+                with record_function("bioem.max_repair"):
+                    # f64 repair of the kernel's f32 max at the argmax cc.
+                    m = refine_varying_max(ccs, sum_c, banks.sum_ref, f0, ntot)
             else:
                 from ..ops.compare_cuda import fused_displacement_cc
 
+                with record_function("bioem.compare"):
+                    conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
+                    conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
+                    cc = fused_displacement_cc(
+                        conv_re.reshape(o * c, n, p.n_fft_1d),
+                        conv_im.reshape(o * c, n, p.n_fft_1d),
+                        banks.img_re, banks.img_im, wx_re, wx_im, banks.wy_re, banks.wy_im,
+                        n_fold=self.n_fold,
+                    ).reshape(o, c, n_img_local, d, d)
+                    m, se, ds, ccs = displacement_lse(
+                        cc, sum_c, banks.sum_ref, f0, ntot, f32_u=self._f32_corr_ok,
+                        ssq_c=ssq_c, ssq_ref=banks.ssq_ref,
+                    )
+        else:
+            with record_function("bioem.compare"):
+                # conv = proj · conj(ctf) (reference bioem.cpp:1879-1883), split form
                 conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
                 conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
-                cc = fused_displacement_cc(
-                    conv_re.reshape(o * c, n, p.n_fft_1d),
-                    conv_im.reshape(o * c, n, p.n_fft_1d),
-                    banks.img_re, banks.img_im, wx_re, wx_im, banks.wy_re, banks.wy_im,
-                    n_fold=self.n_fold,
-                ).reshape(o, c, n_img_local, d, d)
-                m, se, ds, ccs = displacement_lse(
-                    cc, sum_c, banks.sum_ref, f0, ntot, f32_u=self._f32_corr_ok,
-                    ssq_c=ssq_c, ssq_ref=banks.ssq_ref,
-                )
-        else:
-            # conv = proj · conj(ctf) (reference bioem.cpp:1879-1883), split form
-            conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
-            conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
-            sum_c, ssq_c = convolution_sums(conv_re, conv_im, banks.h, n)
-            outs = []
-            for s in range(0, n_img_local, self.i_block):
-                sl = slice(s, s + self.i_block)
-                sref_b, ssref_b = banks.sum_ref[sl], banks.ssq_ref[sl]
-                f0_b, k_b = logpro_constants(
-                    sum_c, ssq_c, sref_b, ssref_b, prior_oc, ntot,
-                    images_normalized=self._f32_corr_ok,
-                )
-                cc = displacement_cc(
-                    conv_re, conv_im, banks.img_re[sl], banks.img_im[sl],
-                    banks.wx_re, banks.wx_im, banks.wy_re, banks.wy_im,
-                )
-                outs.append((*displacement_lse(
-                    cc, sum_c, sref_b, f0_b, ntot, f32_u=self._f32_corr_ok,
-                    ssq_c=ssq_c, ssq_ref=ssref_b,
-                ), k_b))
-            m, se, ds, ccs, k = (torch.cat(x, dim=2) for x in zip(*outs))
+                sum_c, ssq_c = convolution_sums(conv_re, conv_im, banks.h, n)
+                outs = []
+                for s in range(0, n_img_local, self.i_block):
+                    sl = slice(s, s + self.i_block)
+                    sref_b, ssref_b = banks.sum_ref[sl], banks.ssq_ref[sl]
+                    f0_b, k_b = logpro_constants(
+                        sum_c, ssq_c, sref_b, ssref_b, prior_oc, ntot,
+                        images_normalized=self._f32_corr_ok,
+                    )
+                    cc = displacement_cc(
+                        conv_re, conv_im, banks.img_re[sl], banks.img_im[sl],
+                        banks.wx_re, banks.wx_im, banks.wy_re, banks.wy_im,
+                    )
+                    outs.append((*displacement_lse(
+                        cc, sum_c, sref_b, f0_b, ntot, f32_u=self._f32_corr_ok,
+                        ssq_c=ssq_c, ssq_ref=ssref_b,
+                    ), k_b))
+                m, se, ds, ccs, k = (torch.cat(x, dim=2) for x in zip(*outs))
 
-        k = torch.where(mask[:, None, None] != 0, k, torch.full_like(k, -torch.inf))
-        return merge_block(
-            state, m, se, ds, ccs, k, sum_c, ssq_c, banks.sum_ref,
-            banks.disp, orient_offset, ntot, d, ang_offset=ang_offset,
-        )
+        with record_function("bioem.merge"):
+            k = torch.where(mask[:, None, None] != 0, k, torch.full_like(k, -torch.inf))
+            return merge_block(
+                state, m, se, ds, ccs, k, sum_c, ssq_c, banks.sum_ref,
+                banks.disp, orient_offset, ntot, d, ang_offset=ang_offset,
+            )
 
     # ------------------------------------------------------------------
     def initial_state(self) -> PosteriorState:

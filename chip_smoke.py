@@ -76,7 +76,28 @@ the port's main path on the card, in phases (each prints its own lines):
    checkpointed run stopped mid-slot and resumed;
 14. the native C++ ingest: a 2048-image 224² MRC stack (~411 MB) and a
    500-point text model read natively and with NumPy, bit-equal, both
-   times printed.
+   times printed;
+15. accuracy: tools/accuracy_probe (the CLI and golden_error_budget) on
+   golden cases L (N = 64) and N (N = 224) under the plain branch, K1, K4
+   forced and the hybrid, on the cases' maps and normalised (where K1 and
+   K4 pass the f32 gate): each engine within oracle–golden / 50 of the
+   all-f64 oracle, the plain branch also within the JAX suite's 2e-5 and
+   5e-6;
+16. examples: planted recovery and the tutorial (its CLI and ranking in
+   processes of their own), both passing;
+17. tools/profile_block and tools/trace_step on 8 replayed production
+   blocks: every kernel at ≥ 1 % by name (K1 and K2 among them), the rest
+   as ``other``, within 5 % of the profiler's device time, and the glue
+   grouped by the block step's phase and the torch op that launched it;
+18. tools/scale_bench at 4608 and 36864 orientations, per-angle slabs off
+   and on: comparisons/s, peak card memory, finite logP;
+19. tools/stream_50k cut to 2048 images in 2 chunks of 1024 at 4608
+   orientations: one capture, finite logP, peak card memory;
+20. at 1088 orientations: tools/rank_bench (3 models, reuse faster than
+   the naive estimate), tools/mesh_scale_bench (1 to 4 slots on the one
+   card, each within 1e-6·max|logP| of one slot), tools/pipeline_lab
+   (the fused and hybrid pipelines' device time per step) and
+   tools/noise_recovery_table (1 trial at noise 0 and 1).
 
 The paths are driven in parts, each with every kernel's launch counter
 set to 0 just before it and read just after: the goldens with the plain
@@ -84,11 +105,13 @@ and K1 passes must launch K1, K2 and K3; the K4, autotuned and checkpoint
 passes K2 and K4; streaming, ranking and the mesh K1 and K2 (the
 multi-process workers report theirs); the refinement phase (its grid
 passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
-K3.
+K3; the accuracy phase K1, K3 and K4; the examples K2 and K3; the profile
+tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3. Each
+part's line gives its seconds.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
 least time the card could take for the same work (``bound_ms``, from the
-shapes of this run's inputs and the H100 peaks below) and, where one
+shapes of this run's inputs and the H100 peaks in tools/problem.py) and, where one
 PyTorch call computes the same function, that call's time; the last line
 is ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Exits non-zero without a result when no CUDA device is present or
@@ -116,12 +139,6 @@ SEED = 0
 DEVICE = "cuda"
 
 
-# Published dense peaks of one H100 SXM (NVIDIA's data sheet) and its
-# memory rate, for bound_ms.
-PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "f64": 67e12}
-HBM_BYTES_PER_S = 3.35e12
-
-
 def say(msg: str) -> None:
     print(msg, flush=True)
 
@@ -139,129 +156,17 @@ def require(cond: bool, msg: str) -> None:
 # Bounds: the least time the card could take for a kernel's work
 # ---------------------------------------------------------------------------
 
-def bound(ops: dict, nbytes: float) -> tuple:
-    """(ms, "operations" | "bytes"): the larger of the operations over the
-    peak of their type (``ops`` = {type: count}, summed) and the bytes
-    (each input read once, each output written once) over HBM's rate."""
-    t_ops = sum(n / PEAK[ty] for ty, n in ops.items())
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def p1_bounds(m, k, n, batch) -> dict:
     """{scheme: (ms, by)} of P1's ``batch`` products (M, K)·(K, N): 2·M·K·N
     per product in f32 on the CUDA cores (FMA), three TF32 products
     (3xTF32), one (1xTF32), or on the FP64 tensor cores; A and B read once,
     every copy of C written."""
+    from bioem_tpu_torch.tools.problem import bound
+
     flops = 2 * m * k * n * batch
     nbytes = 4 * (m * k + k * n + batch * m * n)
     return {"fma": bound({"f32": flops}, nbytes), "3xtf32": bound({"tf32": 3 * flops}, nbytes),
             "tf32": bound({"tf32": flops}, nbytes), "f64tc": bound({"f64": flops}, nbytes)}
-
-
-def compare_work(o, c, i, n, f, d, m, n_fold, conv_in: bool = False) -> dict:
-    """Useful f32 operations of one comparison block, split into stage 1
-    (t1 = wx·p, 8·D·M·F per comparison: K4 runs it on the tensor cores)
-    and the rest: conv = proj ⊙ conj(ctf) once per (o, c) unless conv is
-    an input (K3), p = conv ⊙ img (6·N·F) and its fold, stage 2
-    cc = Re(t1·wyᵀ) (4·D²·F), and the log-sum-exp (8 per lattice point,
-    a transcendental counted as one operation)."""
-    cmp = o * c * i
-    stage1 = 8 * d * m * f * cmp
-    rest = (0 if conv_in else 6 * o * c * n * f) + cmp * (
-        6 * n * f + 2 * (n_fold - 1) * m * f + 4 * d * d * f + (0 if conv_in else 8 * d * d))
-    return {"stage1": stage1, "rest": rest}
-
-
-def compare_bound(o, c, i, n, f, d, m, n_fold, tensor_cores: bool = False) -> tuple:
-    """K1's (f32 FMA) or K4's (stage 1 in 3xTF32 on the tensor cores)
-    bound: spectra, weights and a_u/b_u read once, four (O·C, I) outputs."""
-    w = compare_work(o, c, i, n, f, d, m, n_fold)
-    ops = ({"tf32": 3 * w["stage1"], "f32": w["rest"]} if tensor_cores
-           else {"f32": w["stage1"] + w["rest"]})
-    nbytes = 4 * (2 * (o + c + i) * n * f + 2 * d * m + 2 * d * f + 2 * o * c * i + 4 * o * c * i)
-    return bound(ops, nbytes)
-
-
-# ---------------------------------------------------------------------------
-# The production problem: bench.py:build_problem's shape, rebuilt with the
-# port's host layer and the same seed.
-# ---------------------------------------------------------------------------
-
-def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
-                  n_img: int = 64, max_disp: int = 20):
-    """BASELINE config 2 (bench.py:35-77): N=224, 4352 quaternion
-    orientations (grid 15), 8 CTFs (4 defocus × 2 B-env), 64 images, D=21
-    displacements at stride 2, a 500-point model with PDB residue radii.
-
-    The images are bench.py's seed-0 noise with one planted projection
-    each (a known grid orientation, CTF and displacement, at ``signal``
-    times the noise level), then normalised per image as the MRC ingest
-    does — so the fused f32 comparison applies and the posterior has a
-    clear maximum to recover. Returns (p, orients, model, images, planted).
-    """
-    from bioem_tpu_torch.core.orientations import build_orientations
-    from bioem_tpu_torch.io.map_io import ImageStack, _normalize_stack
-    from bioem_tpu_torch.io.model_io import AA_DENSITY, AA_RADIUS, Model
-    from bioem_tpu_torch.params import BioEMParams
-
-    p = BioEMParams(
-        pixel_size=1.06, n_pixels=n_pix, use_quaternions=True,
-        grid_points_quaternion=quat_grid, n_amp=1, start_amp=0.1, end_amp=0.1,
-        n_phase=4, start_defocus=0.5, end_defocus=2.5, n_env=2,
-        start_bfactor=2.0, end_bfactor=100.0, max_displace_center=max_disp,
-        grid_space_center=2,
-    ).finalize_ctf_mode()
-    orients = build_orientations(p)
-    rng = np.random.default_rng(SEED)
-    npts = 500
-    u = rng.normal(size=(npts, 3))
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    pts = (u * 100.0 * min(1.0, n_pix / 320) * rng.uniform(size=(npts, 1)) ** (1 / 3)).astype(np.float32)
-    residues = rng.choice(list(AA_RADIUS), npts)
-    radii = np.array([AA_RADIUS[r] for r in residues], np.float32)
-    dens = np.array([AA_DENSITY[r] for r in residues], np.float32)
-    model = Model(pts, radii, dens, float(dens.sum())).center_density_mass()
-    noise = rng.normal(0, 1, (n_img, n_pix, n_pix)).astype(np.float32)
-    planted = plant(p, orients, model, rng, n_img)
-    sig = planted.pop("maps")
-    sig = sig / sig.reshape(n_img, -1).std(axis=1)[:, None, None]
-    maps = _normalize_stack((noise + signal * sig).astype(np.float32))
-    return p, orients, model, ImageStack(maps), planted
-
-
-def plant(p, orients, model, rng, n_img: int) -> dict:
-    """Noise-free images of the model: per image a random grid orientation,
-    CTF and lattice displacement, made with the port's plain projection."""
-    import torch
-
-    from bioem_tpu_torch.core.ctf import build_ctf_bank
-    from bioem_tpu_torch.core.orientations import rotation_matrices
-    from bioem_tpu_torch.core.projection import (
-        make_fourier_projection_spec, project_fourier_batch,
-    )
-    from bioem_tpu_torch.params import displacement_lists, make_ctf_grid
-
-    n = p.n_pixels
-    grid = make_ctf_grid(p)
-    bank = build_ctf_bank(p, grid)
-    disp, _ = displacement_lists(p)
-    fspec, gidx, pmask, st, st_sums = make_fourier_projection_spec(p, model.radii)
-    o_idx = rng.integers(0, orients.n, n_img)
-    c_idx = rng.integers(0, grid.n, n_img)
-    dx = disp[rng.integers(0, len(disp), n_img)]
-    dy = disp[rng.integers(0, len(disp), n_img)]
-    t = torch.as_tensor
-    rotm = rotation_matrices(t(orients.angles[o_idx]), True)
-    pr, pi = project_fourier_batch(
-        fspec, rotm, t(model.points[gidx]), t(model.radii[gidx]),
-        t(model.densities[gidx] * pmask), t(np.float32(model.norm_den)),
-        t(np.ascontiguousarray(st.real)), t(np.ascontiguousarray(st.imag)), t(st_sums),
-    )
-    spec = (pr.numpy() + 1j * pi.numpy()) * np.conj(bank[c_idx])
-    maps = np.fft.irfft2(spec, s=(n, n))
-    maps = np.stack([np.roll(m, (int(a), int(b)), axis=(0, 1)) for m, a, b in zip(maps, dx, dy)])
-    return dict(maps=maps.astype(np.float32), orient=o_idx, ctf=c_idx, dx=dx, dy=dy)
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +335,7 @@ def check_project(torch, name, i0, j0, dens, st_re, st_im, n, counts, plain_coun
 
 def phase_kernels(torch, eng) -> dict:
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.tools.problem import bound, compare_bound, compare_work
     from bioem_tpu_torch.ops import project_cuda as pj
     from bioem_tpu_torch.tools.kernel_probe import device_ms, time_ms  # CUDA events
 
@@ -715,8 +621,9 @@ def _profile_blocks(step, n_blocks: int) -> dict:
     so they do not overlap), K1's and K2's time per block, and the kernels
     launched per block."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from bioem_tpu_torch.tools.trace_step import device_kernels
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -730,7 +637,7 @@ def _profile_blocks(step, n_blocks: int) -> dict:
             step()
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) * 1e3 / n_blocks
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof.key_averages())
     dev_us = lambda e: getattr(e, "device_time_total", None) or e.cuda_time_total  # noqa: E731
     busy = sum(dev_us(e) for e in kern) * 1e-3 / n_blocks
     by = lambda key: sum(dev_us(e) for e in kern if key in e.key) * 1e-3 / n_blocks  # noqa: E731
@@ -1138,6 +1045,7 @@ def mp_worker(rank: int, port: int, out_dir: str) -> int:
     from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine, make_bioem_mesh
     from bioem_tpu_torch.runtime import checkpoint
     from bioem_tpu_torch.stream import ArraySource, run_streaming
+    from bioem_tpu_torch.tools.problem import build_problem
 
     _build.load(verbose=True)  # the library the parent built (its flags key it)
     distributed.initialize(f"127.0.0.1:{port}", 2, rank, timeout_s=240)
@@ -1556,6 +1464,7 @@ def phase_probes() -> dict:
     """P1–P3 through the probe tool's functions, each held to its check;
     returns their kernel rows."""
     from bioem_tpu_torch.tools import kernel_probe as kp
+    from bioem_tpu_torch.tools.problem import bound, compare_bound
 
     log = lambda msg: say(f"[probes] {msg}")  # noqa: E731
     p1 = kp.probe_f32_accuracy(say=log)
@@ -1690,6 +1599,132 @@ def phase_debug_prob(image: int = 1, atol: float = 1e-3) -> None:
         require(rc == 0, f"the plain and kernel dumps differ beyond atol {atol}")
 
 
+# ---------------------------------------------------------------------------
+# The accuracy, scale and profiling tools (bioem_tpu_torch/tools, examples)
+# ---------------------------------------------------------------------------
+
+# tests/test_golden.py's test_engine_beats_reference_precision: the engine
+# within these of the f64 oracle, and 50× inside the reference's own error.
+ORACLE_ATOL = {"case_l_n64": 2e-5, "case_n_n224": 5e-6}
+ORACLE_RATIO = 50.0
+
+
+def phase_accuracy(card: str) -> list:
+    """``accuracy_probe.probe`` (the CLI and ``golden_error_budget.budget``)
+    on case L (N = 64) and case N (N = 224) under the plain branch, K1, K4
+    forced and the hybrid, on the case's maps (the f32 gate sends the
+    kernel configurations to the hybrid there) and normalised (where K1
+    and K4 run): every row's engine–oracle gap below oracle–golden / 50;
+    the plain branch's also below the JAX test's absolute limits. Each
+    kernel row prints its gap beside those limits and beside its gap from
+    the plain branch; returns the rows."""
+    from bioem_tpu_torch.tools.accuracy_probe import probe
+
+    rows = []
+    for case, atol in ORACLE_ATOL.items():
+        for r in probe(case, device=DEVICE):
+            ratio_lim = r["oracle_vs_f32_golden"] / ORACLE_RATIO
+            worst = max(r["engine_vs_oracle"], r["engine_vs_oracle_normalized"])
+            say(f"[accuracy] {card}: {case} {r['config']} (ran {r['ran']}; normalised ran "
+                f"{r['ran_normalized']}): CLI vs f32 golden {r['cli_vs_f32_golden']:.4f}, vs f64 "
+                f"golden {r['cli_vs_f64_golden']:.4f}; engine vs oracle {r['engine_vs_oracle']:.3e}"
+                f", normalised {r['engine_vs_oracle_normalized']:.3e} (JAX limit {atol:g}; "
+                f"oracle vs golden / 50 = {ratio_lim:.3e}); vs the plain branch "
+                f"{r['engine_vs_plain']:.3e}, normalised {r['engine_vs_plain_normalized']:.3e}"
+                + ("" if worst < atol else "; ABOVE the JAX absolute limit"))
+            require(r["ran_normalized"] == r["config"],
+                    f"{case} {r['config']}: the normalised maps ran {r['ran_normalized']}")
+            require(worst < ratio_lim, f"{case} {r['config']}: engine vs oracle {worst:.3e} not "
+                    f"50× inside the reference's own error")
+            if r["config"] == "plain":
+                require(worst < atol, f"{case}: the plain branch's engine vs oracle "
+                        f"{worst:.3e} beyond the JAX limit {atol:g}")
+            rows.append(r)
+    return rows
+
+
+def phase_examples(card: str) -> None:
+    """Planted recovery (in this process) and the tutorial (its CLI and
+    ranking steps in processes of their own), each required to pass. The
+    planted scenario's second image is raw unit noise, as in the JAX
+    example: the engine's f32 gate sends it to the hybrid (K3)."""
+    from bioem_tpu_torch.examples import planted_recovery, tutorial
+
+    out = planted_recovery.run(device=DEVICE, say=lambda m: say(f"[examples] planted: {m}"))
+    require(out["recovered"] and out["refined"], "planted recovery failed")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        won = tutorial.run(work, say=lambda m: [say(f"[examples] tutorial: {ln}")
+                                                for ln in m.splitlines() if ln.strip()])
+    say(f"[examples] {card}: tutorial {time.perf_counter() - t0:.1f} s")
+    require(won, "the tutorial's generating model did not rank first")
+
+
+def phase_profile_tools(problem, card: str, n_blocks: int = 8) -> None:
+    """profile_block and trace_step on the default kernel pass (K1,
+    o_block 8): K1 and K2 named in the trace, its rows with ``other``
+    within 5 % of the profiler's device time."""
+    from bioem_tpu_torch.tools import profile_block, trace_step
+
+    out = profile_block.profile(profile_block.engine_for(problem, device=DEVICE))
+    profile_block.report(out, say=lambda m: say(f"[profile_block] {card}: {m}"))
+    tr = trace_step.trace(profile_block.engine_for(problem, device=DEVICE), n_blocks=n_blocks)
+    trace_step.report(tr, say=lambda m: say(f"[trace_step] {m}"))
+    names = " ".join(r[0] for r in tr["rows"])
+    require(tr["fallback"] is None, tr["fallback"] or "")
+    require("compare_fused_kernel" in names and "project_kernel" in names,
+            "the trace does not name K1 and K2")
+    dev_ms = tr["profiler_total_ms"]
+    require(abs(tr["rows_total_ms"] - dev_ms) <= 0.05 * dev_ms,
+            f"the trace's rows sum to {tr['rows_total_ms']:.3f} ms against {dev_ms:.3f}")
+
+
+def phase_scale(card: str) -> None:
+    """scale_bench at 4608 and 36864 orientations, per-angle slabs off and
+    on: finite logP everywhere, the peak memory of every run."""
+    from bioem_tpu_torch.tools import scale_bench
+
+    for n in (4608, 36864):
+        for wa in (0, 30):
+            rec = scale_bench.run_one(n, wa, device=DEVICE)
+            say(f"[scale] {card}: {scale_bench.json_line(rec)}")
+            require(rec["logp_finite"], f"scale {n} slabs {wa}: non-finite logP")
+            require(rec["peak_card_mb"] is not None, f"scale {n}: no peak memory")
+
+
+def phase_stream_cut(card: str, n_images: int = 2048, chunk: int = 1024) -> None:
+    """stream_50k cut to ``n_images`` images (2 chunks of 1024) at 4608
+    orientations: one capture, finite logP (the tool raises otherwise)."""
+    from bioem_tpu_torch.tools import stream_50k
+
+    rec, _ = stream_50k.stream(n_images, chunk, n_orient=4608, device=DEVICE)
+    say(f"[stream] {card}: {json.dumps(rec)}")
+    require(rec["captures"] == 1, f"the streamed chunks captured {rec['captures']} times")
+
+
+def phase_small_tools(problem, card: str, depth: int = MESH_DEPTH) -> None:
+    """At ``depth`` orientations: rank_bench with 3 models (reuse faster
+    than the naive estimate), mesh_scale_bench up to 4 slots on the one
+    card (its self-check), pipeline_lab's fused and hybrid pipelines on
+    the production block, noise_recovery_table at 1 trial, levels 0 and 1."""
+    from bioem_tpu_torch.tools import (mesh_scale_bench, noise_recovery_table, pipeline_lab,
+                                       profile_block, rank_bench)
+
+    rec, _ = rank_bench.bench(3, 64, depth, device=DEVICE)
+    say(f"[rank_bench] {card}: {json.dumps(rec)}")
+    require(rec["reuse_total_s"] < rec["naive_estimate_s"], "reuse is not faster than naive")
+    mesh_scale_bench.ladder(4, depth, 64, device=DEVICE, say=lambda m: say(f"[mesh_scale] {m}"))
+    lab = pipeline_lab.lab(profile_block.engine_for(problem, device=DEVICE))
+    for name, r in lab.items():
+        say(f"[pipeline_lab] {card}: {name}: {r['device_ms']:.4f} ms/step on the card "
+            f"({r['event_ms']:.4f} ms CUDA events), {r['comparisons_per_s']:.4e} comparisons/s")
+    require(all(lab[k]["device_ms"] > 0 for k in ("fused", "hybrid")),
+            "pipeline_lab did not run both pipelines")
+    rows = noise_recovery_table.table(1, levels=(0.0, 1.0), device=DEVICE,
+                                      say=lambda m: say(f"[noise] {m}"))
+    say("[noise] " + noise_recovery_table.markdown(rows).replace("\n", " "))
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mp-worker":  # phase_multiprocess's workers
         return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -1720,6 +1755,7 @@ def main() -> int:
         from bioem_tpu_torch.core.engine import BioEMEngine
         from bioem_tpu_torch.ops import compare_cuda as cc_mod
         from bioem_tpu_torch.ops import project_cuda as pj
+        from bioem_tpu_torch.tools.problem import build_problem
 
         t0 = time.perf_counter()
         problem = build_problem()
@@ -1741,9 +1777,11 @@ def main() -> int:
             """Counts from 0 around one path; each of ``kernels`` must launch."""
             for fn in counters.values():
                 fn.launches = 0
+            t0 = time.perf_counter()
             out = drive()
             say(f"[main path] {name} launches: "
-                + ", ".join(f"{k} {fn.launches}" for k, fn in counters.items()))
+                + ", ".join(f"{k} {fn.launches}" for k, fn in counters.items())
+                + f"; {time.perf_counter() - t0:.1f} s")
             require(all(counters[k].launches > 0 for k in kernels),
                     f"a kernel of {name} ({', '.join(kernels)}) was never launched")
             for k, fn in counters.items():
@@ -1775,6 +1813,13 @@ def main() -> int:
             rows[k] = {**r, "launches": counters[k].launches}
         phase_bestmap()
         main_path("DEBUG_PROB", phase_debug_prob, ("K3",))
+        main_path("accuracy", lambda: phase_accuracy(card), ("K1", "K3", "K4"))
+        main_path("examples", lambda: phase_examples(card), ("K2", "K3"))
+        main_path("profile tools", lambda: phase_profile_tools(problem, card), ("K1", "K2"))
+        main_path("scale", lambda: phase_scale(card), ("K1", "K2"))
+        main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2"))
+        main_path("rank, mesh, pipeline, noise", lambda: phase_small_tools(problem, card),
+                  ("K1", "K2", "K3"))
     except Exception as e:  # every phase failure ends the run with a nonzero code
         import traceback
 

@@ -31,7 +31,9 @@ schemes at a median relative error below 1e-6 from f64 (the TPU probe's
 "multi-pass" line), 1xTF32 within its rounding bound, every scheme at
 ragged shapes with its copies equal;
 P2's two structures within the f32 summation bound the probe tool states
-(``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4.
+(``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4. The
+tools: the error budget of every engine configuration against the all-f64
+oracle within the JAX suite's limits, and scale_bench at a small size.
 """
 
 import numpy as np
@@ -836,3 +838,53 @@ def test_ranked_mesh_run(rng, dev):
     assert perf["captures"] == 4
     for got, want in zip(perf["results"], perf_1["results"]):
         _held_results(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The accuracy and scale tools (bioem_tpu_torch/tools) on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_golden.py:146-165: the engine's gap to the all-f64 oracle
+ORACLE_ATOL = {"case_l_n64": 2e-5, "case_n_n224": 5e-6}
+
+
+@pytest.mark.parametrize("config", ["plain", "K1", "K4", "hybrid"])
+@pytest.mark.parametrize("case", sorted(ORACLE_ATOL))
+def test_error_budget_per_configuration(dev, case, config):
+    """golden_error_budget on the card: on the case's maps normalised (the
+    f32 gate open, so K1 and K4 run) each configuration runs its own
+    comparison, within the JAX suite's absolute limit of the f64 oracle and
+    50× inside the reference binary's own error at this N; on the case's
+    own maps the kernel configurations take the hybrid, held the same way."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.tools.golden_error_budget import budget
+
+    cfg = {"plain": RunConfig(use_kernels=False), "K1": RunConfig(use_kernels=True),
+           "K4": RunConfig(use_kernels=True, fused_batched=True,
+                           forced=frozenset({"fused_batched"})),
+           "hybrid": RunConfig(use_kernels=True, fused_lse=False)}[config]
+    raw = budget(case, cfg, device=dev)
+    norm = budget(case, cfg, device=dev, normalized=True)
+    assert raw.comparison == ("plain" if config == "plain" else "hybrid")
+    assert norm.comparison == config
+    for b in (raw, norm):
+        assert b.eng_orc < ORACLE_ATOL[case]
+        assert b.eng_orc < raw.orc_gold / 50
+
+
+def test_scale_bench_small(dev):
+    """scale_bench at a small size with the per-angle slabs: finite logP
+    and slabs, the card's peak memory, and the same bits as run_bioem's
+    replayed pass on the same problem."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.run import run_bioem
+    from bioem_tpu_torch.tools import scale_bench
+    from bioem_tpu_torch.tools.problem import build_problem
+
+    kw = dict(n_img=6, n_pix=64, max_disp=6)
+    rec = scale_bench.run_one(48, 30, repeats=1, device=dev, **kw)
+    assert rec["logp_finite"] and rec["peak_card_mb"] > 0
+    p, orients, model, images, _ = build_problem(n_orient=48, **kw)
+    p.write_angles = 30
+    own, _ = run_bioem(p, orients, model, images, RunConfig(autotune=False), device=dev)
+    assert rec["log_prob"].tobytes() == own.log_prob.tobytes()

@@ -1,5 +1,5 @@
-"""The PyTorch port never imports JAX, and chip_smoke.py refuses to run
-without a CUDA card.
+"""The PyTorch port never imports JAX (nor the JAX package, bench.py or the
+test suite), and chip_smoke.py refuses to run without a CUDA card.
 
 Both checks run in a subprocess: conftest.py has already imported JAX into
 the test process, so ``sys.modules`` there says nothing about the port.
@@ -19,10 +19,17 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "bioem_tpu_torch.")
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "bioem_tpu.")) or m == "bioem_tpu")
+bad = sorted(m for m in sys.modules if m in ("jax", "bioem_tpu", "bench", "tests")
+             or m.startswith(("jax.", "bioem_tpu.", "tests.")))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# the accuracy, scale and profiling entry points and the examples
+TOOLS = ("oracle", "golden_error_budget", "accuracy_probe", "problem", "profile_block",
+         "trace_step", "pipeline_lab", "scale_bench", "stream_50k", "rank_bench",
+         "mesh_scale_bench", "noise_recovery_table")
+EXAMPLES = ("planted_recovery", "tutorial")
 
 
 def _env():
@@ -37,8 +44,13 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the package was imported (package layout sanity)
-    assert int(out.stdout.split()[-1]) >= 20
+    # every module of the package was imported (package layout sanity),
+    # the tools and examples among them; none pulled in JAX, the JAX
+    # package, bench.py or the test suite
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    assert {f"bioem_tpu_torch.tools.{t}" for t in TOOLS} <= names
+    assert {f"bioem_tpu_torch.examples.{e}" for e in EXAMPLES} <= names
 
 
 def _no_cuda() -> bool:

@@ -9,7 +9,8 @@ the source text of ``bioem_tpu_torch/`` and ``chip_smoke.py``:
   ``set_float32_matmul_precision`` below ``"highest"``;
 * no fast-math build flag and no approximate log/exp intrinsics in the
   CUDA sources (a_coef ≈ −N²/2 amplifies any log1p error);
-* no import of JAX anywhere in the port.
+* no import of JAX anywhere in the port, and no import of bench.py or
+  the test suite in the package.
 """
 
 import os
@@ -50,6 +51,28 @@ def test_lint_sees_the_port():
     assert {"compare_fused.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "probe.cu",
             "wgmma.cuh", "engine.py", "compare_cuda.py", "project_cuda.py", "probe_cuda.py",
             "debug_prob.py", "simulator.py", "kernel_probe.py", "chip_smoke.py"} <= names
+    rel = set(IDS)
+    tools = ("oracle", "golden_error_budget", "accuracy_probe", "problem", "profile_block",
+             "trace_step", "pipeline_lab", "scale_bench", "stream_50k", "rank_bench",
+             "mesh_scale_bench", "noise_recovery_table")
+    assert {f"bioem_tpu_torch/tools/{t}.py" for t in tools} <= rel
+    assert {"bioem_tpu_torch/examples/planted_recovery.py",
+            "bioem_tpu_torch/examples/tutorial.py"} <= rel
+
+
+# The package keeps its own copy of what it needs: no import of the JAX
+# package's benchmark script or of the test suite (chip_smoke.py, a script
+# beside the tests, may read the goldens' tolerances from them).
+OUTSIDE = re.compile(r"^\s*(import\s+(bench|tests)\b|from\s+(bench|tests)[\s.])", re.M)
+PKG_FILES = [f for f in FILES if f.endswith(".py") and os.path.basename(f) != "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PKG_FILES, ids=[os.path.relpath(f, ROOT) for f in PKG_FILES])
+def test_package_imports_no_bench_or_tests(path):
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    bad = [src[:m.start()].count(chr(10)) + 1 for m in OUTSIDE.finditer(src)]
+    assert not bad, f"{os.path.relpath(path, ROOT)}: bench or tests imported at lines {bad}"
 
 
 @pytest.mark.parametrize("path", FILES, ids=IDS)
