@@ -241,10 +241,14 @@ def launch_k1(fn: str, args, a_coef: float, n_fold: int, variant: int | None = N
         else:
             status = lib.bioem_probe_compare(variant, *head, stream)
     _build.check(status, fn)
+    if variant is None:
+        fused_compare_block.last_plan = (n_wg, kc)
     return outs
 
 
 fused_compare_block.launches = 0
+# (warpgroups, K-chunk steps) of K1's latest launch
+fused_compare_block.last_plan = None
 
 
 def fused_displacement_cc(
@@ -289,10 +293,13 @@ def fused_displacement_cc(
         )
     _build.check(status, fn)
     fused_displacement_cc.launches += 1
+    fused_displacement_cc.last_plan = (n_wg, kc)
     return cc
 
 
 fused_displacement_cc.launches = 0
+# (warpgroups, K-chunk steps) of K3's latest launch
+fused_displacement_cc.last_plan = None
 
 
 # ---------------------------------------------------------------------------

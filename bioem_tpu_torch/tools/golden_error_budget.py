@@ -64,6 +64,21 @@ def parse_golden(path: str) -> np.ndarray:
     return np.array([vals[i] for i in range(len(vals))])
 
 
+def parse_maximizing(path: str) -> np.ndarray:
+    """The per-image "Maximizing Param" rows of an Output_Probabilities
+    file, (I, fields) as written (io/output.py): MaxLogProb, the angles (3,
+    or 4 quaternion components), amp, phase or defocus, envelope, center
+    x, center y, normalization, offset."""
+    rows = {}
+    with open(path) as f:
+        for line in f.read().splitlines():
+            m = re.match(r"RefMap: (\d+) Maximizing Param: (.*)", line)
+            if m:
+                rows[int(m.group(1))] = [float(v) for v in re.findall(
+                    r"-?\d+(?:\.\d+)?", re.sub(r"\[[^\]]*\]", " ", m.group(2)))]
+    return np.array([rows[i] for i in range(len(rows))])
+
+
 def load_case(case_dir: str, normalized: bool = False):
     """(params, orientations, model, images) of a golden case with text maps;
     ``normalized``: each map normalised as the MRC ingest does."""
@@ -133,6 +148,49 @@ def budget(case: str, cfg=None, device=None, lp_oracle=None,
     gap = lambda a, b: float(np.max(np.abs(a - b)))  # noqa: E731
     return Budget(case, p.n_pixels, gap(lp_eng, lp_gold), gap(lp_oracle, lp_gold),
                   gap(lp_eng, lp_oracle), comparison_of(eng), lp_eng)
+
+
+# The engine configurations, as RunConfig fields (accuracy_probe.CONFIGS
+# names them by their environment).
+CONFIG_FIELDS = {
+    "plain": dict(use_kernels=False),
+    "K1": dict(use_kernels=True, fused_lse=True),
+    "K4": dict(use_kernels=True, fused_lse=True, fused_batched=True),
+    "hybrid": dict(use_kernels=True, fused_lse=False),
+}
+
+
+def run_configs(problem, configs=tuple(CONFIG_FIELDS), device=None) -> dict:
+    """Each engine configuration of ``configs`` on ``problem``
+    (tools/problem.py's tuple), never autotuned: {config: {"ran",
+    "results"}}, ``ran`` being the comparison its engine ran."""
+    from ..config import RunConfig
+    from ..run import make_engine
+
+    rows = {}
+    for name in configs:
+        fields = CONFIG_FIELDS[name]
+        cfg = RunConfig(autotune=False, forced=frozenset(fields), **fields)
+        eng = make_engine(*problem[:4], cfg, device=device)
+        rows[name] = {"ran": comparison_of(eng), "results": eng.results(eng.run())}
+    return rows
+
+
+def cut_gaps(problem, configs=tuple(CONFIG_FIELDS), device=None):
+    """:func:`run_configs` on ``problem`` (a cut of tools/problem.py's
+    problem: the oracle loops in Python) against the all-f64 oracle on the
+    same inputs: (the oracle's logP, the rows, each with its
+    ``engine_vs_oracle``)."""
+    from .oracle import run_oracle
+
+    p, orients, model, images = problem[:4]
+    lp_oracle = run_oracle(p, orients, model.points.astype(np.float64),
+                           model.radii.astype(np.float64), model.densities.astype(np.float64),
+                           model.norm_den, images.maps).log_prob
+    rows = run_configs(problem, configs, device)
+    for r in rows.values():
+        r["engine_vs_oracle"] = float(np.max(np.abs(r["results"].log_prob - lp_oracle)))
+    return lp_oracle, rows
 
 
 def main(argv=None) -> int:

@@ -9,9 +9,10 @@ super-Fibonacci list of that size (the reference's 4608 and 36864 lists;
 ``tools/scale_bench.py`` in the JAX package builds it the same way) and
 ``n_img`` sets the number of images; neither changes a width.
 
-:func:`compare_work` and :func:`compare_bound` count the operations and
-bytes of one comparison block (K1, K4), so that chip_smoke.py and
-``tools/profile_block.py`` state the same bound; :func:`bound` turns a
+:func:`compare_work`, :func:`compare_bound` and :func:`cc_bound` count the
+operations and bytes of one comparison block (K1, K4; K3), so that
+chip_smoke.py, ``tools/profile_block.py`` and ``tools/bench.py`` state the
+same bound; :func:`bound` turns a
 count into the least time one H100 could take for it.
 """
 
@@ -66,13 +67,24 @@ def compare_bound(o, c, i, n, f, d, m, n_fold, tensor_cores: bool = False) -> tu
     return bound(ops, compare_bytes(o, c, i, n, f, d, m))
 
 
+def cc_bound(o, c, i, n, f, d, m, n_fold) -> tuple:
+    """K3's bound: stage 1 on the tensor cores as K1's, the conv bank and
+    the images read once, the (O·C, I, D, D) lattice written once."""
+    w = compare_work(o, c, i, n, f, d, m, n_fold, conv_in=True)
+    return bound({"tf32": 3 * w["stage1"], "f32": w["rest"]},
+                 4 * (2 * (o * c + i) * n * f + 2 * d * m + 2 * d * f + o * c * i * d * d))
+
+
 def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
-                  n_img: int = 64, max_disp: int = 20, n_orient: int = 0):
+                  n_img: int = 64, max_disp: int = 20, n_orient: int = 0,
+                  disp_step: int = 2, n_phase: int = 4, n_env: int = 2):
     """BASELINE config 2 (bench.py:35-77): N=224, 4352 quaternion
     orientations (grid 15), 8 CTFs (4 defocus × 2 B-env), 64 images, D=21
     displacements at stride 2, a 500-point model with PDB residue radii.
     ``n_orient`` > 0: a super-Fibonacci list of that many orientations in
-    place of the grid (voluang 1/n_orient).
+    place of the grid (voluang 1/n_orient). ``disp_step``, ``n_phase`` and
+    ``n_env`` widen the lattice and the CTF bank (:data:`REFERENCE_GRID`);
+    the seed's draws do not depend on them.
 
     The images are bench.py's seed-0 noise with one planted projection
     each (a known orientation, CTF and displacement, at ``signal`` times
@@ -89,9 +101,9 @@ def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
     p = BioEMParams(
         pixel_size=1.06, n_pixels=n_pix, use_quaternions=True,
         grid_points_quaternion=quat_grid, n_amp=1, start_amp=0.1, end_amp=0.1,
-        n_phase=4, start_defocus=0.5, end_defocus=2.5, n_env=2,
+        n_phase=n_phase, start_defocus=0.5, end_defocus=2.5, n_env=n_env,
         start_bfactor=2.0, end_bfactor=100.0, max_displace_center=max_disp,
-        grid_space_center=2,
+        grid_space_center=disp_step,
     ).finalize_ctf_mode()
     if n_orient:
         orients = OrientationSet(angles=super_fibonacci(n_orient).astype(np.float64),
@@ -113,6 +125,72 @@ def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
     sig = sig / sig.reshape(n_img, -1).std(axis=1)[:, None, None]
     maps = _normalize_stack((noise + signal * sig).astype(np.float32))
     return p, orients, model, ImageStack(maps), planted
+
+
+# The reference's production grid (BASELINE.md, first table; SURVEY.md §6):
+# 4608 quaternions × 32 CTFs (4 B-env × 8 defocus) × 81×81 displacements
+# at stride 1 (D = 81, M = N = 224: K1's two-warpgroup tiling, no K4).
+REFERENCE_GRID = dict(n_orient=4608, max_disp=40, disp_step=1, n_phase=8, n_env=4)
+
+
+def reference_grid_params(n_pix: int = 224) -> str:
+    """:data:`REFERENCE_GRID` as a parameter file for the CLI (to be read
+    with ``--ReadOrientation`` and a quaternion list)."""
+    return (f"PIXEL_SIZE 1.06\nNUMBER_PIXELS {n_pix}\nCTF_B_ENV 2.0 100.0 4\n"
+            "CTF_DEFOCUS 0.5 2.5 8\nCTF_AMPLITUDE 0.1 0.1 1\nDISPLACE_CENTER 40 1\n"
+            "USE_QUATERNIONS\n")
+
+
+def write_reference_grid(work: str, problem) -> list:
+    """A problem built at :data:`REFERENCE_GRID` written to ``work`` as the
+    CLI reads it: ``param.txt``, the quaternion list ``quat.txt``, the
+    model as text and the images as an MRC stack (the reference's MRC
+    sections are the maps transposed). Returns the CLI's arguments."""
+    import os
+
+    from ..io.mrc import write_mrc
+    from ..utils.so3 import write_quaternion_list
+
+    p, orients, model, images = problem[:4]
+    with open(os.path.join(work, "param.txt"), "w") as f:
+        f.write(reference_grid_params(p.n_pixels))
+    write_quaternion_list(os.path.join(work, "quat.txt"), orients.angles)
+    with open(os.path.join(work, "model.txt"), "w") as f:
+        for (x, y, z), r, d in zip(model.points, model.radii, model.densities):
+            f.write(f"{x:.6f} {y:.6f} {z:.6f} {r:.6f} {d:.6f}\n")
+    write_mrc(os.path.join(work, "particles.mrc"), np.transpose(images.maps, (0, 2, 1)),
+              p.pixel_size)
+    return ["--Modelfile", "model.txt", "--Particlesfile", "particles.mrc", "--ReadMRC",
+            "--Inputfile", "param.txt", "--ReadOrientation", "quat.txt"]
+
+
+def nearest_orientations(orients, i: int, k: int) -> np.ndarray:
+    """Orientation ``i`` and the ``k`` − 1 nearest distinct rotations of
+    ``orients`` (quaternions: q and −q are one rotation, so the distance is
+    1 − |q·q'| and the antipode of ``i`` is skipped)."""
+    q = orients.angles.astype(np.float64)
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    dist = 1.0 - np.abs(q @ q[i])
+    order = np.argsort(dist, kind="stable")
+    keep = [int(j) for j in order if j == i or dist[j] > 1e-9]
+    return np.array([i] + [j for j in keep if j != i][: k - 1])
+
+
+def orientation_cut(problem, per_plant: int):
+    """``problem`` (build_problem's tuple) cut to each planted orientation
+    and its ``per_plant`` − 1 nearest neighbours (nearest_orientations):
+    the posterior's mass at every image stays in the cut. The planted
+    indices are renumbered into the cut; voluang stays the full set's."""
+    from ..core.orientations import OrientationSet
+
+    p, orients, model, images, planted = problem
+    idx = np.unique(np.concatenate([nearest_orientations(orients, int(o), per_plant)
+                                    for o in planted["orient"]]))
+    cut = OrientationSet(angles=orients.angles[idx], use_quaternions=orients.use_quaternions,
+                         voluang=orients.voluang, priors=None)
+    renum = {int(o): k for k, o in enumerate(idx)}
+    planted = {**planted, "orient": np.array([renum[int(o)] for o in planted["orient"]])}
+    return p, cut, model, images, planted
 
 
 def plant(p, orients, model, rng, n_img: int) -> dict:

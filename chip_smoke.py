@@ -97,7 +97,27 @@ the port's main path on the card, in phases (each prints its own lines):
    the naive estimate), tools/mesh_scale_bench (1 to 4 slots on the one
    card, each within 1e-6·max|logP| of one slot), tools/pipeline_lab
    (the fused and hybrid pipelines' device time per step) and
-   tools/noise_recovery_table (1 trial at noise 0 and 1).
+   tools/noise_recovery_table (1 trial at noise 0 and 1);
+21. the benchmark harness (bioem_tpu_torch.tools.bench, in this process,
+   tuned from an empty autotune cache) on bench.py's own problem (raw
+   noise: the hybrid runs) and on the planted production problem (K1 or
+   K4): one JSON line each with every key, the card named, the pass at or
+   below 100 % of its bound;
+22. the reference's production grid: K1 and K3 at its block (D = 81,
+   M = 224: the two-warpgroup instance, plan (2, 4)) against their plain
+   versions and K1 timed beside its bound (the kernels line's
+   ``fused_compare_block (D=81, two warpgroups)`` row); then 4608
+   quaternions × 32 CTFs × 64 planted images at D = 81 through the port's
+   CLI (--ReadOrientation, --ReadMRC): K1 at plan (2, 4), K4 never, finite
+   logP, the planted orientation and CTF recovered; and a cut of ~128
+   orientations on the plain branch, K1 and the hybrid with argmax tuples
+   equal;
+23. the C2 check: the production shape cut to 4 planted images × 16
+   orientations × 8 CTFs, and the reference grid cut to 2 images × 4
+   orientations × 32 CTFs, on every kernel configuration and the plain
+   branch against the all-f64 oracle (tools/oracle.py, on the host): no
+   kernel configuration farther from it than max(5e-6, the plain
+   branch's gap).
 
 The paths are driven in parts, each with every kernel's launch counter
 set to 0 just before it and read just after: the goldens with the plain
@@ -106,7 +126,9 @@ passes K2 and K4; streaming, ranking and the mesh K1 and K2 (the
 multi-process workers report theirs); the refinement phase (its grid
 passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
 K3; the accuracy phase K1, K3 and K4; the examples K2 and K3; the profile
-tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3. Each
+tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3; the
+harness K2 and K3 on bench.py's problem, K2 and K1 or K4 on the planted one;
+the reference grid K1, K2 and K3; the C2 check K1, K2, K3 and K4. Each
 part's line gives its seconds.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
@@ -174,12 +196,10 @@ def p1_bounds(m, k, n, batch) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_environment(torch) -> str:
-    q = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    require(q.returncode == 0 and q.stdout.strip(), f"nvidia-smi failed: {q.stderr}")
-    card = q.stdout.strip().splitlines()[0].strip()
+    from bioem_tpu_torch.tools.bench import card_line
+
+    card = card_line()
+    require(bool(card), "nvidia-smi named no card")
     say(card)
     say(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, {torch.cuda.device_count()} card(s): "
@@ -335,7 +355,7 @@ def check_project(torch, name, i0, j0, dens, st_re, st_im, n, counts, plain_coun
 
 def phase_kernels(torch, eng) -> dict:
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
-    from bioem_tpu_torch.tools.problem import bound, compare_bound, compare_work
+    from bioem_tpu_torch.tools.problem import bound, cc_bound, compare_bound
     from bioem_tpu_torch.ops import project_cuda as pj
     from bioem_tpu_torch.tools.kernel_probe import device_ms, time_ms  # CUDA events
 
@@ -463,11 +483,7 @@ def phase_kernels(torch, eng) -> dict:
     i_n, d, m = bk.img_re.shape[0], eng.disp.shape[0], n // eng.n_fold
     b1 = compare_bound(o, c, i_n, n, f, d, m, eng.n_fold, tensor_cores=True)
     b4 = b1
-    # K3: stage 1 on the tensor cores as K1's; conv and images read once,
-    # the lattice written once
-    w3 = compare_work(o, c, i_n, n, f, d, m, eng.n_fold, conv_in=True)
-    b3 = bound({"tf32": 3 * w3["stage1"], "f32": w3["rest"]},
-               4 * (2 * (o * c + i_n) * n * f + 2 * d * m + 2 * d * f + o * c * i_n * d * d))
+    b3 = cc_bound(o, c, i_n, n, f, d, m, eng.n_fold)
     g = x["i0"].shape[0]
     n_pts = int((x["dens"] != 0).sum())
     b2 = bound({"tf32": 3 * 8 * n_pts * n * f, "f32": 8 * g * o * n * f},
@@ -500,27 +516,41 @@ def phase_kernels(torch, eng) -> dict:
 
 
 @contextlib.contextmanager
+def _environ(env: dict):
+    """``env`` set in os.environ, the previous values restored on exit."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _in_dir(work: str):
+    old = os.getcwd()
+    os.chdir(work)
+    try:
+        yield work
+    finally:
+        os.chdir(old)
+
+
+@contextlib.contextmanager
 def _in_case(case: str, env: dict):
     """A temporary copy of golden case ``case`` as the working directory,
     with ``env`` set; both undone on exit."""
     sys.path.insert(0, HERE)
     from tests.test_golden import DATA
 
-    saved = {k: os.environ.get(k) for k in env}
-    old = os.getcwd()
-    with tempfile.TemporaryDirectory() as work:
+    with tempfile.TemporaryDirectory() as work, _environ(env):
         shutil.copytree(os.path.join(DATA, case), work, dirs_exist_ok=True)
-        os.environ.update(env)
-        os.chdir(work)
-        try:
+        with _in_dir(work):
             yield work
-        finally:
-            os.chdir(old)
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
 
 
 def phase_goldens() -> None:
@@ -1725,6 +1755,220 @@ def phase_small_tools(problem, card: str, depth: int = MESH_DEPTH) -> None:
     say("[noise] " + noise_recovery_table.markdown(rows).replace("\n", " "))
 
 
+# ---------------------------------------------------------------------------
+# The benchmark harness, the reference's production grid, the C2 check
+# ---------------------------------------------------------------------------
+
+# Every key of the harness's JSON line on the card (tools/bench.py).
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_kind",
+              "max_abs_dlogp_vs_reference", "accuracy_cases", "max_abs_dlogp_vs_reference_n224",
+              "problem", "comparison", "config", "autotune_s", "comparisons", "seconds",
+              "device_kind", "useful_f32_flops_per_comparison", "achieved_useful_tflops",
+              "bound_s", "bound_by", "roofline_pct", "card")
+
+
+def phase_bench(card: str, problem: str) -> dict:
+    """``python -m bioem_tpu_torch.tools.bench --problem <problem>`` in this
+    process, tuned from an empty autotune cache: one JSON line with every
+    key, the card named; bench.py's own problem runs the hybrid (its raw
+    noise closes the f32 gate), the planted one K1 or K4, launched, at or
+    below 100 % of its bound."""
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.tools import bench
+
+    with tempfile.TemporaryDirectory() as cache, _environ(
+            {"BIOEM_TPU_AUTOTUNE_CACHE": os.path.join(cache, "autotune.json")}):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--problem", problem])
+    lines = buf.getvalue().strip().splitlines()
+    say(f"[bench] {card}: {lines[-1]}  ({time.perf_counter() - t0:.1f} s)")
+    rec = json.loads(lines[-1])
+    require(rc == 0 and len(lines) == 1, f"bench --problem {problem}: rc {rc}, "
+            f"{len(lines)} lines of output")
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    require(not missing, f"bench --problem {problem}: keys missing {missing}")
+    require(rec["card"] == card and rec["problem"] == problem and rec["value"] > 0,
+            f"bench --problem {problem}: card, problem or value wrong")
+    require(0 < rec["roofline_pct"] <= 100, f"bench: roofline share {rec['roofline_pct']}")
+    if problem == "bench":
+        require(rec["comparison"] == "hybrid", f"bench's problem ran {rec['comparison']}")
+    else:
+        fn = {"K1": cc_mod.fused_compare_block,
+              "K4": cc_mod.fused_compare_block_batched}.get(rec["comparison"])
+        require(fn is not None and fn.launches > 0,
+                f"the planted problem ran {rec['comparison']} without launching it")
+    return rec
+
+
+def kernel_row_d81(torch) -> dict:
+    """K1 and K3 at the reference grid's block (O = 8, C = 32, I = 64,
+    N = 224, D = 81 at stride 1, M = 224: k1_plan's two-warpgroup
+    instance) against their plain versions, each launched with plan
+    (2, 4); K1 timed beside its plain version and its bound. Returns K1's
+    row for the kernels line."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.tools.kernel_probe import time_ms
+    from bioem_tpu_torch.tools.problem import REFERENCE_GRID, build_problem, compare_bound
+
+    p, orients, model, images, _ = build_problem(**REFERENCE_GRID)
+    eng = BioEMEngine(p, orients, model, images, RunConfig(use_kernels=True, autotune=False),
+                      device=DEVICE)
+    x = _block_inputs(eng)
+    bk = eng.banks
+    args = (x["pr"], x["pi"], bk.ctf_re, bk.ctf_im, bk.img_re, bk.img_im,
+            x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im, x["a_u"], x["b_u"])
+    o, c, i_n, n, f = eng.o_block, eng.n_ctf, bk.img_re.shape[0], p.n_pixels, p.n_fft_1d
+    d, nf = eng.disp.shape[0], eng.n_fold
+    m = n // nf
+    say(f"[kernels] reference grid block: O={o} C={c} I={i_n} N={n} F={f} D={d} n_fold={nf}; "
+        f"k1_plan {cc_mod.k1_plan(d, m, f, nf)}")
+    err = check_compare(torch, "K1 fused_compare_block D=81", args, x["a_coef"], nf)
+    require(cc_mod.fused_compare_block.last_plan == (2, 4),
+            f"K1 at D=81 launched with plan {cc_mod.fused_compare_block.last_plan}")
+    conv_re = (x["pr"][:, None] * bk.ctf_re[None] + x["pi"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
+    conv_im = (x["pi"][:, None] * bk.ctf_re[None] - x["pr"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
+    check_cc(torch, "K3 fused_displacement_cc D=81", conv_re, conv_im, bk.img_re, bk.img_im,
+             x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im, nf, 2)
+    require(cc_mod.fused_displacement_cc.last_plan == (2, 4),
+            f"K3 at D=81 launched with plan {cc_mod.fused_displacement_cc.last_plan}")
+    del conv_re, conv_im
+    ms = time_ms(lambda: cc_mod.fused_compare_block(*args, a_coef=x["a_coef"], n_fold=nf))
+    plain_ms = time_ms(lambda: cc_mod.fused_compare_block_plain(*args, a_coef=x["a_coef"],
+                                                                n_fold=nf), 3)
+    b = compare_bound(o, c, i_n, n, f, d, m, nf, tensor_cores=True)
+    say(f"[kernels] K1 D=81 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{b[0]:.4f} ms ({b[1]}-bound), {100 * b[0] / ms:.1f} % of it")
+    return dict(name="fused_compare_block (D=81, two warpgroups)", route="cuda",
+                source="bioem_tpu_torch/csrc/compare_fused.cu",
+                replaces="bioem_tpu/ops/compare_pallas.py:301", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def phase_reference_grid(card: str) -> None:
+    """The reference's production grid through the port's CLI: 4608
+    super-Fibonacci quaternions (--ReadOrientation) × 32 CTFs × 64 planted,
+    normalised images (an MRC stack, --ReadMRC) at D = 81, stride 1. K1
+    must run at plan (2, 4) and K4 never; every logP finite; the planted
+    orientation and CTF recovered on ≥ 90 % of the images. Then a cut of
+    the grid (each planted orientation and its nearest neighbour, all 32
+    CTFs, the 64 images) on the plain branch, K1 and the hybrid (K3 at
+    two warpgroups): argmax tuples equal to the plain branch's."""
+    import re
+
+    from bioem_tpu_torch.cli import main as cli_main
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.params import make_ctf_grid
+    from bioem_tpu_torch.tools.golden_error_budget import (parse_golden, parse_maximizing,
+                                                           run_configs)
+    from bioem_tpu_torch.tools.problem import (REFERENCE_GRID, build_problem, orientation_cut,
+                                               write_reference_grid)
+
+    prob = build_problem(**REFERENCE_GRID)
+    p, orients, _model, images, planted = prob
+    k1, k4 = cc_mod.fused_compare_block, cc_mod.fused_compare_block_batched
+    before = (k1.launches, k4.launches)
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as work:
+        argv = write_reference_grid(work, prob)
+        k1.last_plan = None
+        t0 = time.perf_counter()
+        with _in_dir(work), _environ({"BIOEM_DEBUG_OUTPUT": "1"}), \
+                contextlib.redirect_stdout(buf):
+            rc = cli_main([*argv, "--OutputFile", "out"])
+            wall = time.perf_counter() - t0
+            lp, best = parse_golden("out"), parse_maximizing("out")
+    n1, n4 = k1.launches - before[0], k4.launches - before[1]
+    found = re.search(r"Main loop: ([0-9.]+)s", buf.getvalue())
+    require(rc == 0 and found is not None, f"the reference grid's CLI returned {rc}")
+    run_s = float(found.group(1))
+    grid = make_ctf_grid(p)
+    n_ctf = grid.n
+    comparisons = orients.n * n_ctf * images.maps.shape[0]
+    # recovered: the written quaternion (4 decimals) is the planted
+    # rotation's, and the written defocus and B-env its CTF's
+    q = orients.angles[planted["orient"]].astype(np.float64)
+    rec_o = float(np.mean(np.abs(np.sum(best[:, 1:5] * q, axis=1))
+                          / np.linalg.norm(best[:, 1:5], axis=1) > 1 - 1e-4))
+    defocus = grid.phase / 2.0 / np.pi / p.electron_wavelength * 1e-4
+    c = planted["ctf"]
+    rec_c = float(np.mean((np.abs(best[:, 6] - defocus[c]) < 1e-4)
+                          & (np.abs(best[:, 7] - grid.env[c]) < 1e-4)))
+    say(f"[reference grid] {card}: {orients.n} orientations × {n_ctf} CTFs × "
+        f"{images.maps.shape[0]} images at N={p.n_pixels}, D={p.nx_disp} (stride "
+        f"{p.grid_space_center}) through the CLI: pass {run_s:.3f} s, {comparisons / run_s:.4e} "
+        f"comparisons/s ({comparisons} comparisons; CLI wall {wall:.1f} s); K1 launches {n1} "
+        f"at plan {k1.last_plan}, K4 launches {n4}; logP finite {bool(np.isfinite(lp).all())}; "
+        f"planted orientation recovered {rec_o:.3f}, planted CTF {rec_c:.3f}")
+    require(n1 > 0 and k1.last_plan == (2, 4) and n4 == 0,
+            "the reference grid did not run K1 at plan (2, 4) alone")
+    require(len(lp) == images.maps.shape[0] and bool(np.isfinite(lp).all()),
+            "the reference grid's logP are not all finite")
+    require(rec_o >= 0.9 and rec_c >= 0.9, "the reference grid lost the planted parameters")
+    cut = orientation_cut(prob, 2)
+    t0 = time.perf_counter()
+    rows = run_configs(cut, ("plain", "K1", "hybrid"), DEVICE)
+    plain = rows["plain"]["results"]
+    for name, r in rows.items():
+        res = r["results"]
+        same = np.all([getattr(res, f) == getattr(plain, f) for f in ARGMAX], axis=0)
+        say(f"[reference grid] cut of {cut[1].n} orientations × {n_ctf} CTFs × "
+            f"{images.maps.shape[0]} images: {name} (ran {r['ran']}) argmax tuples equal to "
+            f"the plain branch on {int(same.sum())}/{len(same)} images; max |ΔlogP| vs plain "
+            f"{float(np.max(np.abs(res.log_prob - plain.log_prob))):.3e}")
+        require(r["ran"] == name and bool(same.all()),
+                f"reference grid cut: {name} ran {r['ran']} or its argmax differs from plain")
+    require(cc_mod.fused_displacement_cc.last_plan == (2, 4), "K3 did not run two warpgroups")
+    say(f"[reference grid] the cut's three passes {time.perf_counter() - t0:.1f} s")
+
+
+C2_ATOL = 5e-6  # the JAX suite's engine–oracle limit at N = 224
+
+
+def phase_c2(card: str, k1_vs_plain_full: float) -> None:
+    """The C2 check: the production shape cut to 4 planted images × 16
+    orientations (each planted one and its nearest neighbours) × 8 CTFs
+    (N = 224, D = 21 at stride 2), and the reference grid cut to 2 images
+    × 4 orientations × 32 CTFs (D = 81, stride 1), each on every kernel
+    configuration it has and the plain branch on the card, against the
+    all-f64 oracle on the host. Fault C2: a kernel configuration farther
+    from the oracle than max(5e-6, the plain branch's gap)."""
+    from bioem_tpu_torch.tools.golden_error_budget import cut_gaps
+    from bioem_tpu_torch.tools.problem import REFERENCE_GRID, build_problem, orientation_cut
+
+    for label, kw, n_img, per_plant, configs in (
+            ("production", {}, 4, 4, ("plain", "K1", "K4", "hybrid")),
+            ("reference grid", REFERENCE_GRID, 2, 2, ("plain", "K1", "hybrid"))):
+        cut = orientation_cut(build_problem(n_img=n_img, **kw), per_plant)
+        t0 = time.perf_counter()
+        _lp, rows = cut_gaps(cut, configs, DEVICE)
+        plain = rows["plain"]
+        limit = max(C2_ATOL, plain["engine_vs_oracle"])
+        say(f"[c2] {card}: {label} cut, N={cut[0].n_pixels} D={cut[0].nx_disp}, {cut[1].n} "
+            f"orientations × {n_img} images, oracle and {len(rows)} passes "
+            f"{time.perf_counter() - t0:.1f} s; limit max(5e-6, plain's gap) = {limit:.3e}")
+        for name, r in rows.items():
+            res = r["results"]
+            dp = float(np.max(np.abs(res.log_prob - plain["results"].log_prob)))
+            same = all(np.array_equal(getattr(res, f), getattr(plain["results"], f))
+                       for f in ARGMAX)
+            say(f"[c2] {label}: {name} (ran {r['ran']}): max |logP − oracle| "
+                f"{r['engine_vs_oracle']:.4e}, vs plain {dp:.4e}"
+                + (f" (the full production pass's K1 vs plain: {k1_vs_plain_full:.4e})"
+                   if name == "K1" and label == "production" else ""))
+            require(r["ran"] == name and same, f"c2 {label}: {name} ran {r['ran']} or its "
+                    f"argmax differs from the plain branch")
+            require(r["engine_vs_oracle"] <= limit, f"fault C2: {label} {name} lies "
+                    f"{r['engine_vs_oracle']:.4e} from the oracle, beyond {limit:.4e}")
+        if plain["engine_vs_oracle"] > C2_ATOL:
+            say(f"[c2] {label}: the plain branch itself lies above 5e-6 from the oracle "
+                f"(the JAX package's plain path has the same arithmetic): a question for "
+                f"the reference, not a port fault")
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mp-worker":  # phase_multiprocess's workers
         return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -1820,6 +2064,15 @@ def main() -> int:
         main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2"))
         main_path("rank, mesh, pipeline, noise", lambda: phase_small_tools(problem, card),
                   ("K1", "K2", "K3"))
+        main_path("bench harness, bench.py's problem", lambda: phase_bench(card, "bench"),
+                  ("K2", "K3"))
+        main_path("bench harness, planted problem", lambda: phase_bench(card, "planted"),
+                  ("K2",))
+        rows["K1_D81"] = kernel_row_d81(torch)
+        main_path("reference grid", lambda: phase_reference_grid(card), ("K1", "K2", "K3"))
+        rows["K1_D81"]["launches"] = counters["K1"].launches
+        k1_vs_plain = float(np.max(np.abs(res_k.log_prob - res_p.log_prob)))
+        main_path("C2 check", lambda: phase_c2(card, k1_vs_plain), ("K1", "K2", "K3", "K4"))
     except Exception as e:  # every phase failure ends the run with a nonzero code
         import traceback
 

@@ -13,12 +13,14 @@ Tolerances: m, se rtol 1e-5 at these small shapes, the argmax exact away
 from near-ties (two best lattice values within 1e-5·|a_coef|); cc and the
 projection spectra < 5e-5 of their max magnitude. The image-batched
 kernel (K4) is held to K1's tolerances at every width it has (D ≤ 32),
-every fold count and several tiles; K1 at lattice widths up to D = 61,
+every fold count and several tiles; K1 at lattice widths up to D = 81
+(two warpgroups, the reference's production grid at N = 224),
 folds 1–4, odd N, M = 224 and image counts that end a run of four
 mid-way; both to the same bits across two launches. The projection (K2)
 also with per-group point counts that skip padding, at its largest N and
 to the same bits across two launches. K3 (K1's kernel writing the
-lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, M = 224,
+lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61 and 81,
+M = 224,
 to the same bits across two launches. The engine's replayed pass
 (a captured block step) bit-equal to its eager loop for K1, K4 and the
 hybrid, through a checkpoint resume too, with launch counters that count
@@ -33,7 +35,9 @@ ragged shapes with its copies equal;
 P2's two structures within the f32 summation bound the probe tool states
 (``kernel_probe.p2_updates``); P3's full body bit-equal to K1 and K4. The
 tools: the error budget of every engine configuration against the all-f64
-oracle within the JAX suite's limits, and scale_bench at a small size.
+oracle within the JAX suite's limits, the C2 cut of the production shape
+(no kernel configuration farther from the oracle than max(5e-6, the plain
+branch's gap)), scale_bench and the benchmark harness at a small size.
 """
 
 import numpy as np
@@ -118,23 +122,27 @@ def test_projection_kernel_vs_plain(rng, dev, n):
 # K1 (wgmma, conv formed once per orientation·ctf) at the lattice widths
 # and folds its reach covers: D = 5…61 (one and two N chunks), folds 1–4,
 # odd N, a stride-1 lattice at N = 224 (M = 224), image counts that end a
-# run of four mid-way.
+# run of four mid-way; D = 81 at N = 224 (the reference's production grid,
+# folds 1 and 2) takes the two-warpgroup instance (compare_cuda.k1_plan).
 K1_SHAPES = [  # (n_disp, n_fold, n, images)
     (5, 1, 15, 5), (5, 2, 32, 1), (9, 1, 32, 64), (9, 3, 48, 5), (9, 4, 64, 5),
     (21, 2, 48, 201), (21, 1, 224, 5), (30, 1, 64, 5), (35, 1, 48, 5), (35, 2, 80, 7),
-    (61, 1, 64, 3)]
+    (61, 1, 64, 3), (81, 1, 224, 3), (81, 2, 224, 3)]
 
 
 @pytest.mark.parametrize("n_disp,n_fold,n,n_img", K1_SHAPES)
 def test_k1_widths_folds_and_image_counts(rng, dev, n_disp, n_fold, n, n_img):
     """K1 against its plain version at every shape above (m, se rtol 1e-5,
-    the argmax exact on ≥ 90 % of the comparisons, cc there rtol 1e-5)."""
+    the argmax exact on ≥ 90 % of the comparisons, cc there rtol 1e-5),
+    launched with the tiling k1_plan gives the shape."""
     args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=2, c=2, i=n_img)
     a_coef = -0.5 * n * n
     before = C.fused_compare_block.launches
     km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
     torch.cuda.synchronize()
     assert C.fused_compare_block.launches == before + 1
+    assert C.fused_compare_block.last_plan == C.k1_plan(n_disp, n // n_fold, n // 2 + 1,
+                                                        n_fold)[:2]
     pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
     # se carries v's absolute f32 error, |a_coef|·δcc: at N = 224 (a_coef
@@ -161,7 +169,8 @@ def test_k1_plan_matches_the_library(dev):
 
     lib = _build.load()
     for d, m, f, n_fold in [(21, 112, 113, 2), (5, 15, 8, 1), (35, 48, 41, 1), (61, 64, 33, 1),
-                            (21, 224, 113, 1), (9, 12, 25, 4), (61, 224, 113, 1)]:
+                            (21, 224, 113, 1), (9, 12, 25, 4), (61, 224, 113, 1),
+                            (81, 224, 113, 1), (81, 112, 113, 2)]:
         for n_wg in (2, 4):
             for kc in (1, 2, 4, 8):
                 assert (lib.bioem_fused_compare_smem_bytes(d, m, f, n_fold, n_wg, kc)
@@ -578,9 +587,10 @@ def test_debug_prob_kernel_path_launches_k3(rng, dev):
 
 
 # K3 (K1's kernel in its cc-out body): D = 5…61 × folds 1–4 at N = 48,
-# N = 15 (folds 1 and 3) and the stride-1 ±30 lattice at N = 224 (M = 224).
+# N = 15 (folds 1 and 3), the stride-1 ±30 lattice at N = 224 (M = 224)
+# and the stride-1 ±40 lattice there (D = 81: two warpgroups).
 K3_SHAPES = ([(d, nf, 48) for d in (5, 9, 21, 35, 61) for nf in (1, 2, 3, 4)]
-             + [(5, 1, 15), (5, 3, 15), (61, 1, 224)])
+             + [(5, 1, 15), (5, 3, 15), (61, 1, 224), (81, 1, 224)])
 
 
 @pytest.mark.parametrize("n_disp,n_fold,n", K3_SHAPES)
@@ -593,6 +603,8 @@ def test_k3_widths_and_folds_vs_plain(rng, dev, n_disp, n_fold, n):
     k = C.fused_displacement_cc(*conv, *args[4:10], n_fold=n_fold)
     torch.cuda.synchronize()
     assert C.fused_displacement_cc.launches == before + 1
+    assert C.fused_displacement_cc.last_plan == C.k1_plan(n_disp, n // n_fold, n // 2 + 1,
+                                                          n_fold)[:2]
     p = C.displacement_cc_plain(*conv, *args[4:10], n_fold=n_fold)
     assert k.shape == (3, 7, n_disp, n_disp)
     assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())
@@ -888,3 +900,56 @@ def test_scale_bench_small(dev):
     p.write_angles = 30
     own, _ = run_bioem(p, orients, model, images, RunConfig(autotune=False), device=dev)
     assert rec["log_prob"].tobytes() == own.log_prob.tobytes()
+
+
+# C2: the production shape cut to 4 planted images × their 16 nearest
+# orientations × 8 CTFs (N = 224, D = 21 at stride 2): no kernel
+# configuration farther from the all-f64 oracle than max(5e-6, the plain
+# branch's gap on the same cut). 5e-6 is the JAX suite's limit at N = 224.
+C2_ATOL = 5e-6
+
+
+def test_c2_cut_against_the_oracle(dev):
+    """Plain, K1, K4 and the hybrid on the C2 cut: each ran its own
+    comparison, argmax tuples equal to the plain branch's, and no kernel
+    configuration farther from the oracle than max(5e-6, plain's gap)."""
+    from bioem_tpu_torch.tools.golden_error_budget import cut_gaps
+    from bioem_tpu_torch.tools.problem import build_problem, orientation_cut
+
+    cut = orientation_cut(build_problem(n_img=4), 4)
+    _lp, rows = cut_gaps(cut, device=dev)
+    limit = max(C2_ATOL, rows["plain"]["engine_vs_oracle"])
+    plain = rows["plain"]["results"]
+    for name, r in rows.items():
+        assert r["ran"] == name
+        assert r["engine_vs_oracle"] <= limit, (name, r["engine_vs_oracle"], limit)
+        for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+            np.testing.assert_array_equal(getattr(r["results"], f), getattr(plain, f))
+    np.testing.assert_array_equal(plain.best_orient, cut[4]["orient"])
+
+
+@pytest.mark.parametrize("problem", ["bench", "planted"])
+def test_bench_harness_small(dev, monkeypatch, capsys, tmp_path, problem):
+    """The benchmark harness at a small size on the card: one JSON line
+    with every key, the card named with its power limit, a kernel
+    configuration, and the pass at or above its bound."""
+    import json
+
+    from bioem_tpu_torch.tools import bench
+
+    monkeypatch.setenv("BIOEM_TPU_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    for k, v in (("N_PIXELS", 64), ("N_IMG", 8), ("QUAT_GRID", 4), ("REPEATS", 1),
+                 ("BASELINE_SAMPLE_OC", 1)):
+        monkeypatch.setattr(bench, k, v)
+    assert bench.main(["--problem", problem]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("metric", "value", "unit", "vs_baseline", "baseline_kind",
+                "max_abs_dlogp_vs_reference", "accuracy_cases",
+                "max_abs_dlogp_vs_reference_n224", "problem", "comparison", "config",
+                "autotune_s", "comparisons", "seconds", "device_kind",
+                "useful_f32_flops_per_comparison", "achieved_useful_tflops", "bound_s",
+                "bound_by", "roofline_pct", "card"):
+        assert key in rec, key
+    assert rec["problem"] == problem and rec["comparison"] in ("K1", "K4", "hybrid")
+    assert rec["card"].startswith(torch.cuda.get_device_name(0)) and rec["card"].endswith("W")
+    assert rec["value"] > 0 and 0 < rec["roofline_pct"] <= 100

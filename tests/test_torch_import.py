@@ -25,10 +25,11 @@ assert not bad, bad
 print(" ".join(names))
 """
 
-# the accuracy, scale and profiling entry points and the examples
+# the accuracy, scale and profiling entry points, the benchmark harness and
+# the examples
 TOOLS = ("oracle", "golden_error_budget", "accuracy_probe", "problem", "profile_block",
          "trace_step", "pipeline_lab", "scale_bench", "stream_50k", "rank_bench",
-         "mesh_scale_bench", "noise_recovery_table")
+         "mesh_scale_bench", "noise_recovery_table", "bench")
 EXAMPLES = ("planted_recovery", "tutorial")
 
 

@@ -54,7 +54,7 @@ def test_lint_sees_the_port():
     rel = set(IDS)
     tools = ("oracle", "golden_error_budget", "accuracy_probe", "problem", "profile_block",
              "trace_step", "pipeline_lab", "scale_bench", "stream_50k", "rank_bench",
-             "mesh_scale_bench", "noise_recovery_table")
+             "mesh_scale_bench", "noise_recovery_table", "bench")
     assert {f"bioem_tpu_torch/tools/{t}.py" for t in tools} <= rel
     assert {"bioem_tpu_torch/examples/planted_recovery.py",
             "bioem_tpu_torch/examples/tutorial.py"} <= rel
