@@ -31,8 +31,9 @@
 //   bank (OC, N, Fp) once per oc, as interleaved complex rows padded with
 //   zeros to Fp = 64·⌈F/64⌉ (16-byte aligned rows), and W = [[wx_re,
 //   −wx_im], [wx_im, wx_re]] split hi/lo in TF32, cut into (N chunk, K
-//   chunk) blocks already in wgmma's shared-memory layout. Both go to
-//   scratch the wrapper allocates; the main kernel only copies them.
+//   chunk) blocks already in wgmma's shared-memory layout, and wy as
+//   (Fp, D) complex rows. All go to scratch the wrapper allocates; the
+//   main kernel only copies them.
 // * Roles. t1ᵀ (frequencies × 2Dp) = pᵀ (frequencies × 2M) · Wᵀ: 64
 //   frequencies of one image are wgmma's M (an m-tile; F = 113 gives two),
 //   a chunk of NP = 2·dc stacked t1 rows (dc lattice rows, re then im) its
@@ -58,20 +59,36 @@
 // * Stage 2 (cc = Re(t1·wyᵀ)) on the CUDA cores: a warpgroup writes its
 //   m-tile's t1 chunk to shared memory; thread (warp w, lane l) sums the
 //   lattice columns e ≡ l (mod 32) of rows d = dc·chunk + w·dc/4 + r over
-//   the m-tile (re and im terms apart, as K1 always did) into the image's
-//   cc lattice in shared memory (D² floats per warpgroup).
-// * The log-sum-exp (compare_lse.cuh) over the lattice by the warpgroup's
-//   128 threads. No atomics: two launches on the same inputs give the
-//   same bits.
-// * Shared memory: W and conv double buffers, the t1 tiles, wy and the
-//   lattices. The wrapper (ops/compare_cuda.k1_plan) picks the largest K
-//   chunk, with four warpgroups and then two, that fits a block; its
+//   the m-tile (re and im terms apart, as K1 always did) into the chunk's
+//   dc × D rows of the image's lattice in shared memory. wy is read only
+//   there, 64 frequencies × D at a time: the prologue writes it to scratch
+//   as (Fp, D) complex rows, and each m-tile's rows are copied to shared
+//   memory by cp.async with the m-tile's last K chunk, so the copy runs
+//   under the stage-1 products (one buffer; a block barrier orders it after
+//   every warpgroup's stage 2 of the previous m-tile).
+// * The lattice, one row chunk at a time. The lattice is walked in n_nc
+//   chunks of dc ≤ 32 rows (the outer loop, every m-tile inside it); after
+//   a chunk's last m-tile its rows are complete and only they are held.
+//   K1 reduces them (compare_lse.cuh) by the warpgroup's 128 threads and
+//   merges the chunk into a running (max, first-occurrence argmax, cc there,
+//   Σ exp) with the log-sum-exp's online rule, s ← s·e^(m − m') + s_c·e^(m_c − m'):
+//   the chunks come in flat-index order, so `better` keeps the first
+//   occurrence; a chunk whose values are all −inf adds nothing, a lattice
+//   all −inf ends as the plain version's (argmax 0, Σ exp NaN), and NaN
+//   wins and spreads as in jnp.argmax/max. With one chunk (D ≤ 32) this is
+//   the single reduction it always was. No atomics: two launches on the
+//   same inputs give the same bits.
+// * Shared memory: W and conv double buffers, the t1 tiles, one m-tile of
+//   wy (64 × D complex) and each warpgroup's chunk of the lattice (dc × D
+//   floats): nothing grows with F, and D only through those two tiles of
+//   fixed height. The wrapper (ops/compare_cuda.k1_plan) picks the largest
+//   K chunk, with four warpgroups and then two, that fits a block; its
 //   formula is bioem_fused_compare_smem_bytes below.
 // * K3 (body kCcOut) runs all of the above but the log-sum-exp: its
 //   prologue copies the conv bank it is given into the padded interleaved
 //   scratch instead of forming it, and each warpgroup writes its image's
-//   lattice from shared memory to out_cc[(oc·I + i)·D² + q], coalesced.
-//   It takes every shape K1 takes, with K1's tiling.
+//   lattice chunk by chunk from shared memory to out_cc[(oc·I + i)·D² + q],
+//   coalesced. It takes every shape K1 takes, with K1's tiling.
 // The body variant V is kFull (K1) or kCcOut (K3) in production; the
 // ablation probe P3 instantiates the others at NP = 48 with four
 // warpgroups only.
@@ -103,7 +120,7 @@ __host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 
 struct Plan {
   int D, M, F, n_fold, n_wg, KC;
   int Dp, n_nc, dc, NP, n_ks, n_kc, n_mt, Fp;
-  size_t w_chunk, cv_chunk;             // bytes of one W block, one conv chunk
+  size_t w_chunk, cv_chunk, wy_tile;    // bytes of one W block, one conv chunk, one m-tile of wy
   size_t w, cv, t1, wy, cc, bytes;      // shared-memory offsets and total
   size_t scratch_w;                     // bytes of the W blocks in scratch
 };
@@ -121,14 +138,21 @@ __host__ __device__ inline Plan plan(int D, int M, int F, int n_fold, int n_wg, 
   P.Fp = P.n_mt * kMT;
   P.w_chunk = (size_t)2 * P.NP * 32 * KC;  // hi then lo, NP rows × 32·KC bytes
   P.cv_chunk = sizeof(float2) * (size_t)KC * n_fold * 4 * kLdF;
+  P.wy_tile = sizeof(float2) * (size_t)kMT * D;
   P.w = 0;
   P.cv = P.w + 2 * P.w_chunk;
   P.t1 = P.cv + 2 * align128(P.cv_chunk);
   P.wy = P.t1 + align128(sizeof(float) * (size_t)n_wg * kMT * (P.NP + 4));
-  P.cc = P.wy + align128(sizeof(float2) * (size_t)D * F);
-  P.bytes = P.cc + align128(sizeof(float) * (size_t)n_wg * D * D);
+  P.cc = P.wy + align128(P.wy_tile);
+  P.bytes = P.cc + align128(sizeof(float) * (size_t)n_wg * P.dc * D);
   P.scratch_w = P.w_chunk * P.n_nc * P.n_kc;
   return P;
+}
+
+// Scratch: the conv bank (OC, N, Fp complex), the W blocks, wy as (Fp, D)
+// complex rows; each part starts on 128 bytes.
+__host__ __device__ inline size_t scratch_conv_bytes(const Plan& P, int OC, int N) {
+  return align128(sizeof(float2) * (size_t)OC * N * P.Fp);
 }
 
 // ---------------------------------------------------------------------------
@@ -148,7 +172,7 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// Prologue: the conv bank and the W blocks
+// Prologue: the conv bank, the W blocks and wy
 // ---------------------------------------------------------------------------
 
 // CONV_IN (K3): proj_re/proj_im hold the conv bank (OC, N, F) itself, which
@@ -157,12 +181,15 @@ template <bool CONV_IN>
 __global__ void __launch_bounds__(kPrepThreads)
 compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __restrict__ proj_im,
             const float* __restrict__ ctf_re, const float* __restrict__ ctf_im,
-            const float* __restrict__ wx_re, const float* __restrict__ wx_im, Plan P, int C,
-            int OC, int N, float2* __restrict__ conv, unsigned char* __restrict__ wblk) {
+            const float* __restrict__ wx_re, const float* __restrict__ wx_im,
+            const float* __restrict__ wy_re, const float* __restrict__ wy_im, Plan P, int C,
+            int OC, int N, float2* __restrict__ conv, unsigned char* __restrict__ wblk,
+            float2* __restrict__ wyp) {
   const size_t n_conv = (size_t)OC * N * P.Fp;
   const size_t n_w = (size_t)P.n_nc * P.n_kc * P.NP * 8 * P.KC;
+  const size_t n_wy = (size_t)P.Fp * P.D;
   const size_t NF = (size_t)N * P.F;
-  for (size_t q = (size_t)blockIdx.x * kPrepThreads + threadIdx.x; q < n_conv + n_w;
+  for (size_t q = (size_t)blockIdx.x * kPrepThreads + threadIdx.x; q < n_conv + n_w + n_wy;
        q += (size_t)gridDim.x * kPrepThreads) {
     if (q < n_conv) {
       const int f = (int)(q % P.Fp);
@@ -179,6 +206,14 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
         v = make_float2(xr * kr + xi * ki_, xi * kr - xr * ki_);
       }
       conv[q] = v;
+      continue;
+    }
+    if (q >= n_conv + n_w) {
+      // wy row f (frequency), column e; rows f ≥ F are zero
+      const size_t qy = q - n_conv - n_w;
+      const int f = (int)(qy / P.D), e = (int)(qy % P.D);
+      wyp[qy] = f < P.F ? make_float2(wy_re[(size_t)e * P.F + f], wy_im[(size_t)e * P.F + f])
+                        : make_float2(0.f, 0.f);
       continue;
     }
     // W block (nc, kc): row n < dc is t1_re[d], row dc + d' is t1_im[d];
@@ -241,8 +276,8 @@ template <int NP, int NWG, int V>
 __global__ void __launch_bounds__(128 * NWG, 1)
 compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __restrict__ wblk,
                      const float* __restrict__ img_re, const float* __restrict__ img_im,
-                     const float* __restrict__ wy_re, const float* __restrict__ wy_im,
-                     const float* __restrict__ a_u, const float* __restrict__ b_u,
+                     const float2* __restrict__ wyp, const float* __restrict__ a_u,
+                     const float* __restrict__ b_u,
                      float a_coef, Plan P, int I, int N, float* __restrict__ out_m,
                      float* __restrict__ out_se, int* __restrict__ out_ds,
                      float* __restrict__ out_ccs) {
@@ -252,6 +287,10 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ float red_v[NWG][4], red_s[NWG][4];
   __shared__ int red_i[NWG][4];
+  // each warpgroup's running (max, Σ exp, cc there, argmax) over the chunks
+  // merged so far: read and written by its thread 0 only
+  __shared__ float run_v[NWG], run_s[NWG], run_c[NWG];
+  __shared__ int run_i[NWG];
 
   const int D = P.D, M = P.M, F = P.F, n_fold = P.n_fold, DD = D * D;
   const int dc = P.dc, KC = P.KC, n_ks = P.n_ks, ldt = NP + 4;
@@ -265,7 +304,7 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   const size_t cv_stride = align128(P.cv_chunk) / sizeof(float2);
   float* t1w = reinterpret_cast<float*>(smem + P.t1) + (size_t)wgi * kMT * ldt;
   float2* wys = reinterpret_cast<float2*>(smem + P.wy);
-  float* ccw = reinterpret_cast<float*>(smem + P.cc) + (size_t)wgi * DD;
+  float* ccw = reinterpret_cast<float*>(smem + P.cc) + (size_t)wgi * dc * D;
 
   const int oc = blockIdx.y;
   const int i_raw = blockIdx.x * NWG + wgi;
@@ -275,16 +314,16 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   const float* ir_p = img_re + (size_t)i * NF;
   const float* ii_p = img_im + (size_t)i * NF;
   const float2* conv_oc = conv + (size_t)oc * N * P.Fp;
-
-  if constexpr (V != kMmOnly) {
-    for (int q = tid; q < F * D; q += kThreads) {
-      const int f = q / D, e = q - f * D;
-      wys[q] = make_float2(wy_re[e * F + f], wy_im[e * F + f]);
-    }
+  if (wt == 0) {
+    run_v[wgi] = -INFINITY;
+    run_s[wgi] = 0.f;
+    run_c[wgi] = 0.f;
+    run_i[wgi] = DD;
   }
 
   // Copy K chunk kc (of N chunk nc, m-tile at frequency fb) into buffer b:
-  // W's block, and conv rows j + k·M (j = 4·step + u) as [step][k][u][kLdF].
+  // W's block, and conv rows j + k·M (j = 4·step + u) as [step][k][u][kLdF];
+  // with the m-tile's last chunk also its 64 rows of wy, for stage 2.
   auto issue = [&](int nc, int kc, int fb, int b) {
     const unsigned char* src = wblk + ((size_t)nc * P.n_kc + kc) * P.w_chunk;
     unsigned char* dst = wbuf + (size_t)b * P.w_chunk;
@@ -301,6 +340,12 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         const float2* src_row = conv_oc + (size_t)(ok ? j + k * M : 0) * P.Fp + fb + 2 * c2;
         cp16(cdst + (size_t)row * kLdF + 2 * c2, src_row, ok);
       }
+      if (kc == P.n_kc - 1) {
+        const unsigned char* ysrc = reinterpret_cast<const unsigned char*>(wyp + (size_t)fb * D);
+        unsigned char* ydst = reinterpret_cast<unsigned char*>(wys);
+        for (size_t q = (size_t)tid * 16; q < P.wy_tile; q += (size_t)kThreads * 16)
+          cp16(ydst + q, ysrc + q, true);
+      }
     }
     cp_commit();
   };
@@ -309,6 +354,10 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   for (int nc = 0; nc < P.n_nc; ++nc) {
     for (int mt = 0; mt < P.n_mt; ++mt) {
       const int fb = mt * kMT;
+      // Every warpgroup is done with the previous m-tile's wy (stage 2)
+      // before this m-tile's copy overwrites it. With three or more K chunks
+      // the copy goes out after the first chunk's barrier, which orders it.
+      if (nc + mt > 0 && P.n_kc <= 2) __syncthreads();
       // This thread's fragment rows: frequencies f0 and f0 + 8 of its image.
       const int f0 = fb + 16 * warp + g, f1 = f0 + 8;
       const bool v0 = f0 < F, v1 = f1 < F;
@@ -454,7 +503,7 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
 #pragma unroll
           for (int r = 0; r < DR; ++r) sr[r] = si[r] = 0.f;
           for (int fl = 0; fl < fcn; ++fl) {
-            const float2 w = wys[(fb + fl) * D + e];
+            const float2 w = wys[fl * D + e];
             const float* row = t1w + fl * ldt + dl0;
 #pragma unroll
             for (int r = 0; r < DR; r += 2) {
@@ -468,79 +517,94 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
           }
 #pragma unroll
           for (int r = 0; r < DR; ++r) {
-            const int d = nc * dc + dl0 + r;
-            if (d < D) {
+            if (nc * dc + dl0 + r < D) {
+              float* c = ccw + (dl0 + r) * D + e;
               const float v = sr[r] - si[r];
-              ccw[d * D + e] = mt == 0 ? v : ccw[d * D + e] + v;
+              *c = mt == 0 ? v : *c + v;
             }
+          }
+        }
+      }
+    }
+
+    if constexpr (V != kMmOnly) {
+      // The chunk's rows d0 ≤ d < d0 + rows (rows ≥ 1 at every D a plan
+      // fits) are complete in ccw: flat lattice indices q0 + q, q < nq.
+      const int d0 = nc * dc;
+      const int rows = D - d0 < dc ? D - d0 : dc;
+      const int q0 = d0 * D, nq = rows * D;
+      const size_t oi = (size_t)oc * I + i;
+      wg::wg_barrier(bar);
+      if constexpr (V == kCcOut) {
+        // K3: the chunk's rows out (out_ccs is the (OC, I, D, D) cc tensor)
+        if (has) {
+          float* dst = out_ccs + oi * DD + q0;
+          for (int q = wt; q < nq; q += 128) dst[q] = ccw[q];
+        }
+      } else if constexpr (V == kNoLse) {
+        for (int q = wt; q < nq; q += 128) chk += ccw[q];
+      } else {
+        // The chunk's log-sum-exp, merged into the running one.
+        const float au = a_u[oi], bu = b_u[oi];
+        float best = -INFINITY;
+        int bidx = DD;
+        for (int q = wt; q < nq; q += 128) {
+          const float v = bioem_lse::lattice_value(ccw[q], au, bu, a_coef);
+          if (bioem_lse::better(v, q0 + q, best, bidx)) {
+            best = v;
+            bidx = q0 + q;
+          }
+        }
+        bioem_lse::warp_argmax(best, bidx);
+        if (lane == 0) {
+          red_v[wgi][warp] = best;
+          red_i[wgi][warp] = bidx;
+        }
+        wg::wg_barrier(bar);
+        if (wt == 0) {
+          for (int w = 1; w < 4; ++w)
+            if (bioem_lse::better(red_v[wgi][w], red_i[wgi][w], best, bidx)) {
+              best = red_v[wgi][w];
+              bidx = red_i[wgi][w];
+            }
+          red_v[wgi][0] = best;
+        }
+        wg::wg_barrier(bar);
+        const float mx = red_v[wgi][0];
+        float s = 0.f;
+        for (int q = wt; q < nq; q += 128)
+          s += expf(bioem_lse::lattice_value(ccw[q], au, bu, a_coef) - mx);
+        s = wg_sum(s, red_s[wgi], bar);
+        if (wt == 0) {
+          // s ← s·e^(m − mx) + s_c where the chunk ranks above the run,
+          // else s + s_c·e^(mx − m); a chunk all −inf adds nothing (its
+          // s_c is NaN, its true share 0). NaN and +inf carry NaN on.
+          const float rm = run_v[wgi];
+          if (bioem_lse::better(mx, bidx, rm, run_i[wgi])) {
+            if (mx != -INFINITY) run_s[wgi] = run_s[wgi] * expf(rm - mx) + s;
+            run_v[wgi] = mx;
+            run_i[wgi] = bidx;
+            run_c[wgi] = ccw[bidx - q0];
+          } else if (mx != -INFINITY) {
+            run_s[wgi] += s * expf(mx - rm);
           }
         }
       }
     }
   }
 
+  if constexpr (V == kCcOut) return;  // K3 wrote its lattice chunk by chunk
   const size_t oi = (size_t)oc * I + i;
-  if constexpr (V == kMmOnly) {
+  if constexpr (V == kMmOnly || V == kNoLse) {
     const float s = wg_sum(chk, red_s[wgi], bar);
     if (wt == 0 && has) out_m[oi] = s;
-    return;
-  }
-  wg::wg_barrier(bar);  // the whole lattice is in ccw
-  if constexpr (V == kCcOut) {
-    // K3: the lattice out (out_ccs is the (OC, I, D, D) cc tensor)
-    if (has) {
-      float* dst = out_ccs + oi * DD;
-      for (int q = wt; q < DD; q += 128) dst[q] = ccw[q];
-    }
-    return;
-  }
-  if constexpr (V == kNoLse) {
-    float s = 0.f;
-    for (int q = wt; q < DD; q += 128) s += ccw[q];
-    s = wg_sum(s, red_s[wgi], bar);
-    if (wt == 0 && has) out_m[oi] = s;
-    return;
-  }
-
-  // Displacement log-sum-exp over the D² lattice.
-  const float au = a_u[oi], bu = b_u[oi];
-  float best = -INFINITY;
-  int bidx = DD;
-  for (int q = wt; q < DD; q += 128) {
-    const float v = bioem_lse::lattice_value(ccw[q], au, bu, a_coef);
-    if (bioem_lse::better(v, q, best, bidx)) {
-      best = v;
-      bidx = q;
-    }
-  }
-  bioem_lse::warp_argmax(best, bidx);
-  if (lane == 0) {
-    red_v[wgi][warp] = best;
-    red_i[wgi][warp] = bidx;
-  }
-  wg::wg_barrier(bar);
-  if (wt == 0) {
-    for (int w = 1; w < 4; ++w)
-      if (bioem_lse::better(red_v[wgi][w], red_i[wgi][w], best, bidx)) {
-        best = red_v[wgi][w];
-        bidx = red_i[wgi][w];
-      }
-    if (bidx >= DD) bidx = 0;  // every v is −inf: argmax of an all-equal row
-    red_v[wgi][0] = best;
-    red_i[wgi][0] = bidx;
-  }
-  wg::wg_barrier(bar);
-  const float mx = red_v[wgi][0];
-  const int arg = red_i[wgi][0];
-  float s = 0.f;
-  for (int q = wt; q < DD; q += 128)
-    s += expf(bioem_lse::lattice_value(ccw[q], au, bu, a_coef) - mx);
-  s = wg_sum(s, red_s[wgi], bar);
-  if (wt == 0 && has) {
-    out_m[oi] = mx;
-    out_se[oi] = s;
-    out_ds[oi] = arg;
-    out_ccs[oi] = ccw[arg];
+  } else if (wt == 0 && has) {
+    // the first chunk always ranks above the (−inf, D²) start: run_i < D²
+    out_m[oi] = run_v[wgi];
+    // every v is −inf: Σ exp(v − max) is NaN, as in the plain version
+    out_se[oi] = run_v[wgi] == -INFINITY ? NAN : run_s[wgi];
+    out_ds[oi] = run_i[wgi];
+    out_ccs[oi] = run_c[wgi];
   }
 }
 
@@ -553,13 +617,15 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
            cudaStream_t stream) {
   const int OC = O * C;
   float2* conv = reinterpret_cast<float2*>(scratch);
-  unsigned char* wblk =
-      reinterpret_cast<unsigned char*>(scratch) + align128(sizeof(float2) * (size_t)OC * N * P.Fp);
-  const size_t n_prep = (size_t)OC * N * P.Fp + (size_t)P.n_nc * P.n_kc * P.NP * 8 * P.KC;
+  unsigned char* wblk = reinterpret_cast<unsigned char*>(scratch) + scratch_conv_bytes(P, OC, N);
+  float2* wyp = reinterpret_cast<float2*>(wblk + align128(P.scratch_w));
+  const size_t n_prep = (size_t)OC * N * P.Fp + (size_t)P.n_nc * P.n_kc * P.NP * 8 * P.KC +
+                        (size_t)P.Fp * P.D;
   const size_t blocks = (n_prep + kPrepThreads - 1) / kPrepThreads;
   compare_fused_prep_kernel<V == kCcOut>
       <<<(unsigned)(blocks < 4096 ? blocks : 4096), kPrepThreads, 0, stream>>>(
-          proj_re, proj_im, ctf_re, ctf_im, wx_re, wx_im, P, C, OC, N, conv, wblk);
+          proj_re, proj_im, ctf_re, ctf_im, wx_re, wx_im, wy_re, wy_im, P, C, OC, N, conv, wblk,
+          wyp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(compare_fused_kernel<NP, NWG, V>,
@@ -567,7 +633,7 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((I + NWG - 1) / NWG, OC);
   compare_fused_kernel<NP, NWG, V><<<grid, 128 * NWG, P.bytes, stream>>>(
-      conv, wblk, img_re, img_im, wy_re, wy_im, a_u, b_u, a_coef, P, I, N, m, se, ds, ccs);
+      conv, wblk, img_re, img_im, wyp, a_u, b_u, a_coef, P, I, N, m, se, ds, ccs);
   return (int)cudaGetLastError();
 }
 
@@ -588,12 +654,12 @@ size_t bioem_fused_compare_smem_bytes(int D, int M, int F, int n_fold, int n_wg,
 }
 
 // Bytes of scratch K1 needs for OC orientation·ctf pairs at N: the conv
-// bank and the W blocks.
+// bank, the W blocks and wy.
 size_t bioem_fused_compare_scratch_bytes(int OC, int N, int D, int M, int F, int n_fold,
                                          int n_wg, int KC) {
   if (!valid(D, M, F, n_fold, n_wg, KC)) return 0;
   const Plan P = plan(D, M, F, n_fold, n_wg, KC);
-  return align128(sizeof(float2) * (size_t)OC * N * P.Fp) + P.scratch_w;
+  return scratch_conv_bytes(P, OC, N) + align128(P.scratch_w) + sizeof(float2) * (size_t)P.Fp * D;
 }
 
 #define BIOEM_K1_ARGS                                                                    \

@@ -6,7 +6,13 @@ Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 ``fused_displacement_cc``). K1 is ``csrc/compare_fused.cu``: a CTA per
 (orientation·ctf, run of images), conv formed once per orientation·ctf,
 stage 1 on warpgroup wgmma in 3xTF32 with W streamed through shared
-memory (any lattice width and fold; :func:`k1_plan` tiles it). K3 is the
+memory, the lattice walked in chunks of ≤ 32 rows with an online
+log-sum-exp and wy staged 64 frequencies at a time, so that its shared
+memory does not grow with F and grows with D only through those tiles:
+:func:`k1_plan` tiles every odd D up to 129 (±64 at stride 1) at every N
+up to 512, folds 1 and 2, and wider ones (four warpgroups up to D = 145
+at fold 1, 141 at fold 2; two up to 239, 235); where no tiling fits the
+launch raises. K3 is the
 same kernel in its cc-out body: its prologue copies the conv bank it is
 given, and each warpgroup writes its image's lattice in place of the
 log-sum-exp; it takes every shape K1 takes, with K1's tiling. K4 is
@@ -39,8 +45,11 @@ from . import _build
 
 F32 = torch.float32
 
-# Dynamic shared memory one block may use on Hopper (232,448 bytes).
+# Shared memory one block may use on Hopper (232,448 bytes).
 MAX_SMEM = 232448
+# K1's static shared memory (its reduction and running log-sum-exp slots,
+# at most four warpgroups), which the dynamic part must leave room for.
+K1_STATIC_SMEM = 256
 
 
 def _fold(p: torch.Tensor, n_fold: int, m: int) -> torch.Tensor:
@@ -98,25 +107,30 @@ def k1_smem_bytes(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> in
     """Dynamic shared memory of K1 with ``n_wg`` warpgroups and K chunks of
     ``kc`` steps (csrc/compare_fused.cu ``plan``; the C entry
     ``bioem_fused_compare_smem_bytes`` gives the same number): W's hi/lo
-    block and the chunk's conv rows, double-buffered; the t1 tiles; wy; the
-    lattices."""
+    block and the chunk's conv rows, double-buffered; the t1 tiles; one
+    m-tile of wy (64 × D complex); each warpgroup's chunk of the lattice
+    (dc ≤ 32 rows × D). No term depends on M or F."""
     dp = _cdiv(d, 8) * 8
     n_nc = _cdiv(dp, 32)
-    n_p = 2 * _cdiv(_cdiv(dp, n_nc), 8) * 8
+    dc = _cdiv(_cdiv(dp, n_nc), 8) * 8
+    n_p = 2 * dc
     w_chunk = 2 * n_p * 32 * kc
     cv_chunk = 8 * kc * n_fold * 4 * 68
     return (2 * w_chunk + 2 * _a128(cv_chunk) + _a128(4 * n_wg * 64 * (n_p + 4))
-            + _a128(8 * d * f) + _a128(4 * n_wg * d * d))
+            + _a128(8 * 64 * d) + _a128(4 * n_wg * dc * d))
 
 
-def k1_plan(d: int, m: int, f: int, n_fold: int):
-    """K1's tiling at (D, M, F, n_fold): (warpgroups, K-chunk steps, shared
-    bytes), four warpgroups before two and the longest K chunk first that
-    fits one block; None if none does."""
+def k1_plan(d: int, m: int, f: int, n_fold: int, smem_bytes=k1_smem_bytes):
+    """K1's tiling at (D, M, F, n_fold): (warpgroups, K-chunk steps, dynamic
+    shared bytes), four warpgroups before two and the longest K chunk first
+    that fits one block beside :data:`K1_STATIC_SMEM`; None if none does.
+    ``smem_bytes``: the shared-memory formula (a kernel library's
+    ``bioem_fused_compare_smem_bytes``, 0 for a tiling it has not, for
+    another checkout's kernel: tools/kernel_ab.py)."""
     for n_wg in (4, 2):
         for kc in (8, 4, 2, 1):
-            b = k1_smem_bytes(d, m, f, n_fold, n_wg, kc)
-            if b <= MAX_SMEM:
+            b = smem_bytes(d, m, f, n_fold, n_wg, kc)
+            if 0 < b and b + K1_STATIC_SMEM <= MAX_SMEM:
                 return n_wg, kc, b
     return None
 

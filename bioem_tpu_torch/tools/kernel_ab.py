@@ -1,6 +1,7 @@
 """A/B of the kernels K1–K4 and the probe P1 against another checkout's, on one card.
 
     python -m bioem_tpu_torch.tools.kernel_ab OTHER_ROOT [--reps 20] [--kernels K1,K2,K3,K4,P1]
+        [--block production|reference]
 
 Builds the kernel library of ``OTHER_ROOT/bioem_tpu_torch`` with that
 checkout's own ``ops/_build.py`` and times its K1 (``bioem_fused_compare``),
@@ -8,7 +9,9 @@ K2 (``bioem_fourier_project``), K3 (``bioem_fused_displacement_cc``) and K4
 (``bioem_fused_compare_batched``, tiles 8 and 16) against this checkout's,
 in one process on the production block's inputs
 (``kernel_probe.production_block_inputs`` and
-``production_projection_inputs``), in turns other, this, this, other.
+``production_projection_inputs``; ``--block reference``: K1 and K3 on a
+block of the reference's production grid, O=8, C=32, I=64, N=224, D=81 at
+stride 1, :data:`BLOCKS`), in turns other, this, this, other.
 Prints each time (the card's own time, ``kernel_probe.device_ms``: the
 launches queued behind a spin of the card, so that the host's time to
 launch them does not enter, which matters for K2's tens of microseconds;
@@ -18,8 +21,9 @@ between the two libraries' outputs:
 (K3 bit-equal when it is 0). K1, K2 and K3 have changed their C
 signatures (K1 and K3 now take K1's tiling and a scratch buffer, K2
 per-group point counts); the other side is called with the signature its
-``_build.SIGNATURES`` declares (a K1 or K3 of the new signature with this
-checkout's tiling), so any checkout that has K4 can be the other side.
+``_build.SIGNATURES`` declares (a K1 or K3 of the new signature with the
+tiling its own library's shared-memory formula gives, :func:`lib_plan`),
+so any checkout that has K4 can be the other side.
 P1 (``bioem_probe_f32_product``, whose C signature has not changed) is
 timed scheme by scheme at K4's stage-1 shape (``kernel_probe.K4_STAGE1``:
 512 products of (48×224)·(224×1024)), with the largest difference between
@@ -39,8 +43,8 @@ from ..ops import _build, compare_cuda, probe_cuda
 from .kernel_probe import (
     K4_STAGE1,
     _require_card,
+    block_inputs,
     device_ms,
-    production_block_inputs,
     production_projection_inputs,
 )
 
@@ -58,12 +62,30 @@ def other_library(root: str):
     return mod
 
 
+# The blocks K1 and K3 run on: (O, C, I, N, D, stride). "reference" is a
+# block of the reference's production grid (4608 × 32 CTFs × D = 81).
+BLOCKS = {"production": (8, 8, 64, 224, 21, 2), "reference": (8, 32, 64, 224, 81, 1)}
+
+
+def lib_plan(lib, d: int, m: int, f: int, n_fold: int) -> tuple:
+    """K1's tiling (warpgroups, K-chunk steps) by ``compare_cuda.k1_plan``
+    from a kernel library's own shared-memory formula: each checkout's K1
+    and K3 run with the plan its own kernel was built for."""
+    plan = compare_cuda.k1_plan(d, m, f, n_fold, lib.bioem_fused_compare_smem_bytes)
+    if plan is None:
+        raise ValueError(f"no K1 tiling at D={d}, M={m}, F={f}, n_fold={n_fold}")
+    return plan[:2]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
                     help="comma-separated subset of K1,K2,K3,K4,P1 (default: K1–K4)")
+    ap.add_argument("--block", choices=sorted(BLOCKS), default="production",
+                    help="the comparison block K1, K3 and K4 run on (K4 has no instance "
+                         "for the reference grid's D = 81)")
     args = ap.parse_args(argv)
     chosen = set(args.kernels.split(","))
     dev = _require_card()
@@ -74,15 +96,19 @@ def main(argv=None) -> int:
     other_k2_old = len(mod.SIGNATURES["bioem_fourier_project"]) == 13
     # The earlier K3 entry: eight inputs, seven ints, the output, the stream.
     other_k3_old = len(mod.SIGNATURES["bioem_fused_displacement_cc"]) == 17
-    inputs, a_coef, n_fold = production_block_inputs(dev)
+    inputs, a_coef, n_fold = block_inputs(dev, *BLOCKS[args.block])
     (o, n, f), c, i, (d, m) = inputs[0].shape, inputs[2].shape[0], inputs[4].shape[0], inputs[6].shape
+    plans = {side: lib_plan(lib, d, m, f, n_fold) for side, lib in libs.items()
+             if not (side == "other" and other_k1_old)}
+    if d > 32:
+        chosen.discard("K4")
     proj = production_projection_inputs(dev)
     conv_re = (inputs[0][:, None] * inputs[2][None] + inputs[1][:, None] * inputs[3][None]).reshape(o * c, n, f)
     conv_im = (inputs[1][:, None] * inputs[2][None] - inputs[0][:, None] * inputs[3][None]).reshape(o * c, n, f)
     k3_in = (conv_re, conv_im, *inputs[4:10])
-    print(f"card: {torch.cuda.get_device_name(dev)}; production block O={o} C={c} I={i} "
-          f"N={n} F={f} D={d} n_fold={n_fold}; K2 G={proj[0].shape[0]} Pp={proj[0].shape[2]} "
-          f"with {int(proj[5].sum())} points", flush=True)
+    print(f"card: {torch.cuda.get_device_name(dev)}; {args.block} block O={o} C={c} I={i} "
+          f"N={n} F={f} D={d} n_fold={n_fold}; K1/K3 plans {plans}; K2 G={proj[0].shape[0]} "
+          f"Pp={proj[0].shape[2]} with {int(proj[5].sum())} points", flush=True)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
 
     def call(side: str, kernel: str, tile: int):
@@ -105,7 +131,7 @@ def main(argv=None) -> int:
             if side == "other" and other_k3_old:
                 status = lib.bioem_fused_displacement_cc(*head, cc.data_ptr(), stream())
             else:
-                n_wg, kc, _ = compare_cuda.k1_plan(d, m, f, n_fold)
+                n_wg, kc = plans[side]
                 scratch = compare_cuda._scratch(lib, o * c, n, d, m, f, n_fold, n_wg, kc, dev)
                 status = lib.bioem_fused_displacement_cc(*head, n_wg, kc, cc.data_ptr(),
                                                          scratch.data_ptr(), stream())
@@ -115,8 +141,8 @@ def main(argv=None) -> int:
             return compare_cuda.launch_k1("this K1", inputs, a_coef, n_fold)
         outs = compare_cuda._summary_outputs(o * c, i, dev)
         if kernel == "K1" and not other_k1_old:
-            # the other side has this checkout's K1 entry: this checkout's tiling
-            n_wg, kc, _ = compare_cuda.k1_plan(d, m, f, n_fold)
+            # the other side has this checkout's K1 entry, with its own tiling
+            n_wg, kc = plans[side]
             scratch = compare_cuda._scratch(lib, o * c, n, d, m, f, n_fold, n_wg, kc, dev)
             status = lib.bioem_fused_compare(
                 *(t.data_ptr() for t in inputs), float(a_coef), o, c, i, n, f, d, m, n_fold,

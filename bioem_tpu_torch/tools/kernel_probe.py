@@ -240,14 +240,17 @@ def probe_issue_overhead(say=print) -> dict:
     return out
 
 
-def production_block_inputs(dev, seed: int = 2):
-    """Random inputs of one production comparison block (O=8, C=8, I=64,
-    N=224, F=113, D=21 at stride 2, n_fold=2) with the true lattice DFT
-    weights: the twelve arguments of fused_compare_block, a_coef and
-    n_fold."""
-    o, c, i, n, n_fold = 8, 8, 64, 224, 2
-    f, m = n // 2 + 1, n // n_fold
-    disp = np.concatenate([np.arange(0, 21, 2), np.arange(-20, 0, 2)]).astype(np.int32)
+def block_inputs(dev, o: int, c: int, i: int, n: int, n_disp: int, stride: int,
+                 seed: int = 2):
+    """Random inputs of one comparison block at (O, C, I, N) on the lattice
+    of ``n_disp`` displacements per axis at ``stride`` (the engine's order:
+    0, s, …, then the negative ones; rows folded ``stride`` times), with
+    the true lattice DFT weights: the twelve arguments of
+    fused_compare_block, a_coef and n_fold. a_u, b_u at the production
+    block's scales (1e-6, 1e-9)."""
+    f, m = n // 2 + 1, n // stride
+    h = n_disp // 2 * stride
+    disp = np.concatenate([np.arange(0, h + 1, stride), np.arange(-h, 0, stride)]).astype(np.int32)
     wx, wy = displacement_dft_weights(n, disp)
     rng = np.random.default_rng(seed)
     g = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)  # noqa: E731
@@ -255,7 +258,13 @@ def production_block_inputs(dev, seed: int = 2):
     args = (r(o, n, f), r(o, n, f), r(c, n, f), r(c, n, f), r(i, n, f), r(i, n, f),
             g(wx.real[:, :m]), g(wx.imag[:, :m]), g(wy.real), g(wy.imag),
             g(np.abs(rng.normal(0, 1e-6, (o * c, i)))), g(np.abs(rng.normal(0, 1e-9, (o * c, i)))))
-    return args, (3.0 - n * n) * 0.5, n_fold
+    return args, (3.0 - n * n) * 0.5, stride
+
+
+def production_block_inputs(dev, seed: int = 2):
+    """Random inputs of one production comparison block (O=8, C=8, I=64,
+    N=224, F=113, D=21 at stride 2, n_fold=2): :func:`block_inputs`."""
+    return block_inputs(dev, 8, 8, 64, 224, 21, 2, seed)
 
 
 PROJ_GROUP_POINTS = (80, 80, 60, 50, 40, 35, 30, 30, 25, 20, 20, 15, 10, 5)

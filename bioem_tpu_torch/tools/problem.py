@@ -129,20 +129,25 @@ def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
 
 # The reference's production grid (BASELINE.md, first table; SURVEY.md §6):
 # 4608 quaternions × 32 CTFs (4 B-env × 8 defocus) × 81×81 displacements
-# at stride 1 (D = 81, M = N = 224: K1's two-warpgroup tiling, no K4).
+# at stride 1 (D = 81, M = N = 224: K1 on four warpgroups, no K4).
 REFERENCE_GRID = dict(n_orient=4608, max_disp=40, disp_step=1, n_phase=8, n_env=4)
+# The same grid searching ±60 pixels (D = 121), a lattice the earlier K1
+# refused for its shared memory.
+WIDE_GRID = {**REFERENCE_GRID, "max_disp": 60}
 
 
-def reference_grid_params(n_pix: int = 224) -> str:
-    """:data:`REFERENCE_GRID` as a parameter file for the CLI (to be read
-    with ``--ReadOrientation`` and a quaternion list)."""
+def reference_grid_params(n_pix: int = 224, max_disp: int = 40) -> str:
+    """:data:`REFERENCE_GRID` (or, with ``max_disp`` 60, :data:`WIDE_GRID`)
+    as a parameter file for the CLI (to be read with ``--ReadOrientation``
+    and a quaternion list)."""
     return (f"PIXEL_SIZE 1.06\nNUMBER_PIXELS {n_pix}\nCTF_B_ENV 2.0 100.0 4\n"
-            "CTF_DEFOCUS 0.5 2.5 8\nCTF_AMPLITUDE 0.1 0.1 1\nDISPLACE_CENTER 40 1\n"
+            f"CTF_DEFOCUS 0.5 2.5 8\nCTF_AMPLITUDE 0.1 0.1 1\nDISPLACE_CENTER {max_disp} 1\n"
             "USE_QUATERNIONS\n")
 
 
 def write_reference_grid(work: str, problem) -> list:
-    """A problem built at :data:`REFERENCE_GRID` written to ``work`` as the
+    """A problem built at :data:`REFERENCE_GRID` (or :data:`WIDE_GRID`, or
+    a cut of either) written to ``work`` as the
     CLI reads it: ``param.txt``, the quaternion list ``quat.txt``, the
     model as text and the images as an MRC stack (the reference's MRC
     sections are the maps transposed). Returns the CLI's arguments."""
@@ -153,7 +158,7 @@ def write_reference_grid(work: str, problem) -> list:
 
     p, orients, model, images = problem[:4]
     with open(os.path.join(work, "param.txt"), "w") as f:
-        f.write(reference_grid_params(p.n_pixels))
+        f.write(reference_grid_params(p.n_pixels, p.max_displace_center))
     write_quaternion_list(os.path.join(work, "quat.txt"), orients.angles)
     with open(os.path.join(work, "model.txt"), "w") as f:
         for (x, y, z), r, d in zip(model.points, model.radii, model.densities):

@@ -22,7 +22,9 @@ the port's main path on the card, in phases (each prints its own lines):
    times; the cc-lattice kernel (K3, K1's kernel writing the lattice)
    against an f64 lattice at the production shapes, at N = 15 and on the
    stride-1 ±30 lattice at N = 224 (D = 61, M = 224), and twice to the
-   same bits;
+   same bits; K1 and K3 on lattices the earlier K1 refused or ran on two
+   warpgroups (N = 224, D = 121; N = 512, D = 81: four warpgroups, the
+   lattice in row chunks), K1 at D = 121 timed beside its bound;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
    images at N=224) through run_bioem: on the kernel branch with K1 (then
@@ -104,15 +106,21 @@ the port's main path on the card, in phases (each prints its own lines):
    K4): one JSON line each with every key, the card named, the pass at or
    below 100 % of its bound;
 22. the reference's production grid: K1 and K3 at its block (D = 81,
-   M = 224: the two-warpgroup instance, plan (2, 4)) against their plain
-   versions and K1 timed beside its bound (the kernels line's
-   ``fused_compare_block (D=81, two warpgroups)`` row); then 4608
-   quaternions × 32 CTFs × 64 planted images at D = 81 through the port's
-   CLI (--ReadOrientation, --ReadMRC): K1 at plan (2, 4), K4 never, finite
-   logP, the planted orientation and CTF recovered; and a cut of ~128
-   orientations on the plain branch, K1 and the hybrid with argmax tuples
-   equal;
-23. the C2 check: the production shape cut to 4 planted images × 16
+   M = 224: four warpgroups, plan (4, 4)) against their plain versions and
+   K1 timed beside its bound (the kernels line's ``fused_compare_block
+   (D=81)`` row); then 4608 quaternions × 32 CTFs × 64 planted images at
+   D = 81 through the port's CLI (--ReadOrientation, --ReadMRC): K1 at
+   plan (4, 4), K4 never, finite logP, the planted orientation and CTF
+   recovered; and a cut of ~128 orientations on the plain branch, K1 and
+   the hybrid with argmax tuples equal;
+23. the wide grid (the reference grid searching ±60 pixels, D = 121):
+   its cut of ~128 orientations × 32 CTFs × 64 planted images through the
+   port's CLI on the kernel branch (K1 on four warpgroups, K4 never) and
+   on the plain branch, argmax tuples equal, finite logP, the planted
+   parameters recovered; and its C2 cut (2 images × 4 orientations × 32
+   CTFs) on the plain branch, K1 and the hybrid (K3) against the f64
+   oracle;
+24. the C2 check: the production shape cut to 4 planted images × 16
    orientations × 8 CTFs, and the reference grid cut to 2 images × 4
    orientations × 32 CTFs, on every kernel configuration and the plain
    branch against the all-f64 oracle (tools/oracle.py, on the host): no
@@ -128,8 +136,8 @@ passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
 K3; the accuracy phase K1, K3 and K4; the examples K2 and K3; the profile
 tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3; the
 harness K2 and K3 on bench.py's problem, K2 and K1 or K4 on the planted one;
-the reference grid K1, K2 and K3; the C2 check K1, K2, K3 and K4. Each
-part's line gives its seconds.
+the reference grid and the wide grid K1, K2 and K3; the C2 check K1, K2,
+K3 and K4. Each part's line gives its seconds.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
 least time the card could take for the same work (``bound_ms``, from the
@@ -250,7 +258,7 @@ def _block_inputs(eng, b: int = 0):
     )
 
 
-def check_compare(torch, name, args, a_coef, n_fold, img_tile=None):
+def check_compare(torch, name, args, a_coef, n_fold, img_tile=None, se_rtol=1.5e-4):
     """K1 (or K4 at ``img_tile``) against their plain version on the card;
     returns max |Δm|."""
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
@@ -302,7 +310,7 @@ def check_compare(torch, name, args, a_coef, n_fold, img_tile=None):
         f"max rel |Δccs| at equal argmax {ccs_rel:.2e}; |m + log se − f64 LSE| "
         f"kernel {k_lse:.2e}, plain {p_lse:.2e}")
     require(m_rel <= 1e-5, f"{name}: m beyond rtol 1e-5")
-    require(s_rel <= 1.5e-4, f"{name}: se beyond rtol 1.5e-4")
+    require(s_rel <= se_rtol, f"{name}: se beyond rtol {se_rtol:.3g}")
     require(k_lse <= 4 * p_lse + 1e-6, f"{name}: kernel LSE further from f64 than 4x plain")
     require(ds_bad == 0, f"{name}: argmax differs away from near-ties")
     require(ccs_rel <= 1e-5, f"{name}: cc at the argmax beyond rtol 1e-5")
@@ -1802,12 +1810,16 @@ def phase_bench(card: str, problem: str) -> dict:
     return rec
 
 
+# K1's tiling at the reference grid's block (D = 81, M = 224, fold 1):
+# four warpgroups, K chunks of four steps (the lattice in three row chunks).
+REF_PLAN = (4, 4)
+
+
 def kernel_row_d81(torch) -> dict:
     """K1 and K3 at the reference grid's block (O = 8, C = 32, I = 64,
-    N = 224, D = 81 at stride 1, M = 224: k1_plan's two-warpgroup
-    instance) against their plain versions, each launched with plan
-    (2, 4); K1 timed beside its plain version and its bound. Returns K1's
-    row for the kernels line."""
+    N = 224, D = 81 at stride 1, M = 224) against their plain versions,
+    each launched with plan :data:`REF_PLAN`; K1 timed beside its plain
+    version and its bound. Returns K1's row for the kernels line."""
     from bioem_tpu_torch.config import RunConfig
     from bioem_tpu_torch.core.engine import BioEMEngine
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
@@ -1827,13 +1839,13 @@ def kernel_row_d81(torch) -> dict:
     say(f"[kernels] reference grid block: O={o} C={c} I={i_n} N={n} F={f} D={d} n_fold={nf}; "
         f"k1_plan {cc_mod.k1_plan(d, m, f, nf)}")
     err = check_compare(torch, "K1 fused_compare_block D=81", args, x["a_coef"], nf)
-    require(cc_mod.fused_compare_block.last_plan == (2, 4),
+    require(cc_mod.fused_compare_block.last_plan == REF_PLAN == cc_mod.k1_plan(d, m, f, nf)[:2],
             f"K1 at D=81 launched with plan {cc_mod.fused_compare_block.last_plan}")
     conv_re = (x["pr"][:, None] * bk.ctf_re[None] + x["pi"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     conv_im = (x["pi"][:, None] * bk.ctf_re[None] - x["pr"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     check_cc(torch, "K3 fused_displacement_cc D=81", conv_re, conv_im, bk.img_re, bk.img_im,
              x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im, nf, 2)
-    require(cc_mod.fused_displacement_cc.last_plan == (2, 4),
+    require(cc_mod.fused_displacement_cc.last_plan == REF_PLAN,
             f"K3 at D=81 launched with plan {cc_mod.fused_displacement_cc.last_plan}")
     del conv_re, conv_im
     ms = time_ms(lambda: cc_mod.fused_compare_block(*args, a_coef=x["a_coef"], n_fold=nf))
@@ -1842,54 +1854,45 @@ def kernel_row_d81(torch) -> dict:
     b = compare_bound(o, c, i_n, n, f, d, m, nf, tensor_cores=True)
     say(f"[kernels] K1 D=81 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
         f"{b[0]:.4f} ms ({b[1]}-bound), {100 * b[0] / ms:.1f} % of it")
-    return dict(name="fused_compare_block (D=81, two warpgroups)", route="cuda",
+    return dict(name="fused_compare_block (D=81)", route="cuda",
                 source="bioem_tpu_torch/csrc/compare_fused.cu",
                 replaces="bioem_tpu/ops/compare_pallas.py:301", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
 
 
-def phase_reference_grid(card: str) -> None:
-    """The reference's production grid through the port's CLI: 4608
-    super-Fibonacci quaternions (--ReadOrientation) × 32 CTFs × 64 planted,
-    normalised images (an MRC stack, --ReadMRC) at D = 81, stride 1. K1
-    must run at plan (2, 4) and K4 never; every logP finite; the planted
-    orientation and CTF recovered on ≥ 90 % of the images. Then a cut of
-    the grid (each planted orientation and its nearest neighbour, all 32
-    CTFs, the 64 images) on the plain branch, K1 and the hybrid (K3 at
-    two warpgroups): argmax tuples equal to the plain branch's."""
+def _grid_cli(prob, env: dict | None = None):
+    """``prob`` (a problem at REFERENCE_GRID or WIDE_GRID, or a cut of one)
+    written as the CLI reads it and run through the port's CLI under
+    ``env``: (the main loop's seconds, the CLI's wall seconds, logP, the
+    Maximizing Param rows)."""
     import re
 
     from bioem_tpu_torch.cli import main as cli_main
-    from bioem_tpu_torch.ops import compare_cuda as cc_mod
-    from bioem_tpu_torch.params import make_ctf_grid
-    from bioem_tpu_torch.tools.golden_error_budget import (parse_golden, parse_maximizing,
-                                                           run_configs)
-    from bioem_tpu_torch.tools.problem import (REFERENCE_GRID, build_problem, orientation_cut,
-                                               write_reference_grid)
+    from bioem_tpu_torch.tools.golden_error_budget import parse_golden, parse_maximizing
+    from bioem_tpu_torch.tools.problem import write_reference_grid
 
-    prob = build_problem(**REFERENCE_GRID)
-    p, orients, _model, images, planted = prob
-    k1, k4 = cc_mod.fused_compare_block, cc_mod.fused_compare_block_batched
-    before = (k1.launches, k4.launches)
     buf = io.StringIO()
     with tempfile.TemporaryDirectory() as work:
         argv = write_reference_grid(work, prob)
-        k1.last_plan = None
         t0 = time.perf_counter()
-        with _in_dir(work), _environ({"BIOEM_DEBUG_OUTPUT": "1"}), \
+        with _in_dir(work), _environ({"BIOEM_DEBUG_OUTPUT": "1", **(env or {})}), \
                 contextlib.redirect_stdout(buf):
             rc = cli_main([*argv, "--OutputFile", "out"])
             wall = time.perf_counter() - t0
             lp, best = parse_golden("out"), parse_maximizing("out")
-    n1, n4 = k1.launches - before[0], k4.launches - before[1]
     found = re.search(r"Main loop: ([0-9.]+)s", buf.getvalue())
-    require(rc == 0 and found is not None, f"the reference grid's CLI returned {rc}")
-    run_s = float(found.group(1))
+    require(rc == 0 and found is not None, f"the grid's CLI returned {rc}")
+    return float(found.group(1)), wall, lp, best
+
+
+def _grid_recovered(prob, best) -> tuple:
+    """Shares of the images whose Maximizing Param row names the planted
+    rotation (the written quaternion, 4 decimals) and the planted CTF (its
+    defocus and B-env)."""
+    from bioem_tpu_torch.params import make_ctf_grid
+
+    p, orients, planted = prob[0], prob[1], prob[4]
     grid = make_ctf_grid(p)
-    n_ctf = grid.n
-    comparisons = orients.n * n_ctf * images.maps.shape[0]
-    # recovered: the written quaternion (4 decimals) is the planted
-    # rotation's, and the written defocus and B-env its CTF's
     q = orients.angles[planted["orient"]].astype(np.float64)
     rec_o = float(np.mean(np.abs(np.sum(best[:, 1:5] * q, axis=1))
                           / np.linalg.norm(best[:, 1:5], axis=1) > 1 - 1e-4))
@@ -1897,14 +1900,41 @@ def phase_reference_grid(card: str) -> None:
     c = planted["ctf"]
     rec_c = float(np.mean((np.abs(best[:, 6] - defocus[c]) < 1e-4)
                           & (np.abs(best[:, 7] - grid.env[c]) < 1e-4)))
+    return rec_o, rec_c
+
+
+def phase_reference_grid(card: str) -> None:
+    """The reference's production grid through the port's CLI: 4608
+    super-Fibonacci quaternions (--ReadOrientation) × 32 CTFs × 64 planted,
+    normalised images (an MRC stack, --ReadMRC) at D = 81, stride 1. K1
+    must run at plan :data:`REF_PLAN` and K4 never; every logP finite; the
+    planted orientation and CTF recovered on ≥ 90 % of the images. Then a
+    cut of the grid (each planted orientation and its nearest neighbour,
+    all 32 CTFs, the 64 images) on the plain branch, K1 and the hybrid (K3
+    at four warpgroups): argmax tuples equal to the plain branch's."""
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.params import make_ctf_grid
+    from bioem_tpu_torch.tools.golden_error_budget import run_configs
+    from bioem_tpu_torch.tools.problem import REFERENCE_GRID, build_problem, orientation_cut
+
+    prob = build_problem(**REFERENCE_GRID)
+    p, orients, _model, images, _planted = prob
+    k1, k4 = cc_mod.fused_compare_block, cc_mod.fused_compare_block_batched
+    before = (k1.launches, k4.launches)
+    k1.last_plan = None
+    run_s, wall, lp, best = _grid_cli(prob)
+    n1, n4 = k1.launches - before[0], k4.launches - before[1]
+    n_ctf = make_ctf_grid(p).n
+    comparisons = orients.n * n_ctf * images.maps.shape[0]
+    rec_o, rec_c = _grid_recovered(prob, best)
     say(f"[reference grid] {card}: {orients.n} orientations × {n_ctf} CTFs × "
         f"{images.maps.shape[0]} images at N={p.n_pixels}, D={p.nx_disp} (stride "
         f"{p.grid_space_center}) through the CLI: pass {run_s:.3f} s, {comparisons / run_s:.4e} "
         f"comparisons/s ({comparisons} comparisons; CLI wall {wall:.1f} s); K1 launches {n1} "
         f"at plan {k1.last_plan}, K4 launches {n4}; logP finite {bool(np.isfinite(lp).all())}; "
         f"planted orientation recovered {rec_o:.3f}, planted CTF {rec_c:.3f}")
-    require(n1 > 0 and k1.last_plan == (2, 4) and n4 == 0,
-            "the reference grid did not run K1 at plan (2, 4) alone")
+    require(n1 > 0 and k1.last_plan == REF_PLAN and n4 == 0,
+            f"the reference grid did not run K1 at plan {REF_PLAN} alone")
     require(len(lp) == images.maps.shape[0] and bool(np.isfinite(lp).all()),
             "the reference grid's logP are not all finite")
     require(rec_o >= 0.9 and rec_c >= 0.9, "the reference grid lost the planted parameters")
@@ -1921,11 +1951,149 @@ def phase_reference_grid(card: str) -> None:
             f"{float(np.max(np.abs(res.log_prob - plain.log_prob))):.3e}")
         require(r["ran"] == name and bool(same.all()),
                 f"reference grid cut: {name} ran {r['ran']} or its argmax differs from plain")
-    require(cc_mod.fused_displacement_cc.last_plan == (2, 4), "K3 did not run two warpgroups")
+    require(cc_mod.fused_displacement_cc.last_plan == REF_PLAN,
+            f"K3 did not run at plan {REF_PLAN}")
     say(f"[reference grid] the cut's three passes {time.perf_counter() - t0:.1f} s")
 
 
+def kernel_row_wide(torch) -> dict:
+    """K1 and K3 on lattices the earlier K1 refused or ran on two
+    warpgroups, on random inputs (kernel_probe.block_inputs, stride 1):
+    N = 224, D = 121 (±60; O = 8, C = 8, I = 64, four row chunks) and
+    N = 512, D = 81 (±40; O = 4, C = 4, I = 32), each launched with
+    k1_plan's four-warpgroup tiling and held to its plain version at the
+    production tolerances (check_compare, check_cc); K1 at D = 121 timed
+    beside its plain version and its bound. Returns that row for the
+    kernels line.
+
+    se at N = 512: se carries v's absolute f32 error, |a_coef|·δcc, and
+    a_coef grows as N²; the plain version itself lies ~1.6e-3 from the f64
+    log-sum-exp there (the [kernels] line's "plain"), so the kernel is held
+    to 1.5e-4 scaled by a_coef against N = 224's (7.8e-4), and, as
+    everywhere, to lie no farther from f64 than 4× the plain version."""
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.tools.kernel_probe import block_inputs, time_ms
+    from bioem_tpu_torch.tools.problem import compare_bound
+
+    row = None
+    for o, c, i_n, n, d in ((8, 8, 64, 224, 121), (4, 4, 32, 512, 81)):
+        args, a_coef, nf = block_inputs(DEVICE, o, c, i_n, n, d, 1, seed=SEED)
+        f, m = n // 2 + 1, n // nf
+        plan = cc_mod.k1_plan(d, m, f, nf)
+        say(f"[kernels] wide lattice block: O={o} C={c} I={i_n} N={n} F={f} D={d} "
+            f"n_fold={nf}; k1_plan {plan}")
+        se_rtol = 1.5e-4 * a_coef / ((3.0 - 224 * 224) / 2)
+        err = check_compare(torch, f"K1 fused_compare_block N={n} D={d}", args, a_coef, nf,
+                            se_rtol=se_rtol)
+        require(plan[0] == 4 and cc_mod.fused_compare_block.last_plan == plan[:2],
+                f"K1 at N={n} D={d} launched with plan {cc_mod.fused_compare_block.last_plan}")
+        conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
+        conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
+        check_cc(torch, f"K3 fused_displacement_cc N={n} D={d}", conv_re, conv_im, *args[4:10],
+                 nf, 2)
+        require(cc_mod.fused_displacement_cc.last_plan == plan[:2],
+                f"K3 at N={n} D={d} launched with plan {cc_mod.fused_displacement_cc.last_plan}")
+        del conv_re, conv_im
+        if d != 121:
+            continue
+        ms = time_ms(lambda: cc_mod.fused_compare_block(*args, a_coef=a_coef, n_fold=nf))
+        plain_ms = time_ms(lambda: cc_mod.fused_compare_block_plain(*args, a_coef=a_coef,
+                                                                    n_fold=nf), 3)
+        b = compare_bound(o, c, i_n, n, f, d, m, nf, tensor_cores=True)
+        say(f"[kernels] K1 N={n} D={d} time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+            f"bound {b[0]:.4f} ms ({b[1]}-bound), {100 * b[0] / ms:.1f} % of it")
+        row = dict(name="fused_compare_block (D=121)", route="cuda",
+                   source="bioem_tpu_torch/csrc/compare_fused.cu",
+                   replaces="bioem_tpu/ops/compare_pallas.py:301", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+    return row
+
+
+def phase_wide_grid(card: str) -> None:
+    """The reference grid searching ±60 pixels (problem.WIDE_GRID: D = 121
+    at stride 1, which the earlier K1 refused), cut to each planted
+    orientation and its nearest neighbour (orientation_cut: ≤ 128
+    orientations) × 32 CTFs × 64 planted images, through the port's CLI on
+    the kernel branch (K1 on four warpgroups, K4 never) and on the plain
+    branch (BIOEM_TPU_PALLAS=0): the Maximizing Param rows (argmax tuples)
+    equal, every logP finite, the planted orientation and CTF recovered on
+    ≥ 90 % of the images. Then the C2 check on a cut of 2 images × 4
+    orientations × 32 CTFs: K1 and the hybrid (K3) no farther from the
+    all-f64 oracle than max(5e-6, the plain branch's gap), argmax tuples
+    equal to the plain branch's."""
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.params import make_ctf_grid
+    from bioem_tpu_torch.tools.problem import WIDE_GRID, build_problem, orientation_cut
+
+    t0 = time.perf_counter()
+    cut = orientation_cut(build_problem(**WIDE_GRID), 2)
+    p, orients, images = cut[0], cut[1], cut[3]
+    k1, k4 = cc_mod.fused_compare_block, cc_mod.fused_compare_block_batched
+    plan = cc_mod.k1_plan(p.nx_disp, p.n_pixels, p.n_fft_1d, 1)
+    before = (k1.launches, k4.launches)
+    k1.last_plan = None
+    run_k, wall_k, lp_k, best_k = _grid_cli(cut)
+    n1, n4 = k1.launches - before[0], k4.launches - before[1]
+    run_p, wall_p, lp_p, best_p = _grid_cli(cut, {"BIOEM_TPU_PALLAS": "0"})
+    same = np.all(best_k[:, 1:] == best_p[:, 1:], axis=1)
+    rec_o, rec_c = _grid_recovered(cut, best_k)
+    say(f"[wide grid] {card}: {orients.n} orientations × {make_ctf_grid(p).n} CTFs × "
+        f"{images.maps.shape[0]} "
+        f"images at N={p.n_pixels}, D={p.nx_disp} (stride {p.grid_space_center}) through the "
+        f"CLI: kernel branch pass {run_k:.3f} s (wall {wall_k:.1f} s; K1 launches {n1} at plan "
+        f"{k1.last_plan}, K4 launches {n4}), plain branch pass {run_p:.3f} s (wall "
+        f"{wall_p:.1f} s); argmax tuples equal on {int(same.sum())}/{len(same)} images; max "
+        f"|ΔlogP| {float(np.max(np.abs(lp_k - lp_p))):.3e}; planted orientation recovered "
+        f"{rec_o:.3f}, planted CTF {rec_c:.3f}")
+    require(p.nx_disp == 121 and plan[0] == 4, f"the wide grid's K1 plan is {plan}")
+    require(n1 > 0 and k1.last_plan == plan[:2] and n4 == 0,
+            f"the wide grid did not run K1 at plan {plan[:2]} alone")
+    require(bool(same.all()), "the wide grid's argmax tuples differ from the plain branch's")
+    require(bool(np.isfinite(lp_k).all() and np.isfinite(lp_p).all()),
+            "the wide grid's logP are not all finite")
+    require(rec_o >= 0.9 and rec_c >= 0.9, "the wide grid lost the planted parameters")
+    _c2_cut(card, "wide grid", orientation_cut(build_problem(n_img=2, **WIDE_GRID), 2),
+            ("plain", "K1", "hybrid"))
+    require(cc_mod.fused_displacement_cc.last_plan == plan[:2],
+            f"K3 did not run at plan {plan[:2]}")
+    say(f"[wide grid] {time.perf_counter() - t0:.1f} s")
+
+
 C2_ATOL = 5e-6  # the JAX suite's engine–oracle limit at N = 224
+
+
+def _c2_cut(card: str, label: str, cut, configs, k1_vs_plain_full=None) -> None:
+    """One C2 cut: each of ``configs`` (the plain branch first) on the card
+    against the all-f64 oracle on the host (golden_error_budget.cut_gaps).
+    Fault C2: a kernel configuration farther from the oracle than
+    max(5e-6, the plain branch's gap); every configuration must also keep
+    the plain branch's argmax tuples."""
+    from bioem_tpu_torch.tools.golden_error_budget import cut_gaps
+
+    t0 = time.perf_counter()
+    _lp, rows = cut_gaps(cut, configs, DEVICE)
+    plain = rows["plain"]
+    limit = max(C2_ATOL, plain["engine_vs_oracle"])
+    say(f"[c2] {card}: {label} cut, N={cut[0].n_pixels} D={cut[0].nx_disp}, {cut[1].n} "
+        f"orientations × {cut[3].maps.shape[0]} images, oracle and {len(rows)} passes "
+        f"{time.perf_counter() - t0:.1f} s; limit max(5e-6, plain's gap) = {limit:.3e}")
+    for name, r in rows.items():
+        res = r["results"]
+        dp = float(np.max(np.abs(res.log_prob - plain["results"].log_prob)))
+        same = all(np.array_equal(getattr(res, f), getattr(plain["results"], f))
+                   for f in ARGMAX)
+        say(f"[c2] {label}: {name} (ran {r['ran']}): max |logP − oracle| "
+            f"{r['engine_vs_oracle']:.4e}, vs plain {dp:.4e}"
+            + (f" (the full production pass's K1 vs plain: {k1_vs_plain_full:.4e})"
+               if name == "K1" and k1_vs_plain_full is not None else ""))
+        require(r["ran"] == name and same, f"c2 {label}: {name} ran {r['ran']} or its "
+                f"argmax differs from the plain branch")
+        require(r["engine_vs_oracle"] <= limit, f"fault C2: {label} {name} lies "
+                f"{r['engine_vs_oracle']:.4e} from the oracle, beyond {limit:.4e}")
+    if plain["engine_vs_oracle"] > C2_ATOL:
+        say(f"[c2] {label}: the plain branch itself lies above 5e-6 from the oracle "
+            f"(the JAX package's plain path has the same arithmetic): a question for "
+            f"the reference, not a port fault")
 
 
 def phase_c2(card: str, k1_vs_plain_full: float) -> None:
@@ -1933,40 +2101,14 @@ def phase_c2(card: str, k1_vs_plain_full: float) -> None:
     orientations (each planted one and its nearest neighbours) × 8 CTFs
     (N = 224, D = 21 at stride 2), and the reference grid cut to 2 images
     × 4 orientations × 32 CTFs (D = 81, stride 1), each on every kernel
-    configuration it has and the plain branch on the card, against the
-    all-f64 oracle on the host. Fault C2: a kernel configuration farther
-    from the oracle than max(5e-6, the plain branch's gap)."""
-    from bioem_tpu_torch.tools.golden_error_budget import cut_gaps
+    configuration it has and the plain branch on the card (:func:`_c2_cut`)."""
     from bioem_tpu_torch.tools.problem import REFERENCE_GRID, build_problem, orientation_cut
 
-    for label, kw, n_img, per_plant, configs in (
-            ("production", {}, 4, 4, ("plain", "K1", "K4", "hybrid")),
-            ("reference grid", REFERENCE_GRID, 2, 2, ("plain", "K1", "hybrid"))):
-        cut = orientation_cut(build_problem(n_img=n_img, **kw), per_plant)
-        t0 = time.perf_counter()
-        _lp, rows = cut_gaps(cut, configs, DEVICE)
-        plain = rows["plain"]
-        limit = max(C2_ATOL, plain["engine_vs_oracle"])
-        say(f"[c2] {card}: {label} cut, N={cut[0].n_pixels} D={cut[0].nx_disp}, {cut[1].n} "
-            f"orientations × {n_img} images, oracle and {len(rows)} passes "
-            f"{time.perf_counter() - t0:.1f} s; limit max(5e-6, plain's gap) = {limit:.3e}")
-        for name, r in rows.items():
-            res = r["results"]
-            dp = float(np.max(np.abs(res.log_prob - plain["results"].log_prob)))
-            same = all(np.array_equal(getattr(res, f), getattr(plain["results"], f))
-                       for f in ARGMAX)
-            say(f"[c2] {label}: {name} (ran {r['ran']}): max |logP − oracle| "
-                f"{r['engine_vs_oracle']:.4e}, vs plain {dp:.4e}"
-                + (f" (the full production pass's K1 vs plain: {k1_vs_plain_full:.4e})"
-                   if name == "K1" and label == "production" else ""))
-            require(r["ran"] == name and same, f"c2 {label}: {name} ran {r['ran']} or its "
-                    f"argmax differs from the plain branch")
-            require(r["engine_vs_oracle"] <= limit, f"fault C2: {label} {name} lies "
-                    f"{r['engine_vs_oracle']:.4e} from the oracle, beyond {limit:.4e}")
-        if plain["engine_vs_oracle"] > C2_ATOL:
-            say(f"[c2] {label}: the plain branch itself lies above 5e-6 from the oracle "
-                f"(the JAX package's plain path has the same arithmetic): a question for "
-                f"the reference, not a port fault")
+    _c2_cut(card, "production", orientation_cut(build_problem(n_img=4), 4),
+            ("plain", "K1", "K4", "hybrid"), k1_vs_plain_full)
+    _c2_cut(card, "reference grid",
+            orientation_cut(build_problem(n_img=2, **REFERENCE_GRID), 2),
+            ("plain", "K1", "hybrid"))
 
 
 def main() -> int:
@@ -2069,8 +2211,11 @@ def main() -> int:
         main_path("bench harness, planted problem", lambda: phase_bench(card, "planted"),
                   ("K2",))
         rows["K1_D81"] = kernel_row_d81(torch)
+        rows["K1_D121"] = kernel_row_wide(torch)
         main_path("reference grid", lambda: phase_reference_grid(card), ("K1", "K2", "K3"))
         rows["K1_D81"]["launches"] = counters["K1"].launches
+        main_path("wide grid", lambda: phase_wide_grid(card), ("K1", "K2", "K3"))
+        rows["K1_D121"]["launches"] = counters["K1"].launches
         k1_vs_plain = float(np.max(np.abs(res_k.log_prob - res_p.log_prob)))
         main_path("C2 check", lambda: phase_c2(card, k1_vs_plain), ("K1", "K2", "K3", "K4"))
     except Exception as e:  # every phase failure ends the run with a nonzero code

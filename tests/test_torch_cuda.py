@@ -13,14 +13,18 @@ Tolerances: m, se rtol 1e-5 at these small shapes, the argmax exact away
 from near-ties (two best lattice values within 1e-5·|a_coef|); cc and the
 projection spectra < 5e-5 of their max magnitude. The image-batched
 kernel (K4) is held to K1's tolerances at every width it has (D ≤ 32),
-every fold count and several tiles; K1 at lattice widths up to D = 81
-(two warpgroups, the reference's production grid at N = 224),
-folds 1–4, odd N, M = 224 and image counts that end a run of four
-mid-way; both to the same bits across two launches. The projection (K2)
+every fold count and several tiles; K1 at lattice widths up to D = 129
+(the reference's production grid, D = 81 at N = 224 and 512; D = 107
+and 121 at N = 224, which the earlier kernel refused; D = 129 at N =
+256), folds 1–4, odd N, M = 224 and image counts that end a run of four
+mid-way, and on lattices whose values are all −inf, hold NaN, or whose
+first or middle row chunk is all −inf (the online merge's guards); both
+to the same bits across two launches (K1 also at D = 81, three row
+chunks). The projection (K2)
 also with per-group point counts that skip padding, at its largest N and
 to the same bits across two launches. K3 (K1's kernel writing the
-lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61 and 81,
-M = 224,
+lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, 81 and
+121, M = 224,
 to the same bits across two launches. The engine's replayed pass
 (a captured block step) bit-equal to its eager loop for K1, K4 and the
 hybrid, through a checkpoint resume too, with launch counters that count
@@ -123,11 +127,13 @@ def test_projection_kernel_vs_plain(rng, dev, n):
 # and folds its reach covers: D = 5…61 (one and two N chunks), folds 1–4,
 # odd N, a stride-1 lattice at N = 224 (M = 224), image counts that end a
 # run of four mid-way; D = 81 at N = 224 (the reference's production grid,
-# folds 1 and 2) takes the two-warpgroup instance (compare_cuda.k1_plan).
+# folds 1 and 2) and N = 512, D = 107 and 121 at N = 224 and D = 129 at
+# N = 256 (three to five row chunks; compare_cuda.k1_plan).
 K1_SHAPES = [  # (n_disp, n_fold, n, images)
     (5, 1, 15, 5), (5, 2, 32, 1), (9, 1, 32, 64), (9, 3, 48, 5), (9, 4, 64, 5),
     (21, 2, 48, 201), (21, 1, 224, 5), (30, 1, 64, 5), (35, 1, 48, 5), (35, 2, 80, 7),
-    (61, 1, 64, 3), (81, 1, 224, 3), (81, 2, 224, 3)]
+    (61, 1, 64, 3), (81, 1, 224, 3), (81, 2, 224, 3), (107, 1, 224, 3), (121, 1, 224, 3),
+    (81, 1, 512, 3), (129, 1, 256, 3)]
 
 
 @pytest.mark.parametrize("n_disp,n_fold,n,n_img", K1_SHAPES)
@@ -153,12 +159,63 @@ def test_k1_widths_folds_and_image_counts(rng, dev, n_disp, n_fold, n, n_img):
     torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
 
 
-def test_k1_is_deterministic(rng, dev):
-    """Two K1 launches on the same inputs give the same bits (no atomics)."""
-    args = _cmp_inputs(rng, dev, n=64, n_fold=2, n_disp=21, o=3, c=4, i=30)
-    runs = [C.fused_compare_block(*args, a_coef=-2047.5, n_fold=2) for _ in range(2)]
+@pytest.mark.parametrize("n,n_fold,n_disp", [(64, 2, 21), (224, 1, 81)])
+def test_k1_is_deterministic(rng, dev, n, n_fold, n_disp):
+    """Two K1 launches on the same inputs give the same bits (no atomics),
+    with one row chunk and with three (D = 81)."""
+    args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=3, c=4, i=30)
+    a_coef = (3.0 - n * n) / 2
+    runs = [C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold) for _ in range(2)]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("inf_chunk", [None, 0, 1])
+def test_k1_online_merge_guards(rng, dev, inf_chunk):
+    """The online log-sum-exp's −inf and NaN guards at D = 81 (row chunks
+    [0, 32), [32, 64), [64, 81)), against the plain version: comparisons
+    whose every value is −inf (a_u = 0, b_u = −inf, so u = +inf) give
+    m = −inf, argmax 0 and Σ exp NaN; comparisons holding NaN (a_u = +inf,
+    b_u = 0: u = ±inf by the sign of cc) give NaN m and se and the first
+    NaN's index; with ``inf_chunk`` the rows of that chunk of wx are scaled
+    by 1e30 and b_u made negative, so every value of that chunk is −inf
+    and the others finite: the chunk adds nothing, first (chunk 0, which
+    the later chunks outrank) or in the middle (chunk 1)."""
+    n, d = 224, 81
+    args = list(_cmp_inputs(rng, dev, n=n, n_fold=1, n_disp=d, o=2, c=2, i=6))
+    a_u, b_u = args[10].clone(), -args[11].abs()
+    a_u[0], b_u[0] = 0.0, -float("inf")
+    a_u[1, :3], b_u[1, :3] = float("inf"), 0.0
+    args[10], args[11] = a_u, b_u
+    if inf_chunk is not None:
+        for k in (6, 7):
+            w = args[k].clone()
+            w[32 * inf_chunk:32 * inf_chunk + 32] *= 1e30
+            args[k] = w
+    a_coef = -0.5 * n * n
+    km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=1)
+    pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=1)
+    torch.cuda.synchronize()
+    assert bool((pm[0] == -float("inf")).all()) and bool(ps[0].isnan().all())
+    assert bool((pd[0] == 0).all()) and bool(pm[1, :3].isnan().all())
+    if inf_chunk is not None:
+        # the chunk's values are −inf, the others finite
+        rows = pd[2:] // d
+        assert bool(torch.isfinite(pm[2:]).all()) and bool(torch.isfinite(ps[2:]).all())
+        assert not bool(((rows >= 32 * inf_chunk) & (rows < 32 * inf_chunk + 32)).any())
+    torch.testing.assert_close(km, pm, rtol=1e-5, atol=0, equal_nan=True)
+    torch.testing.assert_close(ks, ps, rtol=1.5e-4, atol=0, equal_nan=True)
+    assert torch.equal(kd[0], pd[0]) and torch.equal(kd[1, :3], pd[1, :3])
+    ok = kd == pd
+    assert float(ok.float().mean()) >= 0.9
+    # cc at the argmax within 5e-5 of the max |cc| of its row chunk (the
+    # argmax of these inputs often lies where |cc| is small)
+    conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).flatten(0, 1)
+    conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).flatten(0, 1)
+    lat = C.displacement_cc_plain(conv_re, conv_im, *args[4:10]).abs()
+    chunk_max = torch.stack([lat[:, :, r:r + 32].amax((-2, -1)) for r in (0, 32, 64)], -1)
+    scale = chunk_max.gather(-1, (pd.long() // d // 32)[..., None])[..., 0]
+    assert bool(((kc - pc).abs() <= 5e-5 * scale)[ok].all())
 
 
 def test_k1_plan_matches_the_library(dev):
@@ -170,7 +227,9 @@ def test_k1_plan_matches_the_library(dev):
     lib = _build.load()
     for d, m, f, n_fold in [(21, 112, 113, 2), (5, 15, 8, 1), (35, 48, 41, 1), (61, 64, 33, 1),
                             (21, 224, 113, 1), (9, 12, 25, 4), (61, 224, 113, 1),
-                            (81, 224, 113, 1), (81, 112, 113, 2)]:
+                            (81, 224, 113, 1), (81, 112, 113, 2), (107, 224, 113, 1),
+                            (121, 224, 113, 1), (81, 512, 257, 1), (129, 256, 129, 1),
+                            (129, 128, 129, 2)]:
         for n_wg in (2, 4):
             for kc in (1, 2, 4, 8):
                 assert (lib.bioem_fused_compare_smem_bytes(d, m, f, n_fold, n_wg, kc)
@@ -587,10 +646,10 @@ def test_debug_prob_kernel_path_launches_k3(rng, dev):
 
 
 # K3 (K1's kernel in its cc-out body): D = 5…61 × folds 1–4 at N = 48,
-# N = 15 (folds 1 and 3), the stride-1 ±30 lattice at N = 224 (M = 224)
-# and the stride-1 ±40 lattice there (D = 81: two warpgroups).
+# N = 15 (folds 1 and 3), the stride-1 ±30, ±40 and ±60 lattices at
+# N = 224 (M = 224; D = 81 and 121 in three and four row chunks).
 K3_SHAPES = ([(d, nf, 48) for d in (5, 9, 21, 35, 61) for nf in (1, 2, 3, 4)]
-             + [(5, 1, 15), (5, 3, 15), (61, 1, 224), (81, 1, 224)])
+             + [(5, 1, 15), (5, 3, 15), (61, 1, 224), (81, 1, 224), (121, 1, 224)])
 
 
 @pytest.mark.parametrize("n_disp,n_fold,n", K3_SHAPES)

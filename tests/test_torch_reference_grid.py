@@ -4,9 +4,14 @@ quaternions × 32 CTFs × 81×81 displacements at stride 1) on the CPU.
 * The port's plain branch against the JAX engine at N = 96, D = 81, all 32
   CTFs, 2 noise images and two orientation blocks, at the suite's
   tolerance (noise images: see tests/test_torch_bench.py's C2 note).
-* K1's tiling at that grid: ``k1_plan(81, 224, 113, 1)`` is two warpgroups
-  (the card tests' D = 81 shapes reach that instance), and where no tiling
-  fits (D ≥ 107 at fold 1, D ≥ 105 at fold 2, N = 224).
+* K1's tiling at that grid: ``k1_plan(81, 224, 113, 1)`` is four
+  warpgroups at folds 1 and 2 (the lattice held one row chunk at a time),
+  the production block's D = 21 keeps its plan, and the lattices the
+  earlier kernel refused at N = 224 (D ≥ 107 at fold 1, D ≥ 105 at fold 2)
+  are tiled.
+* A lattice wider than that: the port's engine against the JAX engine at
+  N = 128, D = 121 (±60 at stride 1), on the plain branch and on the
+  kernel branch (whose wrappers run their plain versions on the CPU).
 * The grid's parameter file and the files ``write_reference_grid`` writes
   read back through the port's readers as the problem in memory, and the
   CLI's output on them (at N = 96 and 8 orientations) parses back to its
@@ -54,13 +59,34 @@ def test_plain_branch_matches_jax_at_d81():
 
 
 def test_k1_plan_at_the_reference_grid():
-    assert k1_plan(81, 224, 113, 1) == (2, 4, 210944)
-    assert k1_plan(81, 112, 113, 2) == (2, 4, 228352)
-    # the production grid's D = 21 keeps four warpgroups
-    assert k1_plan(21, 112, 113, 2)[0] == 4
-    # K1's reach at N = 224: no tiling fits from D = 107 (fold 1), 105 (fold 2)
-    assert k1_plan(105, 224, 113, 1) is not None and k1_plan(107, 224, 113, 1) is None
-    assert k1_plan(103, 112, 113, 2) is not None and k1_plan(105, 112, 113, 2) is None
+    assert k1_plan(81, 224, 113, 1) == (4, 4, 202752)
+    assert k1_plan(81, 112, 113, 2) == (4, 4, 220160)
+    # the production grid's D = 21 keeps four warpgroups and K chunks of 8
+    assert k1_plan(21, 112, 113, 2)[:2] == (4, 8)
+    # the lattices the earlier kernel refused at N = 224 (from D = 107 at
+    # fold 1, 105 at fold 2) are tiled, ±60 at stride 1 on four warpgroups
+    assert k1_plan(107, 224, 113, 1) is not None and k1_plan(105, 112, 113, 2) is not None
+    assert k1_plan(121, 224, 113, 1)[0] == 4
+
+
+# N = 128 holds ±60 at stride 1 (D = 121), which the earlier K1 refused at
+# every N; 4 CTFs keep the JAX side's CPU time small.
+WIDE128 = dict(n_orient=16, n_pix=128, max_disp=60, disp_step=1, n_phase=2, n_env=2)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_matches_jax_at_d121(use_kernels):
+    p, orients, model, images, _ = problem.build_problem(n_img=2, signal=0.0, **WIDE128)
+    assert (p.nx_disp, p.grid_space_center, p.n_pixels) == (121, 1, 128)
+    cfg = RunConfig(autotune=False, orient_block=8, use_kernels=use_kernels)
+    eng = make_engine(p, orients, model, images, cfg, device="cpu")
+    assert eng.ang_blocks.shape[0] == 2 and eng.n_fold == 1 and eng.disp.shape[0] == 121
+    got = eng.results(eng.run())
+    ej = j_make_engine(p, orients, model, images, JConfig(autotune=False, orient_block=8))
+    want = ej.results(ej.run())
+    np.testing.assert_allclose(got.log_prob, want.log_prob, **SUITE)
+    for f in ARGMAX:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
 def test_reference_grid_params_file(tmp_path):

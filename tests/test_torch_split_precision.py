@@ -349,9 +349,9 @@ def test_k1_plan_at_production():
     assert (n_wg, kc) == (4, 8) and smem == C.k1_smem_bytes(21, 112, 113, 2, 4, 8) <= C.MAX_SMEM
     # W (hi, lo: 2 × 48 rows × 8 steps × 32 B) and conv (8 steps × 2 folds × 4
     # rows × 68 × 8 B) double-buffered, the four t1 tiles (64 × 52 floats),
-    # wy (21 × 113 complex) and the four lattices (21², floats), each
-    # rounded up to 128 bytes
-    assert smem == 2 * 24576 + 2 * 34816 + 53248 + 19072 + 7168
+    # one m-tile of wy (64 × 21 complex) and the four lattice chunks (24 ×
+    # 21 floats: one chunk holds the lattice), each rounded up to 128 bytes
+    assert smem == 2 * 24576 + 2 * 34816 + 53248 + 10752 + 8064
 
 
 @pytest.mark.parametrize("n_fold", [1, 2, 3, 4])
@@ -369,6 +369,36 @@ def test_k1_reach_covers_the_fma_kernel(n_fold):
     assert taken > 2000
     for d, m, f in ((35, 48, 25), (61, 64, 33), (21, 224, 113)):
         assert C.k1_plan(d, m, f, n_fold) is not None
+
+
+@pytest.mark.parametrize("n_fold", [1, 2])
+def test_k1_plan_reaches_every_lattice_to_d129(n_fold):
+    """K1 (and K3, which launches with its plan) tiles every odd lattice
+    3 ≤ D ≤ min(129, N/n_fold − 1) at every even N from 64 to 512: 129 is
+    ±64 at stride 1, a quarter of a 512-pixel box each way. The bytes fit a
+    block beside the kernel's static slots and do not change with F (or M)
+    at fixed D: the lattice is held one row chunk at a time and wy one
+    m-tile at a time. Every row chunk holds at least one row of the
+    lattice (the kernel reduces each chunk without checking)."""
+    for d in range(3, 130, 2):
+        dp = -(-d // 8) * 8
+        n_nc = -(-dp // 32)
+        dc = -(-(-(-dp // n_nc)) // 8) * 8
+        assert (n_nc - 1) * dc < d <= n_nc * dc, d
+    tiled = 0
+    for n in range(64, 513, 2):
+        m, f = n // n_fold, n // 2 + 1
+        for d in range(3, min(129, m - 1) + 1, 2):
+            plan = C.k1_plan(d, m, f, n_fold)
+            assert plan is not None, (n, n_fold, d)
+            n_wg, kc, smem = plan
+            assert smem + C.K1_STATIC_SMEM <= C.MAX_SMEM
+            assert smem == C.k1_smem_bytes(d, m, f, n_fold, n_wg, kc)
+            for f2, m2 in ((8, 4), (257, 512), (1025, 2048)):
+                assert C.k1_smem_bytes(d, m2, f2, n_fold, n_wg, kc) == smem, (n, d, f2)
+            tiled += 1
+    assert tiled == sum(len(range(3, min(129, n // n_fold - 1) + 1, 2))
+                        for n in range(64, 513, 2))
 
 
 @pytest.mark.parametrize("n_disp,n_fold,n", [(35, 1, 48), (9, 3, 48), (9, 4, 64)])
