@@ -227,11 +227,13 @@ def displacement_lse(
     f32_u: bool = True,
     ssq_c: Optional[torch.Tensor] = None,  # (O, C) f32 — required when f32_u=False
     ssq_ref: Optional[torch.Tensor] = None,  # (I,) f32
+    repair: bool = True,
 ):
     """Max + sum-exp of A·log1p(u_d) over the displacement grid.
 
     Returns (m, sumexp, d_star, cc_star): per-(o,c,i) max of the varying
-    part (f64 on the f32-u branch after the f64 repair, f32 otherwise),
+    part (f64 on the f32-u branch after the f64 repair, f32 otherwise;
+    ``repair=False`` leaves the repair to the caller's merge, G2),
     Σexp(V−m) in f32, the flat argmax index d·D+e (first occurrence —
     the reference sweep's tie-breaking, bioem_algorithm.h:156-197), and
     the cc value at the argmax.
@@ -258,7 +260,8 @@ def displacement_lse(
         cc_star = torch.gather(cc_flat, -1, d_star[..., None].long())[..., 0]
         # f64 repair of the max term; sumexp stays relative to the raw f32
         # max — log Σexp(v) = m + log Σexp(v−m) absorbs the difference.
-        m = refine_varying_max(cc_star, sum_c, sum_ref, f0, ntot)
+        if repair:
+            m = refine_varying_max(cc_star, sum_c, sum_ref, f0, ntot)
         return m, sumexp, d_star, cc_star
     cc64 = cc_flat.to(F64)
     sc = sum_c.to(F64)[:, :, None, None]

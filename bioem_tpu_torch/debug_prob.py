@@ -81,7 +81,9 @@ def _block_logpro(engine, angles, i: int, kernel: str):
     if kernel == "kernel":
         from .ops.compare_cuda import fused_displacement_cc
 
-        sum_c, ssq_c, _f0, _k = engine._kernel_constants(banks, pr, pi, prior_oc)
+        # the convolution sums G1 gives the engine's kernel branch
+        live = torch.ones(o, dtype=torch.int32, device=pr.device)
+        sum_c, ssq_c = engine._kernel_constants(banks, pr, pi, live)[:2]
         m = n // engine.n_fold
         cc = fused_displacement_cc(
             conv_re.reshape(o * c, n, p.n_fft_1d), conv_im.reshape(o * c, n, p.n_fft_1d),

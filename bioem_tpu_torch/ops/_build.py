@@ -40,6 +40,7 @@ build_info: dict = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+D = ctypes.c_double
 
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints).
@@ -56,6 +57,8 @@ SIGNATURES = {
     "bioem_fused_compare_smem_bytes": [I] * 6,
     "bioem_fused_compare_scratch_bytes": [I] * 8,
     "bioem_compare_batched_smem_bytes": [I, I, I],
+    "bioem_block_constants": [P] * 9 + [I] * 5 + [D, D, I] + [P] * 6 + [P],
+    "bioem_merge_block": [P] * 12 + [I] * 5 + [D] + [P] * 11 + [P],
     "bioem_error_string": [I],
 }
 RESTYPES = {

@@ -30,8 +30,9 @@ one function.
 ``fold`` sums the rows j + k·N/n_fold (valid when every displacement is a
 multiple of n_fold, see core.posterior.stride_fold); wx then has N/n_fold
 columns. Ties of the argmax go to the lower flat index (the reference
-sweep's first occurrence). Only ``m`` is the raw f32 max: the engine
-repairs it in f64 with core.posterior.refine_varying_max.
+sweep's first occurrence). Only ``m`` is the raw f32 max: the merge
+(G2, ops/posterior_cuda.merge_block) repairs it in f64 as
+core.posterior.refine_varying_max does.
 
 A CPU tensor gets the plain torch version; a CUDA tensor gets the kernel
 or an exception — never a fallback.
@@ -200,7 +201,7 @@ def fused_compare_block(
 ):
     """Fully fused comparison block: (m, sumexp, d_star, cc_star), each
     (O·C, I) — the per-(orientation, ctf, image) displacement-LSE summary
-    consumed by core.posterior.merge_block."""
+    consumed by the merge (ops/posterior_cuda.merge_block)."""
     args = (proj_re, proj_im, ctf_re, ctf_im, img_re, img_im,
             wx_re, wx_im, wy_re, wy_im, a_u, b_u)
     dev = proj_re.device

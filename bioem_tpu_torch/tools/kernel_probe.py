@@ -267,6 +267,139 @@ def production_block_inputs(dev, seed: int = 2):
     return block_inputs(dev, 8, 8, 64, 224, 21, 2, seed)
 
 
+def glue_inputs(dev, o: int, c: int, i: int, n: int = 224, n_disp: int = 21, *,
+                normalized: bool = True, seed: int = 4) -> dict:
+    """Random inputs of the posterior glue (ops/posterior_cuda.py) for one
+    block at (O, C, I, N): ``g1``, the nine arguments of block_constants
+    (unit-variance spectra; unit-variance images, ssq_ref ≈ N², mean
+    removed, sum_ref ≈ 0, or DC-dominated, sum_ref ≈ 3·N²; a mask whose
+    last orientation is padding); ``kw``, its keywords; ``se``, ``ds``,
+    ``ccs`` and ``m`` (an f32 varying max, the hybrid's), comparison
+    summaries at the scales the production block gives; ``disp``, the
+    lattice."""
+    from ..core.posterior import hermitian_weights
+
+    rng = np.random.default_rng(seed)
+    f, ntot = n // 2 + 1, float(n * n)
+    g = lambda x, dt=np.float32: torch.as_tensor(np.ascontiguousarray(x, dt), device=dev)  # noqa: E731
+    r = lambda *s: g(rng.normal(0, 1, s))  # noqa: E731
+    if normalized:
+        sum_ref = rng.normal(0, 1e-2, i)
+        ssq_ref = ntot * rng.uniform(0.9, 1.1, i)
+    else:
+        sum_ref = 3 * ntot * rng.uniform(0.9, 1.1, i)
+        ssq_ref = sum_ref**2 / ntot + ntot * rng.uniform(0.9, 1.1, i)
+    mask = np.ones(o, np.int32)
+    mask[-1] = 0
+    g1 = (r(o, n, f), r(o, n, f), r(c, n, f), r(c, n, f), g(hermitian_weights(n)),
+          g(sum_ref), g(ssq_ref), g(rng.normal(0, 1, c), np.float64), g(mask, np.int32))
+    h = n_disp // 2
+    return dict(
+        g1=g1, kw=dict(ntot=ntot, images_normalized=normalized),
+        se=g(rng.uniform(1, 3, (o, c, i))),
+        ds=g(rng.integers(0, n_disp * n_disp, (o, c, i)), np.int32),
+        ccs=g(rng.normal(0, 1, (o, c, i))), m=g(rng.normal(-5, 1, (o, c, i))),
+        disp=g(np.concatenate([np.arange(0, h + 1), np.arange(-h, 0)]), np.int32),
+    )
+
+
+# G2's cases: the fused path (m repaired from ccs), the hybrid's f32 m, a
+# partially masked block, a fully masked one, exact ties between pairs
+GLUE_CASES = ("fused", "hybrid", "partial", "full", "ties")
+
+
+def glue_merge_args(x: dict, case: str) -> tuple:
+    """merge_block's arguments before the offset, (m, se, ds, ccs, k, f0,
+    sum_c, ssq_c, sum_ref, disp), for one of :data:`GLUE_CASES` on ``x``
+    (:func:`glue_inputs`): k, f0 and the sums from block_constants' plain
+    version, every orientation live but the last for "partial" and none
+    for "full"; m the given f32 one for "hybrid", else None (repaired);
+    for "ties" the flat pairs 0, 3 and 4 equal on every image and the
+    largest by 1e4 (their ds, ssq_c and tuples differ)."""
+    from ..ops.posterior_cuda import block_constants_plain
+
+    pr, pi, cr, ci, h, sum_ref, ssq_ref, prior, mask = x["g1"]
+    mask = torch.ones_like(mask)
+    if case in ("partial", "full"):
+        mask[-1 if case == "partial" else slice(None)] = 0
+    sum_c, ssq_c, f0, k, _a, _b = block_constants_plain(pr, pi, cr, ci, h, sum_ref, ssq_ref,
+                                                        prior, mask, **x["kw"])
+    ccs = x["ccs"]
+    if case == "ties":
+        k, f0, ccs, sum_c = k.clone(), f0.clone(), ccs.clone(), sum_c.clone()
+        rows = [a.view(-1, a.shape[-1]) for a in (k, f0, ccs)]
+        rows[0][0] += 1e4
+        for q in (3, 4):
+            for a in rows:
+                a[q] = a[0]
+            sum_c.view(-1)[q] = sum_c.view(-1)[0]
+    m = x["m"] if case == "hybrid" else None
+    return m, x["se"], x["ds"], ccs, k, f0, sum_c, ssq_c, sum_ref, x["disp"]
+
+
+def glue_replay(dev, o: int = 8, c: int = 8, i: int = 64) -> tuple:
+    """G1 and G2 captured in one CUDA graph on static inputs, the block's
+    orientation offset (and slab column) a 0-d device tensor that the graph
+    advances, replayed twice, each time on another block's inputs
+    (:func:`glue_inputs`, every orientation live) copied in; and the same
+    two blocks through G1 and G2 called eagerly with int offsets 0 and O.
+    Returns (replayed state, eager state, the graph's block index after
+    the replays)."""
+    from ..core.posterior import init_state
+    from ..ops import posterior_cuda as G
+
+    blocks = [glue_inputs(dev, o, c, i, seed=s) for s in (5, 6)]
+    for x in blocks:
+        x["g1"][-1].fill_(1)
+    kw, names = blocks[0]["kw"], ("se", "ds", "ccs", "disp")
+    static = {"g1": [v.clone() for v in blocks[0]["g1"]],
+              **{n: blocks[0][n].clone() for n in names}}
+    blk = torch.zeros(1, dtype=torch.long, device=dev)
+    state = init_state(i, 2 * o, True, dev)
+
+    def step(st, x, off):
+        sum_c, ssq_c, f0, k, _a, _b = G.block_constants(*x["g1"], **kw)
+        G.merge_block(st, None, x["se"], x["ds"], x["ccs"], k, f0, sum_c, ssq_c, x["g1"][5],
+                      x["disp"], off, ntot=kw["ntot"], ang_offset=off)
+
+    def captured():
+        step(state, static, blk[0] * o)
+        blk.add_(1)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        captured()  # warm-up, as the engine's capture does
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured()
+    for dst, src in zip(state, init_state(i, 2 * o, True, dev)):
+        dst.copy_(src)
+    blk.zero_()
+    for x in blocks:
+        for dst, src in zip(static["g1"], x["g1"]):
+            dst.copy_(src)
+        for n in names:
+            static[n].copy_(x[n])
+        graph.replay()
+    eager = init_state(i, 2 * o, True, dev)
+    for b, x in enumerate(blocks):
+        step(eager, x, b * o)
+    torch.cuda.synchronize(dev)
+    return state, eager, int(blk[0])
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two float
+    tensors of one dtype (equal values, infinities included, 0)."""
+    it, sign = ((torch.int64, 0x7FFFFFFFFFFFFFFF) if a.dtype == torch.float64
+                else (torch.int32, 0x7FFFFFFF))
+    ia, ib = (torch.where(v < 0, -(v & sign), v).to(torch.int64)
+              for v in (a.contiguous().view(it), b.contiguous().view(it)))
+    return int(torch.where(a == b, torch.zeros_like(ia), (ia - ib).abs()).max())
+
+
 PROJ_GROUP_POINTS = (80, 80, 60, 50, 40, 35, 30, 30, 25, 20, 20, 15, 10, 5)
 
 

@@ -4,14 +4,17 @@ The port's counterpart of the JAX package's ``tools/pipeline_lab.py``:
 ``profile_block`` times the comparison kernel alone; this times each
 pipeline from the projection spectra to the displacement log-sum-exp
 summary (conv, cc, log-sum-exp and their constants), so that designs which
-move work between a kernel and torch are compared fairly:
+move work between a kernel and torch are compared fairly. Every pipeline
+starts with G1 (the convolution sums, the f64 constants and the u
+coefficients in one kernel) and ends, as the engine's block step does
+before its merge, at the unrepaired summary: the f64 repair of the max
+belongs to the merge (G2), which no pipeline runs.
 
-* ``fused``: the convolution sums and f64 constants in torch, K1 (conv, cc
-  and the log-sum-exp in one kernel), the f64 repair of the max;
+* ``fused``: G1, then K1 (conv, cc and the log-sum-exp in one kernel);
 * ``batched``: the same with K4, the image-batched kernel, at the engine's
   image tile;
-* ``hybrid``: conv and its sums in torch, K3 (the cc lattice), then the
-  torch ``displacement_lse``.
+* ``hybrid``: G1, conv in torch, K3 (the cc lattice), then the torch
+  ``displacement_lse``.
 
 Every pipeline runs on block 0 of the production problem
 (``tools/problem.py``), ``reps`` times after a warm-up, under
@@ -35,9 +38,7 @@ PIPELINES = ("fused", "batched", "hybrid")
 
 def steps(eng) -> dict:
     """{pipeline: step()} on block 0 of ``eng``'s banks."""
-    from ..core.engine import fused_coefficients
-    from ..core.posterior import (convolution_sums, displacement_lse, logpro_constants,
-                                  refine_varying_max)
+    from ..core.posterior import displacement_lse
     from ..ops import compare_cuda
 
     bk, p = eng.banks, eng.p
@@ -45,32 +46,28 @@ def steps(eng) -> dict:
     i_n, d, ntot = bk.img_re.shape[0], eng.disp.shape[0], p.n_total_pixels
     m_cols = n // eng.n_fold
     wx = (bk.wx_re[:, :m_cols].contiguous(), bk.wx_im[:, :m_cols].contiguous())
-    prior = eng._prior[None, :].expand(o, c)
     pr, pi = eng._project_block(bk, eng.ang_blocks[0])
+    live = eng.mask_blocks[0]
     a_coef = (3.0 - ntot) * 0.5
 
     def fused_with(kernel, **kw):
         def step():
-            sum_c, _ssq_c, f0, k = eng._kernel_constants(bk, pr, pi, prior)
-            a_u, b_u = fused_coefficients(f0, sum_c, bk.sum_ref, ntot)
-            _m, se, ds, ccs = kernel(pr, pi, bk.ctf_re, bk.ctf_im, bk.img_re, bk.img_im, *wx,
-                                     bk.wy_re, bk.wy_im, a_u, b_u, a_coef=a_coef,
-                                     n_fold=eng.n_fold, **kw)
-            ccs = ccs.reshape(o, c, i_n)
-            return refine_varying_max(ccs, sum_c, bk.sum_ref, f0, ntot), se, ds, ccs, k
+            _sc, _ssc, _f0, k, a_u, b_u = eng._kernel_constants(bk, pr, pi, live)
+            m, se, ds, ccs = kernel(pr, pi, bk.ctf_re, bk.ctf_im, bk.img_re, bk.img_im, *wx,
+                                    bk.wy_re, bk.wy_im, a_u, b_u, a_coef=a_coef,
+                                    n_fold=eng.n_fold, **kw)
+            return m, se, ds, ccs.reshape(o, c, i_n), k
         return step
 
     def hybrid():
+        sum_c, ssq_c, f0, k, _a, _b = eng._kernel_constants(bk, pr, pi, live)
         conv_re = pr[:, None] * bk.ctf_re[None] + pi[:, None] * bk.ctf_im[None]
         conv_im = pi[:, None] * bk.ctf_re[None] - pr[:, None] * bk.ctf_im[None]
-        sum_c, ssq_c = convolution_sums(conv_re, conv_im, bk.h, n)
-        f0, k = logpro_constants(sum_c, ssq_c, bk.sum_ref, bk.ssq_ref, prior, ntot,
-                                 images_normalized=eng._f32_corr_ok)
         cc = compare_cuda.fused_displacement_cc(
             conv_re.reshape(o * c, n, f), conv_im.reshape(o * c, n, f), bk.img_re, bk.img_im,
             *wx, bk.wy_re, bk.wy_im, n_fold=eng.n_fold).reshape(o, c, i_n, d, d)
         return (*displacement_lse(cc, sum_c, bk.sum_ref, f0, ntot, f32_u=eng._f32_corr_ok,
-                                  ssq_c=ssq_c, ssq_ref=bk.ssq_ref), k)
+                                  ssq_c=ssq_c, ssq_ref=bk.ssq_ref, repair=False), k)
 
     return {"fused": fused_with(compare_cuda.fused_compare_block),
             "batched": fused_with(compare_cuda.fused_compare_block_batched,

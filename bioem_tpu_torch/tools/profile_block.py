@@ -7,14 +7,13 @@ engine's kernel branch, and each phase of it alone on the same inputs:
 * ``step``: the whole block step, as the pass runs it (one replay of the
   captured CUDA graph on the card; the eager step on the CPU);
 * ``projection``: rotations, K2 and its epilogue (``_project_block``);
-* ``constants``: the convolution sums and f64 constants
-  (``_kernel_constants``);
-* ``compare``: the comparison: the u coefficients and K1, or K4 when the
-  engine runs it (``BIOEM_TPU_FUSED_BATCHED=1``), or on the hybrid conv,
-  K3 and the torch log-sum-exp;
-* ``merge``: the f64 repair of the max and ``merge_block``;
-* ``residual``: the step less the four phases (launch gaps, the CTF
-  prior's mask).
+* ``constants``: G1, the convolution sums, the f64 constants and the u
+  coefficients (``_kernel_constants``);
+* ``compare``: the comparison: K1, or K4 when the engine runs it
+  (``BIOEM_TPU_FUSED_BATCHED=1``), or on the hybrid conv, K3 and the
+  torch log-sum-exp;
+* ``merge``: G2, the f64 repair of the max and the streaming merge;
+* ``residual``: the step less the four phases (launch gaps).
 
 These are the phases of the engine's ``bioem.*`` profiler ranges, which
 ``trace_step`` groups the glue by. The comparison's operations and bytes
@@ -71,9 +70,8 @@ def profile(eng, reps: int = 10) -> dict:
     """Milliseconds of each phase of block 0 of ``eng`` (which must run its
     kernel branch), the comparison kernel's work, and the device they ran
     on: {"phases": {name: ms}, "compare": {...}, "device", "timer"}."""
-    from ..core.engine import fused_coefficients
-    from ..core.posterior import displacement_lse, merge_block, refine_varying_max
-    from ..ops import compare_cuda
+    from ..core.posterior import displacement_lse
+    from ..ops import compare_cuda, posterior_cuda
     from .golden_error_budget import comparison_of
     from .problem import compare_bound, compare_bytes, compare_work
 
@@ -84,7 +82,6 @@ def profile(eng, reps: int = 10) -> dict:
     i_n, d, ntot = bk.img_re.shape[0], eng.disp.shape[0], p.n_total_pixels
     m_cols = n // eng.n_fold
     ang, mask = eng.ang_blocks[0], eng.mask_blocks[0]
-    prior = eng._prior[None, :].expand(o, c)
     wx_re = bk.wx_re[:, :m_cols].contiguous()
     wx_im = bk.wx_im[:, :m_cols].contiguous()
     a_coef = (3.0 - ntot) * 0.5
@@ -108,16 +105,15 @@ def profile(eng, reps: int = 10) -> dict:
 
     pr, pi = eng._project_block(bk, ang)
     ms["projection"] = time_ms(lambda: eng._project_block(bk, ang), dev, reps)
-    sum_c, ssq_c, f0, k = eng._kernel_constants(bk, pr, pi, prior)
+    sum_c, ssq_c, f0, k, a_u, b_u = eng._kernel_constants(bk, pr, pi, mask)
 
-    ms["constants"] = time_ms(lambda: eng._kernel_constants(bk, pr, pi, prior), dev, reps)
+    ms["constants"] = time_ms(lambda: eng._kernel_constants(bk, pr, pi, mask), dev, reps)
     args = (pr, pi, bk.ctf_re, bk.ctf_im, bk.img_re, bk.img_im, wx_re, wx_im, bk.wy_re, bk.wy_im)
     if which in ("K1", "K4"):
         kernel = (compare_cuda.fused_compare_block if which == "K1" else
                   partial(compare_cuda.fused_compare_block_batched, img_tile=eng.i_block))
 
         def compare():
-            a_u, b_u = fused_coefficients(f0, sum_c, bk.sum_ref, ntot)
             return kernel(*args, a_u, b_u, a_coef=a_coef, n_fold=eng.n_fold)
     else:
         def compare():
@@ -131,14 +127,12 @@ def profile(eng, reps: int = 10) -> dict:
     ms["compare"] = time_ms(compare, dev, reps)
     m, se, ds, ccs = compare()
     se, ds, ccs = (x.reshape(o, c, i_n) for x in (se, ds, ccs))
-    kk = torch.where(mask[:, None, None] != 0, k, torch.full_like(k, -torch.inf))
+    m = None if which in ("K1", "K4") else m  # G2 repairs the fused kernels' max
     merge_state = eng.initial_state()
 
     def merge():
-        mm = (refine_varying_max(ccs, sum_c, bk.sum_ref, f0, ntot) if which in ("K1", "K4")
-              else m)
-        return merge_block(merge_state, mm, se, ds, ccs, kk, sum_c, ssq_c, bk.sum_ref, bk.disp,
-                           0, ntot, d)
+        return posterior_cuda.merge_block(merge_state, m, se, ds, ccs, k, f0, sum_c, ssq_c,
+                                          bk.sum_ref, bk.disp, 0, ntot=ntot)
 
     ms["merge"] = time_ms(merge, dev, reps)
     ms["residual"] = ms["step"] - sum(ms[k] for k in ("projection", "constants", "compare",

@@ -14,8 +14,9 @@ the captured block step on the card) and prints:
 * the glue (every kernel but the comparison and projection kernels,
   K1–K4's ``compare_*`` and K2's ``project_kernel``) grouped by the block
   step's phase (the ``bioem.*`` ``record_function`` ranges of
-  ``core/engine.py``: projection, constants, compare, max_repair, merge)
-  and the outermost torch op that launched it. A graph replay carries no
+  ``core/engine.py``: projection, constants, compare, merge)
+  and the outermost torch op that launched it, then per phase with the
+  glue's own kernels (G1, G2) added by name. A graph replay carries no
   launching op, so this grouping profiles the same blocks as the eager
   loop of block steps (the same kernels, each launched from Python).
 
@@ -38,6 +39,11 @@ import torch
 # Kernel-name stems of the hand-written kernels (K1/K3: compare_fused_*,
 # K4: compare_batched_*, K2: project_kernel); everything else is glue.
 KERNEL_STEMS = ("compare_fused", "compare_batched", "project_kernel")
+# The glue's own hand-written kernels (ops/posterior_cuda.py: G1, G2) and
+# the phase that launches each: they are launched through ctypes, not by a
+# torch op, so by_op does not see them and glue_by_phase adds them by name.
+GLUE_KERNELS = (("block_constants_kernel", "bioem.constants"),
+                ("merge_block_kernel", "bioem.merge"))
 
 
 def _device_us(e) -> float:
@@ -94,6 +100,23 @@ def by_op(prof, n_blocks: int, on_card: bool) -> list:
         a[1] += us
     rows = [(f, op, n / n_blocks, us / n_blocks) for (f, op), (n, us) in acc.items()]
     return sorted(rows, key=lambda r: -r[3])
+
+
+def glue_by_phase(prof, n_blocks: int) -> dict:
+    """{phase: [kernels per block, µs per block]} of the glue of a profile
+    of eager blocks on the card: :func:`by_op`'s rows summed per phase,
+    and G1 and G2 (:data:`GLUE_KERNELS`) under the phases that launch
+    them."""
+    acc = collections.defaultdict(lambda: [0.0, 0.0])
+    for phase, _op, n, us in by_op(prof, n_blocks, True):
+        acc[phase][0] += n
+        acc[phase][1] += us
+    for e in device_kernels(prof.events()):
+        for stem, phase in GLUE_KERNELS:
+            if stem in e.name:
+                acc[phase][0] += 1 / n_blocks
+                acc[phase][1] += e.time_range.elapsed_us() / n_blocks
+    return dict(acc)
 
 
 def trace(eng, n_blocks: int = 8) -> dict:
@@ -178,6 +201,7 @@ def trace(eng, n_blocks: int = 8) -> dict:
         eager(eng.initial_state())
         sync()
     out["by_op"] = by_op(prof_eager, n_blocks, on_card)
+    out["by_phase"] = glue_by_phase(prof_eager, n_blocks) if on_card else None
     return out
 
 
@@ -201,6 +225,9 @@ def report(out: dict, say=print) -> None:
     say(f"{'phase':<20} {'op':<28} {'kernels/block':>13} {'us/block':>10}")
     for phase, op, n, us in out["by_op"]:
         say(f"{phase[:20]:<20} {op[:28]:<28} {n:13.1f} {us:10.2f}")
+    if out["by_phase"]:
+        say("glue by phase, the glue kernels (G1, G2) included: " + "; ".join(
+            f"{ph} {n:.1f} kernels {us:.1f} us" for ph, (n, us) in sorted(out["by_phase"].items())))
 
 
 def main(argv=None) -> int:

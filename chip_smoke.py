@@ -24,13 +24,24 @@ the port's main path on the card, in phases (each prints its own lines):
    stride-1 ±30 lattice at N = 224 (D = 61, M = 224), and twice to the
    same bits; K1 and K3 on lattices the earlier K1 refused or ran on two
    warpgroups (N = 224, D = 121; N = 512, D = 81: four warpgroups, the
-   lattice in row chunks), K1 at D = 121 timed beside its bound;
+   lattice in row chunks), K1 at D = 121 timed beside its bound; the
+   posterior glue: G1 (the block constants) and G2 (the f64 max repair
+   and the streaming merge) against their plain versions at the
+   production block (G2 on K1's outputs, into a fresh state and again
+   into the state it made), at o_block 16 and at a reference-grid block
+   (C = 32) on random inputs (G1 on normalised and DC-dominated images,
+   G2 on the fused path, the hybrid's f32 m, a partially and a fully
+   masked block and exact ties, slabs off and on), two replays of a
+   captured G1 + G2 step whose offset the graph advances, and both
+   timed beside their plain versions and bounds;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
    images at N=224) through run_bioem: on the kernel branch with K1 (then
    32 of its blocks as the eager loop and as replays of the captured
-   block step, each timed and under torch.profiler: wall time and the
-   card's busy share), with K4 forced (BIOEM_TPU_FUSED_BATCHED), and
+   block step, each timed and under torch.profiler: wall time, the
+   card's busy share, kernels per block and the glue by phase, before
+   (the glue's plain torch versions patched in) and after G1 and G2),
+   with K4 forced (BIOEM_TPU_FUSED_BATCHED), and
    autotuned three times from an empty cache and once more from the cache
    (each candidate's time on its replayed loop, each winner and its pass
    time printed; each pass with the seconds its tuning took; the autotune
@@ -137,7 +148,9 @@ K3; the accuracy phase K1, K3 and K4; the examples K2 and K3; the profile
 tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3; the
 harness K2 and K3 on bench.py's problem, K2 and K1 or K4 on the planted one;
 the reference grid and the wide grid K1, K2 and K3; the C2 check K1, K2,
-K3 and K4. Each part's line gives its seconds.
+K3 and K4; every one of them but the probe tool, DEBUG_PROB and the
+examples also G1 and G2 (the kernel branch's block step). Each part's
+line gives its seconds.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
 least time the card could take for the same work (``bound_ms``, from the
@@ -236,22 +249,22 @@ def _block_inputs(eng, b: int = 0):
     made)."""
     import torch
 
-    from bioem_tpu_torch.core.engine import fused_coefficients
     from bioem_tpu_torch.core.orientations import rotation_matrices
-    from bioem_tpu_torch.core.posterior import ctf_prior_term
     from bioem_tpu_torch.core.projection import grouped_snap, project_fourier_batch
+    from bioem_tpu_torch.ops.posterior_cuda import block_constants_plain
 
     bk, p, fs = eng.banks, eng.p, eng.fspec
     rotm = rotation_matrices(eng.ang_blocks[b], eng.orients.use_quaternions)
     model = (bk.points, bk.radii, bk.dens)
     pr, pi = project_fourier_batch(fs, rotm, *model, bk.norm_den, bk.st_re, bk.st_im, bk.st_sums)
     i0, j0, de = grouped_snap(fs, rotm, *model)
-    prior = ctf_prior_term(bk.amp, bk.pha, bk.env, p)[None].expand(eng.o_block, eng.n_ctf)
-    sum_c, _ssq_c, f0, _k = eng._kernel_constants(bk, pr, pi, prior)
-    a_u, b_u = fused_coefficients(f0, sum_c, bk.sum_ref, p.n_total_pixels)
+    g1 = (pr, pi, bk.ctf_re, bk.ctf_im, bk.h, bk.sum_ref, bk.ssq_ref, eng._prior,
+          eng.mask_blocks[b])
+    g1_kw = dict(ntot=p.n_total_pixels, images_normalized=eng._f32_corr_ok)
+    *_, a_u, b_u = block_constants_plain(*g1, **g1_kw)
     m = p.n_pixels // eng.n_fold
     return dict(
-        pr=pr, pi=pi, i0=i0, j0=j0, dens=de, a_u=a_u, b_u=b_u,
+        pr=pr, pi=pi, i0=i0, j0=j0, dens=de, a_u=a_u, b_u=b_u, g1=g1, g1_kw=g1_kw,
         counts=torch.tensor(fs.group_counts, dtype=torch.int32, device=de.device),
         wx_re=bk.wx_re[:, :m].contiguous(), wx_im=bk.wx_im[:, :m].contiguous(),
         a_coef=(3.0 - p.n_total_pixels) * 0.5,
@@ -523,6 +536,199 @@ def phase_kernels(torch, eng) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# The posterior glue: G1 (block_constants) and G2 (merge_block)
+# ---------------------------------------------------------------------------
+
+def check_constants(torch, name, g1, kw) -> float:
+    """G1 against its plain version on the card: sum_c bit-equal; ssq_c
+    within 2e-6 relative and no farther from an all-f64 evaluation than
+    the plain f32 product; f0, k, a_u, b_u within 1 ulp of the plain
+    formulas on G1's own sums; masked k exactly −inf. Returns max
+    |Δssq_c| against the plain version (every other output is held to the
+    ulp)."""
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.tools.kernel_probe import ulp_distance
+
+    sum_c, ssq_c, f0, k, a_u, b_u = G.block_constants(*g1, **kw)
+    p_sum, p_ssq = G.convolution_sums_plain(*g1[:5], ntot=kw["ntot"])
+    _s64, ssq64 = G.convolution_sums_plain(*(v.double() for v in g1[:5]), ntot=kw["ntot"])
+    want = G.constants_from_sums(sum_c, ssq_c, *g1[5:], **kw)
+    torch.cuda.synchronize()
+    rel = float(((ssq_c - p_ssq).abs() / p_ssq.abs()).max())
+    gap_k = float((ssq_c.double() - ssq64).abs().max())
+    gap_p = float((p_ssq.double() - ssq64).abs().max())
+    ulps = {n: ulp_distance(a, b) for n, a, b in zip(("f0", "k", "a_u", "b_u"), (f0, k, a_u, b_u), want)}
+    live = g1[8] != 0
+    masked_ok = bool((k[~live] == -torch.inf).all()) and bool(torch.isfinite(k[live]).all())
+    say(f"[glue] {name}: sum_c bit-equal {torch.equal(sum_c, p_sum)}; ssq_c max rel |Δ| "
+        f"{rel:.2e}, from f64 {gap_k:.3e} against the plain product's {gap_p:.3e}; ulps "
+        + ", ".join(f"{n} {u}" for n, u in ulps.items())
+        + f"; masked k −inf {masked_ok} ({int((~live).sum())} of {live.numel()} masked)")
+    require(torch.equal(sum_c, p_sum), f"{name}: sum_c differs from the plain version")
+    require(rel <= 2e-6, f"{name}: ssq_c beyond 2e-6 relative")
+    require(gap_k <= gap_p, f"{name}: ssq_c farther from f64 than the plain version")
+    require(all(u <= 1 for u in ulps.values()), f"{name}: f0, k, a_u or b_u beyond 1 ulp")
+    require(masked_ok, f"{name}: masked k not −inf or live k not finite")
+    return float((ssq_c - p_ssq).abs().max())
+
+
+def check_merge(torch, name, base, args, o: int, ntot: float, expect_first=None) -> float:
+    """G2 (offset a 0-d device tensor) against its plain version (an int
+    offset O), each on its own copy of ``base``: the varying max used
+    within 1 ulp; const, the argmax tuple and ang_const exact; best_norm
+    and best_mu within 1e-12 relative; total and ang_total within 1e-6; a
+    fully masked block leaves the state bit-equal. Returns max |Δtotal|."""
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.tools.kernel_probe import ulp_distance
+
+    kern, plain = (type(base)(*(x.clone() if x is not None else None for x in base))
+                   for _ in range(2))
+    m_k = torch.empty(args[4].shape, dtype=torch.float64, device=args[4].device)
+    m_p = torch.empty_like(m_k)
+    G.merge_block(kern, *args, torch.tensor(o, device=m_k.device), ntot=ntot, m_out=m_k)
+    G.merge_block_plain(plain, *args, o, ntot=ntot, m_out=m_p)
+    torch.cuda.synchronize()
+    bad = []
+    for f, a, b in zip(base._fields, kern, plain):
+        if a is None:
+            continue
+        if f in ("total", "ang_total"):
+            ok = bool(((a - b).abs() <= 1e-6 * b.abs()).all())
+        elif f in ("best_norm", "best_mu"):
+            ok = float(((a - b).abs() / b.abs().clamp_min(1e-300)).max()) <= 1e-12
+        else:
+            ok = torch.equal(a, b)
+        if not ok:
+            bad.append(f)
+    masked = not bool(torch.isfinite(args[4]).any())
+    unchanged = all(x is None or torch.equal(x, y) for x, y in zip(kern, base))
+    updated = int((kern.best_orient != base.best_orient).sum())
+    rel_t = float(((kern.total - plain.total).abs() / plain.total.abs()).max())
+    say(f"[glue] {name}: m ulps {ulp_distance(m_k, m_p)}, total max rel |Δ| {rel_t:.2e}, "
+        f"fields off their limits: {bad or 'none'}; tuples moved on {updated} images"
+        + (f"; state unchanged {unchanged}" if masked else ""))
+    require(ulp_distance(m_k, m_p) <= 1, f"{name}: the varying max beyond 1 ulp")
+    require(not bad, f"{name}: {', '.join(bad)} off their limits")
+    require(not masked or unchanged, f"{name}: a fully masked block changed the state")
+    if expect_first is not None:
+        require(bool((kern.best_orient == expect_first).all() and (kern.best_conv == 0).all()),
+                f"{name}: a tie did not go to the first pair")
+    return float((kern.total - plain.total).abs().max())
+
+
+def check_glue_replay(torch, i: int = 64) -> None:
+    """G1 and G2 captured in one CUDA graph, the block's offset a 0-d device
+    tensor the graph advances: two replays on two blocks' inputs equal the
+    eager calls with int offsets 0 and O, bit for bit
+    (kernel_probe.glue_replay)."""
+    from bioem_tpu_torch.tools.kernel_probe import glue_replay
+
+    state, eager, blk = glue_replay(DEVICE, i=i)
+    same = all(torch.equal(a, b) for a, b in zip(state, eager))
+    late = int((state.best_orient >= 8).sum())
+    say(f"[glue] two replays of G1 + G2 with a device offset: bit-equal to the eager calls "
+        f"{same}; block 1 holds the argmax of {late}/{i} images")
+    require(blk == 2 and same and late > 0,
+            "the replayed glue does not read its offset from the device")
+
+
+def phase_glue(torch, eng) -> dict:
+    """G1 and G2 against their plain versions: on the production block
+    (:func:`_block_inputs`; G2 on K1's outputs there, into a fresh
+    state and again into the state it made, where every block max ties
+    const and the strict > moves nothing), and on random blocks at
+    o_block 16 and at a reference-grid block (C = 32), G1 on normalised
+    and DC-dominated images, G2 in every case of kernel_probe.GLUE_CASES
+    with the slabs off and on; two replays of a captured step with a
+    device offset; the kernels' and plain versions' times at the
+    production block, and their bounds."""
+    from bioem_tpu_torch.core.posterior import init_state, refine_varying_max
+    from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.tools.kernel_probe import (GLUE_CASES, device_ms, glue_inputs,
+                                                    glue_merge_args)
+    from bioem_tpu_torch.tools.problem import bound
+
+    bk, p = eng.banks, eng.p
+    o, c, n, f = eng.o_block, eng.n_ctf, p.n_pixels, p.n_fft_1d
+    i_n = bk.img_re.shape[0]
+    ntot = float(p.n_total_pixels)
+    x = _block_inputs(eng)
+    err1 = check_constants(torch, "G1 production block", x["g1"], x["g1_kw"])
+    k1_args = (x["pr"], x["pi"], bk.ctf_re, bk.ctf_im, bk.img_re, bk.img_im,
+               x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im, x["a_u"], x["b_u"])
+    _m, se, ds, ccs = (v.reshape(o, c, i_n) for v in cc_mod.fused_compare_block(
+        *k1_args, a_coef=x["a_coef"], n_fold=eng.n_fold))
+    sum_c, ssq_c, f0, k, _a, _b = G.block_constants_plain(*x["g1"], **x["g1_kw"])
+    args = (None, se, ds, ccs, k, f0, sum_c, ssq_c, bk.sum_ref, bk.disp)
+    fresh = init_state(i_n, 2 * o, True, DEVICE)
+    err2 = check_merge(torch, "G2 production block, fresh state", fresh, args, o, ntot)
+    again = type(fresh)(*(v.clone() for v in fresh))
+    G.merge_block_plain(again, *args, 0, ntot=ntot)
+    check_merge(torch, "G2 production block, again (ties with const)", again, args, o, ntot)
+    for shape in ((16, 8, 64), (8, 32, 64)):
+        for normalized in (True, False):
+            g = glue_inputs(DEVICE, *shape, normalized=normalized)
+            check_constants(torch, f"G1 O,C,I={shape} "
+                            f"{'normalised' if normalized else 'DC-dominated'}", g["g1"], g["kw"])
+        g = glue_inputs(DEVICE, *shape)
+        for slabs in (False, True):
+            base = init_state(shape[2], 2 * shape[0], slabs, DEVICE)
+            G.merge_block_plain(base, *glue_merge_args(glue_inputs(DEVICE, *shape, seed=7),
+                                                       "fused"), 0, ntot=g["kw"]["ntot"])
+            for case in GLUE_CASES:
+                check_merge(torch, f"G2 O,C,I={shape} {case}, slabs {'on' if slabs else 'off'}",
+                            base, glue_merge_args(g, case), shape[0], g["kw"]["ntot"],
+                            expect_first=shape[0] if case == "ties" else None)
+    check_glue_replay(torch)
+
+    # times at the production block, the card's own time: the calls queued
+    # behind a ~20 ms spin of the card, which hides the host's launches
+    # (the plain versions' 50–90 torch ops each: 5 calls, so that their
+    # launches stay inside the spin)
+    st = init_state(i_n, 2 * o, False, DEVICE)
+    t = {"G1": (device_ms(lambda: G.block_constants(*x["g1"], **x["g1_kw"])),
+                device_ms(lambda: G.block_constants_plain(*x["g1"], **x["g1_kw"]), 5)),
+         "G2": (device_ms(lambda: G.merge_block(st, *args, 0, ntot=ntot)),
+                device_ms(lambda: G.merge_block_plain(st, *args, 0, ntot=ntot), 5))}
+    # Bounds: G1 reads the spectra once and writes its outputs once; its
+    # f64 work is |p|² and |ctf|² per frequency and a multiply-add per (o,
+    # c, frequency), ~20 operations per (o, c, i) row entry. G2 on the
+    # fused path (no m) reads se, ccs, k and f0 per (o, c, i), sum_c per
+    # (o, c) and sum_ref, reads and writes total and const, ~15 f64
+    # operations per (o, c, i); only where the block's max beats const
+    # strictly does it read ds, ssq_c and two displacements and write the
+    # six-field tuple. The timed calls merge into a state that has this
+    # block already (the first call), so count those images from the data.
+    nf = n * f
+    b1 = bound({"f64": 4 * o * nf + 3 * c * nf + 2 * o * c * nf + 20 * o * c * i_n},
+               4 * (2 * (o + c) * nf + f + 2 * i_n + o) + 8 * c
+               + 2 * 4 * o * c + 2 * 8 * o * c * i_n + 2 * 4 * o * c * i_n)
+    block_max = (k + refine_varying_max(ccs, sum_c, bk.sum_ref, f0, ntot)).amax(dim=(0, 1))
+    n_upd = int((block_max > st.const).sum())
+    b2 = bound({"f64": 15 * o * c * i_n},
+               (2 * 4 + 2 * 8) * o * c * i_n + 4 * o * c + 4 * i_n + 2 * 2 * 8 * i_n
+               + n_upd * (4 + 4 + 2 * 4 + 4 * 4 + 2 * 8))
+    say(f"[glue] G2's timed calls update the tuple of {n_upd} of {i_n} images")
+    for key, (a, b_), bd in (("G1", t["G1"], b1), ("G2", t["G2"], b2)):
+        say(f"[glue] {key} production-block time: kernel {a:.4f} ms, plain {b_:.4f} ms "
+            f"(the card's own time); bound {bd[0]:.5f} ms ({bd[1]}-bound)")
+    none = dict(library_ms=None)  # no single PyTorch call computes G1 or G2
+    return {
+        "G1": dict(name="block_constants", route="cuda",
+                   source="bioem_tpu_torch/csrc/posterior_glue.cu",
+                   replaces="bioem_tpu/core/engine.py:526-540,553-560,606 (XLA-fused; no Pallas kernel)",
+                   max_abs_err=err1, ms=t["G1"][0], plain_ms=t["G1"][1],
+                   bound_ms=b1[0], bound_by=b1[1], **none),
+        "G2": dict(name="merge_block", route="cuda",
+                   source="bioem_tpu_torch/csrc/posterior_glue.cu",
+                   replaces="bioem_tpu/core/engine.py:580,606-610 (XLA-fused; no Pallas kernel)",
+                   max_abs_err=err2, ms=t["G2"][0], plain_ms=t["G2"][1],
+                   bound_ms=b2[0], bound_by=b2[1], **none),
+    }
+
+
 @contextlib.contextmanager
 def _environ(env: dict):
     """``env`` set in os.environ, the previous values restored on exit."""
@@ -656,12 +862,13 @@ def _profile_blocks(step, n_blocks: int) -> dict:
     """``step()`` ``n_blocks`` times, timed without and then with
     torch.profiler: wall time per block of each, the card's busy time per
     block under the profiler (the sum of its kernels' times: one stream,
-    so they do not overlap), K1's and K2's time per block, and the kernels
-    launched per block."""
+    so they do not overlap), K1's and K2's time per block, the kernels
+    launched per block, and (for eager steps: a replay carries no launching
+    op) the glue by block-step phase (trace_step.glue_by_phase)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bioem_tpu_torch.tools.trace_step import device_kernels
+    from bioem_tpu_torch.tools.trace_step import device_kernels, glue_by_phase
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -683,23 +890,16 @@ def _profile_blocks(step, n_blocks: int) -> dict:
     # K1's launch is two kernels: its prologue (compare_fused_prep_kernel)
     # and compare_fused_kernel
     out = dict(wall_ms=wall, wall_prof_ms=wall_prof, busy_ms=busy, share=busy / wall_prof,
-               k1_ms=by("compare_fused_"), k2_ms=by("project_kernel"), launches=count(""))
+               k1_ms=by("compare_fused_"), k2_ms=by("project_kernel"), launches=count(""),
+               glue=glue_by_phase(prof, n_blocks))
     out["other_ms"] = busy - out["k1_ms"] - out["k2_ms"]
     out["other_launches"] = out["launches"] - count("compare_fused_") - count("project_kernel")
     return out
 
 
-def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
-    """The default kernel pass (K1, o_block 8), ``n_blocks`` blocks timed
-    and ``n_blocks`` more profiled after ``warm``, two ways: as the eager
-    loop of block steps (a host dispatch per kernel) and as the pass runs
-    it, one replay of the captured block step per block. For each: wall
-    time per block without and under torch.profiler, the card's busy time
-    per block and its share of the profiled wall time, K1's and K2's time
-    per block, and the kernels launched per block. Where the profiler
-    attributes no kernel time to the graph's replays, the replayed loop's
-    wall time stands against the eager profile's busy time, and the line
-    says so."""
+def _profile_pass(problem, n_blocks: int, warm: int) -> tuple:
+    """({"eager": ..., "replayed": ...} of :func:`_profile_blocks`, o_block)
+    of the default kernel pass, on a new engine."""
     from bioem_tpu_torch.config import RunConfig
     from bioem_tpu_torch.core.engine import BioEMEngine
 
@@ -721,13 +921,47 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
     for _ in range(warm):
         eng._replay()
     out["replayed"] = _profile_blocks(eng._replay, n_blocks)
-    for name, r in out.items():
-        say(f"[profile] default kernel pass (K1, o_block {eng.o_block}), {n_blocks} blocks, "
-            f"{name}: wall {r['wall_ms']:.3f} ms per block ({r['wall_prof_ms']:.3f} under "
-            f"torch.profiler), card busy {r['busy_ms']:.3f} ms per block "
-            f"({100 * r['share']:.1f} %), K1 (prologue and main kernel) {r['k1_ms']:.3f} ms, "
-            f"K2 {r['k2_ms']:.3f} ms, the other {r['other_launches']:.1f} kernels "
-            f"{r['other_ms']:.3f} ms; {r['launches']:.1f} kernels per block")
+    return out, eng.o_block
+
+
+def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
+    """The default kernel pass (K1, o_block 8), ``n_blocks`` blocks timed
+    and ``n_blocks`` more profiled after ``warm``, two ways: as the eager
+    loop of block steps (a host dispatch per kernel) and as the pass runs
+    it, one replay of the captured block step per block. For each: wall
+    time per block without and under torch.profiler, the card's busy time
+    per block and its share of the profiled wall time, K1's and K2's time
+    per block, the kernels launched per block, and the eager loop's glue
+    by phase. All of it twice: before, the glue as the torch ops it was
+    (G1's and G2's plain versions patched in for the wrappers: the block
+    step of the engine without them), and after, through G1 and G2; the
+    replayed block must launch at least 120 kernels fewer after. Where the
+    profiler attributes no kernel time to the graph's replays, the
+    replayed loop's wall time stands against the eager profile's busy
+    time, and the line says so."""
+    from bioem_tpu_torch.ops import posterior_cuda as G
+
+    def counted(fn):
+        def run(*a, **kw):
+            return fn(*a, **kw)
+        run.launches = 0
+        return run
+
+    with mock.patch.object(G, "block_constants", counted(G.block_constants_plain)), \
+            mock.patch.object(G, "merge_block", counted(G.merge_block_plain)):
+        before, _ = _profile_pass(problem, n_blocks, warm)
+    out, o_block = _profile_pass(problem, n_blocks, warm)
+    for when, res in (("before (torch glue)", before), ("after (G1, G2)", out)):
+        for name, r in res.items():
+            say(f"[profile] default kernel pass (K1, o_block {o_block}), {n_blocks} blocks, "
+                f"{name}, {when}: wall {r['wall_ms']:.3f} ms per block ({r['wall_prof_ms']:.3f} "
+                f"under torch.profiler), card busy {r['busy_ms']:.3f} ms per block "
+                f"({100 * r['share']:.1f} %), K1 (prologue and main kernel) {r['k1_ms']:.3f} ms, "
+                f"K2 {r['k2_ms']:.3f} ms, the other {r['other_launches']:.1f} kernels "
+                f"{r['other_ms']:.3f} ms; {r['launches']:.1f} kernels per block")
+        say(f"[profile] glue by phase, eager, {when}: " + "; ".join(
+            f"{ph.removeprefix('bioem.')} {n:.1f} kernels {us:.1f} us"
+            for ph, (n, us) in sorted(res["eager"]["glue"].items())) + " per block")
     e, g = out["eager"], out["replayed"]
     require(e["k1_ms"] > 0 and e["k2_ms"] > 0, "the profiled eager loop shows no K1 or K2 time")
     if g["busy_ms"] == 0:
@@ -736,6 +970,13 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
             f"loop's busy time {e['busy_ms']:.3f} ms ({100 * e['busy_ms'] / g['wall_ms']:.1f} %)")
     say(f"[profile] replayed against eager: wall {g['wall_ms']:.3f} against {e['wall_ms']:.3f} "
         f"ms per block ({e['wall_ms'] / g['wall_ms']:.2f}x)")
+    b = before["replayed"]
+    fewer = b["launches"] - g["launches"]
+    say(f"[profile] replayed block, before against after: {b['launches']:.1f} against "
+        f"{g['launches']:.1f} kernels ({fewer:.1f} fewer), wall {b['wall_ms']:.3f} against "
+        f"{g['wall_ms']:.3f} ms, busy {b['busy_ms']:.3f} against {g['busy_ms']:.3f} ms")
+    require(g["busy_ms"] == 0 or fewer >= 120,
+            f"the replayed block launches {fewer:.1f} kernels fewer with G1 and G2, not ≥ 120")
     return out
 
 
@@ -1078,6 +1319,7 @@ def mp_worker(rank: int, port: int, out_dir: str) -> int:
     from bioem_tpu_torch.io.map_io import ImageStack
     from bioem_tpu_torch.ops import _build
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
+    from bioem_tpu_torch.ops import posterior_cuda as glue
     from bioem_tpu_torch.ops import project_cuda as pj
     from bioem_tpu_torch.parallel import distributed
     from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine, make_bioem_mesh
@@ -1153,7 +1395,9 @@ def mp_worker(rank: int, port: int, out_dir: str) -> int:
                       "launches": {"K1": cc_mod.fused_compare_block.launches,
                                    "K2": pj.fourier_project_block.launches,
                                    "K3": cc_mod.fused_displacement_cc.launches,
-                                   "K4": cc_mod.fused_compare_block_batched.launches}}),
+                                   "K4": cc_mod.fused_compare_block_batched.launches,
+                                   "G1": glue.block_constants.launches,
+                                   "G2": glue.merge_block.launches}}),
           flush=True)
     torch.cuda.synchronize()
     distributed.shutdown()
@@ -1225,9 +1469,10 @@ def phase_multiprocess(ref_2x2, maps, card: str) -> dict:
             same = all(np.array_equal(got[k][f], getattr(ref_2x2, f)) for f in RESULT_FIELDS)
             say(f"[multiprocess] run: every field bit-equal to the one-process run: {same}")
             require(bits and same, "the two-process run is not bit-equal to the one-process run")
-    out = {k: sum(i["launches"][k] for i in info) for k in ("K1", "K2", "K3", "K4")}
+    out = {k: sum(i["launches"][k] for i in info) for k in ("K1", "K2", "K3", "K4", "G1", "G2")}
     say("[multiprocess] the workers' launches: " + ", ".join(f"{k} {v}" for k, v in out.items()))
-    require(out["K1"] > 0 and out["K2"] > 0, "the workers did not launch K1 and K2")
+    require(all(out[k] > 0 for k in ("K1", "K2", "G1", "G2")),
+            "the workers did not launch K1, K2, G1 and G2")
     return out
 
 
@@ -2140,6 +2385,7 @@ def main() -> int:
         from bioem_tpu_torch.config import RunConfig
         from bioem_tpu_torch.core.engine import BioEMEngine
         from bioem_tpu_torch.ops import compare_cuda as cc_mod
+        from bioem_tpu_torch.ops import posterior_cuda as glue
         from bioem_tpu_torch.ops import project_cuda as pj
         from bioem_tpu_torch.tools.problem import build_problem
 
@@ -2153,11 +2399,13 @@ def main() -> int:
             f"{eng.n_img} images, {model.n_points} points in {eng.fspec.n_groups} radius "
             f"groups, set up in {time.perf_counter() - t0:.1f} s")
         rows = phase_kernels(torch, eng)
+        rows.update(phase_glue(torch, eng))
         del eng
 
         counters = {"K1": cc_mod.fused_compare_block, "K2": pj.fourier_project_block,
                     "K3": cc_mod.fused_displacement_cc,
-                    "K4": cc_mod.fused_compare_block_batched}
+                    "K4": cc_mod.fused_compare_block_batched,
+                    "G1": glue.block_constants, "G2": glue.merge_block}
 
         def main_path(name, drive, kernels):
             """Counts from 0 around one path; each of ``kernels`` must launch."""
@@ -2179,17 +2427,21 @@ def main() -> int:
             phase_goldens()
             return phase_production(problem)
 
-        res_p, res_k = main_path("goldens + production K1", goldens_and_k1, ("K1", "K2", "K3"))
+        res_p, res_k = main_path("goldens + production K1", goldens_and_k1,
+                                 ("K1", "K2", "K3", "G1", "G2"))
         main_path("production K4 + autotuned + checkpoint",
-                  lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]), ("K2", "K4"))
-        main_path("streaming", lambda: phase_streaming(problem, res_k, card), ("K1", "K2"))
-        main_path("ranking", lambda: phase_ranking(problem, card), ("K1", "K2"))
-        ref_2x2 = main_path("mesh", lambda: phase_mesh(problem, res_k, card), ("K1", "K2"))
+                  lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]),
+                  ("K2", "K4", "G1", "G2"))
+        main_path("streaming", lambda: phase_streaming(problem, res_k, card),
+                  ("K1", "K2", "G1", "G2"))
+        main_path("ranking", lambda: phase_ranking(problem, card), ("K1", "K2", "G1", "G2"))
+        ref_2x2 = main_path("mesh", lambda: phase_mesh(problem, res_k, card),
+                            ("K1", "K2", "G1", "G2"))
         # the two worker processes' counters start at 0 with the processes
         for k, n in phase_multiprocess(ref_2x2, problem[3].maps, card).items():
             rows[k]["launches"] = rows[k].get("launches", 0) + n
         phase_native(card)
-        main_path("refinement", lambda: phase_refinement(problem, card), ("K2",))
+        main_path("refinement", lambda: phase_refinement(problem, card), ("K2", "G1", "G2"))
         from bioem_tpu_torch.ops import probe_cuda
 
         counters.update(P1=probe_cuda.f32_product, P2=probe_cuda.product_sum,
@@ -2199,25 +2451,28 @@ def main() -> int:
             rows[k] = {**r, "launches": counters[k].launches}
         phase_bestmap()
         main_path("DEBUG_PROB", phase_debug_prob, ("K3",))
-        main_path("accuracy", lambda: phase_accuracy(card), ("K1", "K3", "K4"))
+        main_path("accuracy", lambda: phase_accuracy(card), ("K1", "K3", "K4", "G1", "G2"))
         main_path("examples", lambda: phase_examples(card), ("K2", "K3"))
-        main_path("profile tools", lambda: phase_profile_tools(problem, card), ("K1", "K2"))
-        main_path("scale", lambda: phase_scale(card), ("K1", "K2"))
-        main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2"))
+        main_path("profile tools", lambda: phase_profile_tools(problem, card),
+                  ("K1", "K2", "G1", "G2"))
+        main_path("scale", lambda: phase_scale(card), ("K1", "K2", "G1", "G2"))
+        main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2", "G1", "G2"))
         main_path("rank, mesh, pipeline, noise", lambda: phase_small_tools(problem, card),
-                  ("K1", "K2", "K3"))
+                  ("K1", "K2", "K3", "G1", "G2"))
         main_path("bench harness, bench.py's problem", lambda: phase_bench(card, "bench"),
-                  ("K2", "K3"))
+                  ("K2", "K3", "G1", "G2"))
         main_path("bench harness, planted problem", lambda: phase_bench(card, "planted"),
-                  ("K2",))
+                  ("K2", "G1", "G2"))
         rows["K1_D81"] = kernel_row_d81(torch)
         rows["K1_D121"] = kernel_row_wide(torch)
-        main_path("reference grid", lambda: phase_reference_grid(card), ("K1", "K2", "K3"))
+        main_path("reference grid", lambda: phase_reference_grid(card),
+                  ("K1", "K2", "K3", "G1", "G2"))
         rows["K1_D81"]["launches"] = counters["K1"].launches
-        main_path("wide grid", lambda: phase_wide_grid(card), ("K1", "K2", "K3"))
+        main_path("wide grid", lambda: phase_wide_grid(card), ("K1", "K2", "K3", "G1", "G2"))
         rows["K1_D121"]["launches"] = counters["K1"].launches
         k1_vs_plain = float(np.max(np.abs(res_k.log_prob - res_p.log_prob)))
-        main_path("C2 check", lambda: phase_c2(card, k1_vs_plain), ("K1", "K2", "K3", "K4"))
+        main_path("C2 check", lambda: phase_c2(card, k1_vs_plain),
+                  ("K1", "K2", "K3", "K4", "G1", "G2"))
     except Exception as e:  # every phase failure ends the run with a nonzero code
         import traceback
 

@@ -1012,3 +1012,139 @@ def test_bench_harness_small(dev, monkeypatch, capsys, tmp_path, problem):
     assert rec["problem"] == problem and rec["comparison"] in ("K1", "K4", "hybrid")
     assert rec["card"].startswith(torch.cuda.get_device_name(0)) and rec["card"].endswith("W")
     assert rec["value"] > 0 and 0 < rec["roofline_pct"] <= 100
+
+
+# ---------------------------------------------------------------------------
+# The posterior glue: G1 (block_constants) and G2 (merge_block)
+# ---------------------------------------------------------------------------
+
+# (O, C, I): the production block, o_block 16, a reference-grid block
+GLUE_SHAPES = [(8, 8, 64), (16, 8, 64), (8, 32, 64)]
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.parametrize("shape", GLUE_SHAPES)
+def test_block_constants_kernel_vs_plain(dev, shape, normalized):
+    """G1 against its plain version: sum_c bit-equal; ssq_c (f64 sum
+    against an f32 product) within 2e-6 relative and no farther from an
+    all-f64 evaluation; f0, k, a_u, b_u within 1 ulp of the plain formulas
+    on G1's own sums (the same libdevice functions and roundings: expected
+    0); the masked orientation's k exactly −inf."""
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.tools.kernel_probe import glue_inputs, ulp_distance
+
+    x = glue_inputs(dev, *shape, normalized=normalized)
+    before = G.block_constants.launches
+    sum_c, ssq_c, f0, k, a_u, b_u = G.block_constants(*x["g1"], **x["kw"])
+    torch.cuda.synchronize()
+    assert G.block_constants.launches == before + 1
+    p_sum, p_ssq = G.convolution_sums_plain(*x["g1"][:5], ntot=x["kw"]["ntot"])
+    assert torch.equal(sum_c, p_sum)
+    assert float(((ssq_c - p_ssq).abs() / p_ssq.abs()).max()) <= 2e-6
+    _s64, ssq64 = G.convolution_sums_plain(*(v.double() for v in x["g1"][:5]),
+                                           ntot=x["kw"]["ntot"])
+    assert (ssq_c.double() - ssq64).abs().max() <= (p_ssq.double() - ssq64).abs().max()
+    want = G.constants_from_sums(sum_c, ssq_c, *x["g1"][5:], **x["kw"])
+    for name, a, b in zip(("f0", "k", "a_u", "b_u"), (f0, k, a_u, b_u), want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert ulp_distance(a, b) <= 1, name
+    assert bool((k[-1] == -torch.inf).all()) and bool(torch.isfinite(k[:-1]).all())
+
+
+def _merge_pair(dev, shape, case, slabs):
+    """A state after one fused block merged by the plain version, then the
+    ``case`` block merged into a copy by G2 (offset a 0-d tensor) and into
+    another by the plain version (an int): (kernel state, plain state,
+    the state before, G2's m_out, the plain version's m)."""
+    from bioem_tpu_torch.core.posterior import init_state
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.tools.kernel_probe import glue_inputs, glue_merge_args
+
+    o, _c, i = shape
+    x = glue_inputs(dev, *shape)
+    ntot = x["kw"]["ntot"]
+    base = init_state(i, 2 * o, slabs, dev)
+    G.merge_block_plain(base, *glue_merge_args(glue_inputs(dev, *shape, seed=7), "fused"), 0,
+                        ntot=ntot)
+    args = glue_merge_args(x, case)
+    kern, plain = ([x.clone() if x is not None else None for x in base] for _ in range(2))
+    kern, plain = type(base)(*kern), type(base)(*plain)
+    m_k = torch.empty(args[4].shape, dtype=torch.float64, device=dev)
+    m_p = torch.empty_like(m_k)
+    before = G.merge_block.launches
+    G.merge_block(kern, *args, torch.tensor(o, device=dev), ntot=ntot, m_out=m_k)
+    G.merge_block_plain(plain, *args, o, ntot=ntot, m_out=m_p)
+    torch.cuda.synchronize()
+    assert G.merge_block.launches == before + 1
+    return kern, plain, base, m_k, m_p
+
+
+@pytest.mark.parametrize("slabs", [False, True])
+@pytest.mark.parametrize("case", ["fused", "hybrid", "partial", "full", "ties"])
+@pytest.mark.parametrize("shape", GLUE_SHAPES)
+def test_merge_block_kernel_vs_plain(dev, shape, case, slabs):
+    """G2 against its plain version: the repaired m within 1 ulp of
+    refine_varying_max (the same libdevice log1p: expected 0); const,
+    best_orient, best_conv, best_cent_x/y and ang_const exact; best_norm
+    and best_mu within 1e-12 relative; total and ang_total within 1e-6
+    relative (an f64 sum of the f32 products against torch's f32 sum); a
+    fully masked block leaves the state bit-equal; ties go to the first
+    pair."""
+    from bioem_tpu_torch.tools.kernel_probe import ulp_distance
+
+    kern, plain, base, m_k, m_p = _merge_pair(dev, shape, case, slabs)
+    assert ulp_distance(m_k, m_p) <= 1
+    if case == "full":
+        assert all(x is None or torch.equal(x, y) for x, y in zip(kern, base))
+    for name, a, b in zip(kern._fields, kern, plain):
+        if a is None:
+            assert b is None and (name.startswith("ang") and not slabs), name
+        elif name in ("total", "ang_total"):
+            assert bool(((a - b).abs() <= 1e-6 * b.abs()).all()), name
+        elif name in ("best_norm", "best_mu"):
+            assert float(((a - b).abs() / b.abs().clamp_min(1e-300)).max()) <= 1e-12, name
+        else:
+            assert torch.equal(a, b), name
+    if case == "ties":
+        assert bool((kern.best_orient == shape[0]).all() and (kern.best_conv == 0).all())
+
+
+def test_glue_replays_read_the_device_offset(dev):
+    """G1 and G2 captured in one CUDA graph on static inputs, the block's
+    orientation offset a 0-d device tensor that the graph advances: two
+    replays, each on another block's inputs copied in, equal G1 and G2
+    called eagerly with int offsets 0 and O, bit for bit (an offset frozen
+    at capture would put every block-1 winner at orientation < O)."""
+    from bioem_tpu_torch.tools.kernel_probe import glue_replay
+
+    state, eager, blk = glue_replay(dev)
+    assert blk == 2
+    assert all(torch.equal(a, b) for a, b in zip(state, eager))
+    assert bool((state.best_orient >= 8).any())
+
+
+def test_glue_wrappers_reject_bad_input(dev):
+    from bioem_tpu_torch.core.posterior import init_state
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.tools.kernel_probe import glue_inputs, glue_merge_args
+
+    x = glue_inputs(dev, 2, 3, 8, n=32)
+    g1 = list(x["g1"])
+    with pytest.raises(ValueError, match="pr must be"):
+        G.block_constants(g1[0].double(), *g1[1:], **x["kw"])
+    with pytest.raises(ValueError, match="mask must be"):
+        G.block_constants(*g1[:8], g1[8].long(), **x["kw"])
+    args = list(glue_merge_args(x, "fused"))
+    st = init_state(8, 4, True, dev)
+    with pytest.raises(ValueError, match="se must be contiguous"):
+        G.merge_block(st, None, args[1].transpose(0, 1).contiguous().transpose(0, 1), *args[2:],
+                      0, ntot=x["kw"]["ntot"])
+    with pytest.raises(ValueError, match="orient_offset must be"):
+        G.merge_block(st, *args, torch.zeros(1, dtype=torch.long, device=dev),
+                      ntot=x["kw"]["ntot"])
+    with pytest.raises(ValueError, match="state.total must be"):
+        G.merge_block(init_state(4, 4, True, dev), *args, 0, ntot=x["kw"]["ntot"])
+    with pytest.raises(ValueError, match="m must be"):
+        G.merge_block(st, args[4].clone(), *args[1:], 0, ntot=x["kw"]["ntot"])
+    with pytest.raises(IndexError, match="outside the slab"):
+        G.merge_block(st, *args, 0, ntot=x["kw"]["ntot"], ang_offset=3)

@@ -49,8 +49,9 @@ RULES = [
 def test_lint_sees_the_port():
     names = {os.path.basename(f) for f in FILES}
     assert {"compare_fused.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "probe.cu",
-            "wgmma.cuh", "engine.py", "compare_cuda.py", "project_cuda.py", "probe_cuda.py",
-            "debug_prob.py", "simulator.py", "kernel_probe.py", "chip_smoke.py"} <= names
+            "wgmma.cuh", "posterior_glue.cu", "engine.py", "compare_cuda.py", "project_cuda.py",
+            "probe_cuda.py", "posterior_cuda.py", "debug_prob.py", "simulator.py",
+            "kernel_probe.py", "chip_smoke.py"} <= names
     rel = set(IDS)
     tools = ("oracle", "golden_error_budget", "accuracy_probe", "problem", "profile_block",
              "trace_step", "pipeline_lab", "scale_bench", "stream_50k", "rank_bench",

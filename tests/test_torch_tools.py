@@ -241,8 +241,7 @@ def test_trace_step_rows(small_problem):
     assert out["device"] == "cpu" and not out["replayed"] and out["rows"]
     assert abs(out["rows_total_ms"] - out["profiler_total_ms"]) <= 1e-6 * out["profiler_total_ms"]
     phases = {ph for ph, _op, _n, _us in out["by_op"]}
-    assert {"bioem.projection", "bioem.constants", "bioem.compare", "bioem.max_repair",
-            "bioem.merge"} <= phases
+    assert {"bioem.projection", "bioem.constants", "bioem.compare", "bioem.merge"} <= phases
 
 
 def test_pipeline_lab_rows(small_problem):
