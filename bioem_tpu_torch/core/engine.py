@@ -210,7 +210,8 @@ def _kernel_wrappers() -> tuple:
 
     return (compare_cuda.fused_compare_block, compare_cuda.fused_compare_block_batched,
             compare_cuda.fused_displacement_cc, project_cuda.fourier_project_block,
-            posterior_cuda.block_constants, posterior_cuda.merge_block)
+            project_cuda.project_prologue, posterior_cuda.block_constants,
+            posterior_cuda.merge_block)
 
 
 class BioEMEngine:
@@ -621,21 +622,21 @@ class BioEMEngine:
     # ------------------------------------------------------------------
     def _project_block(self, banks: Banks, angles: torch.Tensor):
         """Projection spectra (pr, pi), each (O, N, F) f32, of one
-        orientation block."""
+        orientation block: on the kernel projection G3 and K2 from the
+        angle rows (ops/project_cuda.py), else the rotation matrices and the
+        plain Fourier or raster projection."""
+        model = (banks.points, banks.radii, banks.dens, banks.norm_den)
+        if self.fspec is not None and self.kernel_projection:
+            return project_fourier_batch_kernel(
+                self.fspec, angles, *model, banks.st_re, banks.st_im, banks.st_sums,
+                counts=banks.counts, use_quaternions=self.orients.use_quaternions,
+            )
         rotm = rotation_matrices(angles, self.orients.use_quaternions)
         if self.fspec is not None:
-            proj_fn = (
-                project_fourier_batch_kernel if self.kernel_projection
-                else project_fourier_batch
+            return project_fourier_batch(
+                self.fspec, rotm, *model, banks.st_re, banks.st_im, banks.st_sums,
             )
-            extra = {"counts": banks.counts} if self.kernel_projection else {}
-            return proj_fn(
-                self.fspec, rotm, banks.points, banks.radii, banks.dens,
-                banks.norm_den, banks.st_re, banks.st_im, banks.st_sums, **extra,
-            )
-        proj = project_batch(
-            self.spec, rotm, banks.points, banks.radii, banks.dens, banks.norm_den
-        )
+        proj = project_batch(self.spec, rotm, *model)
         proj_f = torch.fft.rfft2(proj)  # (O, N, F) complex64
         return proj_f.real.contiguous(), proj_f.imag.contiguous()
 

@@ -362,26 +362,27 @@ def grouped_snap(fspec: FourierProjectionSpec, rotmats, points, radii, densities
 
 
 def project_fourier_batch_kernel(
-    fspec, rotmats, points, radii, densities, norm_den, st_re, st_im, st_sums,
-    counts=None,
+    fspec, angles, points, radii, densities, norm_den, st_re, st_im, st_sums,
+    counts=None, *, use_quaternions: bool,
 ):
-    """Same contract as project_fourier_batch through the projection
-    kernel (ops/project_cuda.py, the counterpart of the JAX package's
-    project_fourier_batch_pallas): integer pixel positions go to the kernel,
-    which reads an exact N-entry twiddle table and, of each group, only the
-    first ``counts[g]`` slots (not its padding); the caller-side scale
-    norm_den/tempden is applied here. ``counts`` is the model's (G,) int32
-    tensor (the engine's Banks.counts); None reads the spec's
-    ``group_counts``."""
-    from ..ops.project_cuda import counts_tensor, fourier_project_block
+    """Same contract as project_fourier_batch, from the block's orientation
+    rows ``angles`` (O, 4), through two kernels (ops/project_cuda.py): G3,
+    the prologue (rotation matrices, the pixel snap and its bounds masks,
+    the (G, O, Pp) regroup and the scale norm_den/tempden), then the
+    projection kernel (the counterpart of the JAX package's
+    project_fourier_batch_pallas), which reads an exact N-entry twiddle
+    table and, of each group, only the first ``counts[g]`` slots (not its
+    padding), and stores its spectra times the scale. ``counts`` is the
+    model's (G,) int32 tensor (the engine's Banks.counts); None reads the
+    spec's ``group_counts``."""
+    from ..ops.project_cuda import counts_tensor, fourier_project_block, project_prologue
 
-    i0, j0, de = grouped_snap(fspec, rotmats, points, radii, densities)  # (G, O, Pp)
+    i0, j0, de, scale = project_prologue(fspec, angles, points, radii, densities, norm_den,
+                                         st_sums, use_quaternions=use_quaternions)
     if counts is None:
         counts = counts_tensor(fspec.group_counts, de.device)
-    pr, pi = fourier_project_block(i0, j0, de, st_re, st_im, n=fspec.n_pixels, counts=counts)
-    tempden = torch.matmul(de.sum(dim=2).T, st_sums.to(F32))  # (O,)
-    scale = (norm_den / tempden)[:, None, None]
-    return pr * scale, pi * scale
+    return fourier_project_block(i0, j0, de, st_re, st_im, n=fspec.n_pixels, counts=counts,
+                                 scale=scale)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,13 @@
 //   out[o, k1, k2] = Σ_g Ŝ_g[k1, k2] · S_g[k1, k2],
 //   S_g = Ex_gᵀ · diag(dens) · Ey_g,  Ex_g[p, k1] = e^{−2πi·i0[g,o,p]·k1/N},
 //                                      Ey_g[p, k2] = e^{−2πi·j0[g,o,p]·k2/N}
-// UNSCALED (the caller applies norm_den/tempden). Only the first
-// counts[g] slots of group g are read: the slots after them are the
-// group's padding, whose density is zero. Out-of-bounds points inside the
-// count carry zero density per orientation and are summed like the rest.
+// times scale[o] (norm_den/tempden from G3, csrc/project_glue.cu) where a
+// scale is given, else UNSCALED: each stored value is one f32 rounding of
+// the unscaled sum times scale[o], the product the caller rounded before
+// K2 took the scale. Only the first counts[g] slots of group g are read:
+// the slots after them are the group's padding, whose density is zero.
+// Out-of-bounds points inside the count carry zero density per
+// orientation and are summed like the rest.
 //
 // Phases. The snapped pixel positions i0, j0 are integers, so every Ex and
 // Ey entry is an exact table entry tw[(a·k) mod N], tw[j] = e^{−2πi·j/N}
@@ -107,9 +110,9 @@ __device__ __forceinline__ void put(unsigned char* b, uint32_t off, uint32_t v) 
 __global__ void __launch_bounds__(kThreads, 1)
 project_kernel(const int* __restrict__ i0, const int* __restrict__ j0,
                const float* __restrict__ dens, const int* __restrict__ counts,
-               const float* __restrict__ st_re, const float* __restrict__ st_im, int G,
-               int O, int Pp, int N, int F, float* __restrict__ out_re,
-               float* __restrict__ out_im) {
+               const float* __restrict__ st_re, const float* __restrict__ st_im,
+               const float* __restrict__ scale, int G, int O, int Pp, int N, int F,
+               float* __restrict__ out_re, float* __restrict__ out_im) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, sl = tid / kSliceThreads, st = tid % kSliceThreads;
   const int warp = st >> 5, lane = st & 31, g = lane >> 2, t = lane & 3;
@@ -272,8 +275,9 @@ project_kernel(const int* __restrict__ i0, const int* __restrict__ j0,
   }
 
   // Sum the slices' partial spectra in a fixed order (slice 0 + 1 + 2 + 3)
-  // and write the tile.
+  // and write the tile, scaled where a scale is given.
   __syncthreads();
+  const float sc = scale != nullptr ? scale[o] : 1.f;
   for (int q = tid; q < (kAcc / 2) * kSliceThreads; q += kThreads) {
     const int r = q / kSliceThreads, th = q - r * kSliceThreads;
     const int ln = th & 31;
@@ -288,8 +292,8 @@ project_kernel(const int* __restrict__ i0, const int* __restrict__ j0,
       vi += pk[(kAcc / 2 + r) * kSliceThreads + th];
     }
     const size_t oi = (size_t)o * NF + (size_t)k1 * F + k2;
-    out_re[oi] = vr;
-    out_im[oi] = vi;
+    out_re[oi] = scale != nullptr ? __fmul_rn(vr, sc) : vr;
+    out_im[oi] = scale != nullptr ? __fmul_rn(vi, sc) : vi;
   }
 }
 
@@ -301,8 +305,9 @@ extern "C" {
 int bioem_fourier_project_max_n() { return kMaxN < 46340 ? kMaxN : 46340; }
 
 int bioem_fourier_project(const int* i0, const int* j0, const float* dens, const int* counts,
-                          const float* st_re, const float* st_im, int G, int O, int Pp,
-                          int N, int F, float* out_re, float* out_im, void* stream) {
+                          const float* st_re, const float* st_im, const float* scale, int G,
+                          int O, int Pp, int N, int F, float* out_re, float* out_im,
+                          void* stream) {
   if (N < 1 || N > bioem_fourier_project_max_n()) return (int)cudaErrorInvalidValue;
   const size_t smem = kFixedBytes + sizeof(float2) * (size_t)N;
   cudaError_t err = cudaFuncSetAttribute(
@@ -310,7 +315,7 @@ int bioem_fourier_project(const int* i0, const int* j0, const float* dens, const
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kT1 - 1) / kT1, (F + kT2 - 1) / kT2, O);
   project_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      i0, j0, dens, counts, st_re, st_im, G, O, Pp, N, F, out_re, out_im);
+      i0, j0, dens, counts, st_re, st_im, scale, G, O, Pp, N, F, out_re, out_im);
   return (int)cudaGetLastError();
 }
 

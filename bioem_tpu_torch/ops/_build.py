@@ -45,7 +45,8 @@ D = ctypes.c_double
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints).
 SIGNATURES = {
-    "bioem_fourier_project": [P] * 6 + [I] * 5 + [P, P, P],
+    "bioem_fourier_project": [P] * 7 + [I] * 5 + [P, P, P],
+    "bioem_project_prologue": [P, I] + [P] * 5 + [I] * 4 + [F] + [I] * 2 + [P] * 4 + [P],
     "bioem_fourier_project_max_n": [],
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 10 + [P] * 5 + [P],
     "bioem_fused_displacement_cc": [P] * 8 + [I] * 9 + [P] * 2 + [P],
@@ -154,6 +155,20 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             fn.restype = RESTYPES.get(name, ctypes.c_int)
         _LIB = lib
     return _LIB
+
+
+def check_tensors(fn: str, device, specs) -> None:
+    """Raise ValueError unless each (name, tensor, dtype, shape) of
+    ``specs`` lies on ``device`` with that dtype and shape, contiguous:
+    what a kernel wrapper checks before it hands pointers to its kernel."""
+    for name, t, dtype, shape in specs:
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{fn}: {name} must be {dtype} {tuple(shape)} on {device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def check(status: int, what: str) -> None:

@@ -82,17 +82,6 @@ def block_constants_plain(pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, ma
                                                ntot=ntot, images_normalized=images_normalized))
 
 
-def _check(fn: str, device, specs) -> None:
-    for name, t, dtype, shape in specs:
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-            raise ValueError(
-                f"{fn}: {name} must be {dtype} {tuple(shape)} on {device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-
-
 def block_constants(
     pr: torch.Tensor,  # (O, N, F) f32 — projection spectra
     pi: torch.Tensor,
@@ -119,7 +108,7 @@ def block_constants(
         raise ValueError(f"{fn}: unsupported device {dev}")
     o_n, n, f = pr.shape
     c_n, i_n = ctf_re.shape[0], sum_ref.shape[0]
-    _check(fn, dev, [
+    _build.check_tensors(fn, dev, [
         ("pr", pr, F32, (o_n, n, f)), ("pi", pi, F32, (o_n, n, f)),
         ("ctf_re", ctf_re, F32, (c_n, n, f)), ("ctf_im", ctf_im, F32, (c_n, n, f)),
         ("h", h, F32, (f,)), ("sum_ref", sum_ref, F32, (i_n,)), ("ssq_ref", ssq_ref, F32, (i_n,)),
@@ -237,7 +226,7 @@ def merge_block(
         n_cols = state.ang_total.shape[1]
         specs += [("state.ang_total", state.ang_total, F64, (i_n, n_cols)),
                   ("state.ang_const", state.ang_const, F64, (i_n, n_cols))]
-    _check(fn, dev, specs)
+    _build.check_tensors(fn, dev, specs)
     col = orient_offset if ang_offset is None else ang_offset
     if n_cols and not torch.is_tensor(col) and not 0 <= int(col) <= n_cols - o_n:
         raise IndexError(f"{fn}: the block's slab columns {int(col)}..{int(col) + o_n - 1} "

@@ -1,10 +1,22 @@
-"""Radius-grouped Fourier projection: CUDA kernel wrapper + plain version.
+"""Radius-grouped Fourier projection: CUDA kernel wrappers + plain versions.
 
-Replaces ``bioem_tpu/ops/project_pallas.py:_project_kernel`` (entry
-``fourier_project_block``). The kernel is ``csrc/project.cu`` (see its
-header for what bounds it on the card and how the design answers that).
+Two kernels, each beside the torch code it replaces as its plain version:
 
-Contract (UNSCALED spectra; the caller applies norm_den/tempden):
+* K2 :func:`fourier_project_block` replaces
+  ``bioem_tpu/ops/project_pallas.py:_project_kernel`` (entry
+  ``fourier_project_block``); the kernel is ``csrc/project.cu``;
+* G3 :func:`project_prologue`, the work XLA fused around that kernel on
+  the TPU (no Pallas kernel has its body): the block's rotation matrices,
+  the rotation, the pixel snap with its bounds masks, the regroup into
+  K2's (G, O, Pp) layout and the scale norm_den/tempden
+  (``bioem_tpu/core/orientations.py:138-202``,
+  ``bioem_tpu/core/projection.py:302-330`` and ``:444-461``); the kernel
+  is ``csrc/project_glue.cu``.
+
+Each source's header says what bounds it on the card and how the design
+answers that.
+
+K2's contract (times ``scale[o]`` where a scale is given, else unscaled):
 
     out[o, k1, k2] = Σ_g Ŝ_g[k1, k2] · Σ_p dens[g,o,p] ·
                      e^{−2πi·(i0[g,o,p]·k1 + j0[g,o,p]·k2)/N}
@@ -28,6 +40,8 @@ import functools
 import numpy as np
 import torch
 
+from ..core.orientations import rotation_matrices
+from ..core.projection import grouped_snap
 from . import _build
 
 F32 = torch.float32
@@ -61,9 +75,11 @@ def _live(dens, counts):
                        torch.zeros((), dtype=dens.dtype, device=dens.device))
 
 
-def fourier_project_block_plain(i0, j0, dens, st_re, st_im, *, n: int, counts=None):
+def fourier_project_block_plain(i0, j0, dens, st_re, st_im, *, n: int, counts=None,
+                                scale=None):
     """Plain torch version: per-point phase tables read from the same
-    twiddle table, then complex einsum group contractions."""
+    twiddle table, then complex einsum group contractions; times ``scale``
+    (O,) where given."""
     g_n, o_n, pp = i0.shape
     dens = _live(dens, counts)
     nf = n // 2 + 1
@@ -78,6 +94,8 @@ def fourier_project_block_plain(i0, j0, dens, st_re, st_im, *, n: int, counts=No
     s = torch.einsum("gopn,gopf->gonf", ex, ey)  # (G, O, N, F)
     st = torch.complex(st_re, st_im)[:, None]  # (G, 1, N, F)
     out = torch.sum(st * s, dim=0)  # (O, N, F)
+    if scale is not None:
+        return out.real * scale[:, None, None], out.imag * scale[:, None, None]
     return out.real.contiguous(), out.imag.contiguous()
 
 
@@ -90,29 +108,26 @@ def fourier_project_block(
     *,
     n: int,
     counts: torch.Tensor,  # (G,) int32 — model points per group
+    scale: torch.Tensor = None,  # (O,) f32 — norm_den/tempden, or None: unscaled
 ):
-    """UNSCALED projection spectra (O, N, F) ×2 (see module docstring)."""
+    """Projection spectra (O, N, F) ×2, times ``scale`` where given (see
+    module docstring)."""
     if dens.device.type == "cpu":
-        return fourier_project_block_plain(i0, j0, dens, st_re, st_im, n=n, counts=counts)
+        return fourier_project_block_plain(i0, j0, dens, st_re, st_im, n=n, counts=counts,
+                                           scale=scale)
     if dens.device.type != "cuda":
         raise ValueError(f"fourier_project_block: unsupported device {dens.device}")
     g_n, o_n, pp = i0.shape
     nf = n // 2 + 1
-    for name, t, dt, shape in (
+    _build.check_tensors("fourier_project_block", dens.device, [
         ("counts", counts, torch.int32, (g_n,)),
         ("i0", i0, torch.int32, (g_n, o_n, pp)),
         ("j0", j0, torch.int32, (g_n, o_n, pp)),
         ("dens", dens, F32, (g_n, o_n, pp)),
         ("st_re", st_re, F32, (g_n, n, nf)),
         ("st_im", st_im, F32, (g_n, n, nf)),
-    ):
-        if t.device != dens.device or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"fourier_project_block: {name} must be {dt} {shape} on "
-                f"{dens.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"fourier_project_block: {name} must be contiguous")
+        *([("scale", scale, F32, (o_n,))] if scale is not None else []),
+    ])
     if n > MAX_N:
         raise ValueError(f"fourier_project_block: N={n} too large (its twiddle table must fit "
                          f"shared memory: N ≤ {MAX_N})")
@@ -125,7 +140,7 @@ def fourier_project_block(
         stream = torch.cuda.current_stream(dens.device).cuda_stream
         status = lib.bioem_fourier_project(
             i0.data_ptr(), j0.data_ptr(), dens.data_ptr(), counts.data_ptr(),
-            st_re.data_ptr(), st_im.data_ptr(),
+            st_re.data_ptr(), st_im.data_ptr(), None if scale is None else scale.data_ptr(),
             g_n, o_n, pp, n, nf,
             out_re.data_ptr(), out_im.data_ptr(), stream,
         )
@@ -136,3 +151,65 @@ def fourier_project_block(
 
 fourier_project_block.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# G3: the projection's prologue
+# ---------------------------------------------------------------------------
+
+def project_prologue_plain(fspec, angles, points, radii, dens, norm_den, st_sums, *,
+                           use_quaternions: bool):
+    """Plain torch version of :func:`project_prologue`: the torch calls the
+    engine made before G3 (rotation_matrices, grouped_snap, then tempden
+    and the scale)."""
+    rotm = rotation_matrices(angles, use_quaternions)
+    i0, j0, de = grouped_snap(fspec, rotm, points, radii, dens)  # (G, O, Pp)
+    tempden = torch.matmul(de.sum(dim=2).T, st_sums.to(F32))  # (O,)
+    return i0, j0, de, norm_den / tempden
+
+
+def project_prologue(
+    fspec,  # core.projection.FourierProjectionSpec: N, pixel size, shifts, G, Pp
+    angles: torch.Tensor,  # (O, 4) f32 — the block's orientation rows
+    points: torch.Tensor,  # (G·Pp, 3) f32 — the radius-grouped model
+    radii: torch.Tensor,  # (G·Pp,) f32
+    dens: torch.Tensor,  # (G·Pp,) f32 — padding slots 0
+    norm_den: torch.Tensor,  # () f32
+    st_sums: torch.Tensor,  # (G,) f32 — unit-stencil sums
+    *,
+    use_quaternions: bool,
+):
+    """G3: K2's inputs for an orientation block — (i0, j0, de, scale):
+    snapped pixel positions (G, O, Pp) int32 ×2, bounds-masked densities
+    (G, O, Pp) f32 and norm_den/tempden (O,) f32 (module docstring)."""
+    fn = "project_prologue"
+    dev = angles.device
+    if dev.type == "cpu":
+        return project_prologue_plain(fspec, angles, points, radii, dens, norm_den, st_sums,
+                                      use_quaternions=use_quaternions)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    g_n, pp, n = fspec.n_groups, fspec.group_pad, fspec.n_pixels
+    o_n = angles.shape[0]
+    _build.check_tensors(fn, dev, [
+        ("angles", angles, F32, (o_n, 4)), ("points", points, F32, (g_n * pp, 3)),
+        ("radii", radii, F32, (g_n * pp,)), ("dens", dens, F32, (g_n * pp,)),
+        ("norm_den", norm_den, F32, ()), ("st_sums", st_sums, F32, (g_n,)),
+    ])
+    lib = _build.load()
+    snaps = torch.empty((2, g_n, o_n, pp), dtype=torch.int32, device=dev)
+    de = torch.empty((g_n, o_n, pp), dtype=F32, device=dev)
+    scale = torch.empty((o_n,), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.bioem_project_prologue(
+            angles.data_ptr(), int(bool(use_quaternions)), points.data_ptr(), radii.data_ptr(),
+            dens.data_ptr(), st_sums.data_ptr(), norm_den.data_ptr(), o_n, g_n, pp, n,
+            float(np.float32(fspec.pixel_size)), int(fspec.shift_x), int(fspec.shift_y),
+            snaps[0].data_ptr(), snaps[1].data_ptr(), de.data_ptr(), scale.data_ptr(), stream,
+        )
+    _build.check(status, fn)
+    project_prologue.launches += 1
+    return snaps[0], snaps[1], de, scale
+
+
+project_prologue.launches = 0

@@ -20,7 +20,7 @@ between the two libraries' outputs:
 |Δm| and the share of equal argmaxes for K1 and K4, max |Δ| for K2 and K3
 (K3 bit-equal when it is 0). K1, K2 and K3 have changed their C
 signatures (K1 and K3 now take K1's tiling and a scratch buffer, K2
-per-group point counts); the other side is called with the signature its
+per-group point counts and an optional scale, passed as none); the other side is called with the signature its
 ``_build.SIGNATURES`` declares (a K1 or K3 of the new signature with the
 tiling its own library's shared-memory formula gives, :func:`lib_plan`),
 so any checkout that has K4 can be the other side.
@@ -94,6 +94,8 @@ def main(argv=None) -> int:
     # The earlier K1 entry: twelve inputs, a_coef, eight ints, four outputs, the stream.
     other_k1_old = len(mod.SIGNATURES["bioem_fused_compare"]) == 26
     other_k2_old = len(mod.SIGNATURES["bioem_fourier_project"]) == 13
+    # The earlier K2 entry without the scale pointer (K2 then stored unscaled spectra).
+    other_k2_unscaled = len(mod.SIGNATURES["bioem_fourier_project"]) <= 14
     # The earlier K3 entry: eight inputs, seven ints, the output, the stream.
     other_k3_old = len(mod.SIGNATURES["bioem_fused_displacement_cc"]) == 17
     inputs, a_coef, n_fold = block_inputs(dev, *BLOCKS[args.block])
@@ -120,9 +122,11 @@ def main(argv=None) -> int:
             head = [i0.data_ptr(), j0.data_ptr(), dens.data_ptr()]
             if not (side == "other" and other_k2_old):
                 head.append(counts.data_ptr())
-            status = lib.bioem_fourier_project(*head, st_re.data_ptr(), st_im.data_ptr(), g_n,
-                                               o_n, pp, n, f, *(t.data_ptr() for t in out),
-                                               stream())
+            head += [st_re.data_ptr(), st_im.data_ptr()]
+            if not (side == "other" and other_k2_unscaled):
+                head.append(None)  # no scale: both sides store the unscaled spectra
+            status = lib.bioem_fourier_project(*head, g_n, o_n, pp, n, f,
+                                               *(t.data_ptr() for t in out), stream())
             _build.check(status, f"{side} K2")
             return out
         if kernel == "K3":

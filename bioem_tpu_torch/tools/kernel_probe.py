@@ -422,6 +422,162 @@ def production_projection_inputs(dev, seed: int = 3):
     return (t(ij()), t(ij()), t(dens.astype(np.float32)), t(st[0]), t(st[1]), t(counts))
 
 
+# G3's blocks (prologue_inputs): the production block, an Euler-grid block
+# of the production model, o_block 16, a block of the reference's grid and
+# the production model with points outside the frame.
+PROLOGUE_CASES = ("production", "euler", "o_block 16", "reference grid", "out of frame")
+
+
+def prologue_inputs(dev, case: str = "production") -> dict:
+    """G3's inputs for one orientation block of the production problem's
+    model (``problem.build_problem``), laid out as the engine's banks hold
+    it: ``production``, block 0 of its quaternion grid (O = 8); ``euler``,
+    a middle block of an Euler grid (36 × 18 × 36 angles, O = 8);
+    ``o_block 16``, block 1 of the quaternion grid at O = 16; ``reference
+    grid``, block 0 of the reference grid's 4608 quaternions
+    (``problem.REFERENCE_GRID``); ``out of frame``, block 0 with the
+    model's points spread twice as far and every other point's radius set
+    below the pixel size (point-like), so that points leave the frame in
+    both branches of the snap. Returns {"fspec", "angles", "quat",
+    "model": (points, radii, dens, norm_den), "st_re", "st_im", "st_sums",
+    "counts"}."""
+    import dataclasses
+
+    from ..core.orientations import euler_grid
+    from ..core.projection import make_fourier_projection_spec
+    from ..io.model_io import Model
+    from ..ops.project_cuda import counts_tensor
+    from ..utils.so3 import super_fibonacci
+    from .problem import REFERENCE_GRID, build_problem
+
+    if case not in PROLOGUE_CASES:
+        raise ValueError(f"prologue_inputs: unknown case {case!r} (one of {PROLOGUE_CASES})")
+    p, orients, model, _images, _planted = build_problem(n_img=1)
+    ang, quat = orients.angles[:8], True
+    if case == "euler":
+        grid = euler_grid(dataclasses.replace(p, grid_points_alpha=36, grid_points_beta=18))
+        ang, quat = grid.angles[grid.n // 2: grid.n // 2 + 8], False
+    elif case == "o_block 16":
+        ang = orients.angles[16:32]
+    elif case == "reference grid":
+        ang = super_fibonacci(REFERENCE_GRID["n_orient"])[:8]
+    elif case == "out of frame":
+        radii = model.radii.copy()
+        radii[::2] = np.float32(0.9 * p.pixel_size)
+        model = Model((2 * model.points).astype(np.float32), radii, model.densities,
+                      model.norm_den)
+    fspec, gidx, pmask, st, st_sums = make_fourier_projection_spec(p, model.radii)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    return dict(
+        fspec=fspec, angles=t(np.asarray(ang, np.float32)), quat=quat,
+        model=(t(model.points[gidx]), t(model.radii[gidx]), t(model.densities[gidx] * pmask),
+               torch.tensor(np.float32(model.norm_den), device=dev)),
+        st_re=t(st.real.astype(np.float32)), st_im=t(st.imag.astype(np.float32)),
+        st_sums=t(st_sums), counts=counts_tensor(fspec.group_counts, torch.device(dev)),
+    )
+
+
+def prologue_pre_floor(x: dict) -> tuple:
+    """The plain version's values x/pix + N/2 + 0.5 and y/pix + N/2 + 0.5
+    of one block (each (G, O, Pp)), whose floors are the raw pixel
+    positions: the torch ops of core.projection._snap."""
+    from ..core.orientations import rotation_matrices
+    from ..core.projection import _rotate
+
+    fs = x["fspec"]
+    rot = _rotate(x["model"][0], rotation_matrices(x["angles"], x["quat"]))  # (O, G·Pp, 3)
+    pix32, half = float(np.float32(fs.pixel_size)), float(fs.n_pixels) / 2.0
+    o_n = rot.shape[0]
+    return tuple((rot[..., c] / pix32 + half + 0.5).reshape(o_n, fs.n_groups, fs.group_pad)
+                 .permute(1, 0, 2) for c in (0, 1))
+
+
+def check_prologue(x: dict) -> dict:
+    """G3 against its plain version on the card, on one block of
+    :func:`prologue_inputs`. Returns {"slots": G·O·Pp, "differ": slots
+    whose i0 or j0 differ, "off_tie": of those, slots whose differing
+    coordinate's plain pre-floor value lies more than 2 ulps from an
+    integer (:func:`prologue_pre_floor`), "dens_off": slots with equal
+    snaps and unequal densities, "scale_rel": max relative |Δscale| over
+    the orientations whose densities all agree, "scale_rel_own": max
+    relative |Δ| from norm_den/tempden in torch on G3's own densities,
+    "scale_abs": the max |Δscale| there, "bits": two launches give the same
+    bits, "dropped": {"point", "sphere"}: slots of model points G3 masked
+    out of the frame, by branch}."""
+    from ..ops.project_cuda import project_prologue, project_prologue_plain
+
+    args = (x["fspec"], x["angles"], *x["model"], x["st_sums"])
+    kern = project_prologue(*args, use_quaternions=x["quat"])
+    again = project_prologue(*args, use_quaternions=x["quat"])
+    plain = project_prologue_plain(*args, use_quaternions=x["quat"])
+    vx, vy = prologue_pre_floor(x)
+    torch.cuda.synchronize()
+
+    def near(v):  # within 2 ulps of an integer
+        ulp = (torch.nextafter(v.abs(), torch.full_like(v, np.inf)) - v.abs())
+        return (v - torch.round(v)).abs() <= 2 * ulp
+
+    di, dj = kern[0] != plain[0], kern[1] != plain[1]
+    same = ~(di | dj)
+    dens_eq = kern[2] == plain[2]
+    o_ok = dens_eq.all(dim=2).all(dim=0)
+    rel = ((kern[3] - plain[3]).abs() / plain[3].abs())
+    own = x["model"][3] / torch.matmul(kern[2].sum(dim=2).T, x["st_sums"])
+    # slots of model points whose density G3 masked (out of the frame), by branch
+    g_n = kern[0].shape[0]
+    dropped = (kern[2] == 0) & (x["model"][2] != 0).reshape(g_n, 1, -1)
+    small = (x["model"][1] <= float(np.float32(x["fspec"].pixel_size))).reshape(g_n, 1, -1)
+    return dict(
+        slots=kern[0].numel(), differ=int((~same).sum()),
+        off_tie=int(((di & ~near(vx)) | (dj & ~near(vy))).sum()),
+        dens_off=int((same & ~dens_eq).sum()),
+        scale_rel=float(rel[o_ok].max()) if bool(o_ok.any()) else 0.0,
+        scale_rel_own=float(((kern[3] - own).abs() / own.abs()).max()),
+        scale_abs=float((kern[3] - plain[3]).abs()[o_ok].max()) if bool(o_ok.any()) else 0.0,
+        bits=all(torch.equal(a, b) for a, b in zip(kern, again)),
+        dropped={k: int((dropped & m).sum()) for k, m in (("point", small), ("sphere", ~small))},
+    )
+
+
+def prologue_replay(dev) -> tuple:
+    """G3 and K2 (with G3's scale) captured in one CUDA graph on a static
+    angle block (:func:`prologue_inputs`' production case, the model read
+    from its tensors as the engine's graph reads its banks), replayed
+    twice, each time on another block's angle rows copied in (blocks 0
+    and 1 of the quaternion grid); and the same two blocks called
+    eagerly. Returns (replayed spectra, eager spectra): two lists of
+    (re, im)."""
+    from ..ops.project_cuda import fourier_project_block, project_prologue
+
+    x = prologue_inputs(dev)
+    other = prologue_inputs(dev, "o_block 16")["angles"][:8]  # rows 16..23 of the grid
+    blocks = [x["angles"].clone(), other.clone()]
+    static = blocks[0].clone()
+
+    def step(angles):
+        i0, j0, de, scale = project_prologue(x["fspec"], angles, *x["model"], x["st_sums"],
+                                             use_quaternions=True)
+        return fourier_project_block(i0, j0, de, x["st_re"], x["st_im"],
+                                     n=x["fspec"].n_pixels, counts=x["counts"], scale=scale)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(static)  # warm-up, as the engine's capture does
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = step(static)
+    replayed = []
+    for a in blocks:
+        static.copy_(a)
+        graph.replay()
+        replayed.append(tuple(v.clone() for v in out))
+    eager = [step(a) for a in blocks]
+    torch.cuda.synchronize(dev)
+    return replayed, eager
+
+
 def probe_projection_points(say=print) -> dict:
     """K2's time against the point slots it reads, at the production
     projection block: none (what it pays whatever the model: the twiddle

@@ -75,6 +75,18 @@ def cc_bound(o, c, i, n, f, d, m, n_fold) -> tuple:
                  4 * (2 * (o * c + i) * n * f + 2 * d * m + 2 * d * f + o * c * i * d * d))
 
 
+def prologue_bound(o, g, pp) -> tuple:
+    """G3's bound (ops/project_cuda.project_prologue) for O orientations of
+    a G × Pp slot layout: the angle rows and the model's slots (points,
+    radii, densities), the stencil sums and norm_den read once, i0, j0, de
+    (G, O, Pp) and the scale written once; ~20 f32 operations per slot and
+    orientation (the rotated x and y, the snap, the sphere's reach) and 2
+    f64 (tempden's product and add)."""
+    slots = g * pp
+    return bound({"f32": 20 * o * slots, "f64": 2 * o * slots},
+                 16 * o + 20 * slots + 4 * g + 4 + 3 * 4 * o * slots + 4 * o)
+
+
 def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
                   n_img: int = 64, max_disp: int = 20, n_orient: int = 0,
                   disp_step: int = 2, n_phase: int = 4, n_env: int = 2):

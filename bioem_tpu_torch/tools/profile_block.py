@@ -6,7 +6,8 @@ engine's kernel branch, and each phase of it alone on the same inputs:
 
 * ``step``: the whole block step, as the pass runs it (one replay of the
   captured CUDA graph on the card; the eager step on the CPU);
-* ``projection``: rotations, K2 and its epilogue (``_project_block``);
+* ``projection``: G3 (rotations, snap, masks and the scale) and K2
+  (``_project_block``);
 * ``constants``: G1, the convolution sums, the f64 constants and the u
   coefficients (``_kernel_constants``);
 * ``compare``: the comparison: K1, or K4 when the engine runs it

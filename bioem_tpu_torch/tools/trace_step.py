@@ -16,7 +16,7 @@ the captured block step on the card) and prints:
   step's phase (the ``bioem.*`` ``record_function`` ranges of
   ``core/engine.py``: projection, constants, compare, merge)
   and the outermost torch op that launched it, then per phase with the
-  glue's own kernels (G1, G2) added by name. A graph replay carries no
+  glue's own kernels (G1, G2, G3) added by name. A graph replay carries no
   launching op, so this grouping profiles the same blocks as the eager
   loop of block steps (the same kernels, each launched from Python).
 
@@ -39,11 +39,13 @@ import torch
 # Kernel-name stems of the hand-written kernels (K1/K3: compare_fused_*,
 # K4: compare_batched_*, K2: project_kernel); everything else is glue.
 KERNEL_STEMS = ("compare_fused", "compare_batched", "project_kernel")
-# The glue's own hand-written kernels (ops/posterior_cuda.py: G1, G2) and
-# the phase that launches each: they are launched through ctypes, not by a
-# torch op, so by_op does not see them and glue_by_phase adds them by name.
+# The glue's own hand-written kernels (ops/posterior_cuda.py: G1, G2;
+# ops/project_cuda.py: G3) and the phase that launches each: they are
+# launched through ctypes, not by a torch op, so by_op does not see them and
+# glue_by_phase adds them by name.
 GLUE_KERNELS = (("block_constants_kernel", "bioem.constants"),
-                ("merge_block_kernel", "bioem.merge"))
+                ("merge_block_kernel", "bioem.merge"),
+                ("project_prologue_kernel", "bioem.projection"))
 
 
 def _device_us(e) -> float:

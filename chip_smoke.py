@@ -33,14 +33,23 @@ the port's main path on the card, in phases (each prints its own lines):
    G2 on the fused path, the hybrid's f32 m, a partially and a fully
    masked block and exact ties, slabs off and on), two replays of a
    captured G1 + G2 step whose offset the graph advances, and both
-   timed beside their plain versions and bounds;
+   timed beside their plain versions and bounds; the projection's
+   prologue G3 (rotation matrices, snap, bounds masks, regroup and the
+   scale norm_den/tempden) against its plain version on the production
+   block, an Euler-grid block, o_block 16, a reference-grid block and a
+   model with points out of the frame in both branches (snaps equal but
+   at ties within 2 ulps, the slots that differ counted; densities equal
+   where the snaps are; the scale within 1e-6), K2 storing G3's scale
+   bit-equal to K2 times it, two replays of a captured G3 + K2 bit-equal
+   to the eager calls, G3 timed beside its plain version and bound;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
    images at N=224) through run_bioem: on the kernel branch with K1 (then
    32 of its blocks as the eager loop and as replays of the captured
    block step, each timed and under torch.profiler: wall time, the
    card's busy share, kernels per block and the glue by phase, before
-   (the glue's plain torch versions patched in) and after G1 and G2),
+   (the glue's plain torch versions patched in), before G3 (only the
+   projection's) and after G1, G2 and G3),
    with K4 forced (BIOEM_TPU_FUSED_BATCHED), and
    autotuned three times from an empty cache and once more from the cache
    (each candidate's time on its replayed loop, each winner and its pass
@@ -149,7 +158,8 @@ tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3; the
 harness K2 and K3 on bench.py's problem, K2 and K1 or K4 on the planted one;
 the reference grid and the wide grid K1, K2 and K3; the C2 check K1, K2,
 K3 and K4; every one of them but the probe tool, DEBUG_PROB and the
-examples also G1 and G2 (the kernel branch's block step). Each part's
+examples also G1 and G2 (the kernel branch's block step), and every one
+but the probe tool G3 (the kernel projection's prologue). Each part's
 line gives its seconds.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
@@ -633,6 +643,82 @@ def check_glue_replay(torch, i: int = 64) -> None:
             "the replayed glue does not read its offset from the device")
 
 
+def glue_g3(torch, eng) -> dict:
+    """G3 (project_prologue) against its plain version: on the production
+    block as the engine holds it (its banks and first angle block) and on
+    kernel_probe.prologue_inputs' other blocks (an Euler-grid block,
+    o_block 16, a reference-grid block, points out of the frame in both
+    branches), under the tie rule (kernel_probe.check_prologue: snaps equal
+    but where the plain pre-floor value lies within 2 ulps of an integer,
+    the number of such slots printed; densities equal where the snaps are;
+    the scale within 1e-6 relative); K2 with G3's scale bit-equal to K2
+    times it; two replays of a captured G3 + K2 bit-equal to the eager
+    calls; G3's, its plain version's and K2's scaled and unscaled times at
+    the production block, and G3's bound. Returns G3's kernels-line row."""
+    from bioem_tpu_torch.ops import project_cuda as pj
+    from bioem_tpu_torch.tools.kernel_probe import (PROLOGUE_CASES, check_prologue, device_ms,
+                                                    prologue_inputs, prologue_replay)
+    from bioem_tpu_torch.tools.problem import prologue_bound
+
+    bk, fs = eng.banks, eng.fspec
+    prod = dict(fspec=fs, angles=eng.ang_blocks[0], quat=eng.orients.use_quaternions,
+                model=(bk.points, bk.radii, bk.dens, bk.norm_den), st_re=bk.st_re,
+                st_im=bk.st_im, st_sums=bk.st_sums, counts=bk.counts)
+    err = 0.0
+    for case in PROLOGUE_CASES:
+        x = prod if case == "production" else prologue_inputs(DEVICE, case)
+        r = check_prologue(x)
+        o_n = x["angles"].shape[0]
+        say(f"[glue] G3 {case} (O={o_n}, G={x['fspec'].n_groups}, Pp={x['fspec'].group_pad}, "
+            f"{'quaternions' if x['quat'] else 'Euler angles'}): {r['differ']} of {r['slots']} "
+            f"slots snap elsewhere than the plain version, {r['off_tie']} of them off a tie; "
+            f"densities off where the snaps agree {r['dens_off']}; scale max rel |Δ| "
+            f"{r['scale_rel']:.2e} (from norm_den/tempden on G3's densities "
+            f"{r['scale_rel_own']:.2e}); two launches bit-equal {r['bits']}; points dropped "
+            f"out of the frame: {r['dropped']['point']} point-like, {r['dropped']['sphere']} "
+            "spheres")
+        require(r["off_tie"] == 0, f"G3 {case}: a snap differs away from a tie")
+        require(r["dens_off"] == 0, f"G3 {case}: densities differ where the snaps agree")
+        require(r["scale_rel"] <= 1e-6 and r["scale_rel_own"] <= 1e-6,
+                f"G3 {case}: scale beyond rtol 1e-6")
+        require(r["bits"], f"G3 {case}: two launches on the same inputs differ")
+        if case == "out of frame":
+            require(r["dropped"]["point"] > 0 and r["dropped"]["sphere"] > 0,
+                    "G3 out of frame: no point dropped in one of the branches")
+        if case == "production":
+            err = r["scale_abs"]
+    args = (fs, prod["angles"], *prod["model"], bk.st_sums)
+    i0, j0, de, scale = pj.project_prologue(*args, use_quaternions=prod["quat"])
+    kw = dict(n=fs.n_pixels, counts=bk.counts)
+    ur, ui = pj.fourier_project_block(i0, j0, de, bk.st_re, bk.st_im, **kw)
+    sr, si = pj.fourier_project_block(i0, j0, de, bk.st_re, bk.st_im, scale=scale, **kw)
+    torch.cuda.synchronize()
+    one = torch.equal(sr, ur * scale[:, None, None]) and torch.equal(si, ui * scale[:, None, None])
+    say(f"[glue] K2 with G3's scale bit-equal to K2 times the scale: {one}")
+    require(one, "K2's scaled store differs from the unscaled spectra times the scale")
+    replayed, eager = prologue_replay(DEVICE)
+    same = all(torch.equal(a, b) for got, want in zip(replayed, eager) for a, b in zip(got, want))
+    moved = not torch.equal(replayed[0][0], replayed[1][0])
+    say(f"[glue] two replays of G3 + K2 on two angle blocks: bit-equal to the eager calls "
+        f"{same}; the blocks differ {moved}")
+    require(same and moved, "the replayed G3 + K2 do not follow their angle block")
+    t = (device_ms(lambda: pj.project_prologue(*args, use_quaternions=prod["quat"])),
+         device_ms(lambda: pj.project_prologue_plain(*args, use_quaternions=prod["quat"]), 5))
+    k2 = (device_ms(lambda: pj.fourier_project_block(i0, j0, de, bk.st_re, bk.st_im, **kw)),
+          device_ms(lambda: pj.fourier_project_block(i0, j0, de, bk.st_re, bk.st_im,
+                                                     scale=scale, **kw)))
+    b3 = prologue_bound(prod["angles"].shape[0], fs.n_groups, fs.group_pad)
+    say(f"[glue] G3 production-block time: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms (the "
+        f"card's own time); bound {b3[0]:.6f} ms ({b3[1]}-bound); K2 unscaled {k2[0]:.4f} ms, "
+        f"with the scale {k2[1]:.4f} ms")
+    return dict(name="project_prologue", route="cuda",
+                source="bioem_tpu_torch/csrc/project_glue.cu",
+                replaces="bioem_tpu/core/projection.py:302-330,444-461; "
+                         "bioem_tpu/core/orientations.py:138-202 (XLA-fused; no Pallas kernel)",
+                max_abs_err=err, ms=t[0], plain_ms=t[1], bound_ms=b3[0], bound_by=b3[1],
+                library_ms=None)  # no single PyTorch call computes G3
+
+
 def phase_glue(torch, eng) -> dict:
     """G1 and G2 against their plain versions: on the production block
     (:func:`_block_inputs`; G2 on K1's outputs there, into a fresh
@@ -726,6 +812,7 @@ def phase_glue(torch, eng) -> dict:
                    replaces="bioem_tpu/core/engine.py:580,606-610 (XLA-fused; no Pallas kernel)",
                    max_abs_err=err2, ms=t["G2"][0], plain_ms=t["G2"][1],
                    bound_ms=b2[0], bound_by=b2[1], **none),
+        "G3": glue_g3(torch, eng),
     }
 
 
@@ -891,7 +978,7 @@ def _profile_blocks(step, n_blocks: int) -> dict:
     # and compare_fused_kernel
     out = dict(wall_ms=wall, wall_prof_ms=wall_prof, busy_ms=busy, share=busy / wall_prof,
                k1_ms=by("compare_fused_"), k2_ms=by("project_kernel"), launches=count(""),
-               glue=glue_by_phase(prof, n_blocks))
+               k2_launches=count("project_kernel"), glue=glue_by_phase(prof, n_blocks))
     out["other_ms"] = busy - out["k1_ms"] - out["k2_ms"]
     out["other_launches"] = out["launches"] - count("compare_fused_") - count("project_kernel")
     return out
@@ -924,6 +1011,19 @@ def _profile_pass(problem, n_blocks: int, warm: int) -> tuple:
     return out, eng.o_block
 
 
+def _projection_before(fspec, angles, points, radii, dens, norm_den, st_re, st_im, st_sums,
+                       counts=None, *, use_quaternions):
+    """The kernel projection as the engine composed it before G3: the
+    prologue's plain version (rotation matrices, snap, regroup, tempden),
+    K2 unscaled, then the scale as two torch multiplies."""
+    from bioem_tpu_torch.ops import project_cuda as pj
+
+    i0, j0, de, scale = pj.project_prologue_plain(fspec, angles, points, radii, dens, norm_den,
+                                                  st_sums, use_quaternions=use_quaternions)
+    pr, pi = pj.fourier_project_block(i0, j0, de, st_re, st_im, n=fspec.n_pixels, counts=counts)
+    return pr * scale[:, None, None], pi * scale[:, None, None]
+
+
 def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
     """The default kernel pass (K1, o_block 8), ``n_blocks`` blocks timed
     and ``n_blocks`` more profiled after ``warm``, two ways: as the eager
@@ -932,13 +1032,18 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
     time per block without and under torch.profiler, the card's busy time
     per block and its share of the profiled wall time, K1's and K2's time
     per block, the kernels launched per block, and the eager loop's glue
-    by phase. All of it twice: before, the glue as the torch ops it was
-    (G1's and G2's plain versions patched in for the wrappers: the block
-    step of the engine without them), and after, through G1 and G2; the
-    replayed block must launch at least 120 kernels fewer after. Where the
+    by phase. All of it three times: before, the glue as the torch ops it
+    was (G1's and G2's plain versions patched in for the wrappers, and the
+    projection as the engine composed it before G3: the prologue's plain
+    version, K2 unscaled and the scale's multiplies); before G3, the
+    projection patched so but G1 and G2 run; and after, through G1, G2 and
+    G3. The replayed block must launch at least 120 kernels fewer with G1
+    and G2 than before, at least 80 fewer with G3 than before G3, and at
+    most 15 in all; the projection phase at most 2 (G3 and K2). Where the
     profiler attributes no kernel time to the graph's replays, the
     replayed loop's wall time stands against the eager profile's busy
     time, and the line says so."""
+    from bioem_tpu_torch.core import engine as eng_mod
     from bioem_tpu_torch.ops import posterior_cuda as G
 
     def counted(fn):
@@ -947,11 +1052,18 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
         run.launches = 0
         return run
 
-    with mock.patch.object(G, "block_constants", counted(G.block_constants_plain)), \
+    def old_projection():
+        return mock.patch.object(eng_mod, "project_fourier_batch_kernel", _projection_before)
+
+    with old_projection(), \
+            mock.patch.object(G, "block_constants", counted(G.block_constants_plain)), \
             mock.patch.object(G, "merge_block", counted(G.merge_block_plain)):
         before, _ = _profile_pass(problem, n_blocks, warm)
+    with old_projection():
+        before_g3, _ = _profile_pass(problem, n_blocks, warm)
     out, o_block = _profile_pass(problem, n_blocks, warm)
-    for when, res in (("before (torch glue)", before), ("after (G1, G2)", out)):
+    for when, res in (("before (torch glue)", before), ("before G3 (G1, G2)", before_g3),
+                      ("after (G1, G2, G3)", out)):
         for name, r in res.items():
             say(f"[profile] default kernel pass (K1, o_block {o_block}), {n_blocks} blocks, "
                 f"{name}, {when}: wall {r['wall_ms']:.3f} ms per block ({r['wall_prof_ms']:.3f} "
@@ -970,13 +1082,23 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
             f"loop's busy time {e['busy_ms']:.3f} ms ({100 * e['busy_ms'] / g['wall_ms']:.1f} %)")
     say(f"[profile] replayed against eager: wall {g['wall_ms']:.3f} against {e['wall_ms']:.3f} "
         f"ms per block ({e['wall_ms'] / g['wall_ms']:.2f}x)")
-    b = before["replayed"]
-    fewer = b["launches"] - g["launches"]
-    say(f"[profile] replayed block, before against after: {b['launches']:.1f} against "
-        f"{g['launches']:.1f} kernels ({fewer:.1f} fewer), wall {b['wall_ms']:.3f} against "
-        f"{g['wall_ms']:.3f} ms, busy {b['busy_ms']:.3f} against {g['busy_ms']:.3f} ms")
-    require(g["busy_ms"] == 0 or fewer >= 120,
-            f"the replayed block launches {fewer:.1f} kernels fewer with G1 and G2, not ≥ 120")
+    b, b3 = before["replayed"], before_g3["replayed"]
+    fewer, fewer3 = b["launches"] - b3["launches"], b3["launches"] - g["launches"]
+    say(f"[profile] replayed block, before against before G3 against after: {b['launches']:.1f} "
+        f"against {b3['launches']:.1f} against {g['launches']:.1f} kernels ({fewer:.1f} fewer "
+        f"with G1 and G2, {fewer3:.1f} fewer with G3), wall {b['wall_ms']:.3f} against "
+        f"{b3['wall_ms']:.3f} against {g['wall_ms']:.3f} ms, busy {b['busy_ms']:.3f} against "
+        f"{b3['busy_ms']:.3f} against {g['busy_ms']:.3f} ms")
+    proj = e["glue"].get("bioem.projection", (0.0, 0.0))[0] + e["k2_launches"]
+    say(f"[profile] the projection phase after: {proj:.1f} kernels per block (G3 and K2)")
+    if g["busy_ms"] > 0:
+        require(fewer >= 120,
+                f"the replayed block launches {fewer:.1f} kernels fewer with G1 and G2, not ≥ 120")
+        require(fewer3 >= 80,
+                f"the replayed block launches {fewer3:.1f} kernels fewer with G3, not ≥ 80")
+        require(g["launches"] <= 15, f"the replayed block launches {g['launches']:.1f} kernels, "
+                "not ≤ 15")
+    require(proj <= 2, f"the projection phase launches {proj:.1f} kernels per block, not ≤ 2")
     return out
 
 
@@ -1397,7 +1519,8 @@ def mp_worker(rank: int, port: int, out_dir: str) -> int:
                                    "K3": cc_mod.fused_displacement_cc.launches,
                                    "K4": cc_mod.fused_compare_block_batched.launches,
                                    "G1": glue.block_constants.launches,
-                                   "G2": glue.merge_block.launches}}),
+                                   "G2": glue.merge_block.launches,
+                                   "G3": pj.project_prologue.launches}}),
           flush=True)
     torch.cuda.synchronize()
     distributed.shutdown()
@@ -1469,10 +1592,11 @@ def phase_multiprocess(ref_2x2, maps, card: str) -> dict:
             same = all(np.array_equal(got[k][f], getattr(ref_2x2, f)) for f in RESULT_FIELDS)
             say(f"[multiprocess] run: every field bit-equal to the one-process run: {same}")
             require(bits and same, "the two-process run is not bit-equal to the one-process run")
-    out = {k: sum(i["launches"][k] for i in info) for k in ("K1", "K2", "K3", "K4", "G1", "G2")}
+    out = {k: sum(i["launches"][k] for i in info)
+           for k in ("K1", "K2", "K3", "K4", "G1", "G2", "G3")}
     say("[multiprocess] the workers' launches: " + ", ".join(f"{k} {v}" for k, v in out.items()))
-    require(all(out[k] > 0 for k in ("K1", "K2", "G1", "G2")),
-            "the workers did not launch K1, K2, G1 and G2")
+    require(all(out[k] > 0 for k in ("K1", "K2", "G1", "G2", "G3")),
+            "the workers did not launch K1, K2, G1, G2 and G3")
     return out
 
 
@@ -2405,7 +2529,8 @@ def main() -> int:
         counters = {"K1": cc_mod.fused_compare_block, "K2": pj.fourier_project_block,
                     "K3": cc_mod.fused_displacement_cc,
                     "K4": cc_mod.fused_compare_block_batched,
-                    "G1": glue.block_constants, "G2": glue.merge_block}
+                    "G1": glue.block_constants, "G2": glue.merge_block,
+                    "G3": pj.project_prologue}
 
         def main_path(name, drive, kernels):
             """Counts from 0 around one path; each of ``kernels`` must launch."""
@@ -2428,20 +2553,20 @@ def main() -> int:
             return phase_production(problem)
 
         res_p, res_k = main_path("goldens + production K1", goldens_and_k1,
-                                 ("K1", "K2", "K3", "G1", "G2"))
+                                 ("K1", "K2", "K3", "G1", "G2", "G3"))
         main_path("production K4 + autotuned + checkpoint",
                   lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]),
-                  ("K2", "K4", "G1", "G2"))
+                  ("K2", "K4", "G1", "G2", "G3"))
         main_path("streaming", lambda: phase_streaming(problem, res_k, card),
-                  ("K1", "K2", "G1", "G2"))
-        main_path("ranking", lambda: phase_ranking(problem, card), ("K1", "K2", "G1", "G2"))
+                  ("K1", "K2", "G1", "G2", "G3"))
+        main_path("ranking", lambda: phase_ranking(problem, card), ("K1", "K2", "G1", "G2", "G3"))
         ref_2x2 = main_path("mesh", lambda: phase_mesh(problem, res_k, card),
-                            ("K1", "K2", "G1", "G2"))
+                            ("K1", "K2", "G1", "G2", "G3"))
         # the two worker processes' counters start at 0 with the processes
         for k, n in phase_multiprocess(ref_2x2, problem[3].maps, card).items():
             rows[k]["launches"] = rows[k].get("launches", 0) + n
         phase_native(card)
-        main_path("refinement", lambda: phase_refinement(problem, card), ("K2", "G1", "G2"))
+        main_path("refinement", lambda: phase_refinement(problem, card), ("K2", "G1", "G2", "G3"))
         from bioem_tpu_torch.ops import probe_cuda
 
         counters.update(P1=probe_cuda.f32_product, P2=probe_cuda.product_sum,
@@ -2450,29 +2575,29 @@ def main() -> int:
         for k, r in probe_rows.items():
             rows[k] = {**r, "launches": counters[k].launches}
         phase_bestmap()
-        main_path("DEBUG_PROB", phase_debug_prob, ("K3",))
-        main_path("accuracy", lambda: phase_accuracy(card), ("K1", "K3", "K4", "G1", "G2"))
-        main_path("examples", lambda: phase_examples(card), ("K2", "K3"))
+        main_path("DEBUG_PROB", phase_debug_prob, ("K3", "G3"))
+        main_path("accuracy", lambda: phase_accuracy(card), ("K1", "K3", "K4", "G1", "G2", "G3"))
+        main_path("examples", lambda: phase_examples(card), ("K2", "K3", "G3"))
         main_path("profile tools", lambda: phase_profile_tools(problem, card),
-                  ("K1", "K2", "G1", "G2"))
-        main_path("scale", lambda: phase_scale(card), ("K1", "K2", "G1", "G2"))
-        main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2", "G1", "G2"))
+                  ("K1", "K2", "G1", "G2", "G3"))
+        main_path("scale", lambda: phase_scale(card), ("K1", "K2", "G1", "G2", "G3"))
+        main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2", "G1", "G2", "G3"))
         main_path("rank, mesh, pipeline, noise", lambda: phase_small_tools(problem, card),
-                  ("K1", "K2", "K3", "G1", "G2"))
+                  ("K1", "K2", "K3", "G1", "G2", "G3"))
         main_path("bench harness, bench.py's problem", lambda: phase_bench(card, "bench"),
-                  ("K2", "K3", "G1", "G2"))
+                  ("K2", "K3", "G1", "G2", "G3"))
         main_path("bench harness, planted problem", lambda: phase_bench(card, "planted"),
-                  ("K2", "G1", "G2"))
+                  ("K2", "G1", "G2", "G3"))
         rows["K1_D81"] = kernel_row_d81(torch)
         rows["K1_D121"] = kernel_row_wide(torch)
         main_path("reference grid", lambda: phase_reference_grid(card),
-                  ("K1", "K2", "K3", "G1", "G2"))
+                  ("K1", "K2", "K3", "G1", "G2", "G3"))
         rows["K1_D81"]["launches"] = counters["K1"].launches
-        main_path("wide grid", lambda: phase_wide_grid(card), ("K1", "K2", "K3", "G1", "G2"))
+        main_path("wide grid", lambda: phase_wide_grid(card), ("K1", "K2", "K3", "G1", "G2", "G3"))
         rows["K1_D121"]["launches"] = counters["K1"].launches
         k1_vs_plain = float(np.max(np.abs(res_k.log_prob - res_p.log_prob)))
         main_path("C2 check", lambda: phase_c2(card, k1_vs_plain),
-                  ("K1", "K2", "K3", "K4", "G1", "G2"))
+                  ("K1", "K2", "K3", "K4", "G1", "G2", "G3"))
     except Exception as e:  # every phase failure ends the run with a nonzero code
         import traceback
 

@@ -755,17 +755,17 @@ def test_launch_counters_count_replays(rng, dev):
 
     eng = BioEMEngine(*_engine_problem(rng), RunConfig(orient_block=3), device=dev)
     nblk = eng.ang_blocks.shape[0]
-    fns = (C.fused_compare_block, P.fourier_project_block)
+    fns = (C.fused_compare_block, P.fourier_project_block, P.project_prologue)
     before = [fn.launches for fn in fns]
     first = eng.run()
     kept = [x.clone() if x is not None else None for x in first]
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk + 1] * 2
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk + 1] * 3
     before = [fn.launches for fn in fns]
     second = eng.run()
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk] * 2
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk] * 3
     before = [fn.launches for fn in fns]
     eng.time_blocks(2 * eng.o_block, repeats=1)
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [2 * 2] * 2
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [2 * 2] * 3
     assert _same_state(first, kept) and _same_state(second, kept)
 
 
@@ -1148,3 +1148,93 @@ def test_glue_wrappers_reject_bad_input(dev):
         G.merge_block(st, args[4].clone(), *args[1:], 0, ntot=x["kw"]["ntot"])
     with pytest.raises(IndexError, match="outside the slab"):
         G.merge_block(st, *args, 0, ntot=x["kw"]["ntot"], ang_offset=3)
+
+
+# ---------------------------------------------------------------------------
+# The projection's prologue: G3 (project_prologue) and K2's scale
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["production", "euler", "o_block 16", "reference grid",
+                                  "out of frame"])
+def test_project_prologue_kernel_vs_plain(dev, case):
+    """G3 against its plain version on blocks of the production model
+    (kernel_probe.prologue_inputs): i0 and j0 equal except where the plain
+    version's value x/pix + N/2 + 0.5 lies within 2 ulps of an integer (its
+    rotation's dot product goes to cuBLAS in an order G3 cannot know; the
+    count of such slots is printed); the densities equal wherever the
+    snaps are; the scale within 1e-6 relative of the plain one (an f64 sum
+    against torch's f32 sums) and of norm_den/tempden on G3's own
+    densities; two launches bit-equal; out of the frame, points dropped in
+    both branches."""
+    from bioem_tpu_torch.tools.kernel_probe import check_prologue, prologue_inputs
+
+    x = prologue_inputs(dev, case)
+    before = P.project_prologue.launches
+    r = check_prologue(x)
+    assert P.project_prologue.launches == before + 2
+    print(f"G3 {case}: {r['differ']} of {r['slots']} slots snap elsewhere than the plain "
+          f"version (all at ties: {r['off_tie'] == 0}); scale max rel |Δ| {r['scale_rel']:.2e}")
+    assert r["off_tie"] == 0 and r["dens_off"] == 0 and r["bits"]
+    assert r["scale_rel"] <= 1e-6 and r["scale_rel_own"] <= 1e-6
+    if case == "out of frame":
+        assert r["dropped"]["point"] > 0 and r["dropped"]["sphere"] > 0
+
+
+def test_k2_scale_is_one_product(dev):
+    """K2 given G3's scale stores, bit for bit, its unscaled spectra times
+    the scale: the product the caller rounded before K2 took it."""
+    from bioem_tpu_torch.tools.kernel_probe import prologue_inputs
+
+    x = prologue_inputs(dev)
+    i0, j0, de, scale = P.project_prologue(x["fspec"], x["angles"], *x["model"], x["st_sums"],
+                                           use_quaternions=True)
+    kw = dict(n=x["fspec"].n_pixels, counts=x["counts"])
+    ur, ui = P.fourier_project_block(i0, j0, de, x["st_re"], x["st_im"], **kw)
+    sr, si = P.fourier_project_block(i0, j0, de, x["st_re"], x["st_im"], scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sr, ur * scale[:, None, None]) and torch.equal(si, ui * scale[:, None, None])
+
+
+def test_projection_replays_equal_the_eager_calls(dev):
+    """G3 + K2 captured in one graph on a static angle block: two replays,
+    each on another block's rows copied in, equal the eager calls bit for
+    bit (and differ from each other)."""
+    from bioem_tpu_torch.tools.kernel_probe import prologue_replay
+
+    replayed, eager = prologue_replay(dev)
+    for got, want in zip(replayed, eager):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(replayed[0][0], replayed[1][0])
+
+
+def test_project_prologue_time_and_bound(dev):
+    """G3's card time beside its plain version's and its bound (bytes: the
+    model's slots read, (G, O, Pp) ×3 and the scale written once) at the
+    production block, each on the card's own time."""
+    from bioem_tpu_torch.tools.kernel_probe import device_ms, prologue_inputs
+    from bioem_tpu_torch.tools.problem import prologue_bound
+
+    x = prologue_inputs(dev)
+    args = (x["fspec"], x["angles"], *x["model"], x["st_sums"])
+    ms = device_ms(lambda: P.project_prologue(*args, use_quaternions=True))
+    plain = device_ms(lambda: P.project_prologue_plain(*args, use_quaternions=True), 5)
+    b = prologue_bound(x["angles"].shape[0], x["fspec"].n_groups, x["fspec"].group_pad)
+    print(f"G3 production block: {ms:.4f} ms, plain {plain:.4f} ms, bound {b[0]:.6f} ms ({b[1]})")
+    assert 0 < b[0] < ms and plain > 0
+
+
+def test_project_prologue_rejects_bad_input(dev):
+    from bioem_tpu_torch.tools.kernel_probe import prologue_inputs
+
+    x = prologue_inputs(dev)
+    fs, ang, model, sums = x["fspec"], x["angles"], x["model"], x["st_sums"]
+    with pytest.raises(ValueError, match="angles must be"):
+        P.project_prologue(fs, ang.double(), *model, sums, use_quaternions=True)
+    with pytest.raises(ValueError, match="angles must be contiguous"):
+        P.project_prologue(fs, ang.t().contiguous().t(), *model, sums, use_quaternions=True)
+    with pytest.raises(ValueError, match="norm_den must be"):
+        P.project_prologue(fs, ang, *model[:3], model[3][None], sums, use_quaternions=True)
+    i0, j0, de, scale = P.project_prologue(fs, ang, *model, sums, use_quaternions=True)
+    with pytest.raises(ValueError, match="scale must be"):
+        P.fourier_project_block(i0, j0, de, x["st_re"], x["st_im"], n=fs.n_pixels,
+                                counts=x["counts"], scale=scale[:4])

@@ -120,10 +120,14 @@ def test_projection_kernel_plain_vs_pallas(rng):
 
 
 def test_projection_kernel_path_vs_plain_path(rng):
-    """project_fourier_batch_kernel (K2 + scale) == project_fourier_batch."""
+    """project_fourier_batch_kernel (G3 + K2 with the scale, from the
+    block's angle rows) == project_fourier_batch on those rows' rotation
+    matrices."""
     p, fj, ft, arr, rot = _fourier_setup(rng, n_orient=5)
-    a = TP.project_fourier_batch(ft, t(rot), *(t(x) for x in arr))
-    b = TP.project_fourier_batch_kernel(ft, t(rot), *(t(x) for x in arr))
+    q = rng.normal(0, 1, (rot.shape[0], 4))
+    ang = t((q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32))
+    a = TP.project_fourier_batch(ft, TO.rotation_matrices(ang, True), *(t(x) for x in arr))
+    b = TP.project_fourier_batch_kernel(ft, ang, *(t(x) for x in arr), use_quaternions=True)
     scale = max(float(x.abs().max()) for x in a)
     for x, y in zip(a, b):
         assert float((x - y).abs().max()) < 5e-5 * scale
