@@ -61,8 +61,9 @@ class RunConfig:
     # Projection backend: "auto" (Fourier when the model has <= 32 distinct
     # radii, else raster), "fourier", or "raster".
     projection: str = "auto"
-    # Fourier projection through its CUDA kernel (K2) or the plain torch
-    # projection. None = follows use_kernels. BIOEM_TPU_PROJ_PALLAS=0/1 forces.
+    # The projection through its CUDA kernels (G3 and K2 on the Fourier path,
+    # G4 on the raster) or the plain torch projection. None = follows
+    # use_kernels. BIOEM_TPU_PROJ_PALLAS=0/1 forces.
     kernel_projection: Optional[bool] = None
     # The image-batched comparison kernel (K4) instead of K1 when the
     # log-sum-exp is fused. BIOEM_TPU_FUSED_BATCHED=0/1 forces.

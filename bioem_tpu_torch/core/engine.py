@@ -89,6 +89,7 @@ from .projection import (
     make_fourier_projection_spec,
     make_projection_spec,
     project_batch,
+    project_batch_kernel,
     project_fourier_batch,
     project_fourier_batch_kernel,
     projection_always_in_bounds,
@@ -210,8 +211,8 @@ def _kernel_wrappers() -> tuple:
 
     return (compare_cuda.fused_compare_block, compare_cuda.fused_compare_block_batched,
             compare_cuda.fused_displacement_cc, project_cuda.fourier_project_block,
-            project_cuda.project_prologue, posterior_cuda.block_constants,
-            posterior_cuda.merge_block)
+            project_cuda.project_prologue, project_cuda.raster_project,
+            posterior_cuda.block_constants, posterior_cuda.merge_block)
 
 
 class BioEMEngine:
@@ -262,7 +263,8 @@ class BioEMEngine:
         # Log-sum-exp inside the comparison kernel (K1/K4) or the hybrid
         # (K3 + torch displacement_lse); only the kernel branch reads it.
         self.fused_lse = cfg.fused_lse if cfg.fused_lse is not None else True
-        # K2 or the plain Fourier projection; follows the comparison branch.
+        # The projection's kernels (G3 and K2, or G4 on the raster) or the
+        # plain projection; follows the comparison branch.
         self.kernel_projection = (
             cfg.kernel_projection if cfg.kernel_projection is not None
             else self.use_kernels
@@ -622,21 +624,26 @@ class BioEMEngine:
     # ------------------------------------------------------------------
     def _project_block(self, banks: Banks, angles: torch.Tensor):
         """Projection spectra (pr, pi), each (O, N, F) f32, of one
-        orientation block: on the kernel projection G3 and K2 from the
-        angle rows (ops/project_cuda.py), else the rotation matrices and the
-        plain Fourier or raster projection."""
+        orientation block: on the kernel projection from the angle rows
+        (ops/project_cuda.py) G3 and K2, or G4 then rfft2 on the raster;
+        else the rotation matrices and the plain Fourier or raster
+        projection."""
         model = (banks.points, banks.radii, banks.dens, banks.norm_den)
-        if self.fspec is not None and self.kernel_projection:
-            return project_fourier_batch_kernel(
-                self.fspec, angles, *model, banks.st_re, banks.st_im, banks.st_sums,
-                counts=banks.counts, use_quaternions=self.orients.use_quaternions,
-            )
-        rotm = rotation_matrices(angles, self.orients.use_quaternions)
-        if self.fspec is not None:
-            return project_fourier_batch(
-                self.fspec, rotm, *model, banks.st_re, banks.st_im, banks.st_sums,
-            )
-        proj = project_batch(self.spec, rotm, *model)
+        quat = self.orients.use_quaternions
+        if self.kernel_projection:
+            if self.fspec is not None:
+                return project_fourier_batch_kernel(
+                    self.fspec, angles, *model, banks.st_re, banks.st_im, banks.st_sums,
+                    counts=banks.counts, use_quaternions=quat,
+                )
+            proj = project_batch_kernel(self.spec, angles, *model, use_quaternions=quat)
+        else:
+            rotm = rotation_matrices(angles, quat)
+            if self.fspec is not None:
+                return project_fourier_batch(
+                    self.fspec, rotm, *model, banks.st_re, banks.st_im, banks.st_sums,
+                )
+            proj = project_batch(self.spec, rotm, *model)
         proj_f = torch.fft.rfft2(proj)  # (O, N, F) complex64
         return proj_f.real.contiguous(), proj_f.imag.contiguous()
 

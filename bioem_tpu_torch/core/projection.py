@@ -15,7 +15,9 @@ PyTorch counterpart of ``bioem_tpu.core.projection`` (reference
   XLA path; the kernel version (ops/project_cuda.py) takes the integer
   pixel positions and reads an exact twiddle table.
 * **Raster** (continuous radii): per-point stencils scattered with
-  ``index_add_``, then ``torch.fft.rfft2``.
+  ``index_add_``, then ``torch.fft.rfft2``; the kernel version
+  (ops/project_cuda.raster_project) deposits them in model order without
+  atomics, from the block's angle rows.
 
 Semantics preserved exactly (both paths):
 * radius ≤ pixelSize → single-pixel splat of the point density, no model
@@ -168,6 +170,18 @@ def project_batch(
     tempden = torch.sum(w, dim=(-3, -2, -1))  # (O,)
     proj = _raster_scatter(spec, i0, j0, w, du)
     return proj * (norm_den / tempden)[:, None, None]
+
+
+def project_batch_kernel(spec, angles, points, radii, densities, norm_den, *,
+                         use_quaternions: bool):
+    """Same contract as project_batch, from the block's orientation rows
+    ``angles`` (O, 4), through G4 (ops/project_cuda.raster_project): the
+    rotation matrices, the snap, the stencil weights, their deposit in
+    model order and the scale norm_den/tempden in one kernel."""
+    from ..ops.project_cuda import raster_project
+
+    return raster_project(spec, angles, points, radii, densities, norm_den,
+                          use_quaternions=use_quaternions)
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,8 @@ SIGNATURES = {
     "bioem_fourier_project": [P] * 7 + [I] * 5 + [P, P, P],
     "bioem_project_prologue": [P, I] + [P] * 5 + [I] * 4 + [F] + [I] * 2 + [P] * 4 + [P],
     "bioem_fourier_project_max_n": [],
+    "bioem_raster_project": [P, I] + [P] * 4 + [I] * 3 + [F] + [I] * 3 + [F] * 2 + [P] * 4,
+    "bioem_raster_max_stencil_half": [],
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 10 + [P] * 5 + [P],
     "bioem_fused_displacement_cc": [P] * 8 + [I] * 9 + [P] * 2 + [P],
     "bioem_fused_compare_batched": [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],

@@ -1,6 +1,6 @@
-"""Radius-grouped Fourier projection: CUDA kernel wrappers + plain versions.
+"""The projection's CUDA kernel wrappers and their plain versions.
 
-Two kernels, each beside the torch code it replaces as its plain version:
+Three kernels, each beside the torch code it replaces as its plain version:
 
 * K2 :func:`fourier_project_block` replaces
   ``bioem_tpu/ops/project_pallas.py:_project_kernel`` (entry
@@ -11,7 +11,13 @@ Two kernels, each beside the torch code it replaces as its plain version:
   K2's (G, O, Pp) layout and the scale norm_den/tempden
   (``bioem_tpu/core/orientations.py:138-202``,
   ``bioem_tpu/core/projection.py:302-330`` and ``:444-461``); the kernel
-  is ``csrc/project_glue.cu``.
+  is ``csrc/project_glue.cu``;
+* G4 :func:`raster_project`, the raster path (models with more than 32
+  distinct radii, or a layout that forces it), which XLA fused on the TPU
+  (no Pallas kernel has its body): the block's rotation matrices, the snap,
+  the stencil weights, their deposit and the scale norm_den/tempden
+  (``bioem_tpu/core/projection.py:74-195``); the kernel is
+  ``csrc/project_raster.cu``, and torch.fft.rfft2 transforms its output.
 
 Each source's header says what bounds it on the card and how the design
 answers that.
@@ -41,7 +47,7 @@ import numpy as np
 import torch
 
 from ..core.orientations import rotation_matrices
-from ..core.projection import grouped_snap
+from ..core.projection import grouped_snap, project_batch
 from . import _build
 
 F32 = torch.float32
@@ -213,3 +219,89 @@ def project_prologue(
 
 
 project_prologue.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# G4: the raster projection
+# ---------------------------------------------------------------------------
+
+# The largest N G4 takes (csrc/project_raster.cu's kMaxN: one thread per
+# column of the frame) and the largest stencil half-width, whose octant
+# weights for one point must fit its 48 KB of shared memory beside the
+# point's slot (the C entry bioem_raster_max_stencil_half says the same; a
+# card test compares them).
+RASTER_MAX_N = 512
+RASTER_MAX_STENCIL_HALF = 88
+
+
+def raster_project_plain(spec, angles, points, radii, dens, norm_den, *, use_quaternions: bool):
+    """Plain torch version of :func:`raster_project`: the torch calls the
+    engine made before G4 (rotation_matrices, then project_batch)."""
+    return project_batch(spec, rotation_matrices(angles, use_quaternions), points, radii, dens,
+                         norm_den)
+
+
+def raster_project(
+    spec,  # core.projection.ProjectionSpec: N, pixel size, shifts, stencil_half
+    angles: torch.Tensor,  # (O, 4) f32 — the block's orientation rows
+    points: torch.Tensor,  # (P, 3) f32 — the model's points, as read (padding included)
+    radii: torch.Tensor,  # (P,) f32
+    dens: torch.Tensor,  # (P,) f32 — padding points 0
+    norm_den: torch.Tensor,  # () f32
+    *,
+    use_quaternions: bool,
+    snaps: torch.Tensor = None,
+    scale: torch.Tensor = None,
+):
+    """G4: the (O, N, N) f32 projections of an orientation block, times
+    norm_den/tempden — the contract of core.projection.project_batch on the
+    rows' rotation matrices (module docstring). For a check of the kernel,
+    ``snaps``, an (O, 2, P) int32 tensor on the card, also receives each
+    point's snapped pixel (i0, j0), and ``scale``, (O,) f32, each
+    orientation's norm_den/tempden; the plain version takes neither."""
+    fn = "raster_project"
+    dev = angles.device
+    if dev.type == "cpu":
+        if snaps is not None or scale is not None:
+            raise ValueError(f"{fn}: snaps and scale are written by the kernel, not the plain "
+                             "version")
+        return raster_project_plain(spec, angles, points, radii, dens, norm_den,
+                                    use_quaternions=use_quaternions)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    o_n, p_n, n, s = angles.shape[0], points.shape[0], spec.n_pixels, spec.stencil_half
+    _build.check_tensors(fn, dev, [
+        ("angles", angles, F32, (o_n, 4)), ("points", points, F32, (p_n, 3)),
+        ("radii", radii, F32, (p_n,)), ("dens", dens, F32, (p_n,)),
+        ("norm_den", norm_den, F32, ()),
+        *([("snaps", snaps, torch.int32, (o_n, 2, p_n))] if snaps is not None else []),
+        *([("scale", scale, F32, (o_n,))] if scale is not None else []),
+    ])
+    if n > RASTER_MAX_N:
+        raise ValueError(f"{fn}: N={n} too large (one thread per column: N ≤ {RASTER_MAX_N})")
+    if s > RASTER_MAX_STENCIL_HALF:
+        raise ValueError(f"{fn}: stencil_half {s} too large (one point's weights must fit "
+                         f"shared memory: ≤ {RASTER_MAX_STENCIL_HALF})")
+    if o_n > 65535:
+        raise ValueError(f"{fn}: {o_n} orientations exceed the grid limit 65535")
+    # the plain version's constants, as its Python expressions round them
+    pix = float(np.float32(spec.pixel_size))
+    c_chord = float(np.float32(pix * pix * 2.0))
+    c_den = float(np.float32(4.0 * float(np.float32(np.pi))))
+    lib = _build.load()
+    out = torch.empty((o_n, n, n), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.bioem_raster_project(
+            angles.data_ptr(), int(bool(use_quaternions)), points.data_ptr(), radii.data_ptr(),
+            dens.data_ptr(), norm_den.data_ptr(), o_n, p_n, n, pix, int(spec.shift_x),
+            int(spec.shift_y), s, c_chord, c_den, out.data_ptr(),
+            None if snaps is None else snaps.data_ptr(),
+            None if scale is None else scale.data_ptr(), stream,
+        )
+    _build.check(status, fn)
+    raster_project.launches += 1
+    return out
+
+
+raster_project.launches = 0

@@ -27,7 +27,12 @@ P3  Where does the production body spend its time? K1 and K4 (tile 8) at
 
 Besides, K2's card time at the production projection block against the
 number of point slots it reads: none, the model's points, every slot
-(``probe_projection_points``): its fixed cost and its cost per point.
+(``probe_projection_points``): its fixed cost and its cost per point; and
+G4's, its plain version's and cuFFT's rfft2's card time at the production
+raster block (``raster_times``). The inputs and checks of the projection's
+glue kernels G3 (``prologue_inputs``, ``check_prologue``) and G4
+(``raster_inputs``, ``check_raster``) live here too, for chip_smoke.py and
+the card tests.
 
 Usage, on a machine with a CUDA card (there is no CPU mode: a probe's
 answer is a measurement of the card):
@@ -428,30 +433,18 @@ def production_projection_inputs(dev, seed: int = 3):
 PROLOGUE_CASES = ("production", "euler", "o_block 16", "reference grid", "out of frame")
 
 
-def prologue_inputs(dev, case: str = "production") -> dict:
-    """G3's inputs for one orientation block of the production problem's
-    model (``problem.build_problem``), laid out as the engine's banks hold
-    it: ``production``, block 0 of its quaternion grid (O = 8); ``euler``,
-    a middle block of an Euler grid (36 × 18 × 36 angles, O = 8);
-    ``o_block 16``, block 1 of the quaternion grid at O = 16; ``reference
-    grid``, block 0 of the reference grid's 4608 quaternions
-    (``problem.REFERENCE_GRID``); ``out of frame``, block 0 with the
-    model's points spread twice as far and every other point's radius set
-    below the pixel size (point-like), so that points leave the frame in
-    both branches of the snap. Returns {"fspec", "angles", "quat",
-    "model": (points, radii, dens, norm_den), "st_re", "st_im", "st_sums",
-    "counts"}."""
+def _case_block(case: str) -> tuple:
+    """(params, angle rows, quaternions?, model) of one block of
+    :data:`PROLOGUE_CASES` (:func:`prologue_inputs` says which)."""
     import dataclasses
 
     from ..core.orientations import euler_grid
-    from ..core.projection import make_fourier_projection_spec
     from ..io.model_io import Model
-    from ..ops.project_cuda import counts_tensor
     from ..utils.so3 import super_fibonacci
     from .problem import REFERENCE_GRID, build_problem
 
     if case not in PROLOGUE_CASES:
-        raise ValueError(f"prologue_inputs: unknown case {case!r} (one of {PROLOGUE_CASES})")
+        raise ValueError(f"unknown block case {case!r} (one of {PROLOGUE_CASES})")
     p, orients, model, _images, _planted = build_problem(n_img=1)
     ang, quat = orients.angles[:8], True
     if case == "euler":
@@ -466,10 +459,30 @@ def prologue_inputs(dev, case: str = "production") -> dict:
         radii[::2] = np.float32(0.9 * p.pixel_size)
         model = Model((2 * model.points).astype(np.float32), radii, model.densities,
                       model.norm_den)
+    return p, np.asarray(ang, np.float32), quat, model
+
+
+def prologue_inputs(dev, case: str = "production") -> dict:
+    """G3's inputs for one orientation block of the production problem's
+    model (``problem.build_problem``), laid out as the engine's banks hold
+    it: ``production``, block 0 of its quaternion grid (O = 8); ``euler``,
+    a middle block of an Euler grid (36 × 18 × 36 angles, O = 8);
+    ``o_block 16``, block 1 of the quaternion grid at O = 16; ``reference
+    grid``, block 0 of the reference grid's 4608 quaternions
+    (``problem.REFERENCE_GRID``); ``out of frame``, block 0 with the
+    model's points spread twice as far and every other point's radius set
+    below the pixel size (point-like), so that points leave the frame in
+    both branches of the snap. Returns {"fspec", "angles", "quat",
+    "model": (points, radii, dens, norm_den), "st_re", "st_im", "st_sums",
+    "counts"}."""
+    from ..core.projection import make_fourier_projection_spec
+    from ..ops.project_cuda import counts_tensor
+
+    p, ang, quat, model = _case_block(case)
     fspec, gidx, pmask, st, st_sums = make_fourier_projection_spec(p, model.radii)
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
     return dict(
-        fspec=fspec, angles=t(np.asarray(ang, np.float32)), quat=quat,
+        fspec=fspec, angles=t(ang), quat=quat,
         model=(t(model.points[gidx]), t(model.radii[gidx]), t(model.densities[gidx] * pmask),
                torch.tensor(np.float32(model.norm_den), device=dev)),
         st_re=t(st.real.astype(np.float32)), st_im=t(st.imag.astype(np.float32)),
@@ -477,19 +490,31 @@ def prologue_inputs(dev, case: str = "production") -> dict:
     )
 
 
-def prologue_pre_floor(x: dict) -> tuple:
-    """The plain version's values x/pix + N/2 + 0.5 and y/pix + N/2 + 0.5
-    of one block (each (G, O, Pp)), whose floors are the raw pixel
-    positions: the torch ops of core.projection._snap."""
+def _pre_floor(points, angles, quat: bool, pix: float, n: int) -> tuple:
+    """The plain versions' values x/pix + N/2 + 0.5 and y/pix + N/2 + 0.5
+    of every (orientation, point), each (O, P), whose floors are the raw
+    pixel positions: the torch ops of core.projection._snap."""
     from ..core.orientations import rotation_matrices
     from ..core.projection import _rotate
 
+    rot = _rotate(points, rotation_matrices(angles, quat))  # (O, P, 3)
+    pix32, half = float(np.float32(pix)), float(n) / 2.0
+    return tuple(rot[..., c] / pix32 + half + 0.5 for c in (0, 1))
+
+
+def _near_integer(v: torch.Tensor) -> torch.Tensor:
+    """Where ``v`` lies within 2 ulps of an integer."""
+    ulp = (torch.nextafter(v.abs(), torch.full_like(v, np.inf)) - v.abs())
+    return (v - torch.round(v)).abs() <= 2 * ulp
+
+
+def prologue_pre_floor(x: dict) -> tuple:
+    """:func:`_pre_floor` of one G3 block, each regrouped to (G, O, Pp)."""
     fs = x["fspec"]
-    rot = _rotate(x["model"][0], rotation_matrices(x["angles"], x["quat"]))  # (O, G·Pp, 3)
-    pix32, half = float(np.float32(fs.pixel_size)), float(fs.n_pixels) / 2.0
-    o_n = rot.shape[0]
-    return tuple((rot[..., c] / pix32 + half + 0.5).reshape(o_n, fs.n_groups, fs.group_pad)
-                 .permute(1, 0, 2) for c in (0, 1))
+    o_n = x["angles"].shape[0]
+    return tuple(v.reshape(o_n, fs.n_groups, fs.group_pad).permute(1, 0, 2)
+                 for v in _pre_floor(x["model"][0], x["angles"], x["quat"], fs.pixel_size,
+                                     fs.n_pixels))
 
 
 def check_prologue(x: dict) -> dict:
@@ -512,11 +537,7 @@ def check_prologue(x: dict) -> dict:
     plain = project_prologue_plain(*args, use_quaternions=x["quat"])
     vx, vy = prologue_pre_floor(x)
     torch.cuda.synchronize()
-
-    def near(v):  # within 2 ulps of an integer
-        ulp = (torch.nextafter(v.abs(), torch.full_like(v, np.inf)) - v.abs())
-        return (v - torch.round(v)).abs() <= 2 * ulp
-
+    near = _near_integer
     di, dj = kern[0] != plain[0], kern[1] != plain[1]
     same = ~(di | dj)
     dens_eq = kern[2] == plain[2]
@@ -576,6 +597,89 @@ def prologue_replay(dev) -> tuple:
     eager = [step(a) for a in blocks]
     torch.cuda.synchronize(dev)
     return replayed, eager
+
+
+def raster_inputs(dev, case: str = "production") -> dict:
+    """G4's inputs for one block of :func:`prologue_inputs`' cases, the
+    model laid out as the engine's banks hold it on the raster (as read,
+    stencil_half from its radii). Returns {"spec", "angles", "quat",
+    "model": (points, radii, dens, norm_den)}."""
+    from ..core.projection import make_projection_spec
+
+    p, ang, quat, model = _case_block(case)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    return dict(spec=make_projection_spec(p, model.radii), angles=t(ang), quat=quat,
+                model=(t(model.points), t(model.radii), t(model.densities),
+                       torch.tensor(np.float32(model.norm_den), device=dev)))
+
+
+def check_raster(x: dict) -> dict:
+    """G4 against its plain version on the card, on one block of
+    :func:`raster_inputs`. Returns {"pairs": O·P, "differ": (orientation,
+    point) pairs whose snapped pixel differs, "off_tie": of those, pairs
+    whose differing coordinate's plain pre-floor value lies more than 2
+    ulps from an integer, "proj_rel": max |Δ| of the projections over the
+    plain version's max |pixel|, on the orientations whose snaps all agree
+    (a snap moved at a tie moves a whole density), "proj_abs": that max
+    |Δ| itself, "scale_rel": max
+    relative |Δ| of norm_den/tempden there, "bits": two launches give the same bits (projection, snaps, scale),
+    "dropped": {"point", "sphere"}: pairs of nonzero density the plain
+    version masked out of the frame, by branch, "live": pairs that deposit
+    (in the frame, nonzero density: raster_bound's count)}."""
+    from ..core.orientations import rotation_matrices
+    from ..core.projection import _snap, _stencil_weights
+    from ..ops.project_cuda import raster_project, raster_project_plain
+
+    spec, ang, quat = x["spec"], x["angles"], x["quat"]
+    pts, radii, dens, norm_den = x["model"]
+    o_n, p_n = ang.shape[0], pts.shape[0]
+
+    def kern():
+        snaps = torch.empty((o_n, 2, p_n), dtype=torch.int32, device=ang.device)
+        scale = torch.empty((o_n,), dtype=torch.float32, device=ang.device)
+        out = raster_project(spec, ang, *x["model"], use_quaternions=quat, snaps=snaps,
+                             scale=scale)
+        return out, snaps, scale
+
+    k, again = kern(), kern()
+    plain = raster_project_plain(spec, ang, *x["model"], use_quaternions=quat)
+    rotm = rotation_matrices(ang, quat)
+    i0, j0, small, valid = _snap(spec.n_pixels, spec.pixel_size, spec.shift_x, spec.shift_y,
+                                 rotm, pts, radii)
+    _i, _j, w, _du = _stencil_weights(spec, rotm, pts, radii, dens)
+    scale_p = norm_den / torch.sum(w, dim=(-3, -2, -1))
+    vx, vy = _pre_floor(pts, ang, quat, spec.pixel_size, spec.n_pixels)
+    torch.cuda.synchronize()
+    di, dj = k[1][:, 0] != i0, k[1][:, 1] != j0
+    o_ok = ~(di | dj).any(dim=1)
+    dropped = ~valid & (dens != 0)
+    peak = float(plain.abs().max())
+    rel = (k[2] - scale_p).abs() / scale_p.abs()
+    return dict(
+        pairs=o_n * p_n, differ=int((di | dj).sum()),
+        off_tie=int(((di & ~_near_integer(vx)) | (dj & ~_near_integer(vy))).sum()),
+        proj_abs=float((k[0] - plain).abs()[o_ok].max()) if bool(o_ok.any()) else 0.0,
+        proj_rel=float((k[0] - plain).abs()[o_ok].max()) / peak if bool(o_ok.any()) else 0.0,
+        scale_rel=float(rel[o_ok].max()) if bool(o_ok.any()) else 0.0,
+        bits=all(torch.equal(a, b) for a, b in zip(k, again)),
+        dropped={key: int((dropped & m).sum()) for key, m in (("point", small),
+                                                               ("sphere", ~small))},
+        live=int((valid & (dens != 0) & (small | (spec.stencil_half > 0))).sum()),
+    )
+
+
+def raster_times(x: dict) -> dict:
+    """The card's own time (:func:`device_ms`) of G4, its plain version and
+    cuFFT's rfft2 of G4's output (the transform it feeds) on one block of
+    :func:`raster_inputs`: {"ms", "plain_ms", "rfft2_ms"}."""
+    from ..ops.project_cuda import raster_project, raster_project_plain
+
+    args = (x["spec"], x["angles"], *x["model"])
+    out = raster_project(*args, use_quaternions=x["quat"])
+    return dict(ms=device_ms(lambda: raster_project(*args, use_quaternions=x["quat"])),
+                plain_ms=device_ms(lambda: raster_project_plain(
+                    *args, use_quaternions=x["quat"]), 5),
+                rfft2_ms=device_ms(lambda: torch.fft.rfft2(out)))
 
 
 def probe_projection_points(say=print) -> dict:
@@ -661,6 +765,9 @@ def main(argv=None) -> int:
     probe_issue_overhead()
     probe_body_ablation()
     probe_projection_points()
+    t = raster_times(raster_inputs(dev))
+    print(f"G4 at the production raster block (card time): {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, cuFFT's rfft2 of its output {t['rfft2_ms']:.4f} ms", flush=True)
     return 0
 
 

@@ -87,6 +87,23 @@ def prologue_bound(o, g, pp) -> tuple:
                  16 * o + 20 * slots + 4 * g + 4 + 3 * 4 * o * slots + 4 * o)
 
 
+def raster_bound(o, n, p, s, live) -> tuple:
+    """G4's bound (ops/project_cuda.raster_project) for O orientations of a
+    P-point model at stencil half-width S on an N × N frame: the angle rows
+    and the model (points, radii, densities) and norm_den read once, the
+    (O, N, N) projections written once; ~20 f32 operations per point and
+    orientation (the rotated x and y, the snap, the masks), and for each of
+    the ``live`` (orientation, point) pairs that deposit (the data's count:
+    in the frame, nonzero density) ~10 per octant entry of its weights
+    ((S + 1)(S + 2)/2, √ and / counted as one), one add per stencil position
+    ((2S + 1)²) and 2 f64 per octant entry (tempden); one multiply per
+    output pixel (the scale)."""
+    w = (s + 1) * (s + 2) // 2
+    return bound({"f32": 20 * o * p + live * (10 * w + (2 * s + 1) ** 2) + o * n * n,
+                  "f64": 2 * live * w},
+                 16 * o + 20 * p + 4 + 4 * o * n * n)
+
+
 def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
                   n_img: int = 64, max_disp: int = 20, n_orient: int = 0,
                   disp_step: int = 2, n_phase: int = 4, n_env: int = 2):

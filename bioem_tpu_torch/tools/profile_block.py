@@ -6,7 +6,8 @@ engine's kernel branch, and each phase of it alone on the same inputs:
 
 * ``step``: the whole block step, as the pass runs it (one replay of the
   captured CUDA graph on the card; the eager step on the CPU);
-* ``projection``: G3 (rotations, snap, masks and the scale) and K2
+* ``projection``: G3 (rotations, snap, masks and the scale) and K2, or on
+  the raster (``--projection raster``) G4 and torch.fft.rfft2
   (``_project_block``);
 * ``constants``: G1, the convolution sums, the f64 constants and the u
   coefficients (``_kernel_constants``);
@@ -27,11 +28,12 @@ a warm-up, queued behind a spin of the card so that the host's launch time
 (tens of µs per torch op) does not enter; on the CPU (``BIOEM_TPU_FORCE_CPU=1``, at a size the caller
 gives) with the host clock, and the rows say so.
 
-    python -m bioem_tpu_torch.tools.profile_block [reps]
+    python -m bioem_tpu_torch.tools.profile_block [reps] [--projection raster]
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from functools import partial
@@ -55,16 +57,27 @@ def time_ms(fn, dev, reps: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def engine_for(problem=None, cfg=None, device=None):
+def engine_for(problem=None, cfg=None, device=None, projection: str = "auto"):
     """The single-device engine of ``problem`` (default: the production
-    problem) under ``cfg`` (default: the kernel branch, no autotuning)."""
+    problem) under ``cfg`` (default: the kernel branch, no autotuning, on
+    ``projection``: "auto", "fourier" or "raster")."""
     from ..config import RunConfig
     from ..core.engine import BioEMEngine
     from .problem import build_problem
 
     p, orients, model, images, _ = problem or build_problem()
-    cfg = cfg or RunConfig(use_kernels=True, autotune=False)
+    cfg = cfg or RunConfig(use_kernels=True, autotune=False, projection=projection)
     return BioEMEngine(p, orients, model, images, cfg, device=device)
+
+
+def parse_args(argv, count: str, default: int):
+    """(``count``, projection) from a tool's command line:
+    ``[count] [--projection auto|fourier|raster]``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument(count, type=int, nargs="?", default=default)
+    ap.add_argument("--projection", choices=("auto", "fourier", "raster"), default="auto")
+    args = ap.parse_args(argv)
+    return getattr(args, count), args.projection
 
 
 def profile(eng, reps: int = 10) -> dict:
@@ -166,8 +179,8 @@ def report(out: dict, say=print) -> None:
 
 
 def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
-    report(profile(engine_for(), reps=int(args[0]) if args else 10),
+    reps, projection = parse_args(sys.argv[1:] if argv is None else argv, "reps", 10)
+    report(profile(engine_for(projection=projection), reps=reps),
            say=lambda msg: print(msg, flush=True))
     return 0
 

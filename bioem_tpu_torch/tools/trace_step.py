@@ -16,7 +16,7 @@ the captured block step on the card) and prints:
   step's phase (the ``bioem.*`` ``record_function`` ranges of
   ``core/engine.py``: projection, constants, compare, merge)
   and the outermost torch op that launched it, then per phase with the
-  glue's own kernels (G1, G2, G3) added by name. A graph replay carries no
+  glue's own kernels (G1, G2, G3, G4) added by name. A graph replay carries no
   launching op, so this grouping profiles the same blocks as the eager
   loop of block steps (the same kernels, each launched from Python).
 
@@ -25,7 +25,8 @@ to ``profile_block``'s CUDA-event phases, and the output says so. On the
 CPU (``BIOEM_TPU_FORCE_CPU=1``, a caller's small problem) the "kernels" are
 the torch ops' self CPU times of the eager loop, and the output says so.
 
-    python -m bioem_tpu_torch.tools.trace_step [n_blocks]   (default 8)
+    python -m bioem_tpu_torch.tools.trace_step [n_blocks] [--projection raster]
+                                                            (default 8 blocks)
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ import torch
 # K4: compare_batched_*, K2: project_kernel); everything else is glue.
 KERNEL_STEMS = ("compare_fused", "compare_batched", "project_kernel")
 # The glue's own hand-written kernels (ops/posterior_cuda.py: G1, G2;
-# ops/project_cuda.py: G3) and the phase that launches each: they are
+# ops/project_cuda.py: G3, G4) and the phase that launches each: they are
 # launched through ctypes, not by a torch op, so by_op does not see them and
 # glue_by_phase adds them by name.
 GLUE_KERNELS = (("block_constants_kernel", "bioem.constants"),
                 ("merge_block_kernel", "bioem.merge"),
-                ("project_prologue_kernel", "bioem.projection"))
+                ("project_prologue_kernel", "bioem.projection"),
+                ("raster_projection_kernel", "bioem.projection"))
 
 
 def _device_us(e) -> float:
@@ -107,7 +109,7 @@ def by_op(prof, n_blocks: int, on_card: bool) -> list:
 def glue_by_phase(prof, n_blocks: int) -> dict:
     """{phase: [kernels per block, µs per block]} of the glue of a profile
     of eager blocks on the card: :func:`by_op`'s rows summed per phase,
-    and G1 and G2 (:data:`GLUE_KERNELS`) under the phases that launch
+    and the glue kernels (:data:`GLUE_KERNELS`) under the phases that launch
     them."""
     acc = collections.defaultdict(lambda: [0.0, 0.0])
     for phase, _op, n, us in by_op(prof, n_blocks, True):
@@ -228,15 +230,15 @@ def report(out: dict, say=print) -> None:
     for phase, op, n, us in out["by_op"]:
         say(f"{phase[:20]:<20} {op[:28]:<28} {n:13.1f} {us:10.2f}")
     if out["by_phase"]:
-        say("glue by phase, the glue kernels (G1, G2) included: " + "; ".join(
+        say("glue by phase, the glue kernels (G1–G4) included: " + "; ".join(
             f"{ph} {n:.1f} kernels {us:.1f} us" for ph, (n, us) in sorted(out["by_phase"].items())))
 
 
 def main(argv=None) -> int:
-    from .profile_block import engine_for
+    from .profile_block import engine_for, parse_args
 
-    args = sys.argv[1:] if argv is None else argv
-    report(trace(engine_for(), n_blocks=int(args[0]) if args else 8),
+    n_blocks, projection = parse_args(sys.argv[1:] if argv is None else argv, "n_blocks", 8)
+    report(trace(engine_for(projection=projection), n_blocks=n_blocks),
            say=lambda msg: print(msg, flush=True))
     return 0
 

@@ -41,7 +41,13 @@ the port's main path on the card, in phases (each prints its own lines):
    at ties within 2 ulps, the slots that differ counted; densities equal
    where the snaps are; the scale within 1e-6), K2 storing G3's scale
    bit-equal to K2 times it, two replays of a captured G3 + K2 bit-equal
-   to the eager calls, G3 timed beside its plain version and bound;
+   to the eager calls, G3 timed beside its plain version and bound; the
+   raster projection G4 (rotation matrices, snap, stencil weights, their
+   deposit in model order and the scale) against its plain version on the
+   same five kinds of block of the model laid out for the raster (snaps
+   equal but at ties; the projection within 1e-6 of its max |pixel|; the
+   scale within 1e-6; two launches bit-equal), G4 timed beside its plain
+   version, its bound and cuFFT's rfft2 of its output;
 4. the reference-binary goldens (tests/golden/data) through the port's CLI;
 5. the production-shape posterior run (4352 orientations × 8 CTFs × 64
    images at N=224) through run_bioem: on the kernel branch with K1 (then
@@ -58,74 +64,88 @@ the port's main path on the card, in phases (each prints its own lines):
    the plain branch on the same card; then a checkpoint round trip (stop
    after half the blocks, resume under replay in a fresh engine) against
    the straight run;
-6. streaming: the 64 production images through run_streaming in chunks of
+6. the raster projection: the production problem with
+   RunConfig(projection="raster") on the plain branch and the kernel
+   branch (G4, then K1; replayed), argmax tuples equal (q against −q as
+   one rotation: the plain branch's atomics break their exact tie), finite
+   logP, and logP against step 5's Fourier kernel pass within
+   RASTER_VS_FOURIER, and the two passes side by side (best of 3 replayed
+   passes each, in turns);
+   rank_models at 1088 orientations of the production model and a
+   continuous-radius candidate (its 500 radii made distinct: the raster
+   for both), one capture, each model equal to its own raster engine; the
+   replayed raster block under torch.profiler, before (the plain raster
+   projection inside the kernel branch) and after (G4): kernels, wall and
+   busy ms per block, the projection phase's kernels and µs;
+7. streaming: the 64 production images through run_streaming in chunks of
    16 on K1, one capture for all chunks, equal to the K1 run_bioem of
    step 5; a checkpointed streamed run that dies reading chunk 2, resumed,
    equal to the straight streamed run;
-7. ranking: rank_models with the production model against it jittered by
+8. ranking: rank_models with the production model against it jittered by
    2 Å and with 50 points removed (other per-group point counts, which
    K2 reads per model), one capture for the three, each candidate equal
    to its own run_bioem, the production model first;
-8. refinement: refine_results after the tuned pass on as many production
+9. refinement: refine_results after the tuned pass on as many production
    images as fit its time budget (the cut printed), every refined logpro
    at or above its seed; 8 images planted off-grid with the smooth
    forward model at N = 224, the refined rotation and displacement closer
    to the truth than the grid seed on ≥ 7; 2 of them refined on the card
    and on the CPU, held to the CPU parity test's tolerances; --Refine
    through the port's CLI on golden case A;
-9. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
+10. the kernel probe tool (bioem_tpu_torch.tools.kernel_probe): P1 (the
    f32 product's accuracy by scheme, and each scheme's card time at K4's
    stage-1 shape beside its bound and torch.matmul f32's), P2 (looped vs
    batched products on wgmma across the card, beside one cuBLAS GEMM
    doing all of them) and P3 (the K1/K4 body ablation at the production block),
    each held to its check;
-10. --PrintBestCalMap on golden case M through the port's CLI, held to
+11. --PrintBestCalMap on golden case M through the port's CLI, held to
    tests/test_golden.py's BESTMAP rule;
-11. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
+12. DEBUG_PROB: golden case L (N=64) through the port's CLI twice, dumping
    one image on the plain branch and through K3, diffed with the port's
    diff entry point, and the dump's log-sum-exp held to the image's logP;
-12. the (images × orientations) mesh (after ranking): the production
+13. the (images × orientations) mesh (after ranking): the production
    problem on a 2×2 mesh of four slots on the one card (K1, each slot its
    own captured graph), held to the single engine's K1 pass at |ΔlogP| ≤
    1e-10·max|logP| (and the per-angle logP), argmax tuples equal, four
    captures, twice (the second pass replays only), each pass's wait for
    the card, merge and garbage-collector pauses printed; then 2×2, 1×4
    and 4×1 at 1088 orientations, held the same way;
-13. multi-process: two processes of this script (``--mp-worker``) on the
+14. multi-process: two processes of this script (``--mp-worker``) on the
    card over gloo, two slots each of a global 2×2 mesh at 1088
    orientations: the pass bit-equal to the one-process 2×2 run; a run
    streamed in 2 chunks in which each process reads only its rows; a
    checkpointed run stopped mid-slot and resumed;
-14. the native C++ ingest: a 2048-image 224² MRC stack (~411 MB) and a
+15. the native C++ ingest: a 2048-image 224² MRC stack (~411 MB) and a
    500-point text model read natively and with NumPy, bit-equal, both
    times printed;
-15. accuracy: tools/accuracy_probe (the CLI and golden_error_budget) on
+16. accuracy: tools/accuracy_probe (the CLI and golden_error_budget) on
    golden cases L (N = 64) and N (N = 224) under the plain branch, K1, K4
    forced and the hybrid, on the cases' maps and normalised (where K1 and
    K4 pass the f32 gate): each engine within oracle–golden / 50 of the
    all-f64 oracle, the plain branch also within the JAX suite's 2e-5 and
    5e-6;
-16. examples: planted recovery and the tutorial (its CLI and ranking in
+17. examples: planted recovery and the tutorial (its CLI and ranking in
    processes of their own), both passing;
-17. tools/profile_block and tools/trace_step on 8 replayed production
-   blocks: every kernel at ≥ 1 % by name (K1 and K2 among them), the rest
-   as ``other``, within 5 % of the profiler's device time, and the glue
+18. tools/profile_block and tools/trace_step on 8 replayed production
+   blocks, on the Fourier path and on the raster: every kernel at ≥ 1 %
+   by name (K1 and K2, or K1 and G4, among them), the rest as
+   ``other``, within 5 % of the profiler's device time, and the glue
    grouped by the block step's phase and the torch op that launched it;
-18. tools/scale_bench at 4608 and 36864 orientations, per-angle slabs off
+19. tools/scale_bench at 4608 and 36864 orientations, per-angle slabs off
    and on: comparisons/s, peak card memory, finite logP;
-19. tools/stream_50k cut to 2048 images in 2 chunks of 1024 at 4608
+20. tools/stream_50k cut to 2048 images in 2 chunks of 1024 at 4608
    orientations: one capture, finite logP, peak card memory;
-20. at 1088 orientations: tools/rank_bench (3 models, reuse faster than
+21. at 1088 orientations: tools/rank_bench (3 models, reuse faster than
    the naive estimate), tools/mesh_scale_bench (1 to 4 slots on the one
    card, each within 1e-6·max|logP| of one slot), tools/pipeline_lab
    (the fused and hybrid pipelines' device time per step) and
    tools/noise_recovery_table (1 trial at noise 0 and 1);
-21. the benchmark harness (bioem_tpu_torch.tools.bench, in this process,
+22. the benchmark harness (bioem_tpu_torch.tools.bench, in this process,
    tuned from an empty autotune cache) on bench.py's own problem (raw
    noise: the hybrid runs) and on the planted production problem (K1 or
    K4): one JSON line each with every key, the card named, the pass at or
    below 100 % of its bound;
-22. the reference's production grid: K1 and K3 at its block (D = 81,
+23. the reference's production grid: K1 and K3 at its block (D = 81,
    M = 224: four warpgroups, plan (4, 4)) against their plain versions and
    K1 timed beside its bound (the kernels line's ``fused_compare_block
    (D=81)`` row); then 4608 quaternions × 32 CTFs × 64 planted images at
@@ -133,14 +153,14 @@ the port's main path on the card, in phases (each prints its own lines):
    plan (4, 4), K4 never, finite logP, the planted orientation and CTF
    recovered; and a cut of ~128 orientations on the plain branch, K1 and
    the hybrid with argmax tuples equal;
-23. the wide grid (the reference grid searching ±60 pixels, D = 121):
+24. the wide grid (the reference grid searching ±60 pixels, D = 121):
    its cut of ~128 orientations × 32 CTFs × 64 planted images through the
    port's CLI on the kernel branch (K1 on four warpgroups, K4 never) and
    on the plain branch, argmax tuples equal, finite logP, the planted
    parameters recovered; and its C2 cut (2 images × 4 orientations × 32
    CTFs) on the plain branch, K1 and the hybrid (K3) against the f64
    oracle;
-24. the C2 check: the production shape cut to 4 planted images × 16
+25. the C2 check: the production shape cut to 4 planted images × 16
    orientations × 8 CTFs, and the reference grid cut to 2 images × 4
    orientations × 32 CTFs, on every kernel configuration and the plain
    branch against the all-f64 oracle (tools/oracle.py, on the host): no
@@ -153,13 +173,15 @@ and K1 passes must launch K1, K2 and K3; the K4, autotuned and checkpoint
 passes K2 and K4; streaming, ranking and the mesh K1 and K2 (the
 multi-process workers report theirs); the refinement phase (its grid
 passes) K2; the probe tool P1, P2 and P3; the DEBUG_PROB runs
-K3; the accuracy phase K1, K3 and K4; the examples K2 and K3; the profile
+K3; the accuracy phase K1, K3 and K4; the raster K1 and G4; the examples K2 and K3; the profile
 tools, scale and the stream cut K1 and K2; the last tools K1, K2 and K3; the
 harness K2 and K3 on bench.py's problem, K2 and K1 or K4 on the planted one;
 the reference grid and the wide grid K1, K2 and K3; the C2 check K1, K2,
 K3 and K4; every one of them but the probe tool, DEBUG_PROB and the
-examples also G1 and G2 (the kernel branch's block step), and every one
-but the probe tool G3 (the kernel projection's prologue). Each part's
+examples also G1 and G2 (the kernel branch's block step), every one
+but the probe tool and the raster G3 (the kernel projection's prologue),
+and the goldens (case N), the raster, the accuracy phase and the profile
+tools G4. Each part's
 line gives its seconds.
 The line before the last is a JSON object describing every kernel, with
 its launches on those paths, its time beside its plain version's, the
@@ -719,6 +741,58 @@ def glue_g3(torch, eng) -> dict:
                 library_ms=None)  # no single PyTorch call computes G3
 
 
+def glue_g4(torch) -> dict:
+    """G4 (raster_project) against its plain version (rotation_matrices,
+    then project_batch: index_add_'s atomics) on the blocks of
+    kernel_probe.raster_inputs: the production block, an Euler-grid block,
+    o_block 16, a reference-grid block and the model spread twice as far
+    with every other point point-like (points out of the frame in both
+    branches), as the engine lays the model out on the raster. Under
+    kernel_probe.check_raster: snaps equal but where the plain pre-floor
+    value lies within 2 ulps of an integer (the pairs that differ counted);
+    on the orientations whose snaps all agree, the projection within 1e-6
+    of the plain version's max |pixel| (model order against the atomics'
+    order) and the scale within 1e-6 relative; two launches bit-equal. G4's
+    and its plain version's time at the production block, cuFFT's rfft2 of
+    its output (the transform G4 feeds), and G4's bound. Returns G4's
+    kernels-line row."""
+    from bioem_tpu_torch.tools.kernel_probe import (PROLOGUE_CASES, check_raster,
+                                                    raster_inputs, raster_times)
+    from bioem_tpu_torch.tools.problem import raster_bound
+
+    for case in PROLOGUE_CASES:
+        x = raster_inputs(DEVICE, case)
+        r = check_raster(x)
+        o_n, p_n = x["angles"].shape[0], x["model"][0].shape[0]
+        say(f"[glue] G4 {case} (O={o_n}, P={p_n}, stencil_half {x['spec'].stencil_half}, "
+            f"{'quaternions' if x['quat'] else 'Euler angles'}): {r['differ']} of {r['pairs']} "
+            f"points snap elsewhere than the plain version, {r['off_tie']} of them off a tie; "
+            f"projection max |Δ| {r['proj_rel']:.2e} of max |pixel| ({r['proj_abs']:.3e}); "
+            f"scale max rel |Δ| {r['scale_rel']:.2e}; two launches bit-equal {r['bits']}; "
+            f"points dropped out of the frame: {r['dropped']['point']} point-like, "
+            f"{r['dropped']['sphere']} spheres")
+        require(r["off_tie"] == 0, f"G4 {case}: a snap differs away from a tie")
+        require(r["proj_rel"] <= 1e-6, f"G4 {case}: projection beyond 1e-6 of max |pixel|")
+        require(r["scale_rel"] <= 1e-6, f"G4 {case}: scale beyond rtol 1e-6")
+        require(r["bits"], f"G4 {case}: two launches on the same inputs differ")
+        if case == "out of frame":
+            require(r["dropped"]["point"] > 0 and r["dropped"]["sphere"] > 0,
+                    "G4 out of frame: no point dropped in one of the branches")
+        if case == "production":
+            prod, err = x, r["proj_abs"]
+            b4 = raster_bound(o_n, x["spec"].n_pixels, p_n, x["spec"].stencil_half, r["live"])
+    t = raster_times(prod)
+    say(f"[glue] G4 production-block time: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+        f"(the card's own time); bound {b4[0]:.6f} ms ({b4[1]}-bound); cuFFT's rfft2 of its "
+        f"output {t['rfft2_ms']:.4f} ms")
+    return dict(name="raster_project", route="cuda",
+                source="bioem_tpu_torch/csrc/project_raster.cu",
+                replaces="bioem_tpu/core/projection.py:74-195; bioem_tpu/core/engine.py:484 "
+                         "(XLA-fused; no Pallas kernel)",
+                max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b4[0],
+                bound_by=b4[1], library_ms=None)  # no single PyTorch call computes G4
+
+
 def phase_glue(torch, eng) -> dict:
     """G1 and G2 against their plain versions: on the production block
     (:func:`_block_inputs`; G2 on K1's outputs there, into a fresh
@@ -813,6 +887,7 @@ def phase_glue(torch, eng) -> dict:
                    max_abs_err=err2, ms=t["G2"][0], plain_ms=t["G2"][1],
                    bound_ms=b2[0], bound_by=b2[1], **none),
         "G3": glue_g3(torch, eng),
+        "G4": glue_g4(torch),
     }
 
 
@@ -884,48 +959,67 @@ def phase_goldens() -> None:
         require(ok, f"golden {case} vs {golden} out of tolerance")
 
 
-def check_against_plain(name, res, res_p, planted, orients) -> None:
+def check_against_plain(name, res, res_p, planted, orients, same_rotation=False) -> None:
     """Argmax tuples equal to the plain branch's on every image, finite
-    logP, and the planted orientation recovered on ≥ 90 % of the images."""
+    logP, and the planted orientation recovered on ≥ 90 % of the images.
+    With ``same_rotation`` a best orientation that names another grid point
+    of the same rotation (q and −q: bit-equal matrices, so the same
+    projection and an exact tie in logP) counts as equal, and the images
+    where that happened are counted: the plain raster branch adds its
+    projections with index_add_'s atomics, whose order gives q and −q
+    projections that differ in the last bits and so breaks their tie
+    either way, while every kernel path gives both the same bits and the
+    first index wins."""
     import torch
 
     from bioem_tpu_torch.core.orientations import rotation_matrices
 
     require(bool(np.isfinite(res.log_prob).all()), f"{name}: non-finite logP")
-    fields = ("best_orient", "best_conv", "best_cent_x", "best_cent_y")
-    same = np.all([getattr(res, f) == getattr(res_p, f) for f in fields], axis=0)
-    dlp = float(np.max(np.abs(res.log_prob - res_p.log_prob)))
 
     # q and −q are the same rotation and both lie on the quaternion grid, so
     # recovery compares rotation matrices, not grid indices.
     def rot(idx):
         return rotation_matrices(torch.as_tensor(orients.angles[idx]), orients.use_quaternions)
 
+    fields = ("best_conv", "best_cent_x", "best_cent_y")
+    rest = np.all([getattr(res, f) == getattr(res_p, f) for f in fields], axis=0)
+    same_o = res.best_orient == res_p.best_orient
+    twin = np.zeros_like(same_o)
+    if same_rotation:
+        twin = ~same_o & (rot(res.best_orient) == rot(res_p.best_orient)).all(dim=2).all(
+            dim=1).numpy()
+    same = rest & (same_o | twin)
+    dlp = float(np.max(np.abs(res.log_prob - res_p.log_prob)))
     same_rot = (rot(res.best_orient) - rot(planted["orient"])).abs().amax(dim=(1, 2)) < 1e-5
     rec = float(same_rot.float().mean())
     rec_c = float(np.mean(res.best_conv == planted["ctf"]))
     say(f"[production] {name}: argmax tuples equal to the plain branch on "
-        f"{int(same.sum())}/{len(same)} images; max |ΔlogP| vs plain {dlp:.3e}; planted "
-        f"orientation recovered {rec:.3f}, planted CTF {rec_c:.3f}")
+        f"{int(same.sum())}/{len(same)} images"
+        + (f" ({int((twin & rest).sum())} of them at the grid point of the same rotation, "
+           "q against −q)" if same_rotation else "")
+        + f"; max |ΔlogP| vs plain {dlp:.3e}; planted orientation recovered {rec:.3f}, "
+          f"planted CTF {rec_c:.3f}")
     require(bool(same.all()), f"{name}: argmax tuples differ from the plain branch")
     require(rec >= 0.9, f"{name}: planted orientations not recovered")
 
 
 def _run(name, problem, cfg):
-    """run_bioem on the card with the launches of K1, K2 and K4 it made."""
+    """run_bioem on the card with the launches of K1, K2, K4 and G4 it
+    made."""
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
     from bioem_tpu_torch.ops import project_cuda as pj
     from bioem_tpu_torch.run import run_bioem
 
     p, orients, model, images, _ = problem
     fns = (cc_mod.fused_compare_block, pj.fourier_project_block,
-           cc_mod.fused_compare_block_batched)
+           cc_mod.fused_compare_block_batched, pj.raster_project)
     before = [fn.launches for fn in fns]
     res, perf = run_bioem(p, orients, model, images, cfg, device=DEVICE)
     n = [fn.launches - b for fn, b in zip(fns, before)]
     say(f"[production] {name}: {perf['run_s']:.3f} s, "
         f"{perf['comparisons_per_s']:.4e} comparisons/s ({perf['comparisons']} "
-        f"comparisons; K1 launches {n[0]}, K2 launches {n[1]}, K4 launches {n[2]}; "
+        f"comparisons; K1 launches {n[0]}, K2 launches {n[1]}, K4 launches {n[2]}, "
+        f"G4 launches {n[3]}; "
         f"config {perf['config']}; autotuning {perf['autotune_s']:.3f} s before it)")
     return res, perf, n
 
@@ -984,15 +1078,16 @@ def _profile_blocks(step, n_blocks: int) -> dict:
     return out
 
 
-def _profile_pass(problem, n_blocks: int, warm: int) -> tuple:
+def _profile_pass(problem, n_blocks: int, warm: int, cfg=None) -> tuple:
     """({"eager": ..., "replayed": ...} of :func:`_profile_blocks`, o_block)
-    of the default kernel pass, on a new engine."""
+    of the kernel pass under ``cfg`` (default: the default kernel pass), on
+    a new engine."""
     from bioem_tpu_torch.config import RunConfig
     from bioem_tpu_torch.core.engine import BioEMEngine
 
     p, orients, model, images, _ = problem
-    eng = BioEMEngine(p, orients, model, images, RunConfig(use_kernels=True, autotune=False),
-                      device=DEVICE)
+    eng = BioEMEngine(p, orients, model, images,
+                      cfg or RunConfig(use_kernels=True, autotune=False), device=DEVICE)
     state = eng.initial_state()
     blk = iter(range(warm + 2 * n_blocks))  # warm-up, then timed and profiled runs
 
@@ -1100,6 +1195,147 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
                 "not ≤ 15")
     require(proj <= 2, f"the projection phase launches {proj:.1f} kernels per block, not ≤ 2")
     return out
+
+
+# The raster kernel pass against the Fourier kernel pass on the production
+# model: the two projections are one function, so their logP differ only by
+# f32 rounding (the spectra's, then the comparison's). The limit is 4× the
+# gap measured on an H100, 7.734e-4 of |logP| ≈ 7e4 (PERF.md §6); a
+# projection that misplaced or mis-weighted density would move logP by
+# orders more.
+RASTER_VS_FOURIER = 3.1e-3
+
+
+def phase_raster(problem, res_k, card: str) -> None:
+    """The raster projection on the card: (a) the production problem with
+    RunConfig(projection="raster") on the plain branch and the kernel
+    branch (G4, then K1; replayed), argmax tuples equal (a best orientation
+    at q against −q, one rotation, counting as equal: see
+    :func:`check_against_plain`), finite logP, the planted parameters
+    recovered, and logP against the Fourier kernel pass
+    (``res_k``) within RASTER_VS_FOURIER, and the two passes timed side by
+    side (:func:`_side_by_side`); (b) rank_models at MESH_DEPTH
+    orientations of the production model and a continuous-radius candidate
+    (every radius times 1 + 0.02·u, u uniform from the seed: 500 distinct
+    radii, so the raster for both), one capture, each model equal to its
+    own raster engine; (d) the replayed raster block under the profiler,
+    before (the plain raster projection inside the kernel branch) and after
+    (G4)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.io.model_io import Model
+    from bioem_tpu_torch.ops import project_cuda as pj
+    from bioem_tpu_torch.rank import rank_models
+    from bioem_tpu_torch.run import run_bioem
+
+    p, orients, model, images, planted = problem
+    raster = dict(autotune=False, projection="raster")
+    res_rp, _, _ = _run("raster, plain branch", problem, RunConfig(use_kernels=False, **raster))
+    require(bool(np.isfinite(res_rp.log_prob).all()), "raster plain branch: non-finite logP")
+    res_r, _, n = _run("raster, kernel branch (G4, K1)", problem,
+                       RunConfig(use_kernels=True, **raster))
+    require(n[0] > 0 and n[3] > 0 and n[1] == 0, "the raster kernel branch did not launch G4 "
+            "and K1, or launched K2")
+    check_against_plain("raster kernel branch (G4, K1)", res_r, res_rp, planted, orients,
+                        same_rotation=True)
+    gap = float(np.max(np.abs(res_r.log_prob - res_k.log_prob)))
+    same = np.all([getattr(res_r, f) == getattr(res_k, f) for f in ARGMAX], axis=0)
+    say(f"[raster] kernel pass (G4, K1) against the Fourier kernel pass (G3, K2, K1) on the "
+        f"production model: max |ΔlogP| {gap:.3e} (limit {RASTER_VS_FOURIER:g}; "
+        f"{gap / float(np.max(np.abs(res_k.log_prob))):.2e} of max |logP|), argmax tuples equal "
+        f"on {int(same.sum())}/{len(same)} images")
+    require(gap <= RASTER_VS_FOURIER, "the raster kernel pass strays from the Fourier kernel pass")
+    _side_by_side(problem, card)
+
+    u = np.random.default_rng(SEED).uniform(size=model.n_points)
+    cand = Model(model.points, (model.radii * (1.0 + 0.02 * u)).astype(np.float32),
+                 model.densities, model.norm_den)
+    require(np.unique(cand.radii).size == model.n_points, "the candidate's radii are not distinct")
+    models, names = [model, cand], ["production", "continuous radii"]
+    cfg = RunConfig(use_kernels=True, autotune=False, debug_break=MESH_DEPTH)
+    before = (pj.raster_project.launches, pj.fourier_project_block.launches)
+    t0 = time.perf_counter()
+    total, _per_image, perf = rank_models(p, orients, models, images, cfg, device=DEVICE)
+    wall = time.perf_counter() - t0
+    g4, k2 = (pj.raster_project.launches - before[0], pj.fourier_project_block.launches - before[1])
+    say(f"[raster] {card}: rank_models of the production model and a continuous-radius "
+        f"candidate (500 distinct radii) × {images.n} images at {MESH_DEPTH} orientations: "
+        f"{wall:.3f} s, captures {perf['captures']}, G4 launches {g4}, K2 launches {k2}; "
+        + ", ".join(f"{nm} lnP {t:.4f}" for nm, t in zip(names, total)))
+    require(perf["captures"] == 1 and g4 > 0 and k2 == 0,
+            "the mixed-radius ranking did not share one capture on G4")
+    for m in (0, 1):
+        own, _ = run_bioem(p, orients, models[m], images,
+                           RunConfig(use_kernels=True, debug_break=MESH_DEPTH, **raster),
+                           device=DEVICE)
+        _held(f"raster: ranked {names[m]} vs its own raster engine", perf["results"][m], own)
+    phase_raster_profile(problem)
+
+
+def _side_by_side(problem, card: str) -> None:
+    """The Fourier kernel pass and the raster kernel pass (both K1, o_block
+    8) on the production problem, each engine captured by a first pass,
+    then timed in turns Fourier, raster, raster, Fourier, Fourier, raster:
+    the best of three replayed passes each, each ending in a synchronise."""
+    import torch
+
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    p, orients, model, images, _ = problem
+    eng = {name: BioEMEngine(p, orients, model, images,
+                             RunConfig(use_kernels=True, autotune=False, projection=name),
+                             device=DEVICE) for name in ("fourier", "raster")}
+    best = {}
+    for name, e in eng.items():
+        e.run()
+        best[name] = float("inf")
+    for name in ("fourier", "raster", "raster", "fourier", "fourier", "raster"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng[name].run()
+        torch.cuda.synchronize()
+        best[name] = min(best[name], time.perf_counter() - t0)
+    say(f"[raster] {card}: side by side, best of 3 replayed passes in turns: Fourier kernel "
+        f"pass (G3, K2, K1) {best['fourier']:.4f} s, raster kernel pass (G4, K1) "
+        f"{best['raster']:.4f} s")
+
+
+def phase_raster_profile(problem, n_blocks: int = 32, warm: int = 4) -> None:
+    """The raster kernel pass (K1, o_block 8) under the profiler as
+    :func:`phase_profile` profiles the default pass: before, the plain
+    raster projection inside the kernel branch (kernel_projection off: the
+    rotation matrices, ~25 elementwise kernels of stencil weights,
+    torch.sum and index_add_), and after, G4; then rfft2 and the two
+    copies of its real and imaginary parts, in both. Kernels per block,
+    wall and busy ms per block, and the projection phase's kernels and µs
+    (the eager loop's glue by phase, G4 included). The replayed block must
+    launch fewer kernels after than before."""
+    from bioem_tpu_torch.config import RunConfig
+
+    res = {}
+    for when, kp in (("before (plain raster projection)", False), ("after (G4)", True)):
+        res[when], o_block = _profile_pass(problem, n_blocks, warm, RunConfig(
+            use_kernels=True, autotune=False, projection="raster", kernel_projection=kp))
+        proj = res[when]["eager"]["glue"].get("bioem.projection", (0.0, 0.0))
+        for name, r in res[when].items():
+            say(f"[raster profile] raster kernel pass (K1, o_block {o_block}), {n_blocks} blocks, "
+                f"{name}, {when}: wall {r['wall_ms']:.3f} ms per block ({r['wall_prof_ms']:.3f} "
+                f"under torch.profiler), card busy {r['busy_ms']:.3f} ms per block "
+                f"({100 * r['share']:.1f} %), K1 {r['k1_ms']:.3f} ms, the other "
+                f"{r['other_launches']:.1f} kernels {r['other_ms']:.3f} ms; "
+                f"{r['launches']:.1f} kernels per block")
+        say(f"[raster profile] glue by phase, eager, {when}: " + "; ".join(
+            f"{ph.removeprefix('bioem.')} {k:.1f} kernels {us:.1f} us"
+            for ph, (k, us) in sorted(res[when]["eager"]["glue"].items())) + " per block; "
+            f"the projection phase {proj[0]:.1f} kernels {proj[1]:.1f} us")
+    b, a = (res[w]["replayed"] for w in res)
+    say(f"[raster profile] replayed raster block, before against after: {b['launches']:.1f} "
+        f"against {a['launches']:.1f} kernels, wall {b['wall_ms']:.3f} against "
+        f"{a['wall_ms']:.3f} ms, busy {b['busy_ms']:.3f} against {a['busy_ms']:.3f} ms")
+    require(res["after (G4)"]["eager"]["k1_ms"] > 0, "the profiled raster pass shows no K1 time")
+    if a["busy_ms"] > 0:
+        require(a["launches"] < b["launches"],
+                "the replayed raster block launches no fewer kernels with G4")
 
 
 def phase_tuned(problem, res_p, res_k, k4_tile: int) -> None:
@@ -2069,21 +2305,26 @@ def phase_examples(card: str) -> None:
 
 def phase_profile_tools(problem, card: str, n_blocks: int = 8) -> None:
     """profile_block and trace_step on the default kernel pass (K1,
-    o_block 8): K1 and K2 named in the trace, its rows with ``other``
+    o_block 8) and on the raster kernel pass (``--projection raster``): K1
+    and K2, or K1 and G4, named in the trace, its rows with ``other``
     within 5 % of the profiler's device time."""
     from bioem_tpu_torch.tools import profile_block, trace_step
 
-    out = profile_block.profile(profile_block.engine_for(problem, device=DEVICE))
-    profile_block.report(out, say=lambda m: say(f"[profile_block] {card}: {m}"))
-    tr = trace_step.trace(profile_block.engine_for(problem, device=DEVICE), n_blocks=n_blocks)
-    trace_step.report(tr, say=lambda m: say(f"[trace_step] {m}"))
-    names = " ".join(r[0] for r in tr["rows"])
-    require(tr["fallback"] is None, tr["fallback"] or "")
-    require("compare_fused_kernel" in names and "project_kernel" in names,
-            "the trace does not name K1 and K2")
-    dev_ms = tr["profiler_total_ms"]
-    require(abs(tr["rows_total_ms"] - dev_ms) <= 0.05 * dev_ms,
-            f"the trace's rows sum to {tr['rows_total_ms']:.3f} ms against {dev_ms:.3f}")
+    for projection, kernels in (("auto", ("compare_fused_kernel", "project_kernel")),
+                                ("raster", ("compare_fused_kernel", "raster_projection_kernel"))):
+        tag = "" if projection == "auto" else ", raster"
+        out = profile_block.profile(profile_block.engine_for(problem, device=DEVICE,
+                                                             projection=projection))
+        profile_block.report(out, say=lambda m: say(f"[profile_block{tag}] {card}: {m}"))
+        tr = trace_step.trace(profile_block.engine_for(problem, device=DEVICE,
+                                                       projection=projection), n_blocks=n_blocks)
+        trace_step.report(tr, say=lambda m: say(f"[trace_step{tag}] {m}"))
+        names = " ".join(r[0] for r in tr["rows"])
+        require(tr["fallback"] is None, tr["fallback"] or "")
+        require(all(k in names for k in kernels), f"the trace does not name {', '.join(kernels)}")
+        dev_ms = tr["profiler_total_ms"]
+        require(abs(tr["rows_total_ms"] - dev_ms) <= 0.05 * dev_ms,
+                f"the trace's rows sum to {tr['rows_total_ms']:.3f} ms against {dev_ms:.3f}")
 
 
 def phase_scale(card: str) -> None:
@@ -2530,7 +2771,7 @@ def main() -> int:
                     "K3": cc_mod.fused_displacement_cc,
                     "K4": cc_mod.fused_compare_block_batched,
                     "G1": glue.block_constants, "G2": glue.merge_block,
-                    "G3": pj.project_prologue}
+                    "G3": pj.project_prologue, "G4": pj.raster_project}
 
         def main_path(name, drive, kernels):
             """Counts from 0 around one path; each of ``kernels`` must launch."""
@@ -2553,7 +2794,9 @@ def main() -> int:
             return phase_production(problem)
 
         res_p, res_k = main_path("goldens + production K1", goldens_and_k1,
-                                 ("K1", "K2", "K3", "G1", "G2", "G3"))
+                                 ("K1", "K2", "K3", "G1", "G2", "G3", "G4"))
+        main_path("raster", lambda: phase_raster(problem, res_k, card),
+                  ("K1", "G1", "G2", "G4"))
         main_path("production K4 + autotuned + checkpoint",
                   lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]),
                   ("K2", "K4", "G1", "G2", "G3"))
@@ -2576,10 +2819,11 @@ def main() -> int:
             rows[k] = {**r, "launches": counters[k].launches}
         phase_bestmap()
         main_path("DEBUG_PROB", phase_debug_prob, ("K3", "G3"))
-        main_path("accuracy", lambda: phase_accuracy(card), ("K1", "K3", "K4", "G1", "G2", "G3"))
+        main_path("accuracy", lambda: phase_accuracy(card),
+                  ("K1", "K3", "K4", "G1", "G2", "G3", "G4"))
         main_path("examples", lambda: phase_examples(card), ("K2", "K3", "G3"))
         main_path("profile tools", lambda: phase_profile_tools(problem, card),
-                  ("K1", "K2", "G1", "G2", "G3"))
+                  ("K1", "K2", "G1", "G2", "G3", "G4"))
         main_path("scale", lambda: phase_scale(card), ("K1", "K2", "G1", "G2", "G3"))
         main_path("stream cut", lambda: phase_stream_cut(card), ("K1", "K2", "G1", "G2", "G3"))
         main_path("rank, mesh, pipeline, noise", lambda: phase_small_tools(problem, card),

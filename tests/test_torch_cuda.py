@@ -25,9 +25,13 @@ also with per-group point counts that skip padding, at its largest N and
 to the same bits across two launches. K3 (K1's kernel writing the
 lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, 81 and
 121, M = 224,
-to the same bits across two launches. The engine's replayed pass
-(a captured block step) bit-equal to its eager loop for K1, K4 and the
-hybrid, through a checkpoint resume too, with launch counters that count
+to the same bits across two launches. The raster projection (G4) against
+its plain version on blocks of the production model (the projection within
+1e-6 of its max pixel, the scale within 1e-6 relative, the snaps equal but
+at ties), with all points point-like (stencil_half 0) and with zero-density
+padding, and to the same bits across two launches. The engine's replayed
+pass (a captured block step) bit-equal to its eager loop for K1, K4, the
+hybrid and the raster (G4), through a checkpoint resume too, with launch counters that count
 each replay; on swapped banks too (a streamed image chunk, a ranked model
 with more points per radius group, whose counts K2 reads), with one
 capture per engine under run_streaming and rank_models; a 2×2 mesh of
@@ -686,7 +690,8 @@ def test_k3_is_deterministic(dev):
 
 ENGINE_PATHS = {"k1": dict(use_kernels=True),
                 "k4": dict(use_kernels=True, fused_batched=True, kernel_img_tile=5),
-                "hybrid": dict(use_kernels=True, fused_lse=False)}
+                "hybrid": dict(use_kernels=True, fused_lse=False),
+                "raster": dict(use_kernels=True, projection="raster")}
 
 
 def _eager(eng, state=None, stop=None):
@@ -1238,3 +1243,138 @@ def test_project_prologue_rejects_bad_input(dev):
     with pytest.raises(ValueError, match="scale must be"):
         P.fourier_project_block(i0, j0, de, x["st_re"], x["st_im"], n=fs.n_pixels,
                                 counts=x["counts"], scale=scale[:4])
+
+
+# ---------------------------------------------------------------------------
+# The raster projection: G4 (raster_project)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["production", "euler", "o_block 16", "reference grid",
+                                  "out of frame"])
+def test_raster_kernel_vs_plain(dev, case):
+    """G4 against its plain version (rotation_matrices, then project_batch:
+    index_add_'s atomics) on blocks of the production model
+    (kernel_probe.raster_inputs): the snapped pixels equal except where the
+    plain version's value lies within 2 ulps of an integer; on the
+    orientations whose snaps all agree the projection within 1e-6 of the
+    plain version's max |pixel| (the deposit in model order against the
+    atomics' order, tempden in f64 against torch's f32 sum) and the scale
+    within 1e-6 relative; two launches bit-equal; out of the frame, points
+    dropped in both branches."""
+    from bioem_tpu_torch.tools.kernel_probe import check_raster, raster_inputs
+
+    x = raster_inputs(dev, case)
+    assert x["spec"].stencil_half == 4
+    before = P.raster_project.launches
+    r = check_raster(x)
+    assert P.raster_project.launches == before + 2
+    print(f"G4 {case}: {r['differ']} of {r['pairs']} pairs snap elsewhere than the plain "
+          f"version (all at ties: {r['off_tie'] == 0}); projection max |Δ| {r['proj_rel']:.2e} "
+          f"of max |pixel|; scale max rel |Δ| {r['scale_rel']:.2e}")
+    assert r["off_tie"] == 0 and r["bits"]
+    assert r["proj_rel"] <= 1e-6 and r["scale_rel"] <= 1e-6
+    if case == "out of frame":
+        assert r["dropped"]["point"] > 0 and r["dropped"]["sphere"] > 0
+
+
+@pytest.mark.parametrize("layout", ["point-like", "padded"])
+def test_raster_kernel_stencil_zero_and_padding(rng, dev, layout):
+    """G4 where every point is point-like (stencil_half 0: spheres would
+    deposit nothing) and on a zero-density padded layout with a wider
+    stencil than the model needs (rank.common_model_layout of a
+    mixed-radius pair), against the plain version within 1e-6 of its max
+    |pixel|; two launches bit-equal."""
+    from bioem_tpu_torch.core.projection import make_projection_spec
+    from bioem_tpu_torch.rank import common_model_layout
+    from bioem_tpu_torch.tools.kernel_probe import _case_block
+
+    p, ang, quat, model = _case_block("production")
+    pts, radii, dens = model.points, model.radii, model.densities
+    if layout == "point-like":
+        radii = np.full_like(radii, np.float32(0.5 * p.pixel_size))
+        spec = make_projection_spec(p, radii)
+        assert spec.stencil_half == 0
+    else:
+        wide = radii * np.float32(1.5)
+        lay = common_model_layout(p, [model, type(model)(pts[:300], wide[:300], dens[:300],
+                                                         float(dens[:300].sum()))])
+        spec = make_projection_spec(p, radii, stencil_half_min=lay["stencil_half"])
+        assert spec.stencil_half > make_projection_spec(p, radii).stencil_half
+        pad = 64
+        pts = np.concatenate([pts, np.repeat(pts[:1], pad, 0)])
+        radii = np.concatenate([radii, np.repeat(radii[:1], pad)])
+        dens = np.concatenate([dens, np.zeros(pad, np.float32)])
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    args = (spec, t(ang), t(pts), t(radii), t(dens),
+            torch.tensor(np.float32(model.norm_den), device=dev))
+    got = P.raster_project(*args, use_quaternions=quat)
+    again = P.raster_project(*args, use_quaternions=quat)
+    want = P.raster_project_plain(*args, use_quaternions=quat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_raster_reach_matches_the_library(dev):
+    """G4's reach in the wrapper (RASTER_MAX_N, RASTER_MAX_STENCIL_HALF) is
+    the library's; past it the wrapper raises."""
+    import dataclasses
+
+    from bioem_tpu_torch.ops import _build
+    from bioem_tpu_torch.tools.kernel_probe import raster_inputs
+
+    assert _build.load().bioem_raster_max_stencil_half() == P.RASTER_MAX_STENCIL_HALF
+    x = raster_inputs(dev)
+    for field, value, what in (("n_pixels", P.RASTER_MAX_N + 1, "too large"),
+                               ("stencil_half", P.RASTER_MAX_STENCIL_HALF + 1, "stencil_half")):
+        spec = dataclasses.replace(x["spec"], **{field: value})
+        with pytest.raises(ValueError, match=what):
+            P.raster_project(spec, x["angles"], *x["model"], use_quaternions=True)
+    with pytest.raises(ValueError, match="angles must be"):
+        P.raster_project(x["spec"], x["angles"].double(), *x["model"], use_quaternions=True)
+
+
+def test_raster_counted_per_replay(rng, dev):
+    """On the raster kernel branch each replay of the captured block step
+    launches G4 once and neither G3 nor K2."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    eng = BioEMEngine(*_engine_problem(rng), RunConfig(orient_block=3, projection="raster"),
+                      device=dev)
+    nblk = eng.ang_blocks.shape[0]
+    fns = (P.raster_project, P.project_prologue, P.fourier_project_block)
+    before = [fn.launches for fn in fns]
+    eng.run()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [nblk + 1, 0, 0]
+
+
+def test_ranking_mixed_radii_captures_once(rng, dev):
+    """rank_models of a pair whose second model has a distinct radius per
+    point (more than 32: the raster for both): one capture, G4 launched,
+    and each model's per-image logP equal to its own raster engine on the
+    same layout (rtol 1e-12, argmax tuples exact)."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.io.model_io import Model
+    from bioem_tpu_torch.rank import common_model_layout, rank_models
+
+    p, orients, model, images = _engine_problem(rng)
+    n = 40
+    pts = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    dens = rng.uniform(40.0, 100.0, n).astype(np.float32)
+    cont = Model(pts, np.linspace(1.0, 3.0, n).astype(np.float32), dens, float(dens.sum()))
+    models = [model, cont]
+    lay = common_model_layout(p, models)
+    assert lay["force_raster"]
+    cfg = RunConfig(orient_block=3)
+    before = P.raster_project.launches
+    _total, per_image, perf = rank_models(p, orients, models, images, cfg, device=dev)
+    assert perf["captures"] == 1 and P.raster_project.launches > before
+    for m, mod in enumerate(models):
+        own = BioEMEngine(p, orients, mod, images, cfg, device=dev, model_layout=lay)
+        assert own.fspec is None
+        want = own.results(own.run())
+        np.testing.assert_allclose(per_image[m], want.log_prob, rtol=1e-12, atol=0)
+        for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+            np.testing.assert_array_equal(getattr(perf["results"][m], f), getattr(want, f))

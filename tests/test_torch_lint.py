@@ -49,7 +49,8 @@ RULES = [
 def test_lint_sees_the_port():
     names = {os.path.basename(f) for f in FILES}
     assert {"compare_fused.cu", "compare_batched.cu", "compare_lse.cuh", "project.cu", "probe.cu",
-            "wgmma.cuh", "posterior_glue.cu", "engine.py", "compare_cuda.py", "project_cuda.py",
+            "wgmma.cuh", "posterior_glue.cu", "project_glue.cu", "project_raster.cu",
+            "project_snap.cuh", "engine.py", "compare_cuda.py", "project_cuda.py",
             "probe_cuda.py", "posterior_cuda.py", "debug_prob.py", "simulator.py",
             "kernel_probe.py", "chip_smoke.py"} <= names
     rel = set(IDS)

@@ -244,6 +244,21 @@ def test_trace_step_rows(small_problem):
     assert {"bioem.projection", "bioem.constants", "bioem.compare", "bioem.merge"} <= phases
 
 
+def test_profile_and_trace_take_the_raster(small_problem):
+    """profile_block and trace_step on the raster kernel branch
+    (``--projection raster``): the projection phase is G4's wrapper and
+    rfft2 (the plain version here), the rows and phases as on the Fourier
+    path."""
+    eng = profile_block.engine_for(small_problem, device="cpu", projection="raster")
+    assert eng.fspec is None and eng.kernel_projection
+    out = profile_block.profile(eng, reps=2)
+    assert out["phases"]["projection"] > 0 and out["compare"]["kernel"] == "K1"
+    tr = trace_step.trace(eng, n_blocks=2)
+    assert {"bioem.projection", "bioem.compare"} <= {ph for ph, _op, _n, _us in tr["by_op"]}
+    assert profile_block.parse_args(["3", "--projection", "raster"], "reps", 10) == (3, "raster")
+    assert profile_block.parse_args([], "n_blocks", 8) == (8, "auto")
+
+
 def test_pipeline_lab_rows(small_problem):
     eng = profile_block.engine_for(small_problem, device="cpu")
     out = pipeline_lab.lab(eng, reps=1)
