@@ -362,6 +362,19 @@ class BioEMEngine:
         )
         # the block-invariant CTF prior (C,) f64
         self._prior = ctf_prior_term(self.banks.amp, self.banks.pha, self.banks.env, p)
+        # The kernel branch's comparisons read the lattice weights' first
+        # N/n_fold columns: held once, since the weights are the engine's
+        # own (_check_banks); the plain branch reads the full wx.
+        m_cols = n // self.n_fold
+        self.wx_cols = (self.banks.wx_re[:, :m_cols].contiguous(),
+                        self.banks.wx_im[:, :m_cols].contiguous())
+        # G1's scratch on the card, this engine's alone (ops/posterior_cuda.py)
+        self._g1_workspace = None
+        if self.use_kernels and self.device.type == "cuda":
+            from ..ops.posterior_cuda import constants_workspace
+
+            self._g1_workspace = constants_workspace(
+                self.o_block, n_ctf, self.banks.img_re.shape[0], n, nf, self.device)
         # (graph, static state, block index, launches per replay), captured
         # at the first replayed pass (the kernel branch on the card), and
         # the banks the graph reads: a copy of the engine's, into which
@@ -657,6 +670,7 @@ class BioEMEngine:
         return block_constants(
             pr, pi, banks.ctf_re, banks.ctf_im, banks.h, banks.sum_ref, banks.ssq_ref,
             self._prior, mask, ntot=self.p.n_total_pixels, images_normalized=self._f32_corr_ok,
+            workspace=self._g1_workspace,
         )
 
     def _block_step(
@@ -690,9 +704,7 @@ class BioEMEngine:
 
             with record_function("bioem.constants"):
                 sum_c, ssq_c, f0, k, a_u, b_u = self._kernel_constants(banks, pr, pi, mask)
-                m_cols = n // self.n_fold
-                wx_re = banks.wx_re[:, :m_cols].contiguous()
-                wx_im = banks.wx_im[:, :m_cols].contiguous()
+            wx_re, wx_im = self.wx_cols
             # The fused kernels evaluate u in f32; DC-dominated image banks
             # need the f64 u, so they take the hybrid: the cc-lattice
             # kernel and the f64 displacement_lse (as does fused_lse=False).

@@ -84,11 +84,9 @@ def _block_logpro(engine, angles, i: int, kernel: str):
         # the convolution sums G1 gives the engine's kernel branch
         live = torch.ones(o, dtype=torch.int32, device=pr.device)
         sum_c, ssq_c = engine._kernel_constants(banks, pr, pi, live)[:2]
-        m = n // engine.n_fold
         cc = fused_displacement_cc(
             conv_re.reshape(o * c, n, p.n_fft_1d), conv_im.reshape(o * c, n, p.n_fft_1d),
-            img_re, img_im, banks.wx_re[:, :m].contiguous(), banks.wx_im[:, :m].contiguous(),
-            banks.wy_re, banks.wy_im, n_fold=engine.n_fold,
+            img_re, img_im, *engine.wx_cols, banks.wy_re, banks.wy_im, n_fold=engine.n_fold,
         ).reshape(o, c, 1, d, d)
     else:
         sum_c, ssq_c = convolution_sums(conv_re, conv_im, banks.h, n)

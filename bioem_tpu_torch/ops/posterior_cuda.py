@@ -10,7 +10,9 @@ what bounds it on the card and how the design answers that):
   convolution sums (sum_c, ssq_c) from the projection and CTF spectra,
   then per image the f64 constants F0 and K of
   ``core.posterior.logpro_constants`` (K −inf for masked orientations)
-  and the fused comparison's u coefficients a_u, b_u;
+  and the fused comparison's u coefficients a_u, b_u. On the card it is a
+  split-K reduction over every SM (:func:`constants_plan`) into a
+  :class:`ConstantsWorkspace`, which an engine holds for its blocks;
 * G2 :func:`merge_block` — the f64 repair of the varying max
   (``core.posterior.refine_varying_max``, on the fused path) and the
   streaming merge of one block into the posterior state, in place
@@ -27,7 +29,7 @@ or an exception — never a fallback.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +47,77 @@ I64 = torch.int64
 # ---------------------------------------------------------------------------
 # G1: the block constants
 # ---------------------------------------------------------------------------
+
+G1_THREADS = 512  # csrc/posterior_glue.cu kG1Threads
+G1_MIN_CHUNK = 32  # columns a CTA takes at least
+# shared memory for one staging pass: per column its O + C rows raw (f32 re,
+# im) and in f64, and its h
+G1_STAGE_BYTES = 160 * 1024
+
+
+class ConstantsPlan(NamedTuple):
+    """How G1 splits one block over the card (``csrc/posterior_glue.cu``)."""
+
+    grid: int  # CTAs, at most one per SM
+    chunk: int  # columns of the N·F half spectrum per CTA
+    sub: int  # columns staged in shared memory per pass
+    workers: int  # the last CTAs to arrive, which finish the pairs
+    per_worker: int  # pairs each worker finishes
+    ws_doubles: int  # workspace: grid·O·C partials, then 2·I per-image values
+
+
+def constants_plan(o: int, c: int, i: int, n: int, f: int, n_sm: int) -> ConstantsPlan:
+    """G1's plan for (O, C, I) at an (N, F) half spectrum on a card of
+    ``n_sm`` SMs: chunks of at least :data:`G1_MIN_CHUNK` columns, one CTA
+    per SM at most; staging passes that keep the O + C rows, raw and in
+    f64, within :data:`G1_STAGE_BYTES`; workers that each finish about one (o, c, i)
+    entry per thread, no more of them than CTAs. Raises ValueError where
+    one column of the O + C rows does not fit."""
+    if min(o, c, n, f, n_sm) < 1 or i < 0:
+        raise ValueError(f"block_constants: no plan for O={o}, C={c}, I={i}, N={n}, F={f}, "
+                         f"{n_sm} SMs")
+    nf, p = n * f, o * c
+    chunk = max(G1_MIN_CHUNK, -(-nf // n_sm))
+    grid = -(-nf // chunk)
+    sub = min(chunk, G1_STAGE_BYTES // (16 * (o + c) + 8))
+    if sub < 1:
+        raise ValueError(f"block_constants: a column of O + C = {o + c} rows does not fit "
+                         f"{G1_STAGE_BYTES} bytes of shared memory")
+    per_worker = min(max(G1_THREADS // max(i, 1), 1), p)
+    workers = -(-p // per_worker)
+    if workers > grid:
+        per_worker = -(-p // grid)
+        workers = -(-p // per_worker)
+    return ConstantsPlan(grid, chunk, sub, workers, per_worker, grid * p + 2 * i)
+
+
+class ConstantsWorkspace(NamedTuple):
+    """G1's scratch for one block shape on one card: the f64 partials and
+    per-image values, and the ticket, a count of G1's CTAs that have
+    arrived since it was made (plan.grid per launch, never reset, so that a
+    captured step replays with no memset). One G1 at a time may use it: an
+    engine (each mesh slot) holds its own."""
+
+    shape: tuple  # (O, C, I, N, F)
+    plan: ConstantsPlan
+    ws: torch.Tensor  # (plan.ws_doubles,) f64
+    ticket: torch.Tensor  # (1,) i64, 0 when made
+
+
+def constants_workspace(o: int, c: int, i: int, n: int, f: int, device,
+                        n_sm: Optional[int] = None) -> ConstantsWorkspace:
+    """A :class:`ConstantsWorkspace` for (O, C, I, N, F) on the card
+    ``device``, planned for its SMs (``n_sm``, at most the card's: fewer
+    CTAs, for a probe)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"block_constants: a workspace lies on the card, not on {dev}")
+    card_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = constants_plan(o, c, i, n, f, min(n_sm or card_sm, card_sm))
+    return ConstantsWorkspace((o, c, i, n, f), plan,
+                              torch.empty(max(plan.ws_doubles, 1), dtype=F64, device=dev),
+                              torch.zeros(1, dtype=I64, device=dev))
+
 
 def convolution_sums_plain(pr, pi, ctf_re, ctf_im, h, *, ntot):
     """(sum_c, ssq_c), each (O, C) f32, without materialising conv:
@@ -95,15 +168,42 @@ def block_constants(
     *,
     ntot: float,
     images_normalized: bool,  # logpro_constants' branch (the hybrid's DC-capable F0 if False)
+    workspace: Optional[ConstantsWorkspace] = None,  # on the card; None: one for this call
 ):
     """G1: (sum_c, ssq_c, f0, k, a_u, b_u) of one orientation block —
     (O, C) f32 ×2, (O, C, I) f64 ×2 (k −inf for masked orientations),
-    (O·C, I) f32 ×2."""
+    (O·C, I) f32 ×2. On the card the kernel uses ``workspace``, which must
+    have been made for these shapes on this card and be used by no other
+    launch at the same time."""
     fn = "block_constants"
+    args = (pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask)
+    if pr.device.type == "cpu":
+        return block_constants_plain(*args, ntot=ntot, images_normalized=images_normalized)
+    outs, ptrs = constants_call(fn, args, ntot, images_normalized, workspace)
+    with torch.cuda.device(pr.device):
+        status = _build.load().bioem_block_constants(*ptrs)
+    _build.check(status, fn)
+    block_constants.launches += 1
+    return outs
+
+
+def check_workspace(fn: str, workspace: ConstantsWorkspace, dims: tuple, dev) -> None:
+    """Raise ValueError unless ``workspace`` was made for ``dims`` (O, C, I,
+    N, F) on ``dev``."""
+    if workspace.shape != dims or workspace.ws.device != dev:
+        raise ValueError(f"{fn}: the workspace was made for (O, C, I, N, F) = {workspace.shape} "
+                         f"on {workspace.ws.device}, not {dims} on {dev}")
+
+
+def constants_call(fn: str, args: tuple, ntot: float, images_normalized: bool,
+                   workspace: Optional[ConstantsWorkspace] = None, with_plan: bool = True):
+    """What a G1 launch takes, checked: (the six outputs, the C entry
+    point's arguments: the nine inputs' pointers, the dimensions and
+    scalars, with ``with_plan`` the plan and ``workspace``'s pointers (None:
+    one made for this call), the outputs' pointers and the stream). Raises
+    ValueError on a tensor or a workspace G1 does not take."""
+    pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask = args
     dev = pr.device
-    if dev.type == "cpu":
-        return block_constants_plain(pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask,
-                                     ntot=ntot, images_normalized=images_normalized)
     if dev.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {dev}")
     o_n, n, f = pr.shape
@@ -118,18 +218,16 @@ def block_constants(
     consts = torch.empty((2, o_n, c_n, i_n), dtype=F64, device=dev)
     coefs = torch.empty((2, o_n * c_n, i_n), dtype=F32, device=dev)
     outs = (sums[0], sums[1], consts[0], consts[1], coefs[0], coefs[1])
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.bioem_block_constants(
-            pr.data_ptr(), pi.data_ptr(), ctf_re.data_ptr(), ctf_im.data_ptr(), h.data_ptr(),
-            sum_ref.data_ptr(), ssq_ref.data_ptr(), prior.data_ptr(), mask.data_ptr(),
-            o_n, c_n, i_n, n, f, float(ntot), math.log(float(ntot)), int(bool(images_normalized)),
-            *(t.data_ptr() for t in outs), stream,
-        )
-    _build.check(status, fn)
-    block_constants.launches += 1
-    return outs
+    plan = ()
+    if with_plan:
+        if workspace is None:
+            workspace = constants_workspace(o_n, c_n, i_n, n, f, dev)
+        check_workspace(fn, workspace, (o_n, c_n, i_n, n, f), dev)
+        plan = (*workspace.plan[:5], workspace.ws.data_ptr(), workspace.ticket.data_ptr())
+    ptrs = (*(t.data_ptr() for t in args), o_n, c_n, i_n, n, f, float(ntot),
+            math.log(float(ntot)), int(bool(images_normalized)), *plan,
+            *(t.data_ptr() for t in outs), torch.cuda.current_stream(dev).cuda_stream)
+    return outs, ptrs
 
 
 block_constants.launches = 0
@@ -195,14 +293,36 @@ def merge_block(
     out of range is the caller's fault (the kernel writes no column
     outside the slab)."""
     fn = "merge_block"
-    dev = se.device
-    if dev.type == "cpu":
+    if se.device.type == "cpu":
         return merge_block_plain(state, m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp,
                                  orient_offset, ntot=ntot, ang_offset=ang_offset, m_out=m_out)
-    if dev.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {dev}")
+    ptrs, _offsets = merge_call(fn, state, m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp,
+                                orient_offset, ntot=ntot, ang_offset=ang_offset, m_out=m_out)
+    with torch.cuda.device(se.device):
+        status = _build.load().bioem_merge_block(*ptrs)
+    _build.check(status, fn)
+    merge_block.launches += 1
+    return state
+
+
+# the kernel keeps logmax and se per pair and the lattice in shared memory
+MERGE_SMEM_MAX = 227 * 1024
+
+
+def merge_call(fn: str, state, m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp,
+               orient_offset, *, ntot, ang_offset=None, m_out=None) -> tuple:
+    """The C entry point's arguments of a G2 launch, checked (see
+    :func:`merge_block`), and the offset tensors they point into (to be
+    held until the launch): raises ValueError on a tensor G2 does not take
+    and IndexError on an int slab offset outside the slab."""
+    dev = se.device
     o_n, c_n, i_n = se.shape
     d = disp.shape[0]
+    if o_n * c_n * 12 + d * 4 > MERGE_SMEM_MAX:
+        raise ValueError(f"{fn}: O·C = {o_n * c_n} pairs and D = {d} do not fit the kernel's "
+                         f"{MERGE_SMEM_MAX} bytes of shared memory")
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
     specs = [
         ("se", se, F32, (o_n, c_n, i_n)), ("ds", ds, I32, (o_n, c_n, i_n)),
         ("ccs", ccs, F32, (o_n, c_n, i_n)), ("k", k, F64, (o_n, c_n, i_n)),
@@ -234,19 +354,11 @@ def merge_block(
     off = _offset(fn, "orient_offset", orient_offset, dev)
     ang = off if ang_offset is None else _offset(fn, "ang_offset", ang_offset, dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.bioem_merge_block(
-            ptr(m), se.data_ptr(), ds.data_ptr(), ccs.data_ptr(), k.data_ptr(),
-            f0.data_ptr(), sum_c.data_ptr(), ssq_c.data_ptr(), sum_ref.data_ptr(),
-            disp.data_ptr(), off.data_ptr(), ang.data_ptr(), o_n, c_n, i_n, d, n_cols,
-            float(ntot), *(ptr(t) for t in state[:8]), ptr(state.ang_total),
-            ptr(state.ang_const), ptr(m_out), stream,
-        )
-    _build.check(status, fn)
-    merge_block.launches += 1
-    return state
+    return (ptr(m), se.data_ptr(), ds.data_ptr(), ccs.data_ptr(), k.data_ptr(), f0.data_ptr(),
+            sum_c.data_ptr(), ssq_c.data_ptr(), sum_ref.data_ptr(), disp.data_ptr(),
+            off.data_ptr(), ang.data_ptr(), o_n, c_n, i_n, d, n_cols, float(ntot),
+            *(ptr(t) for t in state[:8]), ptr(state.ang_total), ptr(state.ang_const),
+            ptr(m_out), torch.cuda.current_stream(dev).cuda_stream), (off, ang)
 
 
 merge_block.launches = 0

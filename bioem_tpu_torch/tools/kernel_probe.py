@@ -29,7 +29,9 @@ Besides, K2's card time at the production projection block against the
 number of point slots it reads: none, the model's points, every slot
 (``probe_projection_points``): its fixed cost and its cost per point; and
 G4's, its plain version's and cuFFT's rfft2's card time at the production
-raster block (``raster_times``). The inputs and checks of the projection's
+raster block (``raster_times``); and the block step's posterior glue, G1
+and G2, beside PR 14's design of them and that design's parts
+(``glue_attribution``). The inputs and checks of the projection's
 glue kernels G3 (``prologue_inputs``, ``check_prologue``) and G4
 (``raster_inputs``, ``check_raster``) live here too, for chip_smoke.py and
 the card tests.
@@ -37,7 +39,10 @@ the card tests.
 Usage, on a machine with a CUDA card (there is no CPU mode: a probe's
 answer is a measurement of the card):
 
-    python -m bioem_tpu_torch.tools.kernel_probe
+    python -m bioem_tpu_torch.tools.kernel_probe [--glue]
+
+(``--glue``: only the glue's attribution, at the production block's
+shapes on random inputs.)
 
 Every time is a mean over timed launches after a warm-up, from CUDA events;
 P1's and P2's are the card's own time, their calls queued behind a spin of
@@ -342,33 +347,35 @@ def glue_merge_args(x: dict, case: str) -> tuple:
     return m, x["se"], x["ds"], ccs, k, f0, sum_c, ssq_c, sum_ref, x["disp"]
 
 
-def glue_replay(dev, o: int = 8, c: int = 8, i: int = 64) -> tuple:
-    """G1 and G2 captured in one CUDA graph on static inputs, the block's
+def glue_replay(dev, o: int = 8, c: int = 8, i: int = 64, n_blocks: int = 2) -> tuple:
+    """G1 and G2 captured in one CUDA graph on static inputs, G1's workspace
+    made before the capture (as an engine holds it), the block's
     orientation offset (and slab column) a 0-d device tensor that the graph
-    advances, replayed twice, each time on another block's inputs
-    (:func:`glue_inputs`, every orientation live) copied in; and the same
-    two blocks through G1 and G2 called eagerly with int offsets 0 and O.
-    Returns (replayed state, eager state, the graph's block index after
-    the replays)."""
+    advances, replayed ``n_blocks`` times, each time on another block's
+    inputs (:func:`glue_inputs`, every orientation live) copied in; and
+    the same blocks through G1 and G2 called eagerly with int offsets 0,
+    O, .... Returns (replayed state, eager state, the graph's block index
+    after the replays, the workspace)."""
     from ..core.posterior import init_state
     from ..ops import posterior_cuda as G
 
-    blocks = [glue_inputs(dev, o, c, i, seed=s) for s in (5, 6)]
+    blocks = [glue_inputs(dev, o, c, i, seed=5 + s) for s in range(n_blocks)]
     for x in blocks:
         x["g1"][-1].fill_(1)
     kw, names = blocks[0]["kw"], ("se", "ds", "ccs", "disp")
     static = {"g1": [v.clone() for v in blocks[0]["g1"]],
               **{n: blocks[0][n].clone() for n in names}}
     blk = torch.zeros(1, dtype=torch.long, device=dev)
-    state = init_state(i, 2 * o, True, dev)
+    state = init_state(i, n_blocks * o, True, dev)
+    ws = G.constants_workspace(o, c, i, *static["g1"][0].shape[1:], dev)
 
-    def step(st, x, off):
-        sum_c, ssq_c, f0, k, _a, _b = G.block_constants(*x["g1"], **kw)
+    def step(st, x, off, workspace=None):
+        sum_c, ssq_c, f0, k, _a, _b = G.block_constants(*x["g1"], **kw, workspace=workspace)
         G.merge_block(st, None, x["se"], x["ds"], x["ccs"], k, f0, sum_c, ssq_c, x["g1"][5],
                       x["disp"], off, ntot=kw["ntot"], ang_offset=off)
 
     def captured():
-        step(state, static, blk[0] * o)
+        step(state, static, blk[0] * o, ws)
         blk.add_(1)
 
     side = torch.cuda.Stream(dev)
@@ -379,7 +386,7 @@ def glue_replay(dev, o: int = 8, c: int = 8, i: int = 64) -> tuple:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         captured()
-    for dst, src in zip(state, init_state(i, 2 * o, True, dev)):
+    for dst, src in zip(state, init_state(i, n_blocks * o, True, dev)):
         dst.copy_(src)
     blk.zero_()
     for x in blocks:
@@ -388,11 +395,92 @@ def glue_replay(dev, o: int = 8, c: int = 8, i: int = 64) -> tuple:
         for n in names:
             static[n].copy_(x[n])
         graph.replay()
-    eager = init_state(i, 2 * o, True, dev)
+    eager = init_state(i, n_blocks * o, True, dev)
     for b, x in enumerate(blocks):
         step(eager, x, b * o)
     torch.cuda.synchronize(dev)
-    return state, eager, int(blk[0])
+    return state, eager, int(blk[0]), ws
+
+
+def glue_attribution(g1, g1_kw, merge_args, workspace=None) -> dict:
+    """The card's own time (:func:`device_ms`) of G1 and G2 at one block,
+    this design and its parts beside PR 14's design and its parts
+    (``probe_cuda.CONSTANTS_PARTS``, ``GLUE_PARTS``), and the floor of a
+    kernel's time here (a one-element in-place add): G1 on ``g1``
+    (block_constants' nine inputs) and ``g1_kw``, with ``workspace`` (None:
+    one made here, as an engine holds it); G2 on ``merge_args``
+    (merge_block's arguments from m to disp), slabs off and on, each call
+    merging into one state (the first call moves the tuples, the rest tie
+    with const), the offset a 0-d tensor on the card as a captured step
+    passes it. Returns {label: ms}: "floor", "G1", "G1 <part>", "G1 on <n>
+    CTAs" (planned for half the card's SMs), "G2 slabs off", "G2 slabs
+    on", and "PR 14 G1 <part>", "PR 14 G2 <part> slabs off|on" (the parts
+    with no slab pass only slabs off)."""
+    from ..core.posterior import init_state
+    from ..ops import posterior_cuda as G
+    from ..ops.probe_cuda import (CONSTANTS_PARTS, GLUE_PARTS, constants_parts,
+                                  legacy_block_constants, legacy_merge_block)
+
+    dev = g1[0].device
+    o, c, i = merge_args[1].shape
+    ntot = g1_kw["ntot"]
+    if workspace is None:
+        workspace = G.constants_workspace(o, c, i, *g1[0].shape[1:], dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    one = torch.zeros(1, device=dev)
+    out = {"floor": device_ms(lambda: one.add_(1.0)),
+           "G1": device_ms(lambda: G.block_constants(*g1, **g1_kw, workspace=workspace))}
+    for part in CONSTANTS_PARTS[1:]:
+        out[f"G1 {part}"] = device_ms(
+            lambda: constants_parts(*g1, **g1_kw, workspace=workspace, part=part))
+    half = G.constants_workspace(o, c, i, *g1[0].shape[1:], dev,
+                                 n_sm=max(1, workspace.plan.grid // 2))
+    out[f"G1 on {half.plan.grid} CTAs"] = device_ms(
+        lambda: G.block_constants(*g1, **g1_kw, workspace=half))
+    for part in GLUE_PARTS["block_constants"]:
+        out[f"PR 14 G1 {part}"] = device_ms(
+            lambda: legacy_block_constants(*g1, **g1_kw, part=part))
+    for slabs in (False, True):
+        tag = f"slabs {'on' if slabs else 'off'}"
+        st = init_state(i, 2 * o, slabs, dev)
+        out[f"G2 {tag}"] = device_ms(lambda: G.merge_block(st, *merge_args, zero, ntot=ntot))
+        for part in GLUE_PARTS["merge_block"][: 1 if slabs else None]:
+            out[f"PR 14 G2 {part} {tag}"] = device_ms(
+                lambda: legacy_merge_block(st, *merge_args, zero, ntot=ntot, part=part))
+    return out
+
+
+def sass_counts(lib_path: str, stems: tuple) -> dict:
+    """{stem: {"calls", "local stores", "local loads"}}: per kernel of the
+    built library whose name holds ``stem``, the CALL instructions and the
+    local-memory stores and loads (a stack frame's traffic) in its SASS,
+    from the CUDA toolkit's ``cuobjdump`` (:func:`sass_counts_of`); {} where
+    there is none."""
+    import shutil
+    import subprocess
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    return sass_counts_of(text, stems)
+
+
+def sass_counts_of(text: str, stems: tuple) -> dict:
+    """:func:`sass_counts` of ``cuobjdump -sass`` output ``text``."""
+    import re
+
+    out = {}
+    for fn in text.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        for stem in stems:
+            if stem in name:
+                out[stem] = {"calls": len(re.findall(r"\bCALL\.", fn)),
+                             "local stores": len(re.findall(r"\bSTL\b", fn)),
+                             "local loads": len(re.findall(r"\bLDL\b", fn))}
+    return out
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -758,9 +846,16 @@ def probe_body_ablation(say=print, img_tile: int = 8) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     dev = _require_card()
     print(f"card: {torch.cuda.get_device_name(dev)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
+    for shape in ((8, 8, 64), (16, 8, 64), (8, 32, 64)):
+        x = glue_inputs(dev, *shape)
+        for label, ms in glue_attribution(x["g1"], x["kw"], glue_merge_args(x, "fused")).items():
+            print(f"glue at (O, C, I) = {shape} (card time): {label} {ms:.5f} ms", flush=True)
+    if "--glue" in argv:
+        return 0
     probe_f32_accuracy()
     probe_issue_overhead()
     probe_body_ablation()

@@ -44,8 +44,7 @@ def steps(eng) -> dict:
     bk, p = eng.banks, eng.p
     o, c, n, f = eng.o_block, eng.n_ctf, p.n_pixels, p.n_fft_1d
     i_n, d, ntot = bk.img_re.shape[0], eng.disp.shape[0], p.n_total_pixels
-    m_cols = n // eng.n_fold
-    wx = (bk.wx_re[:, :m_cols].contiguous(), bk.wx_im[:, :m_cols].contiguous())
+    wx = eng.wx_cols
     pr, pi = eng._project_block(bk, eng.ang_blocks[0])
     live = eng.mask_blocks[0]
     a_coef = (3.0 - ntot) * 0.5

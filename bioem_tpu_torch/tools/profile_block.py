@@ -96,8 +96,7 @@ def profile(eng, reps: int = 10) -> dict:
     i_n, d, ntot = bk.img_re.shape[0], eng.disp.shape[0], p.n_total_pixels
     m_cols = n // eng.n_fold
     ang, mask = eng.ang_blocks[0], eng.mask_blocks[0]
-    wx_re = bk.wx_re[:, :m_cols].contiguous()
-    wx_im = bk.wx_im[:, :m_cols].contiguous()
+    wx_re, wx_im = eng.wx_cols
     a_coef = (3.0 - ntot) * 0.5
     which = comparison_of(eng)
     ms = {}

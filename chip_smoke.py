@@ -10,7 +10,8 @@ the port's main path on the card, in phases (each prints its own lines):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: nvcc of every kernel, with its seconds and ptxas resource lines
-   (each kernel's registers, spills and static shared memory);
+   (each kernel's registers, spills and static shared memory; G1's and
+   G2's, and PR 14's design of them, summed up on a line each);
 3. kernels vs their plain torch versions at the production shapes
    (bench.py's BASELINE config-2 problem) and one odd shape, with each
    kernel's time beside the plain version's; the per-image comparison
@@ -31,9 +32,14 @@ the port's main path on the card, in phases (each prints its own lines):
    into the state it made), at o_block 16 and at a reference-grid block
    (C = 32) on random inputs (G1 on normalised and DC-dominated images,
    G2 on the fused path, the hybrid's f32 m, a partially and a fully
-   masked block and exact ties, slabs off and on), two replays of a
-   captured G1 + G2 step whose offset the graph advances, and both
-   timed beside their plain versions and bounds; the projection's
+   masked block and exact ties, slabs off and on; f0, k, a_u, b_u and
+   the repaired max at 0 ulps, total within 1.5e-7, each also against
+   PR 14's design of the kernel, kept as a probe), three replays of a
+   captured G1 + G2 step whose offset the graph advances (G1's ticket
+   counting its launches), and both timed (kernel_probe.glue_attribution)
+   beside their parts, PR 14's design and its parts, a one-kernel floor,
+   their plain versions and bounds, at the production block and at the
+   other two shapes; the projection's
    prologue G3 (rotation matrices, snap, bounds masks, regroup and the
    scale norm_den/tempden) against its plain version on the production
    block, an Euler-grid block, o_block 16, a reference-grid block and a
@@ -55,7 +61,9 @@ the port's main path on the card, in phases (each prints its own lines):
    block step, each timed and under torch.profiler: wall time, the
    card's busy share, kernels per block and the glue by phase, before
    (the glue's plain torch versions patched in), before G3 (only the
-   projection's) and after G1, G2 and G3),
+   projection's), before G1 and G2's redesign (PR 14's kernels and the
+   per-block wx copies patched in) and after G1, G2 and G3; and a new
+   engine's capturing pass split into set-up, capture and replays),
    with K4 forced (BIOEM_TPU_FUSED_BATCHED), and
    autotuned three times from an empty cache and once more from the cache
    (each candidate's time on its replayed loop, each winner and its pass
@@ -269,10 +277,27 @@ def phase_build() -> None:
     say(f"[build] {os.path.relpath(info['path'], HERE)} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s, "
         f"cached={info['cached']})")
-    for line in info.get("log", "").splitlines():
+    log = info.get("log", "").splitlines()
+    for line in log:
         if ("entry function" in line or "Used" in line or "spill" in line
                 or "wgmma" in line or "warning" in line.lower()):
             say(f"[build] {line.strip()}")
+    # G1 and G2, and PR 14's design of them (each kernel's full instance)
+    for name, stem in (("G1", "block_constants_kernelILi0E"), ("G2", "merge_block_kernel"),
+                       ("PR 14's G1", "constants_probe_kernelILi0E"),
+                       ("PR 14's G2", "merge_probe_kernelILi0E")):
+        k = next((k for k, line in enumerate(log) if "entry function" in line and stem in line),
+                 None)
+        if k is not None:
+            said = [x.split("info    :")[-1].strip() for x in log[k + 1:k + 5]
+                    if "stack frame" in x or "Used" in x]
+            say(f"[build] ptxas {name}: {'; '.join(said)}")
+    # where their stack frames go: calls and local-memory traffic in SASS
+    from bioem_tpu_torch.tools.kernel_probe import sass_counts
+
+    stems = ("block_constants_kernelILi0E", "merge_block_kernel", "merge_probe_kernelILi0E")
+    for stem, n in sass_counts(info["path"], stems).items():
+        say(f"[build] SASS {stem}: " + ", ".join(f"{v} {k}" for k, v in n.items()))
 
 
 def _block_inputs(eng, b: int = 0):
@@ -294,12 +319,10 @@ def _block_inputs(eng, b: int = 0):
           eng.mask_blocks[b])
     g1_kw = dict(ntot=p.n_total_pixels, images_normalized=eng._f32_corr_ok)
     *_, a_u, b_u = block_constants_plain(*g1, **g1_kw)
-    m = p.n_pixels // eng.n_fold
     return dict(
         pr=pr, pi=pi, i0=i0, j0=j0, dens=de, a_u=a_u, b_u=b_u, g1=g1, g1_kw=g1_kw,
         counts=torch.tensor(fs.group_counts, dtype=torch.int32, device=de.device),
-        wx_re=bk.wx_re[:, :m].contiguous(), wx_im=bk.wx_im[:, :m].contiguous(),
-        a_coef=(3.0 - p.n_total_pixels) * 0.5,
+        wx_re=eng.wx_cols[0], wx_im=eng.wx_cols[1], a_coef=(3.0 - p.n_total_pixels) * 0.5,
     )
 
 
@@ -572,17 +595,21 @@ def phase_kernels(torch, eng) -> dict:
 # The posterior glue: G1 (block_constants) and G2 (merge_block)
 # ---------------------------------------------------------------------------
 
-def check_constants(torch, name, g1, kw) -> float:
+def check_constants(torch, name, g1, kw, workspace=None) -> float:
     """G1 against its plain version on the card: sum_c bit-equal; ssq_c
-    within 2e-6 relative and no farther from an all-f64 evaluation than
-    the plain f32 product; f0, k, a_u, b_u within 1 ulp of the plain
-    formulas on G1's own sums; masked k exactly −inf. Returns max
-    |Δssq_c| against the plain version (every other output is held to the
-    ulp)."""
+    within 2e-6 relative, no farther from an all-f64 evaluation than the
+    plain f32 product, and within 1 f32 ulp of PR 14's G1 (an f64 sum in
+    another order); f0, k, a_u, b_u at 0 ulps from the plain formulas on
+    G1's own sums; masked k exactly −inf; two launches bit-equal. Returns
+    max |Δssq_c| against the plain version (every other output is held to
+    the bit)."""
     from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.ops.probe_cuda import legacy_block_constants
     from bioem_tpu_torch.tools.kernel_probe import ulp_distance
 
-    sum_c, ssq_c, f0, k, a_u, b_u = G.block_constants(*g1, **kw)
+    sum_c, ssq_c, f0, k, a_u, b_u = G.block_constants(*g1, **kw, workspace=workspace)
+    again = G.block_constants(*g1, **kw, workspace=workspace)
+    old = legacy_block_constants(*g1, **kw)
     p_sum, p_ssq = G.convolution_sums_plain(*g1[:5], ntot=kw["ntot"])
     _s64, ssq64 = G.convolution_sums_plain(*(v.double() for v in g1[:5]), ntot=kw["ntot"])
     want = G.constants_from_sums(sum_c, ssq_c, *g1[5:], **kw)
@@ -593,34 +620,49 @@ def check_constants(torch, name, g1, kw) -> float:
     ulps = {n: ulp_distance(a, b) for n, a, b in zip(("f0", "k", "a_u", "b_u"), (f0, k, a_u, b_u), want)}
     live = g1[8] != 0
     masked_ok = bool((k[~live] == -torch.inf).all()) and bool(torch.isfinite(k[live]).all())
+    old_ulps = ulp_distance(old[1], ssq_c)
+    bits = all(torch.equal(a, b) for a, b in zip((sum_c, ssq_c, f0, k, a_u, b_u), again))
     say(f"[glue] {name}: sum_c bit-equal {torch.equal(sum_c, p_sum)}; ssq_c max rel |Δ| "
-        f"{rel:.2e}, from f64 {gap_k:.3e} against the plain product's {gap_p:.3e}; ulps "
-        + ", ".join(f"{n} {u}" for n, u in ulps.items())
-        + f"; masked k −inf {masked_ok} ({int((~live).sum())} of {live.numel()} masked)")
+        f"{rel:.2e}, from f64 {gap_k:.3e} against the plain product's {gap_p:.3e}, "
+        f"{old_ulps} ulps from PR 14's G1 ({int((old[1] != ssq_c).sum())} of {ssq_c.numel()} "
+        f"differ); ulps " + ", ".join(f"{n} {u}" for n, u in ulps.items())
+        + f"; masked k −inf {masked_ok} ({int((~live).sum())} of {live.numel()} masked); "
+        f"two launches bit-equal {bits}")
     require(torch.equal(sum_c, p_sum), f"{name}: sum_c differs from the plain version")
     require(rel <= 2e-6, f"{name}: ssq_c beyond 2e-6 relative")
     require(gap_k <= gap_p, f"{name}: ssq_c farther from f64 than the plain version")
-    require(all(u <= 1 for u in ulps.values()), f"{name}: f0, k, a_u or b_u beyond 1 ulp")
+    require(old_ulps <= 1 and torch.equal(old[0], sum_c),
+            f"{name}: sum_c or ssq_c beyond 1 ulp of PR 14's G1")
+    require(all(u == 0 for u in ulps.values()), f"{name}: f0, k, a_u or b_u off the plain formulas")
     require(masked_ok, f"{name}: masked k not −inf or live k not finite")
+    require(bits, f"{name}: two launches on the same inputs differ")
     return float((ssq_c - p_ssq).abs().max())
 
 
 def check_merge(torch, name, base, args, o: int, ntot: float, expect_first=None) -> float:
     """G2 (offset a 0-d device tensor) against its plain version (an int
-    offset O), each on its own copy of ``base``: the varying max used
-    within 1 ulp; const, the argmax tuple and ang_const exact; best_norm
-    and best_mu within 1e-12 relative; total and ang_total within 1e-6; a
-    fully masked block leaves the state bit-equal. Returns max |Δtotal|."""
+    offset O), each on its own copy of ``base``: the varying max used at
+    0 ulps; const, the argmax tuple and ang_const exact; best_norm and
+    best_mu within 1e-12 relative; total within 1.5e-7 relative and
+    ang_total within 1e-6; a fully masked block leaves the state
+    bit-equal; against PR 14's G2 on another copy, every field bit-equal
+    but total and ang_total (f64 sums in another order, 1e-13 relative).
+    Returns max |Δtotal|."""
     from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.ops.probe_cuda import legacy_merge_block
     from bioem_tpu_torch.tools.kernel_probe import ulp_distance
 
-    kern, plain = (type(base)(*(x.clone() if x is not None else None for x in base))
-                   for _ in range(2))
+    kern, plain, old = (type(base)(*(x.clone() if x is not None else None for x in base))
+                        for _ in range(3))
     m_k = torch.empty(args[4].shape, dtype=torch.float64, device=args[4].device)
     m_p = torch.empty_like(m_k)
     G.merge_block(kern, *args, torch.tensor(o, device=m_k.device), ntot=ntot, m_out=m_k)
     G.merge_block_plain(plain, *args, o, ntot=ntot, m_out=m_p)
+    legacy_merge_block(old, *args, o, ntot=ntot)
     torch.cuda.synchronize()
+    off_old = [f for f, a, b in zip(base._fields, kern, old) if a is not None and not (
+        torch.equal(a, b) if f not in ("total", "ang_total")
+        else bool(((a - b).abs() <= 1e-13 * b.abs()).all()))]
     bad = []
     for f, a, b in zip(base._fields, kern, plain):
         if a is None:
@@ -639,9 +681,12 @@ def check_merge(torch, name, base, args, o: int, ntot: float, expect_first=None)
     rel_t = float(((kern.total - plain.total).abs() / plain.total.abs()).max())
     say(f"[glue] {name}: m ulps {ulp_distance(m_k, m_p)}, total max rel |Δ| {rel_t:.2e}, "
         f"fields off their limits: {bad or 'none'}; tuples moved on {updated} images"
-        + (f"; state unchanged {unchanged}" if masked else ""))
-    require(ulp_distance(m_k, m_p) <= 1, f"{name}: the varying max beyond 1 ulp")
+        + (f"; state unchanged {unchanged}" if masked else "")
+        + f"; against PR 14's G2 off: {off_old or 'none'}")
+    require(ulp_distance(m_k, m_p) == 0, f"{name}: the varying max off refine_varying_max")
     require(not bad, f"{name}: {', '.join(bad)} off their limits")
+    require(rel_t <= 1.5e-7, f"{name}: total beyond 1.5e-7 relative")
+    require(not off_old, f"{name}: {', '.join(off_old)} off PR 14's G2")
     require(not masked or unchanged, f"{name}: a fully masked block changed the state")
     if expect_first is not None:
         require(bool((kern.best_orient == expect_first).all() and (kern.best_conv == 0).all()),
@@ -649,20 +694,24 @@ def check_merge(torch, name, base, args, o: int, ntot: float, expect_first=None)
     return float((kern.total - plain.total).abs().max())
 
 
-def check_glue_replay(torch, i: int = 64) -> None:
-    """G1 and G2 captured in one CUDA graph, the block's offset a 0-d device
-    tensor the graph advances: two replays on two blocks' inputs equal the
-    eager calls with int offsets 0 and O, bit for bit
-    (kernel_probe.glue_replay)."""
+def check_glue_replay(torch, i: int = 64, n_blocks: int = 3) -> None:
+    """G1 and G2 captured in one CUDA graph, G1's workspace made before the
+    capture, the block's offset a 0-d device tensor the graph advances:
+    three replays on three blocks' inputs equal the eager calls with int
+    offsets 0, O and 2·O, bit for bit, and G1's ticket counts the warm-up's
+    and the replays' CTAs (kernel_probe.glue_replay)."""
     from bioem_tpu_torch.tools.kernel_probe import glue_replay
 
-    state, eager, blk = glue_replay(DEVICE, i=i)
+    state, eager, blk, ws = glue_replay(DEVICE, i=i, n_blocks=n_blocks)
     same = all(torch.equal(a, b) for a, b in zip(state, eager))
     late = int((state.best_orient >= 8).sum())
-    say(f"[glue] two replays of G1 + G2 with a device offset: bit-equal to the eager calls "
-        f"{same}; block 1 holds the argmax of {late}/{i} images")
-    require(blk == 2 and same and late > 0,
+    tickets = int(ws.ticket[0])
+    say(f"[glue] {n_blocks} replays of G1 + G2 with a device offset: bit-equal to the eager "
+        f"calls {same}; blocks after the first hold the argmax of {late}/{i} images; G1's "
+        f"ticket {tickets} after a warm-up and {n_blocks} replays of {ws.plan.grid} CTAs")
+    require(blk == n_blocks and same and late > 0,
             "the replayed glue does not read its offset from the device")
+    require(tickets == (1 + n_blocks) * ws.plan.grid, "G1's ticket is off its launches")
 
 
 def glue_g3(torch, eng) -> dict:
@@ -800,14 +849,17 @@ def phase_glue(torch, eng) -> dict:
     const and the strict > moves nothing), and on random blocks at
     o_block 16 and at a reference-grid block (C = 32), G1 on normalised
     and DC-dominated images, G2 in every case of kernel_probe.GLUE_CASES
-    with the slabs off and on; two replays of a captured step with a
-    device offset; the kernels' and plain versions' times at the
-    production block, and their bounds."""
+    with the slabs off and on, each also against PR 14's design (the
+    probe's legacy kernels); three replays of a captured step with a
+    device offset; the kernels' times beside their parts, PR 14's design
+    and its parts (kernel_probe.glue_attribution), the plain versions'
+    times and the bounds at the production block, and the two designs'
+    times at the other two shapes."""
     from bioem_tpu_torch.core.posterior import init_state, refine_varying_max
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
     from bioem_tpu_torch.ops import posterior_cuda as G
-    from bioem_tpu_torch.tools.kernel_probe import (GLUE_CASES, device_ms, glue_inputs,
-                                                    glue_merge_args)
+    from bioem_tpu_torch.tools.kernel_probe import (GLUE_CASES, device_ms, glue_attribution,
+                                                    glue_inputs, glue_merge_args)
     from bioem_tpu_torch.tools.problem import bound
 
     bk, p = eng.banks, eng.p
@@ -815,7 +867,7 @@ def phase_glue(torch, eng) -> dict:
     i_n = bk.img_re.shape[0]
     ntot = float(p.n_total_pixels)
     x = _block_inputs(eng)
-    err1 = check_constants(torch, "G1 production block", x["g1"], x["g1_kw"])
+    err1 = check_constants(torch, "G1 production block", x["g1"], x["g1_kw"], eng._g1_workspace)
     k1_args = (x["pr"], x["pi"], bk.ctf_re, bk.ctf_im, bk.img_re, bk.img_im,
                x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im, x["a_u"], x["b_u"])
     _m, se, ds, ccs = (v.reshape(o, c, i_n) for v in cc_mod.fused_compare_block(
@@ -843,15 +895,28 @@ def phase_glue(torch, eng) -> dict:
                             expect_first=shape[0] if case == "ties" else None)
     check_glue_replay(torch)
 
-    # times at the production block, the card's own time: the calls queued
-    # behind a ~20 ms spin of the card, which hides the host's launches
-    # (the plain versions' 50–90 torch ops each: 5 calls, so that their
-    # launches stay inside the spin)
+    # Times, the card's own time (kernel_probe.glue_attribution: the calls
+    # queued behind a ~20 ms spin of the card, which hides the host's
+    # launches; G2's offset a 0-d tensor on the card, as the captured step
+    # passes it): G1 and G2 at the production block, with the engine's
+    # workspace, beside their parts, PR 14's design and its parts, and a
+    # one-kernel floor; then G1 and G2 beside PR 14's at the other two
+    # shapes. The plain versions' 50–90 torch ops each: 5 calls, so that
+    # their launches stay inside the spin.
+    att = glue_attribution(x["g1"], x["g1_kw"], args, eng._g1_workspace)
+    for label, ms in att.items():
+        say(f"[glue] production block, card time: {label} {ms:.5f} ms")
     st = init_state(i_n, 2 * o, False, DEVICE)
-    t = {"G1": (device_ms(lambda: G.block_constants(*x["g1"], **x["g1_kw"])),
-                device_ms(lambda: G.block_constants_plain(*x["g1"], **x["g1_kw"]), 5)),
-         "G2": (device_ms(lambda: G.merge_block(st, *args, 0, ntot=ntot)),
+    t = {"G1": (att["G1"], device_ms(lambda: G.block_constants_plain(*x["g1"], **x["g1_kw"]), 5)),
+         "G2": (att["G2 slabs off"],
                 device_ms(lambda: G.merge_block_plain(st, *args, 0, ntot=ntot), 5))}
+    for shape in ((16, 8, 64), (8, 32, 64)):
+        g = glue_inputs(DEVICE, *shape)
+        a2 = glue_attribution(g["g1"], g["kw"], glue_merge_args(g, "fused"))
+        say(f"[glue] O,C,I={shape}, card time: G1 {a2['G1']:.5f} ms against PR 14's "
+            f"{a2['PR 14 G1 full']:.5f}; G2 slabs off {a2['G2 slabs off']:.5f} against "
+            f"{a2['PR 14 G2 full slabs off']:.5f}, slabs on {a2['G2 slabs on']:.5f} against "
+            f"{a2['PR 14 G2 full slabs on']:.5f}")
     # Bounds: G1 reads the spectra once and writes its outputs once; its
     # f64 work is |p|² and |ctf|² per frequency and a multiply-add per (o,
     # c, frequency), ~20 operations per (o, c, i) row entry. G2 on the
@@ -871,9 +936,11 @@ def phase_glue(torch, eng) -> dict:
                (2 * 4 + 2 * 8) * o * c * i_n + 4 * o * c + 4 * i_n + 2 * 2 * 8 * i_n
                + n_upd * (4 + 4 + 2 * 4 + 4 * 4 + 2 * 8))
     say(f"[glue] G2's timed calls update the tuple of {n_upd} of {i_n} images")
-    for key, (a, b_), bd in (("G1", t["G1"], b1), ("G2", t["G2"], b2)):
-        say(f"[glue] {key} production-block time: kernel {a:.4f} ms, plain {b_:.4f} ms "
-            f"(the card's own time); bound {bd[0]:.5f} ms ({bd[1]}-bound)")
+    for key, (a, b_), bd, old in (("G1", t["G1"], b1, att["PR 14 G1 full"]),
+                                  ("G2", t["G2"], b2, att["PR 14 G2 full slabs off"])):
+        say(f"[glue] {key} production-block time: kernel {a:.4f} ms (PR 14's design {old:.4f} "
+            f"ms), plain {b_:.4f} ms (the card's own time); bound {bd[0]:.5f} ms "
+            f"({bd[1]}-bound)")
     none = dict(library_ms=None)  # no single PyTorch call computes G1 or G2
     return {
         "G1": dict(name="block_constants", route="cuda",
@@ -1024,6 +1091,34 @@ def _run(name, problem, cfg):
     return res, perf, n
 
 
+def _capturing_pass(problem) -> None:
+    """The default kernel pass (K1, o_block 8) of a new engine split into
+    its engine's set-up, the capture of its block step (a warm-up step and
+    the capture) and the pass's replays, each timed to a synchronise; then
+    a second pass on the same engine."""
+    import torch
+
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    p, orients, model, images, _ = problem
+    eng, setup = timed(lambda: BioEMEngine(p, orients, model, images,
+                                           RunConfig(use_kernels=True, autotune=False),
+                                           device=DEVICE))
+    _, capture = timed(eng._capture)
+    _, first = timed(eng.run)
+    _, second = timed(eng.run)
+    say(f"[production] the capturing pass split: engine set-up {setup:.3f} s, capture "
+        f"{capture:.3f} s, the pass's replays {first:.3f} s; a second pass {second:.3f} s")
+
+
 def phase_production(problem):
     """The plain branch and the default kernel branch (K1); returns both
     results."""
@@ -1035,6 +1130,7 @@ def phase_production(problem):
     res_k, _, n = _run("kernel branch (K1)", problem, RunConfig(use_kernels=True, autotune=False))
     require(n[0] > 0 and n[1] > 0, "the kernel branch did not launch K1 and K2")
     check_against_plain("kernel branch (K1)", res_k, res_p, planted, orients)
+    _capturing_pass(problem)
     phase_profile(problem)
     return res_p, res_k
 
@@ -1127,22 +1223,26 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
     time per block without and under torch.profiler, the card's busy time
     per block and its share of the profiled wall time, K1's and K2's time
     per block, the kernels launched per block, and the eager loop's glue
-    by phase. All of it three times: before, the glue as the torch ops it
+    by phase. All of it four times: before, the glue as the torch ops it
     was (G1's and G2's plain versions patched in for the wrappers, and the
     projection as the engine composed it before G3: the prologue's plain
     version, K2 unscaled and the scale's multiplies); before G3, the
-    projection patched so but G1 and G2 run; and after, through G1, G2 and
-    G3. The replayed block must launch at least 120 kernels fewer with G1
-    and G2 than before, at least 80 fewer with G3 than before G3, and at
-    most 15 in all; the projection phase at most 2 (G3 and K2). Where the
+    projection patched so but G1 and G2 run; before G1 and G2's redesign,
+    PR 14's G1 and G2 (``probe_cuda.legacy_*``) patched in and the constants
+    phase making its two copies of the lattice weights' columns per block,
+    as it did; and after, through G1, G2 and G3. The replayed block must
+    launch at least 120 kernels fewer with G1 and G2 than before, at least
+    80 fewer with G3 than before G3, and at most 15 in all; the projection
+    phase at most 2 (G3 and K2) and the constants phase 1 (G1). Where the
     profiler attributes no kernel time to the graph's replays, the
     replayed loop's wall time stands against the eager profile's busy
     time, and the line says so."""
     from bioem_tpu_torch.core import engine as eng_mod
     from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.ops import probe_cuda
 
     def counted(fn):
-        def run(*a, **kw):
+        def run(*a, workspace=None, **kw):  # noqa: ARG001 (G1's workspace: the kernel's)
             return fn(*a, **kw)
         run.launches = 0
         return run
@@ -1150,14 +1250,29 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
     def old_projection():
         return mock.patch.object(eng_mod, "project_fourier_batch_kernel", _projection_before)
 
+    def pr14_constants(self, banks, pr, pi, mask):
+        """The constants phase before the redesign: PR 14's G1, then the
+        two per-block copies of the lattice weights' columns."""
+        out = probe_cuda.legacy_block_constants(
+            pr, pi, banks.ctf_re, banks.ctf_im, banks.h, banks.sum_ref, banks.ssq_ref,
+            self._prior, mask, ntot=self.p.n_total_pixels, images_normalized=self._f32_corr_ok)
+        m_cols = self.p.n_pixels // self.n_fold
+        banks.wx_re[:, :m_cols].contiguous()
+        banks.wx_im[:, :m_cols].contiguous()
+        return out
+
     with old_projection(), \
             mock.patch.object(G, "block_constants", counted(G.block_constants_plain)), \
             mock.patch.object(G, "merge_block", counted(G.merge_block_plain)):
         before, _ = _profile_pass(problem, n_blocks, warm)
     with old_projection():
         before_g3, _ = _profile_pass(problem, n_blocks, warm)
+    with mock.patch.object(eng_mod.BioEMEngine, "_kernel_constants", pr14_constants), \
+            mock.patch.object(G, "merge_block", counted(probe_cuda.legacy_merge_block)):
+        pr14, _ = _profile_pass(problem, n_blocks, warm)
     out, o_block = _profile_pass(problem, n_blocks, warm)
     for when, res in (("before (torch glue)", before), ("before G3 (G1, G2)", before_g3),
+                      ("before the redesign (PR 14's G1 and G2, the wx copies)", pr14),
                       ("after (G1, G2, G3)", out)):
         for name, r in res.items():
             say(f"[profile] default kernel pass (K1, o_block {o_block}), {n_blocks} blocks, "
@@ -1184,6 +1299,17 @@ def phase_profile(problem, n_blocks: int = 32, warm: int = 4) -> dict:
         f"with G1 and G2, {fewer3:.1f} fewer with G3), wall {b['wall_ms']:.3f} against "
         f"{b3['wall_ms']:.3f} against {g['wall_ms']:.3f} ms, busy {b['busy_ms']:.3f} against "
         f"{b3['busy_ms']:.3f} against {g['busy_ms']:.3f} ms")
+    p14 = pr14["replayed"]
+    say(f"[profile] replayed block, before the redesign against after: {p14['launches']:.1f} "
+        f"against {g['launches']:.1f} kernels, wall {p14['wall_ms']:.3f} against "
+        f"{g['wall_ms']:.3f} ms, busy {p14['busy_ms']:.3f} against {g['busy_ms']:.3f} ms")
+    for ph in ("bioem.constants", "bioem.merge"):
+        (n0, us0), (n1, us1) = (r["eager"]["glue"].get(ph, (0.0, 0.0)) for r in (pr14, out))
+        say(f"[profile] the {ph.removeprefix('bioem.')} phase (eager), before the redesign "
+            f"against after: {n0:.1f} kernels {us0:.1f} us against {n1:.1f} kernels {us1:.1f} "
+            "us per block")
+    const_n = e["glue"].get("bioem.constants", (0.0, 0.0))[0]
+    require(const_n == 1, f"the constants phase launches {const_n:.1f} kernels per block, not 1")
     proj = e["glue"].get("bioem.projection", (0.0, 0.0))[0] + e["k2_launches"]
     say(f"[profile] the projection phase after: {proj:.1f} kernels per block (G3 and K2)")
     if g["busy_ms"] > 0:

@@ -36,7 +36,14 @@ each replay; on swapped banks too (a streamed image chunk, a ranked model
 with more points per radius group, whose counts K2 reads), with one
 capture per engine under run_streaming and rank_models; a 2×2 mesh of
 four slots on one card (one capture each) equal to the single engine on
-each branch, streamed and ranked. The probes: P1's FMA, 3xTF32 and FP64
+each branch, streamed and ranked; two slots' captured steps replayed in
+turns on two streams, each with its own G1 workspace. The posterior glue
+(G1, G2) against its plain versions at the production block, o_block 16,
+C = 32, one image, 37 images, O·C = 15, one CTF and O·C = 512: f0, k,
+a_u, b_u and the repaired max at 0 ulps, sum_c bit-equal, ssq_c within
+1 f32 ulp of PR 14's G1; G2 bit-equal to PR 14's G2 but for its f64 sums
+(1e-13); three replays of a captured G1 + G2 bit-equal to the eager calls,
+G1's ticket counting its launches. The probes: P1's FMA, 3xTF32 and FP64
 schemes at a median relative error below 1e-6 from f64 (the TPU probe's
 "multi-pass" line), 1xTF32 within its rounding bound, every scheme at
 ragged shapes with its copies equal;
@@ -1023,36 +1030,46 @@ def test_bench_harness_small(dev, monkeypatch, capsys, tmp_path, problem):
 # The posterior glue: G1 (block_constants) and G2 (merge_block)
 # ---------------------------------------------------------------------------
 
-# (O, C, I): the production block, o_block 16, a reference-grid block
+# (O, C, I): the production block, o_block 16, a reference-grid block;
+# then one image, an image count that fills no power of two, O·C not a
+# multiple of 32, one CTF, and O·C = 512 (G2's one thread per pair at most)
 GLUE_SHAPES = [(8, 8, 64), (16, 8, 64), (8, 32, 64)]
+GLUE_EDGE_SHAPES = [(8, 8, 1), (8, 8, 37), (3, 5, 37), (8, 1, 64), (16, 32, 64)]
 
 
 @pytest.mark.parametrize("normalized", [True, False])
-@pytest.mark.parametrize("shape", GLUE_SHAPES)
+@pytest.mark.parametrize("shape", GLUE_SHAPES + GLUE_EDGE_SHAPES)
 def test_block_constants_kernel_vs_plain(dev, shape, normalized):
     """G1 against its plain version: sum_c bit-equal; ssq_c (f64 sum
-    against an f32 product) within 2e-6 relative and no farther from an
-    all-f64 evaluation; f0, k, a_u, b_u within 1 ulp of the plain formulas
-    on G1's own sums (the same libdevice functions and roundings: expected
-    0); the masked orientation's k exactly −inf."""
+    against an f32 product) within 2e-6 relative, no farther from an
+    all-f64 evaluation, and within 1 f32 ulp of PR 14's G1 (an f64 sum in
+    another order); f0, k, a_u, b_u at 0 ulps from the plain formulas on
+    G1's own sums (the same libdevice functions and roundings); the masked
+    orientation's k exactly −inf; the workspace's ticket advanced by one
+    launch's CTAs."""
     from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.ops.probe_cuda import legacy_block_constants
     from bioem_tpu_torch.tools.kernel_probe import glue_inputs, ulp_distance
 
     x = glue_inputs(dev, *shape, normalized=normalized)
+    ws = G.constants_workspace(*shape, 224, 113, dev)
     before = G.block_constants.launches
-    sum_c, ssq_c, f0, k, a_u, b_u = G.block_constants(*x["g1"], **x["kw"])
+    sum_c, ssq_c, f0, k, a_u, b_u = G.block_constants(*x["g1"], **x["kw"], workspace=ws)
     torch.cuda.synchronize()
     assert G.block_constants.launches == before + 1
+    assert ws.ticket.tolist() == [ws.plan.grid]
     p_sum, p_ssq = G.convolution_sums_plain(*x["g1"][:5], ntot=x["kw"]["ntot"])
     assert torch.equal(sum_c, p_sum)
     assert float(((ssq_c - p_ssq).abs() / p_ssq.abs()).max()) <= 2e-6
     _s64, ssq64 = G.convolution_sums_plain(*(v.double() for v in x["g1"][:5]),
                                            ntot=x["kw"]["ntot"])
     assert (ssq_c.double() - ssq64).abs().max() <= (p_ssq.double() - ssq64).abs().max()
+    old = legacy_block_constants(*x["g1"], **x["kw"])
+    assert torch.equal(old[0], sum_c) and ulp_distance(old[1], ssq_c) <= 1
     want = G.constants_from_sums(sum_c, ssq_c, *x["g1"][5:], **x["kw"])
     for name, a, b in zip(("f0", "k", "a_u", "b_u"), (f0, k, a_u, b_u), want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
-        assert ulp_distance(a, b) <= 1, name
+        assert ulp_distance(a, b) == 0, name
     assert bool((k[-1] == -torch.inf).all()) and bool(torch.isfinite(k[:-1]).all())
 
 
@@ -1086,19 +1103,18 @@ def _merge_pair(dev, shape, case, slabs):
 
 @pytest.mark.parametrize("slabs", [False, True])
 @pytest.mark.parametrize("case", ["fused", "hybrid", "partial", "full", "ties"])
-@pytest.mark.parametrize("shape", GLUE_SHAPES)
+@pytest.mark.parametrize("shape", GLUE_SHAPES + GLUE_EDGE_SHAPES)
 def test_merge_block_kernel_vs_plain(dev, shape, case, slabs):
-    """G2 against its plain version: the repaired m within 1 ulp of
-    refine_varying_max (the same libdevice log1p: expected 0); const,
-    best_orient, best_conv, best_cent_x/y and ang_const exact; best_norm
-    and best_mu within 1e-12 relative; total and ang_total within 1e-6
-    relative (an f64 sum of the f32 products against torch's f32 sum); a
-    fully masked block leaves the state bit-equal; ties go to the first
-    pair."""
+    """G2 against its plain version: the repaired m at 0 ulps from
+    refine_varying_max (the same libdevice log1p); const, best_orient,
+    best_conv, best_cent_x/y and ang_const exact; best_norm and best_mu
+    within 1e-12 relative; total and ang_total within 1e-6 relative (an
+    f64 sum of the f32 products against torch's f32 sum); a fully masked
+    block leaves the state bit-equal; ties go to the first pair."""
     from bioem_tpu_torch.tools.kernel_probe import ulp_distance
 
     kern, plain, base, m_k, m_p = _merge_pair(dev, shape, case, slabs)
-    assert ulp_distance(m_k, m_p) <= 1
+    assert ulp_distance(m_k, m_p) == 0
     if case == "full":
         assert all(x is None or torch.equal(x, y) for x, y in zip(kern, base))
     for name, a, b in zip(kern._fields, kern, plain):
@@ -1114,18 +1130,80 @@ def test_merge_block_kernel_vs_plain(dev, shape, case, slabs):
         assert bool((kern.best_orient == shape[0]).all() and (kern.best_conv == 0).all())
 
 
+@pytest.mark.parametrize("shape", GLUE_SHAPES)
+def test_merge_block_matches_pr14_design(dev, shape):
+    """G2 against PR 14's G2 (``probe_cuda.legacy_merge_block``) on the
+    same block, slabs on: every field bit-equal but total and ang_total,
+    which are f64 sums of the same f32 terms in another order (1e-13
+    relative: the bound of two orders of 64 positive terms)."""
+    from bioem_tpu_torch.core.posterior import init_state
+    from bioem_tpu_torch.ops import posterior_cuda as G
+    from bioem_tpu_torch.ops.probe_cuda import legacy_merge_block
+    from bioem_tpu_torch.tools.kernel_probe import glue_inputs, glue_merge_args
+
+    o, _c, i = shape
+    x = glue_inputs(dev, *shape)
+    args = glue_merge_args(x, "fused")
+    new, old = init_state(i, 2 * o, True, dev), init_state(i, 2 * o, True, dev)
+    G.merge_block(new, *args, 0, ntot=x["kw"]["ntot"])
+    legacy_merge_block(old, *args, 0, ntot=x["kw"]["ntot"])
+    torch.cuda.synchronize()
+    for name, a, b in zip(new._fields, new, old):
+        if name in ("total", "ang_total"):
+            assert bool(((a - b).abs() <= 1e-13 * b.abs()).all()), name
+        else:
+            assert torch.equal(a, b), name
+
+
 def test_glue_replays_read_the_device_offset(dev):
     """G1 and G2 captured in one CUDA graph on static inputs, the block's
-    orientation offset a 0-d device tensor that the graph advances: two
-    replays, each on another block's inputs copied in, equal G1 and G2
-    called eagerly with int offsets 0 and O, bit for bit (an offset frozen
-    at capture would put every block-1 winner at orientation < O)."""
+    orientation offset a 0-d device tensor that the graph advances, G1's
+    workspace made before the capture: three replays, each on another
+    block's inputs copied in, equal G1 and G2 called eagerly with int
+    offsets 0, O and 2·O, bit for bit (an offset frozen at capture would
+    put every later winner at orientation < O; a ticket that G1 took for
+    another launch's would leave the later replays' constants unwritten),
+    the ticket advanced by one launch's CTAs per launch (the warm-up, the
+    replays and none at the capture)."""
     from bioem_tpu_torch.tools.kernel_probe import glue_replay
 
-    state, eager, blk = glue_replay(dev)
-    assert blk == 2
+    state, eager, blk, ws = glue_replay(dev, n_blocks=3)
+    assert blk == 3
     assert all(torch.equal(a, b) for a, b in zip(state, eager))
     assert bool((state.best_orient >= 8).any())
+    assert ws.ticket.tolist() == [(1 + 3) * ws.plan.grid]
+
+
+def test_two_slots_on_one_card_keep_their_own_workspaces(rng, dev):
+    """The two slots of a 1×2 mesh on one card, each with its own captured
+    step and G1 workspace, replayed in turns on two streams: each slot's
+    state bit-equal to its replays alone."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.parallel.mesh import ShardedBioEMEngine
+
+    p, orients, model, images = _engine_problem(rng, n_img=7)
+    mesh = ShardedBioEMEngine(p, orients, model, images,
+                              RunConfig(orient_block=3, mesh_images=1, mesh_orient=2),
+                              mesh=_one_card_mesh(dev, 1, 2))
+    a, b = mesh.slots.values()
+    assert a._g1_workspace.ws.data_ptr() != b._g1_workspace.ws.data_ptr()
+    assert a._g1_workspace.ticket.data_ptr() != b._g1_workspace.ticket.data_ptr()
+    alone = [e.run() for e in (a, b)]
+    nblk = a.ang_blocks.shape[0]
+    assert b.ang_blocks.shape[0] == nblk
+    states = [e._graph_load(e.initial_state(), 0) for e in (a, b)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _blk in range(nblk):
+        for e, s in zip((a, b), streams):
+            with torch.cuda.stream(s):
+                e._replay()
+    for s in streams:
+        torch.cuda.current_stream(dev).wait_stream(s)
+    torch.cuda.synchronize(dev)
+    for got, want in zip(states, alone):
+        assert _same_state(got, want)
 
 
 def test_glue_wrappers_reject_bad_input(dev):

@@ -21,8 +21,14 @@ a numpy seed at a small size and handed to both packages.
   total here) — on a partially masked block, a fully masked one, exact
   ties between (o, c) pairs, the hybrid's given f32 m, slabs on and off;
   an int offset and a 0-d tensor offset give the same bits.
+* G1's plan on the card (``constants_plan``: chunks, staging passes,
+  workers) covers every column and pair within its limits, and a NumPy
+  model of the kernel's fixed-order f64 reduction (phase 1 lanes, chunk
+  partials, the workers' lanes) lies within one f32 ulp of f64 truth and
+  of a model of PR 14's order; the wrappers' checks that need no card.
 * The engine: a kernel-branch block step through G1 and G2 equals, bit for
-  bit, the composition of torch functions the engine called before them.
+  bit, the composition of torch functions the engine called before them,
+  reading the lattice weights' columns the engine holds (``wx_cols``).
 """
 
 import jax.numpy as jnp
@@ -317,7 +323,9 @@ ENGINE_PATHS = {
 def test_engine_kernel_step_equals_the_old_composition(rng, path):
     """Every block of a padded pass with per-angle slabs, through G1 and G2
     on the CPU, against the torch composition they replace: the same state,
-    bit for bit."""
+    bit for bit. The step reads the lattice weights' columns the engine
+    holds (contiguous copies made once): on banks whose wx is poisoned with
+    NaN it still equals the old composition on the engine's own banks."""
     from bioem_tpu_torch.config import RunConfig
     from bioem_tpu_torch.core.engine import BioEMEngine
     from bioem_tpu_torch.core.orientations import build_orientations
@@ -330,12 +338,18 @@ def test_engine_kernel_step_equals_the_old_composition(rng, path):
                       RunConfig(use_kernels=True, orient_block=3, **cfg), device="cpu")
     assert eng.n_orient_pad > eng.n_orient and eng.fused_batched == (path == "k4")
     assert eng._f32_corr_ok == (path != "hybrid_dc")
+    m_cols = p.n_pixels // eng.n_fold
+    for held, full in zip(eng.wx_cols, (eng.banks.wx_re, eng.banks.wx_im)):
+        assert held.is_contiguous() and torch.equal(held, full[:, :m_cols])
+    assert eng._g1_workspace is None  # the card's scratch only
+    poisoned = eng.banks._replace(wx_re=torch.full_like(eng.banks.wx_re, torch.nan),
+                                  wx_im=torch.full_like(eng.banks.wx_im, torch.nan))
     new, old = eng.initial_state(), eng.initial_state()
     before = (G.block_constants.launches, G.merge_block.launches)
     for b in range(eng.ang_blocks.shape[0]):
-        args = (eng.banks, eng.ang_blocks[b], b * eng.o_block, eng.mask_blocks[b])
-        eng._block_step(new, *args)
-        _old_kernel_step(eng, old, *args)
+        args = (eng.ang_blocks[b], b * eng.o_block, eng.mask_blocks[b])
+        eng._block_step(new, poisoned, *args)
+        _old_kernel_step(eng, old, eng.banks, *args)
     assert (G.block_constants.launches, G.merge_block.launches) == before
     for key, a, b in zip(T.PosteriorState._fields, new, old):
         assert a is not None and torch.equal(a, b), key
@@ -346,3 +360,202 @@ def test_the_capture_counts_g1_and_g2():
     from bioem_tpu_torch.core.engine import _kernel_wrappers
 
     assert G.block_constants in _kernel_wrappers() and G.merge_block in _kernel_wrappers()
+
+
+# ---------------------------------------------------------------------------
+# G1's plan and its fixed-order reduction
+# ---------------------------------------------------------------------------
+
+# (O, C, I, N, SMs): the production block on an H100, o_block 16, a
+# reference-grid block, one image, a tiny block, many images, O·C = 512,
+# a card with fewer SMs than the production block has pairs per worker
+PLAN_CASES = [(8, 8, 64, 224, 132), (16, 8, 64, 224, 132), (8, 32, 64, 224, 132),
+              (8, 8, 1, 224, 132), (3, 4, 6, 16, 132), (8, 8, 1024, 224, 132),
+              (16, 32, 64, 224, 132), (32, 32, 64, 224, 4), (5, 7, 3, 15, 1)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_constants_plan_covers_every_column_and_pair(case):
+    o, c, i, n, n_sm = case
+    f = n // 2 + 1
+    nf, p = n * f, o * c
+    plan = G.constants_plan(o, c, i, n, f, n_sm)
+    assert 1 <= plan.grid <= n_sm
+    assert plan.grid * plan.chunk >= nf > (plan.grid - 1) * plan.chunk  # no CTA idle
+    assert plan.chunk >= min(G.G1_MIN_CHUNK, nf)
+    assert 1 <= plan.sub <= plan.chunk and (16 * (o + c) + 8) * plan.sub <= G.G1_STAGE_BYTES
+    assert 1 <= plan.workers <= plan.grid
+    assert plan.workers * plan.per_worker >= p > (plan.workers - 1) * plan.per_worker
+    assert plan.ws_doubles == plan.grid * p + 2 * i
+    if plan.workers < plan.grid:  # about one (o, c, i) entry per worker thread
+        assert plan.per_worker == min(max(G.G1_THREADS // max(i, 1), 1), p)
+
+
+def test_constants_plan_of_the_production_block():
+    """One CTA per SM of 192 columns, staged in one pass; 8 workers of 8
+    pairs, each one entry per thread."""
+    assert G.constants_plan(8, 8, 64, 224, 113, 132) == G.ConstantsPlan(132, 192, 192, 8, 8,
+                                                                         132 * 64 + 128)
+
+
+@pytest.mark.parametrize("bad", [(0, 8, 64, 224, 113, 132), (8, 8, -1, 224, 113, 132),
+                                 (8, 8, 64, 224, 113, 0), (6000, 6000, 4, 16, 9, 132)])
+def test_constants_plan_refuses_what_it_cannot_take(bad):
+    with pytest.raises(ValueError, match="block_constants"):
+        G.constants_plan(*bad)
+
+
+def _terms(rng, o, c, n):
+    """G1's (O·C, N·F) f64 terms |p|²·h·|ctf|², each rounded as the kernel
+    rounds it, from f32 spectra made from ``rng``."""
+    f = n // 2 + 1
+    sp = [rng.normal(0, 1, (k, n * f)).astype(F32).astype(np.float64) for k in (o, o, c, c)]
+    h = np.tile(T.hermitian_weights(n).astype(F32).astype(np.float64), n)
+    mp = (sp[0] * sp[0] + sp[1] * sp[1]) * h
+    mc = sp[2] * sp[2] + sp[3] * sp[3]
+    return (mp[:, None, :] * mc[None, :, :]).reshape(o * c, n * f)
+
+
+def _pair_lanes(n, threads=512):
+    """csrc/posterior_glue.cu pair_lanes: threads per pair, a power of 2 of
+    at most 32 such that n pairs fit ``threads``."""
+    lanes = 1
+    while lanes < 32 and 2 * lanes * n <= threads:
+        lanes *= 2
+    return lanes
+
+
+def _butterfly(v):
+    """Lane 0's sum of v (lanes, ...) by csrc/posterior_glue.cu lanes_sum:
+    at each step every lane adds the lane ``off`` away."""
+    lanes = v.shape[0]
+    off = lanes // 2
+    while off:
+        v = v + v[np.arange(lanes) ^ off]
+        off //= 2
+    return v[0]
+
+
+def _kernel_order_sum(v, plan, threads=512):
+    """A NumPy model of G1's f64 reduction over v (P, N·F), in the kernel's
+    order (csrc/posterior_glue.cu): per CTA, ``lanes`` threads per pair each
+    add a strided share of the chunk's columns (staging pass by staging
+    pass), the lanes in order; then each worker's tile of pairs, ``nl``
+    lanes per pair each adding the CTAs' partials strided, then a butterfly
+    over the lanes. (P ≤ threads: one pair pass.)"""
+    p, nf = v.shape
+    lanes = threads // p
+    parts = np.zeros((plan.grid, p))
+    for b in range(plan.grid):
+        j0, j1 = b * plan.chunk, min((b + 1) * plan.chunk, nf)
+        acc = np.zeros((lanes, p))
+        for s0 in range(j0, j1, plan.sub):
+            ln = min(plan.sub, j1 - s0)
+            for lane in range(lanes):
+                for jj in range(lane, ln, lanes):
+                    acc[lane] = acc[lane] + v[:, s0 + jj]
+        tot = acc[0]
+        for lane in range(1, lanes):
+            tot = tot + acc[lane]
+        parts[b] = tot
+    out = np.zeros(p)
+    for w in range(plan.workers):
+        q0, q1 = w * plan.per_worker, min((w + 1) * plan.per_worker, p)
+        nl = _pair_lanes(q1 - q0, threads)
+        acc = np.zeros((nl, q1 - q0))
+        for lane in range(nl):
+            for cb in range(lane, plan.grid, nl):
+                acc[lane] = acc[lane] + parts[cb, q0:q1]
+        out[q0:q1] = _butterfly(acc)
+    return out
+
+
+def _pr14_order_sum(v, threads=512):
+    """PR 14's order: per pair, thread t adds columns t, t + 512, ...; the
+    warps' butterflies; the 16 warp sums in order."""
+    p, nf = v.shape
+    acc = np.zeros((threads, p))
+    for j in range(nf):
+        acc[j % threads] = acc[j % threads] + v[:, j]
+    warps = [_butterfly(acc[32 * w:32 * w + 32]) for w in range(threads // 32)]
+    tot = warps[0]
+    for x in warps[1:]:
+        tot = tot + x
+    return tot
+
+
+def _f32_ulps(a, b):
+    ia, ib = (np.asarray(x, F32).view(np.int32).astype(np.int64) for x in (a, b))
+    return np.abs(ia - ib)
+
+
+@pytest.mark.parametrize("case", [(3, 4, 16, 132), (8, 8, 32, 7), (5, 3, 33, 132)])
+def test_fixed_order_reduction_model_against_f64_truth(rng, case):
+    """ssq_c as G1 rounds it (the f64 sum in the kernel's order, divided by
+    ntot, rounded to f32 once) lies within one f32 ulp of f64 truth (an
+    exactly rounded sum, math.fsum) and of PR 14's order, and the model
+    gives the same bits every time (the order is fixed by the plan)."""
+    import math
+
+    o, c, n, n_sm = case
+    f = n // 2 + 1
+    ntot = float(n * n)
+    v = _terms(rng, o, c, n)
+    plan = G.constants_plan(o, c, 1, n, f, n_sm)
+    ours = _kernel_order_sum(v, plan)
+    assert np.array_equal(ours, _kernel_order_sum(v, plan))
+    truth = np.array([math.fsum(row) for row in v])
+    np.testing.assert_allclose(ours, truth, rtol=1e-13, atol=0)
+    assert _f32_ulps(ours / ntot, truth / ntot).max() <= 1
+    assert _f32_ulps(ours / ntot, _pr14_order_sum(v) / ntot).max() <= 1
+
+
+def test_glue_wrappers_check_without_a_card(rng):
+    """What the wrappers refuse before any launch: a G1 or G2 launch off the
+    card, a workspace for other shapes, a workspace off the card, a block
+    whose pairs do not fit G2's shared memory, and PR 14's kernels (probes
+    of the card) on the CPU."""
+    from bioem_tpu_torch.ops import probe_cuda as PR
+
+    x = _spectra(rng)
+    keys = ("pr", "pi", "ctf_re", "ctf_im", "h", "sum_ref", "ssq_ref", "prior", "mask")
+    args = tuple(t(x[k]) for k in keys)
+    with pytest.raises(ValueError, match="unsupported device"):
+        G.constants_call("block_constants", args, 256.0, True)
+    with pytest.raises(ValueError, match="no part"):
+        PR.constants_parts(*args, ntot=256.0, images_normalized=True, part="tail")
+    with pytest.raises(ValueError, match="workspace lies on the card"):
+        G.constants_workspace(3, 4, 6, 16, 9, "cpu")
+    ws = G.ConstantsWorkspace((3, 4, 5, 16, 9), G.constants_plan(3, 4, 5, 16, 9, 132),
+                              torch.zeros(1, dtype=torch.float64), torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="workspace was made for"):
+        G.check_workspace("block_constants", ws, (3, 4, 6, 16, 9), torch.device("cpu"))
+    G.check_workspace("block_constants", ws, (3, 4, 5, 16, 9), torch.device("cpu"))
+    m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp = (
+        t(v) if v is not None else None for v in _merge_block_inputs(rng, "live"))
+    state = T.init_state(5, 2, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        G.merge_call("merge_block", state, m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp, 0,
+                     ntot=256.0)
+    big = torch.zeros((100, 200, 5))
+    with pytest.raises(ValueError, match="shared memory"):
+        G.merge_call("merge_block", state, None, big, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp,
+                     0, ntot=256.0)
+    with pytest.raises(ValueError, match="card only"):
+        PR.legacy_block_constants(*args, ntot=256.0, images_normalized=True)
+    with pytest.raises(ValueError, match="no part"):
+        PR.legacy_merge_block(state, m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp, 0,
+                              ntot=256.0, part="slabs")
+
+
+def test_sass_counts_read_calls_and_local_memory():
+    """kernel_probe.sass_counts_of: per kernel named by a stem, the CALLs and
+    the local-memory stores and loads of cuobjdump's SASS listing."""
+    from bioem_tpu_torch.tools.kernel_probe import sass_counts_of
+
+    text = ("\tcode for sm_90a\n\t\tFunction : _Z18merge_block_kernelv\n"
+            "  /*0010*/ STL.64 [R1], R4 ;\n  /*0020*/ CALL.REL.NOINC 0x100 ;\n"
+            "  /*0030*/ LDL.64 R4, [R1] ;\n  /*0040*/ STL [R1+0x8], R2 ;\n"
+            "\t\tFunction : _Z14other_kernelv\n  /*0010*/ CALL.ABS.NOINC 0x0 ;\n")
+    assert sass_counts_of(text, ("merge_block_kernel", "absent")) == {
+        "merge_block_kernel": {"calls": 1, "local stores": 2, "local loads": 1}}
