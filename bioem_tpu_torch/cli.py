@@ -40,6 +40,7 @@ from .params import read_best_params, read_parameters
 from .io.map_io import read_ref_maps
 from .io.model_io import read_model, write_coordread
 from .io.output import write_angle_probabilities, write_probabilities
+from .utils.timestat import RECORDER
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -311,6 +312,8 @@ def main(argv=None) -> int:
         with open(defs.FILE_REFINED, "w") as f:
             write_refined(f, refined)
         print(f"Refined parameters written to: {defs.FILE_REFINED}")
+    if cfg.debug_output >= 1:
+        print(RECORDER.summary())  # the reference's TimeStat table
     return 0
 
 

@@ -43,10 +43,11 @@ orientation blocks of the mesh's padded problem, and its state is merged
 with the other slots' after the pass.
 
 ``run`` checkpoints and resumes the streaming state
-(runtime/checkpoint.py) and prints the TimeStat phase table at
-``debug_output >= 1``; ``time_blocks`` times the loop the pass runs (the
+(runtime/checkpoint.py); ``time_blocks`` times the loop the pass runs (the
 replayed one on the card's kernel branch, capture and warm-up outside the
-timed span) for the autotuner (runtime/autotune.py).
+timed span) for the autotuner (runtime/autotune.py). The engine's
+construction, capture, passes, results and swaps are spans of the
+process's recorder (utils/timestat.py).
 """
 
 from __future__ import annotations
@@ -58,7 +59,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import RunConfig, resolve_device
 from ..params import (
@@ -70,6 +70,7 @@ from ..params import (
 )
 from ..io.map_io import ImageStack
 from ..io.model_io import Model
+from ..utils.timestat import span, traced
 from .ctf import build_ctf_bank
 from .orientations import OrientationSet, rotation_matrices
 from .posterior import (
@@ -218,6 +219,7 @@ def _kernel_wrappers() -> tuple:
 class BioEMEngine:
     """Posterior computation for one model against an image stack."""
 
+    @traced("bioem.engine")
     def __init__(
         self,
         p: BioEMParams,
@@ -345,21 +347,24 @@ class BioEMEngine:
         self.n_orient_local = self.n_orient_pad // n_o
         self.orient_base = so * self.n_orient_local
 
-        img = self._image_arrays(maps)
+        with span("bioem.engine.images"):
+            img = self._image_arrays(maps)
         self.fspec = None
         self.spec = None
-        marr = self._model_arrays(model, first=True)
+        with span("bioem.engine.model"):
+            marr = self._model_arrays(model, first=True)
 
-        self.banks = banks_from_numpy(
-            dict(
-                ctf_re=ctf_bank.real, ctf_im=ctf_bank.imag,
-                wx_re=wx.real, wx_im=wx.imag, wy_re=wy.real, wy_im=wy.imag,
-                h=self._h, disp=disp.astype(np.int32),
-                amp=grid.amp[:n_ctf], pha=grid.phase[:n_ctf], env=grid.env[:n_ctf],
-                **img, **marr,
-            ),
-            self.device,
-        )
+        with span("bioem.engine.banks"):
+            self.banks = banks_from_numpy(
+                dict(
+                    ctf_re=ctf_bank.real, ctf_im=ctf_bank.imag,
+                    wx_re=wx.real, wx_im=wx.imag, wy_re=wy.real, wy_im=wy.imag,
+                    h=self._h, disp=disp.astype(np.int32),
+                    amp=grid.amp[:n_ctf], pha=grid.phase[:n_ctf], env=grid.env[:n_ctf],
+                    **img, **marr,
+                ),
+                self.device,
+            )
         # the block-invariant CTF prior (C,) f64
         self._prior = ctf_prior_term(self.banks.amp, self.banks.pha, self.banks.env, p)
         # The kernel branch's comparisons read the lattice weights' first
@@ -538,24 +543,26 @@ class BioEMEngine:
         replays); the current stream waits for them before any later
         work."""
         dev = self.device
-        if dev.type != "cuda":
-            return self.banks._replace(**{
-                k: torch.as_tensor(np.array(v, copy=True, order="C")) if not torch.is_tensor(v)
-                else v for k, v in host_fields.items()
-            })
-        host_fields = self.pin_fields(host_fields)
-        cur = torch.cuda.current_stream(dev)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(dev)
-        out = {}
-        with torch.cuda.stream(self._copy_stream):
-            for k, src in host_fields.items():
-                dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
-                dst.copy_(src, non_blocking=True)
-                dst.record_stream(cur)  # freed only after the current stream's use
-                out[k] = dst
-        cur.wait_stream(self._copy_stream)
-        return self.banks._replace(**out)
+        with span("bioem.place.pin"):
+            host_fields = self.pin_fields(host_fields)
+        with span("bioem.place.copy"):
+            if dev.type != "cuda":
+                return self.banks._replace(**{
+                    k: torch.as_tensor(np.array(v, copy=True, order="C")) if not torch.is_tensor(v)
+                    else v for k, v in host_fields.items()
+                })
+            cur = torch.cuda.current_stream(dev)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+            out = {}
+            with torch.cuda.stream(self._copy_stream):
+                for k, src in host_fields.items():
+                    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+                    dst.copy_(src, non_blocking=True)
+                    dst.record_stream(cur)  # freed only after the current stream's use
+                    out[k] = dst
+            cur.wait_stream(self._copy_stream)
+            return self.banks._replace(**out)
 
     def pin_fields(self, host_fields: dict) -> dict:
         """``host_fields`` as page-locked CPU tensors when the engine runs
@@ -573,13 +580,20 @@ class BioEMEngine:
         """Banks with this engine's precompute but ``model``'s arrays (and
         its per-group point counts), on the engine's layout: same shapes,
         so the captured block step serves it."""
-        self._check_projection_bounds(model)
-        return self._place_banks(self._model_arrays(model))
+        with span("bioem.swap_model"):
+            with span("bioem.swap_model.bounds"):
+                self._check_projection_bounds(model)
+            with span("bioem.swap_model.layout"):
+                fields = self._model_arrays(model)
+            return self._place_banks(fields)
 
     def swap_images(self, maps: np.ndarray) -> Banks:
         """Banks with this engine's precompute but a new image chunk
         (padded to the engine's image capacity)."""
-        return self._place_banks(self._image_arrays(maps))
+        with span("bioem.swap_images"):
+            with span("bioem.swap_images.layout"):
+                fields = self._image_arrays(maps)
+            return self._place_banks(fields)
 
     def _check_banks(self, banks: Banks) -> None:
         """Banks a pass may run on: the engine's own, or a swap of its image
@@ -683,10 +697,13 @@ class BioEMEngine:
         (None: the same; a mesh slot's slabs hold only its shard's
         columns). The step holds no host synchronisation and allocates
         nothing whose size depends on the block, so it can be captured. Its
-        phases are ``torch.profiler`` ranges (``bioem.projection``,
-        ``.constants``, ``.compare``, ``.merge``), which
-        tools/trace_step.py groups the glue by; they cost nothing in a
-        graph replay. On the kernel branch the constants are G1 and the
+        phases are spans (``bioem.projection``, ``.constants``,
+        ``.compare``, ``.merge``; utils/timestat.py): they time the host's
+        work of every block of the eager loop, and tools/trace_step.py
+        groups an eager window's glue by their profiler ranges. On the
+        card they fire only at the warm-up step and the capture: a replay
+        runs no host code, and the replayed phases are the kernels by
+        name. On the kernel branch the constants are G1 and the
         merge (with the f64 repair of the fused comparison's max) is G2
         (ops/posterior_cuda.py)."""
         p = self.p
@@ -696,13 +713,13 @@ class BioEMEngine:
         d = self.disp.shape[0]
         n_img_local = banks.img_re.shape[0]
 
-        with record_function("bioem.projection"):
+        with span("bioem.projection"):
             pr, pi = self._project_block(banks, angles)
 
         if self.use_kernels:
             from ..ops import posterior_cuda
 
-            with record_function("bioem.constants"):
+            with span("bioem.constants"):
                 sum_c, ssq_c, f0, k, a_u, b_u = self._kernel_constants(banks, pr, pi, mask)
             wx_re, wx_im = self.wx_cols
             # The fused kernels evaluate u in f32; DC-dominated image banks
@@ -711,7 +728,7 @@ class BioEMEngine:
             if self.fused_lse and self._f32_corr_ok:
                 from ..ops import compare_cuda
 
-                with record_function("bioem.compare"):
+                with span("bioem.compare"):
                     args = (pr, pi, banks.ctf_re, banks.ctf_im, banks.img_re, banks.img_im,
                             wx_re, wx_im, banks.wy_re, banks.wy_im, a_u, b_u)
                     if self.fused_batched:
@@ -731,7 +748,7 @@ class BioEMEngine:
             else:
                 from ..ops.compare_cuda import fused_displacement_cc
 
-                with record_function("bioem.compare"):
+                with span("bioem.compare"):
                     conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
                     conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
                     cc = fused_displacement_cc(
@@ -748,14 +765,14 @@ class BioEMEngine:
                 # path; a DC-dominated bank's f64-u max is final.
                 if self._f32_corr_ok:
                     m = None
-            with record_function("bioem.merge"):
+            with span("bioem.merge"):
                 return posterior_cuda.merge_block(
                     state, m, se, ds, ccs, k, f0, sum_c, ssq_c, banks.sum_ref, banks.disp,
                     orient_offset, ntot=ntot, ang_offset=ang_offset,
                 )
 
         prior_oc = self._prior[None, :].expand(o, c)
-        with record_function("bioem.compare"):
+        with span("bioem.compare"):
             # conv = proj · conj(ctf) (reference bioem.cpp:1879-1883), split form
             conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
             conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
@@ -778,7 +795,7 @@ class BioEMEngine:
                 ), k_b))
             m, se, ds, ccs, k = (torch.cat(x, dim=2) for x in zip(*outs))
 
-        with record_function("bioem.merge"):
+        with span("bioem.merge"):
             k = torch.where(mask[:, None, None] != 0, k, torch.full_like(k, -torch.inf))
             return merge_block(
                 state, m, se, ds, ccs, k, sum_c, ssq_c, banks.sum_ref,
@@ -809,6 +826,7 @@ class BioEMEngine:
         card."""
         return self.device.type == "cuda" and self.use_kernels
 
+    @traced("bioem.capture")
     def _capture(self) -> None:
         """Capture the block step once per engine: warm-up on a side
         stream, then capture on it (PyTorch's rule), on a static state, a
@@ -816,9 +834,8 @@ class BioEMEngine:
         graph's own copy of the banks (``_graph_banks``), into which each
         pass copies the banks it runs on. The kernel wrappers counted the
         captured launches, which did not run: they are taken off and added
-        back per replay."""
-        if self._graph is not None:
-            return
+        back per replay. :meth:`_graph_load` calls it while the engine has
+        no graph."""
         dev = self.device
         state = self.initial_state()
         blk = torch.zeros(1, dtype=torch.long, device=dev)
@@ -833,13 +850,15 @@ class BioEMEngine:
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with span("bioem.capture.warmup"), torch.cuda.stream(side):
             step()
         torch.cuda.current_stream(dev).wait_stream(side)
         wrappers = _kernel_wrappers()
         before = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        # torch.cuda.graph synchronises the card on entry (the warm-up's
+        # kernels) and instantiates the graph on exit
+        with span("bioem.capture.graph"), torch.cuda.graph(graph, stream=side):
             step()
         made = tuple((fn, fn.launches - b) for fn, b in zip(wrappers, before))
         for fn, k in made:
@@ -856,7 +875,8 @@ class BioEMEngine:
         the step derives from a swapped field it derives inside the graph
         (K2's counts are a field), so one capture serves every chunk and
         model."""
-        self._capture()
+        if self._graph is None:
+            self._capture()
         _graph, static, blk, _made = self._graph
         for dst, src in zip(static, state):
             if dst is not None:
@@ -924,6 +944,7 @@ class BioEMEngine:
             )
         return f"{self._fingerprint}|bank:{bank_tag}"
 
+    @traced("bioem.pass")
     def run(self, banks: Optional[Banks] = None, bank_tag: str = "",
             checkpoint_path: Optional[str] = None) -> PosteriorState:
         """One full posterior pass over every orientation block.
@@ -937,15 +958,14 @@ class BioEMEngine:
         at the end. A checkpoint matches when its fingerprint does and its
         state has this engine's shapes: the fingerprint leaves out the
         image padding, which follows the kernel and its tile. At
-        ``debug_output >= 1`` the BLOCK/CHECKPOINT phase table is printed;
-        at 2 every block is synchronised and timed. On the card's kernel
+        ``debug_output >= 2`` every block is synchronised and its time
+        printed. The pass is span ``bioem.pass`` (``bioem.graph_load``,
+        ``bioem.checkpoint``). On the card's kernel
         branch each block is a replay of the captured step, on the graph's
         copy of the banks, into which ``banks`` is copied first (a resumed
         run starts the graph's block index at its first block), and the
         state returned is a copy that no later pass of this engine
         overwrites."""
-        from ..utils.timestat import TimeStat
-
         banks = self.banks if banks is None else banks
         self._check_banks(banks)
         ckpt = self.cfg.checkpoint_path if checkpoint_path is None else checkpoint_path
@@ -965,34 +985,35 @@ class BioEMEngine:
                     print(f"Resuming from checkpoint at block {start}/{nblk}")
         replayed = self._replayed()
         if replayed:
-            state = self._graph_load(state, start, banks)
-        ts = TimeStat()
+            with span("bioem.graph_load"):
+                state = self._graph_load(state, start, banks)
         for b in range(start, nblk):
             save = bool(ckpt) and ((b + 1) % every == 0 or b == nblk - 1)
-            with ts.time("BLOCK"):
-                if replayed:
-                    self._replay()
-                else:
-                    off, ang_off = self._offsets(b)
-                    state = self._block_step(
-                        state, banks, self.ang_blocks[b], off, self.mask_blocks[b],
-                        ang_offset=ang_off,
-                    )
-                if debug >= 2 or save:
-                    self._sync()
+            t0 = time.perf_counter() if debug >= 2 else 0.0
+            if replayed:
+                self._replay()
+            else:
+                off, ang_off = self._offsets(b)
+                state = self._block_step(
+                    state, banks, self.ang_blocks[b], off, self.mask_blocks[b],
+                    ang_offset=ang_off,
+                )
+            if debug >= 2 or save:
+                self._sync()
             if debug >= 2:
-                print(f"\tTime orientation block {b}/{nblk}: {ts.phases['BLOCK'][-1]:.4f}")
+                print(f"\tTime orientation block {b}/{nblk}: {time.perf_counter() - t0:.4f}")
             if save:
-                with ts.time("CHECKPOINT"):
+                with span("bioem.checkpoint"):
                     save_checkpoint(ckpt, state, b + 1, fingerprint)
-        if debug >= 1 and ts.phases:
-            print(ts.summary())
         if replayed:
             state = PosteriorState(*(x.clone() if x is not None else None for x in state))
         return state
 
     # ------------------------------------------------------------------
+    @traced("bioem.results")
     def results(self, state: PosteriorState, n_img: Optional[int] = None) -> Results:
+        """The pass's per-image summary on the host (its reads of the state
+        wait for the card)."""
         p = self.p
         volu = orientation_volume_quirked(p, self.orients.voluang, self.grid)
         k_norm = log_normalization_constant(p, volu)

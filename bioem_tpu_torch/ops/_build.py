@@ -28,6 +28,8 @@ import subprocess
 import tempfile
 import time
 
+from ..utils.timestat import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -117,6 +119,7 @@ def build(verbose: bool = False) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    count("bioem.library.builds")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         jobs = []
@@ -150,14 +153,18 @@ def build(verbose: bool = False) -> str:
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:
-    """The kernel library, built on first use (see :func:`build`)."""
+    """The kernel library, built on first use (see :func:`build`). The
+    first load in the process is span ``bioem.library``: the sources'
+    hash, nvcc when the hash is new (counter ``bioem.library.builds``),
+    dlopen and the signatures."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build(verbose=verbose))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, ctypes.c_int)
+        with span("bioem.library"):
+            lib = ctypes.CDLL(build(verbose=verbose))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
         _LIB = lib
     return _LIB
 

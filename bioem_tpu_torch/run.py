@@ -20,6 +20,7 @@ from .core.orientations import OrientationSet
 from .io.map_io import ImageStack
 from .io.model_io import Model
 from .params import BioEMParams, make_ctf_grid
+from .utils.timestat import RECORDER, profile_trace, traced
 
 # Below this many (image × orientation × ctf) comparisons a first run's
 # tuning costs more than the tuned pass saves. Measured on an H100 at the
@@ -31,13 +32,15 @@ from .params import BioEMParams, make_ctf_grid
 AUTOTUNE_MIN_COMPARISONS = 20_000_000
 
 
+@traced("bioem.autotune")
 def maybe_autotune(p, orients, model, images, cfg: RunConfig, device=None) -> RunConfig:
     """Resolve cfg.autotune (None = auto by problem size) and run the tuner
     (the reference autotunes by default on every GPU run,
     autotuner.cpp:16-50, bioem.cpp:731-737). A mesh run in one process
     tunes on its first slot; a multi-process mesh run keeps the defaults
     unless forced (each process would time and cache on its own, and a
-    different winner per process would break the merge's shapes)."""
+    different winner per process would break the merge's shapes). Span
+    ``bioem.autotune``: the decision, and the tuner when it runs."""
     from .parallel.distributed import process_count
 
     if cfg.mesh_images * cfg.mesh_orient != 1 and process_count() > 1:
@@ -111,16 +114,14 @@ def run_bioem(
     ``perf["config"]`` is the configuration that ran (after autotuning and
     the engine's own resolution of its defaults); ``perf["n_devices"]``
     the distinct devices of its mesh (1 alone); ``perf["autotune_s"]``
-    the seconds the autotuner took before the pass; ``perf["engine"]`` the
+    the seconds of the tuning decision and the tuner before the pass (the
+    ``bioem.autotune`` span); ``perf["engine"]`` the
     engine that ran (the DEBUG_PROB dump reuses its banks).
     """
-    from .utils.timestat import profile_trace
-
     cfg = cfg or RunConfig.from_env()
     device = resolve_device(device)
-    t0 = time.perf_counter()
     cfg = maybe_autotune(p, orients, model, images, cfg, device=device)
-    autotune_s = time.perf_counter() - t0
+    autotune_s = RECORDER.durations("bioem.autotune")[-1]
     eng = make_engine(p, orients, model, images, cfg, device=device)
     t0 = time.perf_counter()
     with profile_trace(cfg.profile_dir):
@@ -133,7 +134,7 @@ def run_bioem(
     comparisons = eng.n_orient * eng.n_ctf * eng.n_img
     perf = {
         "run_s": run_s,
-        "autotune_s": autotune_s,  # set-up before the pass; 0 when it stays off
+        "autotune_s": autotune_s,  # set-up before the pass
         "comparisons": comparisons,
         "comparisons_per_s": comparisons / run_s if run_s > 0 else float("inf"),
         "device": str(eng.device),

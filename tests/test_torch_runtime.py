@@ -25,7 +25,7 @@ from bioem_tpu_torch.runtime.checkpoint import (
     problem_fingerprint,
     save_checkpoint,
 )
-from bioem_tpu_torch.utils.timestat import TimeStat, profile_trace
+from bioem_tpu_torch.utils.timestat import RECORDER, TimeStat, profile_trace
 
 from .conftest import tiny_images, tiny_model, tiny_params
 
@@ -146,14 +146,21 @@ def test_jax_checkpoint_resumes_in_the_port(rng, tmp_path):
 
 
 def test_run_prints_phase_table(rng, tmp_path, capsys):
+    """A pass records its checkpoints as spans of the process's recorder,
+    whose table the CLI prints once at the end of its run
+    (tests/test_torch_trace.py); a pass prints no table of its own."""
     p, model, images, orients = _problem(rng, n_img=2)
     cfg = RunConfig(orient_block=2, debug_output=1,
                     checkpoint_path=str(tmp_path / "c.npz"), checkpoint_every=1)
     eng = BioEMEngine(p, orients, model, images, cfg, device="cpu")
+    saved = RECORDER.count("bioem.checkpoint")
     eng.run()
     out = capsys.readouterr().out
     nblk = eng.ang_blocks.shape[0]
-    assert "BLOCK" in out and f"CHECKPOINT   total" in out and f"(n={nblk})" in out
+    assert RECORDER.count("bioem.checkpoint") - saved == nblk
+    assert RECORDER.records("bioem.checkpoint")[-1].parent == "bioem.pass"
+    assert re.search(r"bioem\.checkpoint\s+total .* self .*\(n=\d+\)", RECORDER.summary())
+    assert "Time statistics" not in out
     eng.run()  # resumes the finished checkpoint: nothing left to do
     assert f"Resuming from checkpoint at block {nblk}/{nblk}" in capsys.readouterr().out
 
