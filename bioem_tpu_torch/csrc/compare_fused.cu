@@ -60,18 +60,26 @@
 //   m-tile's t1 chunk to shared memory; thread (warp w, lane l) sums the
 //   lattice columns e ≡ l (mod 32) of rows d = dc·chunk + w·dc/4 + r over
 //   the m-tile (re and im terms apart, as K1 always did) into the chunk's
-//   dc × D rows of the image's lattice in shared memory. wy is read only
-//   there, 64 frequencies × D at a time: the prologue writes it to scratch
-//   as (Fp, D) complex rows, and each m-tile's rows are copied to shared
-//   memory by cp.async with the m-tile's last K chunk, so the copy runs
-//   under the stage-1 products (one buffer; a block barrier orders it after
-//   every warpgroup's stage 2 of the previous m-tile).
+//   dc × D rows of the image's lattice in shared memory. Stage 2 is bound
+//   by its shared-memory reads, so with 32-row chunks (NP = 64, D = 25 and
+//   wider) a thread takes up to three columns e, e + 32, e + 64 at once:
+//   each t1 value it reads serves three columns, each wy value its dc/4
+//   rows (the same sums in the same order: the same bits). Narrower chunks
+//   (the production block's D = 21) keep one column a thread: three ran
+//   6 % slower there. wy is read only there, 64 frequencies × D at a time:
+//   the prologue writes it to scratch as (Fp, D) complex rows, and each
+//   m-tile's rows are copied to shared memory by cp.async with the
+//   m-tile's last K chunk, so the copy runs under the stage-1 products (one
+//   buffer; a block barrier orders it after every warpgroup's stage 2 of
+//   the previous m-tile).
 // * The lattice, one row chunk at a time. The lattice is walked in n_nc
 //   chunks of dc ≤ 32 rows (the outer loop, every m-tile inside it); after
 //   a chunk's last m-tile its rows are complete and only they are held.
-//   K1 reduces them (compare_lse.cuh) by the warpgroup's 128 threads and
-//   merges the chunk into a running (max, first-occurrence argmax, cc there,
-//   Σ exp) with the log-sum-exp's online rule, s ← s·e^(m − m') + s_c·e^(m_c − m'):
+//   K1 reduces them (compare_lse.cuh) by the warpgroup's 128 threads (the
+//   first pass leaves each v in place of its cc, carrying the cc at the
+//   argmax, so the second pass sums Σ exp(v − max) without recomputing v)
+//   and merges the chunk into a running (max, first-occurrence argmax, cc
+//   there, Σ exp) with the log-sum-exp's online rule, s ← s·e^(m − m') + s_c·e^(m_c − m'):
 //   the chunks come in flat-index order, so `better` keeps the first
 //   occurrence; a chunk whose values are all −inf adds nothing, a lattice
 //   all −inf ends as the plain version's (argmax 0, Σ exp NaN), and NaN
@@ -90,8 +98,8 @@
 //   lattice chunk by chunk from shared memory to out_cc[(oc·I + i)·D² + q],
 //   coalesced. It takes every shape K1 takes, with K1's tiling.
 // The body variant V is kFull (K1) or kCcOut (K3) in production; the
-// ablation probe P3 instantiates the others at NP = 48 with four
-// warpgroups only.
+// ablation probe P3 instantiates the others at NP = 48 (the production
+// block) and NP = 64 (the reference grid's D = 81) with four warpgroups.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -498,29 +506,83 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         wg::wg_barrier(bar);
         const int fcn = F - fb < kMT ? F - fb : kMT;
         const int dl0 = warp * DR;  // this thread's first chunk row
-        for (int e = lane; e < D; e += 32) {
-          float sr[DR], si[DR];
+        if constexpr (NP == 64) {
+          // Lattice columns e = e0 + lane + 32·ce, up to three at a time: each
+          // t1 value a thread reads serves that many columns, each wy value DR
+          // rows.
+          for (int e0 = 0; e0 < D; e0 += 96) {
+            const int nce = D - e0 > 64 ? 3 : D - e0 > 32 ? 2 : 1;  // warp-uniform
+            float sr[DR][3], si[DR][3];
 #pragma unroll
-          for (int r = 0; r < DR; ++r) sr[r] = si[r] = 0.f;
-          for (int fl = 0; fl < fcn; ++fl) {
-            const float2 w = wys[fl * D + e];
-            const float* row = t1w + fl * ldt + dl0;
+            for (int r = 0; r < DR; ++r)
 #pragma unroll
-            for (int r = 0; r < DR; r += 2) {
-              const float2 a = *reinterpret_cast<const float2*>(row + r);
-              const float2 b = *reinterpret_cast<const float2*>(row + dc + r);
-              sr[r] += a.x * w.x;
-              sr[r + 1] += a.y * w.x;
-              si[r] += b.x * w.y;
-              si[r + 1] += b.y * w.y;
+              for (int ce = 0; ce < 3; ++ce) sr[r][ce] = si[r][ce] = 0.f;
+            int ec[3];
+#pragma unroll
+            for (int ce = 0; ce < 3; ++ce) ec[ce] = min(e0 + lane + 32 * ce, D - 1);
+            for (int fl = 0; fl < fcn; ++fl) {
+              const float* row = t1w + fl * ldt + dl0;
+              float2 a[DR / 2], b[DR / 2];
+#pragma unroll
+              for (int r = 0; r < DR; r += 2) {
+                a[r / 2] = *reinterpret_cast<const float2*>(row + r);
+                b[r / 2] = *reinterpret_cast<const float2*>(row + dc + r);
+              }
+#pragma unroll
+              for (int ce = 0; ce < 3; ++ce) {
+                if (ce < nce) {
+                  const float2 w = wys[fl * D + ec[ce]];
+#pragma unroll
+                  for (int r = 0; r < DR; r += 2) {
+                    sr[r][ce] += a[r / 2].x * w.x;
+                    sr[r + 1][ce] += a[r / 2].y * w.x;
+                    si[r][ce] += b[r / 2].x * w.y;
+                    si[r + 1][ce] += b[r / 2].y * w.y;
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int ce = 0; ce < 3; ++ce) {
+              const int e = e0 + lane + 32 * ce;
+              if (ce >= nce || e >= D) continue;
+#pragma unroll
+              for (int r = 0; r < DR; ++r) {
+                if (nc * dc + dl0 + r < D) {
+                  float* c = ccw + (dl0 + r) * D + e;
+                  const float v = sr[r][ce] - si[r][ce];
+                  *c = mt == 0 ? v : *c + v;
+                }
+              }
             }
           }
+        } else {
+          // One lattice column at a time (row chunks of at most 24 rows,
+          // the production block's among them, where three were slower).
+          for (int e = lane; e < D; e += 32) {
+            float sr[DR], si[DR];
 #pragma unroll
-          for (int r = 0; r < DR; ++r) {
-            if (nc * dc + dl0 + r < D) {
-              float* c = ccw + (dl0 + r) * D + e;
-              const float v = sr[r] - si[r];
-              *c = mt == 0 ? v : *c + v;
+            for (int r = 0; r < DR; ++r) sr[r] = si[r] = 0.f;
+            for (int fl = 0; fl < fcn; ++fl) {
+              const float2 w = wys[fl * D + e];
+              const float* row = t1w + fl * ldt + dl0;
+#pragma unroll
+              for (int r = 0; r < DR; r += 2) {
+                const float2 a = *reinterpret_cast<const float2*>(row + r);
+                const float2 b = *reinterpret_cast<const float2*>(row + dc + r);
+                sr[r] += a.x * w.x;
+                sr[r + 1] += a.y * w.x;
+                si[r] += b.x * w.y;
+                si[r + 1] += b.y * w.y;
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < DR; ++r) {
+              if (nc * dc + dl0 + r < D) {
+                float* c = ccw + (dl0 + r) * D + e;
+                const float v = sr[r] - si[r];
+                *c = mt == 0 ? v : *c + v;
+              }
             }
           }
         }
@@ -544,21 +606,37 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
       } else if constexpr (V == kNoLse) {
         for (int q = wt; q < nq; q += 128) chk += ccw[q];
       } else {
-        // The chunk's log-sum-exp, merged into the running one.
+        // The chunk's log-sum-exp, merged into the running one. The first
+        // pass leaves each value v in place of its cc and carries the cc at
+        // the argmax along, so that v is computed once.
         const float au = a_u[oi], bu = b_u[oi];
-        float best = -INFINITY;
+        float best = -INFINITY, bcc = 0.f;
         int bidx = DD;
         for (int q = wt; q < nq; q += 128) {
-          const float v = bioem_lse::lattice_value(ccw[q], au, bu, a_coef);
+          const float c = ccw[q];
+          const float v = bioem_lse::lattice_value(c, au, bu, a_coef);
+          ccw[q] = v;
           if (bioem_lse::better(v, q0 + q, best, bidx)) {
             best = v;
             bidx = q0 + q;
+            bcc = c;
           }
         }
-        bioem_lse::warp_argmax(best, bidx);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_down_sync(0xffffffffu, best, off);
+          const int oq = __shfl_down_sync(0xffffffffu, bidx, off);
+          const float oc = __shfl_down_sync(0xffffffffu, bcc, off);
+          if (bioem_lse::better(ov, oq, best, bidx)) {
+            best = ov;
+            bidx = oq;
+            bcc = oc;
+          }
+        }
         if (lane == 0) {
           red_v[wgi][warp] = best;
           red_i[wgi][warp] = bidx;
+          red_s[wgi][warp] = bcc;
         }
         wg::wg_barrier(bar);
         if (wt == 0) {
@@ -566,14 +644,14 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
             if (bioem_lse::better(red_v[wgi][w], red_i[wgi][w], best, bidx)) {
               best = red_v[wgi][w];
               bidx = red_i[wgi][w];
+              bcc = red_s[wgi][w];
             }
           red_v[wgi][0] = best;
         }
         wg::wg_barrier(bar);
         const float mx = red_v[wgi][0];
         float s = 0.f;
-        for (int q = wt; q < nq; q += 128)
-          s += expf(bioem_lse::lattice_value(ccw[q], au, bu, a_coef) - mx);
+        for (int q = wt; q < nq; q += 128) s += expf(ccw[q] - mx);
         s = wg_sum(s, red_s[wgi], bar);
         if (wt == 0) {
           // s ← s·e^(m − mx) + s_c where the chunk ranks above the run,
@@ -584,7 +662,7 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
             if (mx != -INFINITY) run_s[wgi] = run_s[wgi] * expf(rm - mx) + s;
             run_v[wgi] = mx;
             run_i[wgi] = bidx;
-            run_c[wgi] = ccw[bidx - q0];
+            run_c[wgi] = bcc;
           } else if (mx != -INFINITY) {
             run_s[wgi] += s * expf(mx - rm);
           }
@@ -721,9 +799,10 @@ int bioem_fused_displacement_cc(const float* conv_re, const float* conv_im,
 }
 
 // The kernel probe P3: body variant ``variant`` (bioem_lse::Body) of the
-// production instance (NP = 48: D = 17..24, four warpgroups). kFull is the
-// production instance itself; the other variants write a checksum into m
-// and nothing else.
+// production instance (NP = 48: D = 17..24) and of the reference grid's
+// (NP = 64: D = 81 and wider), four warpgroups. kFull is the production
+// instance itself; the other variants write a checksum into m and nothing
+// else.
 int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
                         const float* ctf_re, const float* ctf_im, const float* img_re,
                         const float* img_im, const float* wx_re, const float* wx_im,
@@ -733,12 +812,16 @@ int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
                         int* ds, float* ccs, void* scratch, void* stream) {
   if (!valid(D, M, F, n_fold, n_wg, KC) || M * n_fold != N) return (int)cudaErrorInvalidValue;
   const Plan P = plan(D, M, F, n_fold, n_wg, KC);
-  if (P.NP != 48 || n_wg != 4) return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case kFull: return launch<48, 4, kFull>(BIOEM_K1_ARGS);
-    case kNoLse: return launch<48, 4, kNoLse>(BIOEM_K1_ARGS);
-    case kMmOnly: return launch<48, 4, kMmOnly>(BIOEM_K1_ARGS);
-    case kNoGemm: return launch<48, 4, kNoGemm>(BIOEM_K1_ARGS);
+  if ((P.NP != 48 && P.NP != 64) || n_wg != 4) return (int)cudaErrorInvalidValue;
+  switch (variant * 100 + P.NP) {
+    case kFull * 100 + 48: return launch<48, 4, kFull>(BIOEM_K1_ARGS);
+    case kNoLse * 100 + 48: return launch<48, 4, kNoLse>(BIOEM_K1_ARGS);
+    case kMmOnly * 100 + 48: return launch<48, 4, kMmOnly>(BIOEM_K1_ARGS);
+    case kNoGemm * 100 + 48: return launch<48, 4, kNoGemm>(BIOEM_K1_ARGS);
+    case kFull * 100 + 64: return launch<64, 4, kFull>(BIOEM_K1_ARGS);
+    case kNoLse * 100 + 64: return launch<64, 4, kNoLse>(BIOEM_K1_ARGS);
+    case kMmOnly * 100 + 64: return launch<64, 4, kMmOnly>(BIOEM_K1_ARGS);
+    case kNoGemm * 100 + 64: return launch<64, 4, kNoGemm>(BIOEM_K1_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }

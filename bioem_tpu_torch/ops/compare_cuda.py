@@ -8,7 +8,9 @@ Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 stage 1 on warpgroup wgmma in 3xTF32 with W streamed through shared
 memory, the lattice walked in chunks of ≤ 32 rows with an online
 log-sum-exp and wy staged 64 frequencies at a time, so that its shared
-memory does not grow with F and grows with D only through those tiles:
+memory does not grow with F and grows with D only through those tiles
+(stage 2 takes three lattice columns per thread at 32-row chunks, each
+value it reads from shared memory serving several products):
 :func:`k1_plan` tiles every odd D up to 129 (±64 at stride 1) at every N
 up to 512, folds 1 and 2, and wider ones (four warpgroups up to D = 145
 at fold 1, 141 at fold 2; two up to 239, 235); where no tiling fits the
@@ -136,6 +138,19 @@ def k1_plan(d: int, m: int, f: int, n_fold: int, smem_bytes=k1_smem_bytes):
     return None
 
 
+# Lattice row chunks that read each p K1 forms (one k8 step's stage-1
+# operand of one image at one m-tile): K1 forms p again for each of a
+# lattice's ⌈Dp/32⌉ row chunks, so each formed p serves one.
+K1_CHUNKS_PER_P = 1
+
+
+def k1_last_plan(d: int, m: int, f: int, n_fold: int) -> tuple:
+    """What ``fused_compare_block.last_plan`` reports after a K1 (or K3)
+    launch at (D, M, F, n_fold): (warpgroups, K-chunk steps, lattice row
+    chunks that read each formed p)."""
+    return (*k1_plan(d, m, f, n_fold)[:2], K1_CHUNKS_PER_P)
+
+
 def _check(fn: str, device, specs) -> None:
     for name, t, shape in specs:
         if t.device != device or t.dtype != F32 or tuple(t.shape) != tuple(shape):
@@ -257,12 +272,13 @@ def launch_k1(fn: str, args, a_coef: float, n_fold: int, variant: int | None = N
             status = lib.bioem_probe_compare(variant, *head, stream)
     _build.check(status, fn)
     if variant is None:
-        fused_compare_block.last_plan = (n_wg, kc)
+        fused_compare_block.last_plan = (n_wg, kc, K1_CHUNKS_PER_P)
     return outs
 
 
 fused_compare_block.launches = 0
-# (warpgroups, K-chunk steps) of K1's latest launch
+# (warpgroups, K-chunk steps, row chunks that read each formed p) of K1's
+# latest launch (k1_last_plan)
 fused_compare_block.last_plan = None
 
 
@@ -308,12 +324,13 @@ def fused_displacement_cc(
         )
     _build.check(status, fn)
     fused_displacement_cc.launches += 1
-    fused_displacement_cc.last_plan = (n_wg, kc)
+    fused_displacement_cc.last_plan = (n_wg, kc, K1_CHUNKS_PER_P)
     return cc
 
 
 fused_displacement_cc.launches = 0
-# (warpgroups, K-chunk steps) of K3's latest launch
+# (warpgroups, K-chunk steps, row chunks that read each formed p) of K3's
+# latest launch (k1_last_plan)
 fused_displacement_cc.last_plan = None
 
 

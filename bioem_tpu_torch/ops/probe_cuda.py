@@ -174,9 +174,11 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
     inputs of ``compare_cuda.fused_compare_block``. Returns (m, se, ds,
     ccs) as the production kernel does for ``full``; for the ablated
     variants ``m`` holds a checksum and the rest is zero (``no_gemm``
-    writes every output, its cc being 0). The variants exist at the
-    production tiling only, 2·Dp = 48 (D = 17..24), wgmma's n48: for K1
-    with four warpgroups (``compare_cuda.k1_plan``), for K4 at any tile."""
+    writes every output, its cc being 0). The variants exist for K1 at
+    four warpgroups (``compare_cuda.k1_plan``) with row chunks of 2·dc =
+    48 (D = 17..24, the production block) and 64 (D = 25..32 and every
+    lattice of 32-row chunks, the reference grid's D = 81 among them), for
+    K4 at the production tiling, 2·Dp = 48, at any tile."""
     if body not in ("k1", "k4") or variant not in VARIANTS:
         raise ValueError(f"body_ablation: no variant {variant!r} of {body!r}")
     dev = args[0].device

@@ -1,7 +1,7 @@
 """A/B of the kernels K1–K4 and the probe P1 against another checkout's, on one card.
 
     python -m bioem_tpu_torch.tools.kernel_ab OTHER_ROOT [--reps 20] [--kernels K1,K2,K3,K4,P1]
-        [--block production|reference]
+        [--block production|reference|wide]
 
 Builds the kernel library of ``OTHER_ROOT/bioem_tpu_torch`` with that
 checkout's own ``ops/_build.py`` and times its K1 (``bioem_fused_compare``),
@@ -11,7 +11,8 @@ in one process on the production block's inputs
 (``kernel_probe.production_block_inputs`` and
 ``production_projection_inputs``; ``--block reference``: K1 and K3 on a
 block of the reference's production grid, O=8, C=32, I=64, N=224, D=81 at
-stride 1, :data:`BLOCKS`), in turns other, this, this, other.
+stride 1; ``--block wide``: O=8, C=8, I=64, N=224, D=121;
+``kernel_probe.BLOCKS``), in turns other, this, this, other.
 Prints each time (the card's own time, ``kernel_probe.device_ms``: the
 launches queued behind a spin of the card, so that the host's time to
 launch them does not enter, which matters for K2's tens of microseconds;
@@ -33,14 +34,16 @@ the two libraries' outputs; it runs only when named in ``--kernels``.
 from __future__ import annotations
 
 import argparse
-import importlib.util
+import importlib
 import os
 import sys
+import types
 
 import torch
 
 from ..ops import _build, compare_cuda, probe_cuda
 from .kernel_probe import (
+    BLOCKS,
     K4_STAGE1,
     _require_card,
     block_inputs,
@@ -52,19 +55,17 @@ from .kernel_probe import (
 def other_library(root: str):
     """The ``ops/_build.py`` module of the checkout at ``root``: its
     ``load()`` builds that checkout's kernel library (into its own
-    ``bioem_tpu_torch/_build``), its ``SIGNATURES`` name the entries."""
-    path = os.path.join(os.path.abspath(root), "bioem_tpu_torch", "ops", "_build.py")
-    if not os.path.exists(path):
+    ``bioem_tpu_torch/_build``), its ``SIGNATURES`` name the entries. It is
+    imported inside that checkout's package, under another name, so that
+    its relative imports resolve there."""
+    pkg_dir = os.path.join(os.path.abspath(root), "bioem_tpu_torch")
+    if not os.path.exists(os.path.join(pkg_dir, "ops", "_build.py")):
         raise FileNotFoundError(f"no bioem_tpu_torch/ops/_build.py under {root}")
-    spec = importlib.util.spec_from_file_location("other_kernel_build", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-# The blocks K1 and K3 run on: (O, C, I, N, D, stride). "reference" is a
-# block of the reference's production grid (4608 × 32 CTFs × D = 81).
-BLOCKS = {"production": (8, 8, 64, 224, 21, 2), "reference": (8, 32, 64, 224, 81, 1)}
+    name = "_other_bioem_tpu_torch"
+    pkg = types.ModuleType(name)
+    pkg.__path__ = [pkg_dir]
+    sys.modules[name] = pkg
+    return importlib.import_module(f"{name}.ops._build")
 
 
 def lib_plan(lib, d: int, m: int, f: int, n_fold: int) -> tuple:

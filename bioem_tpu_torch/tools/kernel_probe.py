@@ -39,10 +39,11 @@ the card tests.
 Usage, on a machine with a CUDA card (there is no CPU mode: a probe's
 answer is a measurement of the card):
 
-    python -m bioem_tpu_torch.tools.kernel_probe [--glue]
+    python -m bioem_tpu_torch.tools.kernel_probe [--glue] [--p3 production|reference]
 
 (``--glue``: only the glue's attribution, at the production block's
-shapes on random inputs.)
+shapes on random inputs; ``--p3 BLOCK``: only P3, on that block of
+:data:`BLOCKS`.)
 
 Every time is a mean over timed launches after a warm-up, from CUDA events;
 P1's and P2's are the card's own time, their calls queued behind a spin of
@@ -269,6 +270,14 @@ def block_inputs(dev, o: int, c: int, i: int, n: int, n_disp: int, stride: int,
             g(wx.real[:, :m]), g(wx.imag[:, :m]), g(wy.real), g(wy.imag),
             g(np.abs(rng.normal(0, 1e-6, (o * c, i)))), g(np.abs(rng.normal(0, 1e-9, (o * c, i)))))
     return args, (3.0 - n * n) * 0.5, stride
+
+
+# The comparison blocks the kernels are timed on: (O, C, I, N, D, stride).
+# "reference" is a block of the reference's production grid (4608 × 32
+# CTFs × D = 81 at stride 1), "wide" chip_smoke's block of the wide grid
+# (D = 121 at stride 1).
+BLOCKS = {"production": (8, 8, 64, 224, 21, 2), "reference": (8, 32, 64, 224, 81, 1),
+          "wide": (8, 8, 64, 224, 121, 1)}
 
 
 def production_block_inputs(dev, seed: int = 2):
@@ -807,25 +816,28 @@ def probe_projection_points(say=print) -> dict:
     return out
 
 
-def probe_body_ablation(say=print, img_tile: int = 8) -> dict:
-    """P3. Returns {"ms": {(body, variant): ms}, "bit_equal": {body: bool},
-    "comparisons": n, "dims": the block's (O, C, I, N, F, D, M, n_fold),
-    "max_abs_err": max |Δm| of K4's full body from the plain version,
-    "plain_ms": the plain version's time}."""
+def probe_body_ablation(say=print, img_tile: int = 8, block: str = "production") -> dict:
+    """P3 on a block of :data:`BLOCKS` (K1 alone at the reference block,
+    where K4 has no instance). Returns {"ms": {(body, variant): ms},
+    "bit_equal": {body: bool}, "comparisons": n, "dims": the block's (O, C,
+    I, N, F, D, M, n_fold), "max_abs_err": max |Δm| of the last body's full
+    variant from the plain version, "plain_ms": the plain version's time}."""
     dev = _require_card()
-    args, a_coef, n_fold = production_block_inputs(dev)
+    args, a_coef, n_fold = block_inputs(dev, *BLOCKS[block])
     (o, n, f), c, i, (d, m) = args[0].shape, args[2].shape[0], args[4].shape[0], args[6].shape
     n_cmp = o * c * i
-    prod = {"k1": compare_cuda.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold),
-            "k4": compare_cuda.fused_compare_block_batched(*args, a_coef=a_coef, n_fold=n_fold,
-                                                            img_tile=img_tile)}
+    bodies = ("k1", "k4") if d <= 32 else ("k1",)
+    prod = {"k1": compare_cuda.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)}
+    if "k4" in bodies:
+        prod["k4"] = compare_cuda.fused_compare_block_batched(*args, a_coef=a_coef,
+                                                              n_fold=n_fold, img_tile=img_tile)
     plain = compare_cuda.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     out = {"ms": {}, "bit_equal": {}, "comparisons": n_cmp,
            "dims": (o, c, i, n, f, d, m, n_fold),
-           "max_abs_err": float((prod["k4"][0] - plain[0]).abs().max()),
+           "max_abs_err": float((prod[bodies[-1]][0] - plain[0]).abs().max()),
            "plain_ms": time_ms(lambda: compare_cuda.fused_compare_block_plain(
                *args, a_coef=a_coef, n_fold=n_fold), 3)}
-    for body in ("k1", "k4"):
+    for body in bodies:
         for variant in probe_cuda.VARIANTS:
             def run(body=body, variant=variant):
                 return probe_cuda.body_ablation(*args, a_coef=a_coef, n_fold=n_fold, body=body,
@@ -841,7 +853,7 @@ def probe_body_ablation(say=print, img_tile: int = 8) -> dict:
             note = (f"; bit-equal to the production kernel: {out['bit_equal'][body]}"
                     if variant == "full" else "")
             say(f"P3 {body}{' tile ' + str(img_tile) if body == 'k4' else ''} {variant}: "
-                f"{t:.4f} ms per production block ({t * 1e6 / n_cmp:.1f} ns per comparison){note}")
+                f"{t:.4f} ms per {block} block ({t * 1e6 / n_cmp:.1f} ns per comparison){note}")
     return out
 
 
@@ -850,6 +862,9 @@ def main(argv=None) -> int:
     dev = _require_card()
     print(f"card: {torch.cuda.get_device_name(dev)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
+    if "--p3" in argv:
+        probe_body_ablation(block=argv[argv.index("--p3") + 1])
+        return 0
     for shape in ((8, 8, 64), (16, 8, 64), (8, 32, 64)):
         x = glue_inputs(dev, *shape)
         for label, ms in glue_attribution(x["g1"], x["kw"], glue_merge_args(x, "fused")).items():

@@ -158,8 +158,8 @@ def test_k1_widths_folds_and_image_counts(rng, dev, n_disp, n_fold, n, n_img):
     km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
     torch.cuda.synchronize()
     assert C.fused_compare_block.launches == before + 1
-    assert C.fused_compare_block.last_plan == C.k1_plan(n_disp, n // n_fold, n // 2 + 1,
-                                                        n_fold)[:2]
+    assert C.fused_compare_block.last_plan[:2] == C.k1_plan(n_disp, n // n_fold, n // 2 + 1,
+                                                            n_fold)[:2]
     pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
     # se carries v's absolute f32 error, |a_coef|·δcc: at N = 224 (a_coef
@@ -170,10 +170,10 @@ def test_k1_widths_folds_and_image_counts(rng, dev, n_disp, n_fold, n, n_img):
     torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("n,n_fold,n_disp", [(64, 2, 21), (224, 1, 81)])
+@pytest.mark.parametrize("n,n_fold,n_disp", [(64, 2, 21), (224, 1, 81), (224, 1, 121)])
 def test_k1_is_deterministic(rng, dev, n, n_fold, n_disp):
     """Two K1 launches on the same inputs give the same bits (no atomics),
-    with one row chunk and with three (D = 81)."""
+    with one row chunk, with three (D = 81) and with four (D = 121)."""
     args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=3, c=4, i=30)
     a_coef = (3.0 - n * n) / 2
     runs = [C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold) for _ in range(2)]
@@ -245,6 +245,72 @@ def test_k1_plan_matches_the_library(dev):
             for kc in (1, 2, 4, 8):
                 assert (lib.bioem_fused_compare_smem_bytes(d, m, f, n_fold, n_wg, kc)
                         == C.k1_smem_bytes(d, m, f, n_fold, n_wg, kc)), (d, m, n_wg, kc)
+
+
+def _reference_block(dev):
+    """A block of the reference's production grid (O=8, C=32, I=64, N=224,
+    D=81 at stride 1): kernel_probe's random inputs at its scales."""
+    from bioem_tpu_torch.tools.kernel_probe import BLOCKS, block_inputs
+
+    return block_inputs(dev, *BLOCKS["reference"])
+
+
+def test_k1_and_k3_at_the_reference_block(dev):
+    """K1 and K3 at the reference grid's block against their plain versions
+    (K1: m, se and cc at the argmax as test_k1_widths_folds_and_image_counts
+    holds them; K3 within 5e-5 of max|cc|), each launched on four
+    warpgroups with K chunks of four steps."""
+    args, a_coef, n_fold = _reference_block(dev)
+    km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
+    assert C.fused_compare_block.last_plan == (4, 4, 1)
+    pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ks, ps, rtol=1.5e-4, atol=0)
+    ok = kd == pd
+    assert float(ok.float().mean()) >= 0.9
+    torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
+    del pm, ps, pd, pc
+    (o, n, f), c = args[0].shape, args[2].shape[0]
+    conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
+    conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
+    k = C.fused_displacement_cc(conv_re, conv_im, *args[4:10], n_fold=n_fold)
+    assert C.fused_displacement_cc.last_plan == (4, 4, 1)
+    p = C.displacement_cc_plain(conv_re, conv_im, *args[4:10], n_fold=n_fold)
+    torch.cuda.synchronize()
+    assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("n,n_fold,n_disp", [(224, 2, 21), (224, 1, 81), (224, 1, 121)])
+def test_k1_last_plan_at_d21_d81_d121(rng, dev, n, n_fold, n_disp):
+    """fused_compare_block.last_plan after a launch is compare_cuda's
+    k1_last_plan: (warpgroups, K-chunk steps, row chunks that read each
+    formed p), at the production block's D = 21, the reference grid's D =
+    81 and the wide grid's D = 121."""
+    args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=1, c=2, i=5)
+    C.fused_compare_block(*args, a_coef=(3.0 - n * n) / 2, n_fold=n_fold)
+    torch.cuda.synchronize()
+    assert C.fused_compare_block.last_plan == C.k1_last_plan(n_disp, n // n_fold, n // 2 + 1,
+                                                             n_fold)
+
+
+def test_probe_body_ablation_at_the_reference_block(dev):
+    """P3's bodies of the reference grid's instance (compare_fused_kernel<64,
+    4, *>): the full body is K1 bit for bit; the ablated ones launch and
+    write finite, not all-zero outputs (no_gemm: m 0, se the lattice
+    size)."""
+    args, a_coef, n_fold = _reference_block(dev)
+    kw = dict(a_coef=a_coef, n_fold=n_fold, body="k1")
+    prod = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
+    full = PR.body_ablation(*args, **kw, variant="full")
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(full, prod))
+    for variant in ("no_lse", "mm_only", "no_gemm"):
+        outs = PR.body_ablation(*args, **kw, variant=variant)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t.float()).all()) for t in outs), variant
+        assert any(bool((t != 0).any()) for t in outs), variant
+    assert bool((outs[0] == 0).all()) and bool((outs[1] == 81 * 81).all())
 
 
 @pytest.mark.parametrize("n", [15, 64, 224])
@@ -673,8 +739,8 @@ def test_k3_widths_and_folds_vs_plain(rng, dev, n_disp, n_fold, n):
     k = C.fused_displacement_cc(*conv, *args[4:10], n_fold=n_fold)
     torch.cuda.synchronize()
     assert C.fused_displacement_cc.launches == before + 1
-    assert C.fused_displacement_cc.last_plan == C.k1_plan(n_disp, n // n_fold, n // 2 + 1,
-                                                          n_fold)[:2]
+    assert C.fused_displacement_cc.last_plan[:2] == C.k1_plan(n_disp, n // n_fold, n // 2 + 1,
+                                                              n_fold)[:2]
     p = C.displacement_cc_plain(*conv, *args[4:10], n_fold=n_fold)
     assert k.shape == (3, 7, n_disp, n_disp)
     assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())

@@ -354,6 +354,22 @@ def test_k1_plan_at_production():
     assert smem == 2 * 24576 + 2 * 34816 + 53248 + 10752 + 8064
 
 
+@pytest.mark.parametrize("n_fold", [1, 2])
+@pytest.mark.parametrize("d", [21, 81, 121])
+def test_k1_last_plan_and_bytes(d, n_fold):
+    """What fused_compare_block.last_plan reports at N = 224 (the production
+    block's D = 21, the reference grid's D = 81, the wide grid's D = 121):
+    the plan's warpgroups and K-chunk steps, and one row chunk reading each
+    formed p (K1 forms p again for each of ⌈Dp/32⌉ row chunks: three at
+    D = 81); the plan's bytes are k1_smem_bytes of its tiling and fit a
+    block beside the static slots."""
+    m = 224 // n_fold
+    n_wg, kc, smem = C.k1_plan(d, m, 113, n_fold)
+    assert C.k1_last_plan(d, m, 113, n_fold) == (n_wg, kc, 1) == (n_wg, kc, C.K1_CHUNKS_PER_P)
+    assert smem == C.k1_smem_bytes(d, m, 113, n_fold, n_wg, kc)
+    assert smem + C.K1_STATIC_SMEM <= C.MAX_SMEM and n_wg == 4
+
+
 @pytest.mark.parametrize("n_fold", [1, 2, 3, 4])
 def test_k1_reach_covers_the_fma_kernel(n_fold):
     """Every (D, M, F) the earlier FP32 FMA K1 took at this fold count has a
