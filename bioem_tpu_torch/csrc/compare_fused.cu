@@ -86,10 +86,13 @@
 //   wins and spreads as in jnp.argmax/max. With one chunk (D ≤ 32) this is
 //   the single reduction it always was. No atomics: two launches on the
 //   same inputs give the same bits.
-// * Shared memory: W and conv double buffers, the t1 tiles, one m-tile of
-//   wy (64 × D complex) and each warpgroup's chunk of the lattice (dc × D
-//   floats): nothing grows with F, and D only through those two tiles of
-//   fixed height. The wrapper (ops/compare_cuda.k1_plan) picks the largest
+// * Shared memory: W and conv double buffers, the t1 tiles (over those
+//   buffers where they fit: stage 2 runs between an m-tile's last K chunk
+//   and the next m-tile's first copy, behind barriers on both sides, so the
+//   K chunk can be longer: fewer barriers, and more of the SM left to L1),
+//   one m-tile of wy (64 × D complex) and each warpgroup's chunk of the
+//   lattice (dc × D floats): nothing grows with F, and D only through
+//   those two tiles of fixed height. The wrapper (ops/compare_cuda.k1_plan) picks the largest
 //   K chunk, with four warpgroups and then two, that fits a block; its
 //   formula is bioem_fused_compare_smem_bytes below.
 // * K3 (body kCcOut) runs all of the above but the log-sum-exp: its
@@ -149,8 +152,12 @@ __host__ __device__ inline Plan plan(int D, int M, int F, int n_fold, int n_wg, 
   P.wy_tile = sizeof(float2) * (size_t)kMT * D;
   P.w = 0;
   P.cv = P.w + 2 * P.w_chunk;
-  P.t1 = P.cv + 2 * align128(P.cv_chunk);
-  P.wy = P.t1 + align128(sizeof(float) * (size_t)n_wg * kMT * (P.NP + 4));
+  // stage 2's t1 tiles lie over the W and conv buffers, which hold nothing
+  // between an m-tile's last K chunk and the next m-tile's first copy
+  const size_t chunks = P.cv + 2 * align128(P.cv_chunk);
+  const size_t t1 = align128(sizeof(float) * (size_t)n_wg * kMT * (P.NP + 4));
+  P.t1 = t1 <= chunks ? 0 : chunks;
+  P.wy = P.t1 + t1 > chunks ? P.t1 + t1 : chunks;
   P.cc = P.wy + align128(P.wy_tile);
   P.bytes = P.cc + align128(sizeof(float) * (size_t)n_wg * P.dc * D);
   P.scratch_w = P.w_chunk * P.n_nc * P.n_kc;
@@ -362,10 +369,9 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   for (int nc = 0; nc < P.n_nc; ++nc) {
     for (int mt = 0; mt < P.n_mt; ++mt) {
       const int fb = mt * kMT;
-      // Every warpgroup is done with the previous m-tile's wy (stage 2)
-      // before this m-tile's copy overwrites it. With three or more K chunks
-      // the copy goes out after the first chunk's barrier, which orders it.
-      if (nc + mt > 0 && P.n_kc <= 2) __syncthreads();
+      // Every warpgroup is done with the previous m-tile's stage 2 (its t1
+      // over the chunk buffers, and wy) before this m-tile's copies land.
+      if (nc + mt > 0) __syncthreads();
       // This thread's fragment rows: frequencies f0 and f0 + 8 of its image.
       const int f0 = fb + 16 * warp + g, f1 = f0 + 8;
       const bool v0 = f0 < F, v1 = f1 < F;

@@ -110,17 +110,20 @@ def k1_smem_bytes(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> in
     """Dynamic shared memory of K1 with ``n_wg`` warpgroups and K chunks of
     ``kc`` steps (csrc/compare_fused.cu ``plan``; the C entry
     ``bioem_fused_compare_smem_bytes`` gives the same number): W's hi/lo
-    block and the chunk's conv rows, double-buffered; the t1 tiles; one
-    m-tile of wy (64 × D complex); each warpgroup's chunk of the lattice
-    (dc ≤ 32 rows × D). No term depends on M or F."""
+    block and the chunk's conv rows, double-buffered; the t1 tiles, over
+    those buffers where they fit; one m-tile of wy (64 × D complex); each
+    warpgroup's chunk of the lattice (dc ≤ 32 rows × D). No term depends
+    on M or F."""
     dp = _cdiv(d, 8) * 8
     n_nc = _cdiv(dp, 32)
     dc = _cdiv(_cdiv(dp, n_nc), 8) * 8
     n_p = 2 * dc
     w_chunk = 2 * n_p * 32 * kc
     cv_chunk = 8 * kc * n_fold * 4 * 68
-    return (2 * w_chunk + 2 * _a128(cv_chunk) + _a128(4 * n_wg * 64 * (n_p + 4))
-            + _a128(8 * 64 * d) + _a128(4 * n_wg * dc * d))
+    chunks = 2 * w_chunk + 2 * _a128(cv_chunk)
+    t1 = _a128(4 * n_wg * 64 * (n_p + 4))
+    base = chunks if t1 <= chunks else chunks + t1  # t1 over the chunk buffers where it fits
+    return base + _a128(8 * 64 * d) + _a128(4 * n_wg * dc * d)
 
 
 def k1_plan(d: int, m: int, f: int, n_fold: int, smem_bytes=k1_smem_bytes):

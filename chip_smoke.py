@@ -154,11 +154,11 @@ the port's main path on the card, in phases (each prints its own lines):
    K4): one JSON line each with every key, the card named, the pass at or
    below 100 % of its bound;
 23. the reference's production grid: K1 and K3 at its block (D = 81,
-   M = 224: four warpgroups, plan (4, 4)) against their plain versions and
+   M = 224: four warpgroups, plan (4, 8)) against their plain versions and
    K1 timed beside its bound (the kernels line's ``fused_compare_block
    (D=81)`` row); then 4608 quaternions × 32 CTFs × 64 planted images at
    D = 81 through the port's CLI (--ReadOrientation, --ReadMRC): K1 at
-   plan (4, 4), K4 never, finite logP, the planted orientation and CTF
+   plan (4, 8), K4 never, finite logP, the planted orientation and CTF
    recovered; and a cut of ~128 orientations on the plain branch, K1 and
    the hybrid with argmax tuples equal;
 24. the wide grid (the reference grid searching ±60 pixels, D = 121):
@@ -2547,8 +2547,8 @@ def phase_bench(card: str, problem: str) -> dict:
 
 
 # K1's tiling at the reference grid's block (D = 81, M = 224, fold 1):
-# four warpgroups, K chunks of four steps (the lattice in three row chunks).
-REF_PLAN = (4, 4)
+# four warpgroups, K chunks of eight steps (the lattice in three row chunks).
+REF_PLAN = (4, 8)
 
 
 def kernel_row_d81(torch) -> dict:

@@ -259,10 +259,10 @@ def test_k1_and_k3_at_the_reference_block(dev):
     """K1 and K3 at the reference grid's block against their plain versions
     (K1: m, se and cc at the argmax as test_k1_widths_folds_and_image_counts
     holds them; K3 within 5e-5 of max|cc|), each launched on four
-    warpgroups with K chunks of four steps."""
+    warpgroups with K chunks of eight steps."""
     args, a_coef, n_fold = _reference_block(dev)
     km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
-    assert C.fused_compare_block.last_plan == (4, 4, 1)
+    assert C.fused_compare_block.last_plan == (4, 8, 1)
     pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     torch.cuda.synchronize()
     torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
@@ -275,7 +275,7 @@ def test_k1_and_k3_at_the_reference_block(dev):
     conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
     conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
     k = C.fused_displacement_cc(conv_re, conv_im, *args[4:10], n_fold=n_fold)
-    assert C.fused_displacement_cc.last_plan == (4, 4, 1)
+    assert C.fused_displacement_cc.last_plan == (4, 8, 1)
     p = C.displacement_cc_plain(conv_re, conv_im, *args[4:10], n_fold=n_fold)
     torch.cuda.synchronize()
     assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())

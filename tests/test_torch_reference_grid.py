@@ -5,7 +5,8 @@ quaternions × 32 CTFs × 81×81 displacements at stride 1) on the CPU.
   CTFs, 2 noise images and two orientation blocks, at the suite's
   tolerance (noise images: see tests/test_torch_bench.py's C2 note).
 * K1's tiling at that grid: ``k1_plan(81, 224, 113, 1)`` is four
-  warpgroups at folds 1 and 2 (the lattice held one row chunk at a time),
+  warpgroups and K chunks of eight steps at folds 1 and 2 (the lattice
+  held one row chunk at a time, the t1 tiles over the chunk buffers),
   the production block's D = 21 keeps its plan, and the lattices the
   earlier kernel refused at N = 224 (D ≥ 107 at fold 1, D ≥ 105 at fold 2)
   are tiled.
@@ -59,8 +60,10 @@ def test_plain_branch_matches_jax_at_d81():
 
 
 def test_k1_plan_at_the_reference_grid():
-    assert k1_plan(81, 224, 113, 1) == (4, 4, 202752)
-    assert k1_plan(81, 112, 113, 2) == (4, 4, 220160)
+    # four warpgroups and K chunks of eight steps: stage 2's t1 tiles lie
+    # over the W and conv buffers
+    assert k1_plan(81, 224, 113, 1) == (4, 8, 183296)
+    assert k1_plan(81, 112, 113, 2) == (4, 8, 218112)
     # the production grid's D = 21 keeps four warpgroups and K chunks of 8
     assert k1_plan(21, 112, 113, 2)[:2] == (4, 8)
     # the lattices the earlier kernel refused at N = 224 (from D = 107 at

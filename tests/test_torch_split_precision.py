@@ -348,10 +348,11 @@ def test_k1_plan_at_production():
     n_wg, kc, smem = C.k1_plan(21, 112, 113, 2)
     assert (n_wg, kc) == (4, 8) and smem == C.k1_smem_bytes(21, 112, 113, 2, 4, 8) <= C.MAX_SMEM
     # W (hi, lo: 2 × 48 rows × 8 steps × 32 B) and conv (8 steps × 2 folds × 4
-    # rows × 68 × 8 B) double-buffered, the four t1 tiles (64 × 52 floats),
-    # one m-tile of wy (64 × 21 complex) and the four lattice chunks (24 ×
-    # 21 floats: one chunk holds the lattice), each rounded up to 128 bytes
-    assert smem == 2 * 24576 + 2 * 34816 + 53248 + 10752 + 8064
+    # rows × 68 × 8 B) double-buffered, the four t1 tiles (64 × 52 floats,
+    # 53248 B) over them, one m-tile of wy (64 × 21 complex) and the four
+    # lattice chunks (24 × 21 floats: one chunk holds the lattice), each
+    # rounded up to 128 bytes
+    assert smem == 2 * 24576 + 2 * 34816 + 10752 + 8064
 
 
 @pytest.mark.parametrize("n_fold", [1, 2])
