@@ -14,10 +14,13 @@ PyTorch counterpart of ``bioem_tpu.core.projection`` (reference
   plain version evaluates the phases with cos/sin like the JAX package's
   XLA path; the kernel version (ops/project_cuda.py) takes the integer
   pixel positions and reads an exact twiddle table.
-* **Raster** (continuous radii): per-point stencils scattered with
-  ``index_add_``, then ``torch.fft.rfft2``; the kernel version
-  (ops/project_cuda.raster_project) deposits them in model order without
-  atomics, from the block's angle rows.
+* **Raster** (continuous radii, or many points): per-point stencils
+  scattered with ``index_add_``, then ``torch.fft.rfft2``; the kernel
+  version (ops/project_cuda.raster_project) deposits them in model order
+  without atomics, from the block's angle rows.
+
+:func:`choose_projection` picks the path for a model (or the models that
+share one engine) from the counted cost of each.
 
 Semantics preserved exactly (both paths):
 * radius ≤ pixelSize → single-pixel splat of the point density, no model
@@ -205,6 +208,69 @@ class FourierProjectionSpec:
 
 
 MAX_RADIUS_GROUPS = 32
+
+# The path rule's constants: seconds per orientation of each path on one
+# H100 (NVIDIA H100 80GB HBM3, 700 W), from the card's own time of a block
+# of 8 orientations of the BioEM manual's grid at N = 224, G3 + K2 against
+# G4 + rfft2, for 500 to 11.2 M points of one radius
+# (tools/kernel_probe.path_rule_times). The Fourier path costs FOURIER_S0 +
+# FOURIER_S_SLOT_FREQ per (group slot, frequency) (K2's group product:
+# G·Pp slots times N·F frequencies; fitted at 5,000 and 500,000 slots, within
+# 7 % of the four other readings); the raster RASTER_S0 + RASTER_S_PIXEL per
+# pixel of the frame (rfft2) + RASTER_S_POINT per point (the snaps, the bins,
+# the deposit; the slope between 5,000 and 50,000 points, the steepest
+# measured: 4.8x the 11.2 M-point reading).
+FOURIER_S0 = 1.3e-6
+FOURIER_S_SLOT_FREQ = 2.27e-13
+RASTER_S0 = 2.85e-6
+RASTER_S_PIXEL = 2.8e-11
+RASTER_S_POINT = 2.86e-10
+# The raster takes over only where the Fourier path counts this many times
+# more (one radius at N = 224: from ~3,400 points): near the measured
+# crossover (~500 points) both cost well under 1 % of a pass, and a model
+# that ran on the Fourier path keeps its results.
+RASTER_MARGIN = 4.0
+
+
+def _radius_groups(radii: np.ndarray) -> tuple:
+    """(distinct radii, largest group) of a model's radii as float32; one
+    pass where every radius is the same (a voxel map)."""
+    r = np.asarray(radii, np.float32)
+    if r.size == 0 or bool((r == r[0]).all()):
+        return 1, int(r.size)
+    _uniq, counts = np.unique(r, return_counts=True)
+    return int(counts.size), int(counts.max())
+
+
+def choose_projection(p, models, projection: str = "auto") -> str:
+    """The projection path, ``"fourier"`` or ``"raster"``, of the models
+    that share one engine (one engine runs one path). ``projection``
+    "raster" forces the raster; "fourier" forces the Fourier path, which
+    needs ≤ MAX_RADIUS_GROUPS distinct radii in every model; "auto" takes
+    the raster for a model of more distinct radii, and otherwise where
+    the Fourier path's counted cost per orientation (on the layout the
+    models would share: G groups of Pp slots) is more than RASTER_MARGIN
+    times the raster's (the constants above)."""
+    if projection == "raster":
+        return "raster"
+    if projection not in ("auto", "fourier"):
+        raise ValueError(f"projection must be auto, fourier or raster, got {projection!r}")
+    g_max = pp_max = p_max = 0
+    for m in models:
+        g, largest = _radius_groups(m.radii)
+        if g > MAX_RADIUS_GROUPS:
+            if projection == "fourier":
+                raise ValueError(f"projection='fourier' requires <= {MAX_RADIUS_GROUPS} "
+                                 f"distinct radii (a model has {g})")
+            return "raster"
+        g_max, pp_max = max(g_max, g), max(pp_max, -(-largest // 8) * 8)
+        p_max = max(p_max, int(np.asarray(m.radii).size))
+    if projection == "fourier":
+        return "fourier"
+    n = p.n_pixels
+    fourier = FOURIER_S0 + FOURIER_S_SLOT_FREQ * g_max * pp_max * n * (n // 2 + 1)
+    raster = RASTER_S0 + RASTER_S_PIXEL * n * n + RASTER_S_POINT * p_max
+    return "raster" if fourier > RASTER_MARGIN * raster else "fourier"
 
 
 def _unit_stencil(radius: float, pix: float) -> np.ndarray:
@@ -471,3 +537,43 @@ def projection_oob_report(
         if n_safe == 0:
             all_oob += int((oob == points.shape[0]).sum())
     return total, affected, all_oob
+
+
+def oob_census(
+    n: int, pix: float, shift_x: int, shift_y: int,
+    points: np.ndarray, radii: np.ndarray, angles: np.ndarray, use_quaternions: bool,
+    device=None,
+):
+    """The out-of-frame census of :func:`projection_oob_report` — ``(total
+    oob point evaluations, orientations affected, orientations with every
+    point out)`` — from the orientation rows ``angles`` (O, 4), on
+    ``device``: on the card the snap kernel of G3 and G4
+    (ops/project_cuda.bounds_census), each (orientation, point) once, which
+    may count a pair at a snap's tie (within an ulp or two of a pixel edge)
+    otherwise than NumPy's sums; on the CPU :func:`projection_oob_report` on
+    torch's rotation matrices of the rows. Only points that can leave the
+    frame at all (the rotation-invariant bound) are visited."""
+    from .orientations import rotation_matrices
+
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    ang = torch.as_tensor(np.ascontiguousarray(angles, dtype=np.float32), device=dev)
+    if dev.type != "cuda":
+        return projection_oob_report(n, pix, shift_x, shift_y, points, radii,
+                                     rotation_matrices(ang, use_quaternions).numpy())
+    from ..ops.project_cuda import bounds_census
+
+    points = np.asarray(points, np.float32)
+    radii = np.asarray(radii, np.float32)
+    r3d = np.linalg.norm(points.astype(np.float64), axis=1)
+    irad = np.where(radii > pix, (radii / pix).astype(np.int64) + 1, 0)
+    shift = max(abs(int(shift_x)), abs(int(shift_y)))
+    keep = ~((r3d / pix + 0.5 + irad + shift) < (n / 2.0 - 1.0))
+    n_left = int(keep.sum())
+    if n_left == 0:
+        return 0, 0, 0
+    pts = torch.as_tensor(np.ascontiguousarray(points[keep]), device=dev)
+    rad = torch.as_tensor(np.ascontiguousarray(radii[keep]), device=dev)
+    oob = bounds_census(ang, pts, rad, n=n, pixel_size=pix, shift_x=shift_x, shift_y=shift_y,
+                        use_quaternions=use_quaternions).cpu().numpy()
+    all_oob = int((oob == n_left).sum()) if n_left == points.shape[0] else 0
+    return int(oob.sum()), int((oob > 0).sum()), all_oob

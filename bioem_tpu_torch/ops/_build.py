@@ -50,8 +50,11 @@ SIGNATURES = {
     "bioem_fourier_project": [P] * 7 + [I] * 5 + [P, P, P],
     "bioem_project_prologue": [P, I] + [P] * 5 + [I] * 4 + [F] + [I] * 2 + [P] * 4 + [P],
     "bioem_fourier_project_max_n": [],
-    "bioem_raster_project": [P, I] + [P] * 4 + [I] * 3 + [F] + [I] * 3 + [F] * 2 + [P] * 4,
+    "bioem_raster_project": ([P, I] + [P] * 4 + [I] * 3 + [F] + [I] * 3 + [F] * 2 + [P] * 4
+                             + [ctypes.c_size_t, P]),
+    "bioem_raster_scratch_bytes": [I] * 4 + [F],
     "bioem_raster_max_stencil_half": [],
+    "bioem_bounds_census": [P, I, I, P, P, I, I, F, I, I, P, P],
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 10 + [P] * 5 + [P],
     "bioem_fused_displacement_cc": [P] * 8 + [I] * 9 + [P] * 2 + [P],
     "bioem_fused_compare_batched": [P] * 12 + [F] + [I] * 9 + [P] * 4 + [P],
@@ -73,6 +76,7 @@ RESTYPES = {
     "bioem_fused_compare_smem_bytes": ctypes.c_size_t,
     "bioem_fused_compare_scratch_bytes": ctypes.c_size_t,
     "bioem_compare_batched_smem_bytes": ctypes.c_size_t,
+    "bioem_raster_scratch_bytes": ctypes.c_size_t,
     "bioem_error_string": ctypes.c_char_p,
 }
 

@@ -12,12 +12,17 @@ Three kernels, each beside the torch code it replaces as its plain version:
   (``bioem_tpu/core/orientations.py:138-202``,
   ``bioem_tpu/core/projection.py:302-330`` and ``:444-461``); the kernel
   is ``csrc/project_glue.cu``;
-* G4 :func:`raster_project`, the raster path (models with more than 32
-  distinct radii, or a layout that forces it), which XLA fused on the TPU
-  (no Pallas kernel has its body): the block's rotation matrices, the snap,
-  the stencil weights, their deposit and the scale norm_den/tempden
-  (``bioem_tpu/core/projection.py:74-195``); the kernel is
-  ``csrc/project_raster.cu``, and torch.fft.rfft2 transforms its output.
+* G4 :func:`raster_project`, the raster path (core.projection
+  .choose_projection: models with more than 32 distinct radii, models whose
+  Fourier projection costs far more, or a layout that forces it), which XLA
+  fused on the TPU (no Pallas kernel has its body): the block's rotation
+  matrices, the snap, the stencil weights, their deposit and the scale
+  norm_den/tempden (``bioem_tpu/core/projection.py:74-195``); the kernels
+  are ``csrc/project_raster.cu``'s six ``raster_projection_kernel_*``
+  launches (the points bucketed by bin of the frame, then each bin
+  deposited from its own bucket), and torch.fft.rfft2 transforms its
+  output. The same source holds the out-of-frame census
+  (:func:`bounds_census`), which core/engine.py runs at set-up on the card.
 
 Each source's header says what bounds it on the card and how the design
 answers that.
@@ -225,13 +230,12 @@ project_prologue.launches = 0
 # G4: the raster projection
 # ---------------------------------------------------------------------------
 
-# The largest N G4 takes (csrc/project_raster.cu's kMaxN: one thread per
-# column of the frame) and the largest stencil half-width, whose octant
-# weights for one point must fit its 48 KB of shared memory beside the
-# point's slot (the C entry bioem_raster_max_stencil_half says the same; a
-# card test compares them).
+# The largest N G4 takes (csrc/project_raster.cu's kMaxN: a pixel's row and
+# column are packed in 10 bits each) and the largest stencil half-width (a
+# point's reach is packed in 10 bits; the C entry
+# bioem_raster_max_stencil_half says the same; a card test compares them).
 RASTER_MAX_N = 512
-RASTER_MAX_STENCIL_HALF = 88
+RASTER_MAX_STENCIL_HALF = 1023
 
 
 def raster_project_plain(spec, angles, points, radii, dens, norm_den, *, use_quaternions: bool):
@@ -258,7 +262,11 @@ def raster_project(
     rows' rotation matrices (module docstring). For a check of the kernel,
     ``snaps``, an (O, 2, P) int32 tensor on the card, also receives each
     point's snapped pixel (i0, j0), and ``scale``, (O,) f32, each
-    orientation's norm_den/tempden; the plain version takes neither."""
+    orientation's norm_den/tempden; the plain version takes neither. The
+    kernels' scratch (the bins' counts and their entries, 16 bytes per
+    entry, sized for every point meeting the most bins the stencil's reach
+    bound lets it: ~5.8 GB at O = 8 for a 224³ voxel map) is allocated per
+    call, so a captured block step holds it in its graph's pool."""
     fn = "raster_project"
     dev = angles.device
     if dev.type == "cpu":
@@ -278,18 +286,24 @@ def raster_project(
         *([("scale", scale, F32, (o_n,))] if scale is not None else []),
     ])
     if n > RASTER_MAX_N:
-        raise ValueError(f"{fn}: N={n} too large (one thread per column: N ≤ {RASTER_MAX_N})")
+        raise ValueError(f"{fn}: N={n} too large (a pixel is packed in 10 bits a coordinate: "
+                         f"N ≤ {RASTER_MAX_N})")
     if s > RASTER_MAX_STENCIL_HALF:
-        raise ValueError(f"{fn}: stencil_half {s} too large (one point's weights must fit "
-                         f"shared memory: ≤ {RASTER_MAX_STENCIL_HALF})")
+        raise ValueError(f"{fn}: stencil_half {s} too large (an entry packs a point's reach "
+                         f"in 10 bits: ≤ {RASTER_MAX_STENCIL_HALF})")
     if o_n > 65535:
         raise ValueError(f"{fn}: {o_n} orientations exceed the grid limit 65535")
-    # the plain version's constants, as its Python expressions round them
+    lib = _build.load()
     pix = float(np.float32(spec.pixel_size))
+    nbytes = lib.bioem_raster_scratch_bytes(o_n, p_n, n, s, pix)
+    if nbytes == 0:
+        raise ValueError(f"{fn}: {p_n} points at stencil_half {s} exceed the kernels' "
+                         "int32 entry offsets")
+    # the plain version's constants, as its Python expressions round them
     c_chord = float(np.float32(pix * pix * 2.0))
     c_den = float(np.float32(4.0 * float(np.float32(np.pi))))
-    lib = _build.load()
     out = torch.empty((o_n, n, n), dtype=F32, device=dev)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.bioem_raster_project(
@@ -297,7 +311,7 @@ def raster_project(
             dens.data_ptr(), norm_den.data_ptr(), o_n, p_n, n, pix, int(spec.shift_x),
             int(spec.shift_y), s, c_chord, c_den, out.data_ptr(),
             None if snaps is None else snaps.data_ptr(),
-            None if scale is None else scale.data_ptr(), stream,
+            None if scale is None else scale.data_ptr(), scratch.data_ptr(), nbytes, stream,
         )
     _build.check(status, fn)
     raster_project.launches += 1
@@ -305,3 +319,39 @@ def raster_project(
 
 
 raster_project.launches = 0
+
+
+def bounds_census(angles, points, radii, *, n: int, pixel_size: float, shift_x: int,
+                  shift_y: int, use_quaternions: bool) -> torch.Tensor:
+    """Points dropped out of the frame per orientation, (O,) int64 on the
+    card: the snap of csrc/project_snap.cuh (G3's and G4's) over every
+    orientation row of ``angles`` (O, 4) and every point of ``points`` (P,
+    3) and ``radii`` (P,), each (orientation, point) once
+    (csrc/project_raster.cu ``bounds_census_kernel``). The card's twin of
+    core.projection.projection_oob_report's count."""
+    fn = "bounds_census"
+    dev = angles.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: a card kernel; the CPU runs "
+                         "core.projection.projection_oob_report")
+    o_n, p_n = angles.shape[0], points.shape[0]
+    _build.check_tensors(fn, dev, [
+        ("angles", angles, F32, (o_n, 4)), ("points", points, F32, (p_n, 3)),
+        ("radii", radii, F32, (p_n,)),
+    ])
+    oob = torch.zeros((o_n,), dtype=torch.int64, device=dev)
+    if p_n == 0:
+        return oob
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.bioem_bounds_census(
+            angles.data_ptr(), int(bool(use_quaternions)), o_n, points.data_ptr(),
+            radii.data_ptr(), p_n, n, float(np.float32(pixel_size)), int(shift_x), int(shift_y),
+            oob.data_ptr(), stream)
+    _build.check(status, fn)
+    bounds_census.launches += 1
+    return oob
+
+
+bounds_census.launches = 0

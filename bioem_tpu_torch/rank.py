@@ -29,7 +29,7 @@ import numpy as np
 
 from .config import RunConfig, resolve_device
 from .core.orientations import build_orientations
-from .core.projection import MAX_RADIUS_GROUPS
+from .core.projection import choose_projection
 from .io.map_io import read_ref_maps
 from .io.model_io import read_model
 from .params import read_parameters
@@ -40,25 +40,20 @@ def common_model_layout(p, models: Sequence, projection: str = "auto") -> dict:
     captured block step) serves every model through swap_model — no re-FFT
     of the image bank, no second capture per candidate."""
     lay = {"n_points_pad": max(m.points.shape[0] for m in models)}
-    if projection in ("auto", "fourier"):
+    if choose_projection(p, models, projection) == "fourier":
         g_max = pp_max = 0
-        fourier_ok = True
         for m in models:
             uniq, inverse = np.unique(np.asarray(m.radii, np.float32), return_inverse=True)
-            if uniq.size > MAX_RADIUS_GROUPS:
-                fourier_ok = False
-                break
             counts = np.bincount(inverse, minlength=uniq.size)
-            pp = -(-int(counts.max()) // 8) * 8
             g_max = max(g_max, int(uniq.size))
-            pp_max = max(pp_max, pp)
-        if fourier_ok:
-            lay["n_groups_pad"] = g_max
-            lay["group_pad"] = pp_max
-        else:
-            # One continuous-radius model forces the raster for ALL models
-            # (one engine runs one projection path).
-            lay["force_raster"] = True
+            pp_max = max(pp_max, -(-int(counts.max()) // 8) * 8)
+        lay["n_groups_pad"] = g_max
+        lay["group_pad"] = pp_max
+    elif projection != "raster":
+        # The path rule chose the raster for the set (one continuous-radius
+        # model, or a Fourier projection far dearer): ALL models take it
+        # (one engine runs one projection path).
+        lay["force_raster"] = True
     sph = 0
     for m in models:
         large = m.radii > p.pixel_size

@@ -52,6 +52,7 @@ the card.
 
 from __future__ import annotations
 
+import json
 import sys
 
 import numpy as np
@@ -710,9 +711,14 @@ def raster_inputs(dev, case: str = "production") -> dict:
                        torch.tensor(np.float32(model.norm_den), device=dev)))
 
 
-def check_raster(x: dict) -> dict:
+def check_raster(x: dict, orients=None) -> dict:
     """G4 against its plain version on the card, on one block of
-    :func:`raster_inputs`. Returns {"pairs": O·P, "differ": (orientation,
+    :func:`raster_inputs` (or :func:`map_inputs`). G4 runs the whole block;
+    ``orients``, a list of the block's rows, limits the comparison with the
+    plain version to those rows (the plain version of a 224³ map holds
+    ~2 GB a row in each of its weight tensors). Returns {"pairs": O·P of
+    the rows compared, "compared": the rows compared whose snaps all agree,
+    "differ": (orientation,
     point) pairs whose snapped pixel differs, "off_tie": of those, pairs
     whose differing coordinate's plain pre-floor value lies more than 2
     ulps from an integer, "proj_rel": max |Δ| of the projections over the
@@ -722,29 +728,48 @@ def check_raster(x: dict) -> dict:
     relative |Δ| of norm_den/tempden there, "bits": two launches give the same bits (projection, snaps, scale),
     "dropped": {"point", "sphere"}: pairs of nonzero density the plain
     version masked out of the frame, by branch, "live": pairs that deposit
-    (in the frame, nonzero density: raster_bound's count)}."""
+    (in the frame, nonzero density: raster_bound's count), "reorder_ok":
+    on those orientations every pixel within f32 reordering's bound of the
+    plain version's (2(c − 1)·u·Σ|w| for its c weights, and the scales'
+    roundings and difference)}."""
     from ..core.orientations import rotation_matrices
-    from ..core.projection import _snap, _stencil_weights
+    from ..core.projection import _raster_scatter, _snap, _stencil_weights
     from ..ops.project_cuda import raster_project, raster_project_plain
 
-    spec, ang, quat = x["spec"], x["angles"], x["quat"]
+    spec, quat = x["spec"], x["quat"]
     pts, radii, dens, norm_den = x["model"]
-    o_n, p_n = ang.shape[0], pts.shape[0]
+    o_all, p_n = x["angles"].shape[0], pts.shape[0]
 
     def kern():
-        snaps = torch.empty((o_n, 2, p_n), dtype=torch.int32, device=ang.device)
-        scale = torch.empty((o_n,), dtype=torch.float32, device=ang.device)
-        out = raster_project(spec, ang, *x["model"], use_quaternions=quat, snaps=snaps,
+        snaps = torch.empty((o_all, 2, p_n), dtype=torch.int32, device=pts.device)
+        scale = torch.empty((o_all,), dtype=torch.float32, device=pts.device)
+        out = raster_project(spec, x["angles"], *x["model"], use_quaternions=quat, snaps=snaps,
                              scale=scale)
         return out, snaps, scale
 
     k, again = kern(), kern()
+    bits = all(torch.equal(a, b) for a, b in zip(k, again))
+    del again
+    rows = list(range(o_all)) if orients is None else list(orients)
+    sel = torch.as_tensor(rows, device=pts.device)
+    ang, o_n = x["angles"][sel], len(rows)
+    k = tuple(v[sel] for v in k)
     plain = raster_project_plain(spec, ang, *x["model"], use_quaternions=quat)
     rotm = rotation_matrices(ang, quat)
     i0, j0, small, valid = _snap(spec.n_pixels, spec.pixel_size, spec.shift_x, spec.shift_y,
                                  rotm, pts, radii)
-    _i, _j, w, _du = _stencil_weights(spec, rotm, pts, radii, dens)
+    _i, _j, w, du = _stencil_weights(spec, rotm, pts, radii, dens)
     scale_p = norm_den / torch.sum(w, dim=(-3, -2, -1))
+    # f32 reordering's bound at each pixel: two orders of a sum of c terms
+    # differ by at most 2(c − 1)·u·Σ|term|, then each scale's rounding and
+    # the two scales' difference
+    u = 2.0 ** -24
+    terms = _raster_scatter(spec, _i, _j, (w != 0).to(w.dtype), du)
+    mass = _raster_scatter(spec, _i, _j, w.abs(), du)
+    unscaled = plain / scale_p[:, None, None]
+    bound = ((2.0 * (terms - 1).clamp(min=0) * u * mass + u * unscaled.abs())
+             * k[2].abs()[:, None, None] + unscaled.abs() * (k[2] - scale_p).abs()[:, None, None]
+             + u * plain.abs())
     vx, vy = _pre_floor(pts, ang, quat, spec.pixel_size, spec.n_pixels)
     torch.cuda.synchronize()
     di, dj = k[1][:, 0] != i0, k[1][:, 1] != j0
@@ -752,13 +777,15 @@ def check_raster(x: dict) -> dict:
     dropped = ~valid & (dens != 0)
     peak = float(plain.abs().max())
     rel = (k[2] - scale_p).abs() / scale_p.abs()
+    over = ((k[0] - plain).abs() - bound)[o_ok]
     return dict(
-        pairs=o_n * p_n, differ=int((di | dj).sum()),
+        reorder_ok=bool((over <= 0).all()),
+        pairs=o_n * p_n, compared=int(o_ok.sum()), differ=int((di | dj).sum()),
         off_tie=int(((di & ~_near_integer(vx)) | (dj & ~_near_integer(vy))).sum()),
         proj_abs=float((k[0] - plain).abs()[o_ok].max()) if bool(o_ok.any()) else 0.0,
         proj_rel=float((k[0] - plain).abs()[o_ok].max()) / peak if bool(o_ok.any()) else 0.0,
         scale_rel=float(rel[o_ok].max()) if bool(o_ok.any()) else 0.0,
-        bits=all(torch.equal(a, b) for a, b in zip(k, again)),
+        bits=bits,
         dropped={key: int((dropped & m).sum()) for key, m in (("point", small),
                                                                ("sphere", ~small))},
         live=int((valid & (dens != 0) & (small | (spec.stencil_half > 0))).sum()),
@@ -777,6 +804,239 @@ def raster_times(x: dict) -> dict:
                 plain_ms=device_ms(lambda: raster_project_plain(
                     *args, use_quaternions=x["quat"]), 5),
                 rfft2_ms=device_ms(lambda: torch.fft.rfft2(out)))
+
+
+def synthetic_map(box: int, pix: float, seed: int = 5, noise: float = 0.05):
+    """A ``box``³ voxel map read as --ReadModelMRC reads it
+    (io.model_io.voxel_model) and centred on its density mass: 24 Gaussian
+    blobs of 2–6 Å within the middle half of the box, plus N(0, ``noise`` ×
+    the blobs' peak) on every voxel, so that no voxel is zero and the
+    corners leave the frame."""
+    from ..io.model_io import voxel_model
+
+    rng = np.random.default_rng(seed)
+    ax = ((np.arange(1, box + 1) - box / 2.0) * pix)
+    vol = np.zeros((box, box, box), np.float64)
+    half = box * pix / 4.0
+    for c, s, a in zip(rng.uniform(-half, half, (24, 3)), rng.uniform(2.0, 6.0, 24),
+                       rng.uniform(50.0, 100.0, 24)):
+        g = [np.exp(-((ax - c[k]) ** 2) / (2.0 * s * s)) for k in range(3)]
+        vol += a * g[0][:, None, None] * g[1][None, :, None] * g[2][None, None, :]
+    vol += rng.normal(0.0, noise * vol.max(), vol.shape)
+    return voxel_model(vol.astype(np.float32), pix).center_density_mass()
+
+
+def map_inputs(dev, box: int = 224, n_orient: int = 8, seed: int = 5) -> dict:
+    """G4's inputs for one block of :func:`synthetic_map`'s ``box``³ map at
+    N = ``box`` on the reference grid's quaternions (the form of
+    :func:`raster_inputs`): the map's one radius 2·pix gives stencil_half 3
+    and 9 weights a voxel."""
+    import dataclasses
+
+    from ..core.projection import make_projection_spec
+    from ..utils.so3 import super_fibonacci
+    from .problem import REFERENCE_GRID
+
+    p, _ang, _quat, _model = _case_block("reference grid")
+    p = dataclasses.replace(p, n_pixels=box)
+    model = synthetic_map(box, p.pixel_size, seed)
+    ang = super_fibonacci(REFERENCE_GRID["n_orient"])[:n_orient].astype(np.float32)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    return dict(spec=make_projection_spec(p, model.radii), angles=t(ang), quat=True, p=p,
+                model=(t(model.points), t(model.radii), t(model.densities),
+                       torch.tensor(np.float32(model.norm_den), device=dev)), host=model)
+
+
+def check_raster_sparse(dev, wide: bool = False) -> dict:
+    """G4's weights and snaps against the plain version's, bit for bit: a
+    sheet of points 10 pixels apart in the z = 0 plane, with radii from
+    point-like to 3.4 pixels, at 8 rotations about z (the sheet stays in
+    the frame's plane, so no two stencils meet and every pixel holds one
+    weight). ``wide``: a 3 × 3 sheet 66 pixels apart with radii from
+    point-like to 31.5 pixels, whose reach bound (31) leaves the deposit's
+    octant table out of shared memory, so each lane forms its pixels'
+    weights. The kernel's projection must equal the plain version's
+    weights, deposited with index_add_ (one per pixel: exact), times the
+    kernel's own scale; and its snaps the plain version's. Returns
+    {"pairs", "stencil_half", "snaps_equal", "weights_equal",
+    "scale_rel"}."""
+    import dataclasses
+
+    from ..core.orientations import rotation_matrices
+    from ..core.projection import _raster_scatter, _stencil_weights, make_projection_spec
+    from ..ops.project_cuda import raster_project
+
+    p, _ang, _quat, _model = _case_block("reference grid")
+    p = dataclasses.replace(p, n_pixels=224)
+    pix = np.float32(p.pixel_size)
+    rng = np.random.default_rng(11)
+    if wide:  # the corners point-like: rotated, a sphere there would leave the frame
+        g = np.arange(-1, 2) * 66.0 * float(pix) + 0.31
+        radii = np.array([0.5, 28.5, 0.5, 30.0, 31.5, 3.4, 0.5, 29.0, 0.5], np.float32) * pix
+    else:
+        g = np.arange(-9, 10) * 10.0 * float(pix) + 0.31
+        radii = rng.choice(np.array([0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.4], np.float32) * pix,
+                           g.size ** 2)
+    radii = radii.astype(np.float32)
+    xy = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    pts = np.concatenate([xy, np.zeros((xy.shape[0], 1))], 1).astype(np.float32)
+    dens = rng.uniform(-5.0, 100.0, pts.shape[0]).astype(np.float32)
+    theta = np.linspace(0.0, np.pi / 3, 8)
+    ang = np.stack([np.zeros(8), np.zeros(8), np.sin(theta / 2), np.cos(theta / 2)],
+                   1).astype(np.float32)
+    spec = make_projection_spec(p, radii)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    model = (t(pts), t(radii), t(dens), torch.tensor(np.float32(dens.sum()), device=dev))
+    snaps = torch.empty((8, 2, pts.shape[0]), dtype=torch.int32, device=dev)
+    scale = torch.empty((8,), dtype=torch.float32, device=dev)
+    out = raster_project(spec, t(ang), *model, use_quaternions=True, snaps=snaps, scale=scale)
+    rotm = rotation_matrices(t(ang), True)
+    i0, j0, w, du = _stencil_weights(spec, rotm, *model[:3])
+    plain = _raster_scatter(spec, i0, j0, w, du) * scale[:, None, None]
+    scale_p = model[3] / torch.sum(w, dim=(-3, -2, -1))
+    torch.cuda.synchronize()
+    return dict(pairs=8 * pts.shape[0], stencil_half=spec.stencil_half,
+                snaps_equal=bool(torch.equal(snaps[:, 0], i0) and torch.equal(snaps[:, 1], j0)),
+                weights_equal=bool(torch.equal(out, plain)),
+                scale_rel=float(((scale - scale_p).abs() / scale_p.abs()).max()))
+
+
+def raster_map_block(dev, box: int = 224, reps: int = 3) -> dict:
+    """G4 on one block (8 orientations) of the ``box``³ map
+    (:func:`map_inputs`): two launches bit-equal, every pixel finite, each
+    projection's sum against norm_den (the scale makes them equal but for
+    the f32 sums), and its card time with cuFFT's rfft2 of its output.
+    Returns {"bits", "finite", "sum_rel", "ms", "rfft2_ms", "points",
+    "split": ms of each of its five kernels (torch.profiler), "across":
+    {block: ms} at every 64th block of the reference grid's list}."""
+    from ..ops.project_cuda import raster_project
+
+    x = map_inputs(dev, box)
+    args = (x["spec"], x["angles"], *x["model"])
+    a = raster_project(*args, use_quaternions=True)
+    b = raster_project(*args, use_quaternions=True)
+    sums = a.double().sum(dim=(1, 2))
+    nd = float(x["model"][3])
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            raster_project(*args, use_quaternions=True)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "raster_projection_kernel" in e.name:
+            key = e.name.split("raster_projection_kernel_")[1].split("(")[0].split("<")[0]
+            split[key] = split.get(key, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3 / reps
+    # the card time of blocks across the orientation list (the snaps' spread
+    # over the bins, and so the scatter's work, depends on the orientation)
+    from ..utils.so3 import super_fibonacci
+    from .problem import REFERENCE_GRID
+
+    q = super_fibonacci(REFERENCE_GRID["n_orient"]).astype(np.float32)
+    across = {}
+    for blk in range(0, q.shape[0] // 8, 64):
+        ab = torch.as_tensor(q[8 * blk: 8 * blk + 8], device=dev)
+        across[blk] = device_ms(lambda: raster_project(x["spec"], ab, *x["model"],
+                                                     use_quaternions=True), 1)
+    return dict(split=split, across=across, bits=bool(torch.equal(a, b)),
+                finite=bool(torch.isfinite(a).all()),
+                sum_rel=float(((sums - nd).abs() / abs(nd)).max()),
+                ms=device_ms(lambda: raster_project(*args, use_quaternions=True), reps),
+                rfft2_ms=device_ms(lambda: torch.fft.rfft2(a), reps),
+                points=int(x["model"][0].shape[0]))
+
+
+def near_ties(n: int, pix: float, points: np.ndarray, angles: np.ndarray, quat: bool) -> int:
+    """(orientation, point) pairs whose snap coordinate x/pix + N/2 + 0.5
+    lies within 2 float32 ulps of an integer on either axis, in f64 from
+    torch's rotation matrices of ``angles``: where two orders of the
+    rotation's float32 sums may snap a pixel apart."""
+    from ..core.orientations import rotation_matrices
+
+    rot = rotation_matrices(torch.as_tensor(np.asarray(angles, np.float32)), quat).double()
+    pts = torch.as_tensor(np.asarray(points, np.float64))
+    ties = 0
+    for r in rot:
+        v = (pts @ r[:2].T) / float(np.float32(pix)) + n / 2.0 + 0.5
+        ulp = torch.as_tensor(np.spacing(np.abs(v.numpy()).astype(np.float32)).astype(np.float64))
+        ties += int(((v - torch.round(v)).abs() <= 2 * ulp).any(dim=1).sum())
+    return ties
+
+
+def check_census(dev, box: int = 32, stride: int = 1) -> dict:
+    """The card's out-of-frame census (core.projection.oob_census on the
+    card) of :func:`synthetic_map`'s ``box``³ map at N = ``box`` against
+    projection_oob_report on the host, over every ``stride``-th orientation
+    of the reference grid's list (box 32: its first 64). Returns {"card",
+    "host": (dropped pairs, orientations affected, orientations all out),
+    "ties": :func:`near_ties` of the map's points that can leave the frame,
+    "orients", "points"}: the card's count may differ from the host's only
+    at ties."""
+    from ..core.orientations import rotation_matrices
+    from ..core.projection import oob_census, projection_oob_report
+    from ..utils.so3 import super_fibonacci
+    from .problem import REFERENCE_GRID
+
+    pix = 1.06
+    m = synthetic_map(box, pix)
+    q = super_fibonacci(64 if box == 32 else REFERENCE_GRID["n_orient"])
+    ang = np.ascontiguousarray(q[::stride], dtype=np.float32)
+    rot = rotation_matrices(torch.as_tensor(ang), True).numpy()
+    host = projection_oob_report(box, pix, 0, 0, m.points, m.radii, rot)
+    card = oob_census(box, pix, 0, 0, m.points, m.radii, ang, True, device=dev)
+    r3d = np.linalg.norm(m.points.astype(np.float64), axis=1)
+    irad = np.where(m.radii > pix, (m.radii / np.float32(pix)).astype(np.int64) + 1, 0)
+    edge = ~((r3d / pix + 0.5 + irad) < (box / 2.0 - 1.0))
+    return dict(card=card, host=host, ties=near_ties(box, pix, m.points[edge], ang, True),
+                orients=int(ang.shape[0]), points=int(m.points.shape[0]))
+
+
+def path_rule_times(dev, sizes=(500, 5000, 50000, 500000, 224 ** 3), reps: int = 3,
+                    say=print) -> list:
+    """The card's own time (:func:`device_ms`) of each projection path per
+    block of 8 orientations of the reference grid at N = 224: G3 + K2
+    (the Fourier path) and G4 + rfft2 (the raster), for the reference
+    grid's 500-residue model (14 radii) and for the first P voxels of
+    :func:`synthetic_map`'s 224³ map (one radius, 2·pix) at each P of
+    ``sizes``. Returns [{"model", "points", "groups", "slots", "fourier_ms",
+    "raster_ms"}]: the path rule's constants (core/projection.py) are
+    fitted to them."""
+    from ..core.projection import (make_fourier_projection_spec, make_projection_spec,
+                                   project_batch_kernel, project_fourier_batch_kernel)
+    from ..io.model_io import Model
+
+    x = map_inputs(dev, 224)
+    p, ang, full = x["p"], x["angles"], x["host"]
+    _p, _a, _q, residues = _case_block("reference grid")
+    rows = []
+    for label, m in [("500 residues", residues)] + [
+            (f"{n} voxels", Model(full.points[:n], full.radii[:n], full.densities[:n],
+                                  float(full.densities[:n].astype(np.float64).sum())))
+            for n in sizes]:
+        t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa: E731
+        nd = torch.tensor(np.float32(m.norm_den), device=dev)
+        fspec, gidx, pmask, st, sums = make_fourier_projection_spec(p, m.radii)
+        fargs = (fspec, ang, t(m.points[gidx]), t(m.radii[gidx]), t(m.densities[gidx] * pmask),
+                 nd, t(st.real), t(st.imag), t(sums))
+        spec = make_projection_spec(p, m.radii)
+        rargs = (spec, ang, t(m.points), t(m.radii), t(m.densities), nd)
+        big = m.points.shape[0] > 1_000_000
+        f_ms = device_ms(lambda: project_fourier_batch_kernel(*fargs, use_quaternions=True),
+                         1 if big else reps)
+        r_ms = device_ms(lambda: torch.fft.rfft2(project_batch_kernel(*rargs,
+                                                                      use_quaternions=True)),
+                         reps)
+        rows.append(dict(model=label, points=int(m.points.shape[0]), groups=fspec.n_groups,
+                         slots=fspec.n_groups * fspec.group_pad, fourier_ms=f_ms, raster_ms=r_ms))
+        say(f"path rule, N = 224, a block of 8 orientations (card time): {label}: G3 + K2 "
+            f"{f_ms:.4f} ms ({fspec.n_groups} groups x {fspec.group_pad} slots), G4 + rfft2 "
+            f"{r_ms:.4f} ms")
+        del fargs, rargs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def probe_projection_points(say=print) -> dict:
@@ -870,6 +1130,19 @@ def main(argv=None) -> int:
         for label, ms in glue_attribution(x["g1"], x["kw"], glue_merge_args(x, "fused")).items():
             print(f"glue at (O, C, I) = {shape} (card time): {label} {ms:.5f} ms", flush=True)
     if "--glue" in argv:
+        return 0
+    if "--raster" in argv:
+        r = check_raster_sparse(dev)
+        print(f"G4 sparse sheet: snaps equal {r['snaps_equal']}, weights bit-equal "
+              f"{r['weights_equal']}, scale max rel |Δ| {r['scale_rel']:.2e}", flush=True)
+        m = raster_map_block(dev)
+        print(f"G4 at a block of the 224³ map ({m['points']} voxels, 8 orientations, card "
+              f"time): {m['ms']:.3f} ms, rfft2 {m['rfft2_ms']:.4f} ms; two launches bit-equal "
+              f"{m['bits']}, finite {m['finite']}, sum vs norm_den {m['sum_rel']:.2e}; by "
+              "kernel (profiler) " + ", ".join(f"{k} {v:.3f} ms" for k, v in m["split"].items())
+              + "; at blocks " + ", ".join(f"{k}: {v:.2f}" for k, v in m["across"].items())
+              + f" ms (mean {np.mean(list(m['across'].values())):.3f})", flush=True)
+        print(json.dumps({"path_rule": path_rule_times(dev)}), flush=True)
         return 0
     probe_f32_accuracy()
     probe_issue_overhead()

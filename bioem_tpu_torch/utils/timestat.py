@@ -17,10 +17,15 @@ Every name starts with ``bioem.``: tools that read a trace tell the
 program's ranges from the card's operations by that prefix. The spans
 (:func:`traced` makes a whole function one):
 
-* set-up: ``bioem.library`` (ops/_build.load, the kernel library's first
+* set-up: ``bioem.model.read`` (io/model_io.read_model),
+  ``bioem.library`` (ops/_build.load, the kernel library's first
   load in the process; counter ``bioem.library.builds``: nvcc builds),
   ``bioem.autotune`` (run.maybe_autotune), ``bioem.engine`` (the
-  engine's construction; ``.images``, ``.model``, ``.banks``),
+  engine's construction; ``.images``, ``.model``, ``.banks``; counters
+  ``bioem.projection.raster`` and ``.fourier``: the path the rule chose,
+  one per model laid out), ``bioem.bounds`` (the out-of-frame census, also
+  under ``bioem.swap_model.bounds``; counter ``bioem.bounds.oob_points``:
+  the (orientation, point) pairs dropped out of the frame),
   ``bioem.capture`` (the block step's capture; ``.warmup``, ``.graph``);
 * a pass: ``bioem.pass`` (``bioem.graph_load``, ``bioem.checkpoint``),
   ``bioem.results``;

@@ -85,6 +85,16 @@ the port's main path on the card, in phases (each prints its own lines):
    replayed raster block under torch.profiler, before (the plain raster
    projection inside the kernel branch) and after (G4): kernels, wall and
    busy ms per block, the projection phase's kernels and µs;
+6b. voxel maps (--ReadModelMRC models: every voxel a sphere of radius
+   2·pix): G4's weights and snaps bit-equal to the plain version's where no
+   stencils meet (kernel_probe.check_raster_sparse; also at a reach past
+   the deposit's octant table), 32³ and 48³ maps against the plain version
+   (check_raster), rows 0 and 7 of a block of a 224³ map (11,239,424
+   voxels) against it, that block twice, bit-equal, with its card time, the
+   card's out-of-frame census of the 32³ map and of the 224³ map (16 of the
+   grid's orientations) against projection_oob_report, and the path rule's
+   timings (kernel_probe.path_rule_times: G3 + K2 against G4 + rfft2 per
+   block, 500 residues and 500 to 11.2 M voxels);
 7. streaming: the 64 production images through run_streaming in chunks of
    16 on K1, one capture for all chunks, equal to the K1 run_bioem of
    step 5; a checkpointed streamed run that dies reading chunk 2, resumed,
@@ -1395,6 +1405,52 @@ def phase_raster(problem, res_k, card: str) -> None:
                            device=DEVICE)
         _held(f"raster: ranked {names[m]} vs its own raster engine", perf["results"][m], own)
     phase_raster_profile(problem)
+
+
+def phase_voxel_map(card: str) -> None:
+    """Step 6b of the module docstring: G4 and the census on voxel maps."""
+    import torch
+
+    from bioem_tpu_torch.tools import kernel_probe as kp
+
+    dev = torch.device(DEVICE)
+    for wide in (False, True):
+        r = kp.check_raster_sparse(dev, wide)
+        say(f"[voxel map] {card}: G4 on a sheet of {r['pairs']} (orientation, point) pairs whose "
+            f"stencils never meet (stencil_half {r['stencil_half']}): snaps equal "
+            f"{r['snaps_equal']}, weights bit-equal {r['weights_equal']}, scale max rel |Δ| "
+            f"{r['scale_rel']:.2e}")
+        require(r["snaps_equal"] and r["weights_equal"] and r["scale_rel"] <= 1e-6,
+                "G4's weights or snaps differ from the plain version's")
+
+    def held(c, what):
+        say(f"[voxel map] {what}: {c['differ']} of {c['pairs']} pairs snap elsewhere (off ties "
+            f"{c['off_tie']}), {c['compared']} rows compared, projection max |Δ| "
+            f"{c['proj_rel']:.2e} of max |pixel| (within f32 reordering's bound: "
+            f"{c['reorder_ok']}), scale {c['scale_rel']:.2e}, two launches bit-equal {c['bits']}")
+        require(c["off_tie"] == 0 and c["bits"] and c["reorder_ok"] and c["compared"] > 0
+                and c["scale_rel"] <= 1e-6, f"G4 strays from the plain version on {what}")
+
+    for box in (32, 48):
+        held(kp.check_raster(kp.map_inputs(dev, box)), f"the {box}³ map at N = {box}")
+    x = kp.map_inputs(dev, 224)
+    for row in (0, 7):
+        held(kp.check_raster(x, [row]), f"row {row} of a 224³ map block")
+        torch.cuda.empty_cache()
+    del x
+    m = kp.raster_map_block(dev)
+    say(f"[voxel map] {card}: one block of the 224³ map ({m['points']} voxels, 8 orientations): "
+        f"G4 {m['ms']:.3f} ms, rfft2 {m['rfft2_ms']:.4f} ms (card time); two launches "
+        f"bit-equal {m['bits']}, finite {m['finite']}, sum against norm_den {m['sum_rel']:.2e}")
+    require(m["bits"] and m["finite"] and m["sum_rel"] < 1e-4, "G4 fails on the 224³ map")
+    for box, stride in ((32, 1), (224, 288)):
+        c = kp.check_census(dev, box, stride)
+        say(f"[voxel map] census of the {box}³ map, {c['orients']} orientations: card "
+            f"{c['card']}, host {c['host']}, pairs at a snap's tie {c['ties']}")
+        require(c["card"][1:] == c["host"][1:] and c["host"][0] > 0
+                and abs(c["card"][0] - c["host"][0]) <= c["ties"],
+                f"the card's census differs from the host's on the {box}³ map")
+    kp.path_rule_times(dev, say=lambda msg: say(f"[voxel map] {msg}"))
 
 
 def _side_by_side(problem, card: str) -> None:
@@ -2897,7 +2953,8 @@ def main() -> int:
                     "K3": cc_mod.fused_displacement_cc,
                     "K4": cc_mod.fused_compare_block_batched,
                     "G1": glue.block_constants, "G2": glue.merge_block,
-                    "G3": pj.project_prologue, "G4": pj.raster_project}
+                    "G3": pj.project_prologue, "G4": pj.raster_project,
+                    "census": pj.bounds_census}
 
         def main_path(name, drive, kernels):
             """Counts from 0 around one path; each of ``kernels`` must launch."""
@@ -2923,6 +2980,7 @@ def main() -> int:
                                  ("K1", "K2", "K3", "G1", "G2", "G3", "G4"))
         main_path("raster", lambda: phase_raster(problem, res_k, card),
                   ("K1", "G1", "G2", "G4"))
+        main_path("voxel map", lambda: phase_voxel_map(card), ("G4", "census"))
         main_path("production K4 + autotuned + checkpoint",
                   lambda: phase_tuned(problem, res_p, res_k, rows["K4"]["tile"]),
                   ("K2", "K4", "G1", "G2", "G3"))

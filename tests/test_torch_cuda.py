@@ -1478,6 +1478,85 @@ def test_raster_reach_matches_the_library(dev):
         P.raster_project(x["spec"], x["angles"].double(), *x["model"], use_quaternions=True)
 
 
+@pytest.mark.parametrize("wide", [False, True])
+def test_raster_weights_and_snaps_bit_equal(dev, wide):
+    """G4's bucketed deposit against the plain version bit for bit where
+    no two stencils meet (kernel_probe.check_raster_sparse: a sheet of
+    points of radii from point-like to 3.4 pixels, rotated about z; wide:
+    radii to 31.5 pixels, a reach past the deposit's octant table): every
+    snap equal, every pixel the plain version's weight times G4's scale,
+    the scale within 1e-6 of the plain version's."""
+    from bioem_tpu_torch.tools.kernel_probe import check_raster_sparse
+
+    r = check_raster_sparse(dev, wide)
+    assert r["stencil_half"] == (32 if wide else 4)
+    assert r["snaps_equal"] and r["weights_equal"], r
+    assert r["scale_rel"] <= 1e-6
+
+
+@pytest.mark.parametrize("box", [32, 48])
+def test_raster_voxel_map_vs_plain(dev, box):
+    """A voxel map (kernel_probe.synthetic_map: every voxel a sphere of
+    radius 2·pix, a noisy density, corners out of the frame) through G4
+    against the plain version, as test_raster_kernel_vs_plain holds the
+    production model: snaps equal but at ties, every pixel within f32
+    reordering's bound of the plain version's (each pixel sums ~9·box
+    weights of both signs, so 1e-6 of the max pixel no longer holds at
+    48³), the scale within 1e-6, two launches bit-equal, points dropped out
+    of the frame."""
+    from bioem_tpu_torch.tools.kernel_probe import check_raster, map_inputs
+
+    x = map_inputs(dev, box)
+    assert x["spec"].stencil_half == 3
+    r = check_raster(x)
+    assert r["off_tie"] == 0 and r["bits"], r
+    assert r["reorder_ok"] and r["scale_rel"] <= 1e-6, r
+    assert r["dropped"]["sphere"] > 0
+
+
+@pytest.mark.parametrize("row", [0, 7])
+def test_raster_map224_rows_vs_plain(dev, row):
+    """G4 on a whole block of the 224³ map (8 orientations: the map's tile
+    and entry offsets), one row held against the plain version as
+    test_raster_voxel_map_vs_plain holds the small maps: snaps equal but
+    at ties, every pixel within f32 reordering's bound, the scale within
+    1e-6, two launches bit-equal."""
+    from bioem_tpu_torch.tools.kernel_probe import check_raster, map_inputs
+
+    r = check_raster(map_inputs(dev, 224), [row])
+    assert r["pairs"] == 224 ** 3 and r["compared"] == 1, r
+    assert r["off_tie"] == 0 and r["bits"], r
+    assert r["reorder_ok"] and r["scale_rel"] <= 1e-6, r
+
+
+def test_raster_map224_block_runs(dev):
+    """One block of a 224³ map (11,239,424 voxels, 8 orientations): two
+    launches bit-equal, every pixel finite, each projection summing to
+    norm_den within f32's sums."""
+    from bioem_tpu_torch.tools.kernel_probe import raster_map_block
+
+    r = raster_map_block(dev, reps=1)
+    assert r["points"] == 224 ** 3
+    assert r["bits"] and r["finite"] and r["sum_rel"] < 1e-4, r
+
+
+@pytest.mark.parametrize("box,stride", [(32, 1), (224, 288)])
+def test_bounds_census_on_card(dev, box, stride):
+    """The card's census (ops/project_cuda.bounds_census through
+    core.projection.oob_census, one launch) against projection_oob_report
+    on a map whose corners leave the frame (kernel_probe.check_census: 32³
+    at 64 orientations, 224³ at 16 of the reference grid's): the totals
+    equal but for pairs at a snap's tie, the orientations affected and
+    refused equal."""
+    from bioem_tpu_torch.tools.kernel_probe import check_census
+
+    before = P.bounds_census.launches
+    c = check_census(dev, box, stride)
+    assert P.bounds_census.launches == before + 1
+    assert c["host"][0] > 0 and c["card"][1:] == c["host"][1:], c
+    assert abs(c["card"][0] - c["host"][0]) <= c["ties"], c
+
+
 def test_raster_counted_per_replay(rng, dev):
     """On the raster kernel branch each replay of the captured block step
     launches G4 once and neither G3 nor K2."""
