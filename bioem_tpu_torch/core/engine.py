@@ -88,6 +88,8 @@ from .posterior import (
 )
 from .projection import (
     choose_projection,
+    lattice_axes,
+    lattice_field,
     make_fourier_projection_spec,
     make_projection_spec,
     project_batch,
@@ -132,12 +134,19 @@ class Banks(NamedTuple):
     # replaces with the rest of the model. None (banks converted from the
     # JAX package's) reads the spec's counts.
     counts: Optional[torch.Tensor] = None
+    # (nx + ny + nz + 1,) f32 the axis coordinates of a voxel lattice
+    # (core.projection.lattice_axes), x then y then z, then the model's
+    # largest |density| (core.projection.lattice_field), where the engine
+    # runs the raster's lattice kernel; (0,) otherwise. Model data, swapped
+    # with the model. None in banks converted from the JAX package's.
+    axes: Optional[torch.Tensor] = None
 
 
 # The fields a swap may replace: the image chunk (swap_images) and the
 # model (swap_model). Every other field is the engine's own.
 IMAGE_FIELDS = ("img_re", "img_im", "sum_ref", "ssq_ref")
-MODEL_FIELDS = ("points", "radii", "dens", "norm_den", "st_re", "st_im", "st_sums", "counts")
+MODEL_FIELDS = ("points", "radii", "dens", "norm_den", "st_re", "st_im", "st_sums", "counts",
+                "axes")
 
 
 @dataclass
@@ -236,7 +245,10 @@ class BioEMEngine:
         common layout so that one engine (and its captured block step)
         serves several models through :meth:`swap_model` (multi-model
         ranking, rank.py). Keys: ``n_points_pad``, ``n_groups_pad``,
-        ``group_pad``, ``stencil_half``, ``force_raster``.
+        ``group_pad``, ``stencil_half``, ``force_raster``, ``lattice``
+        (False: the raster's generic walk over the point list even for a
+        voxel lattice, as for a set of models that are not all lattices of
+        one shape and radius).
 
         ``slot`` makes this engine one slot of a mesh (parallel/mesh.py):
         images and orientations are padded for the whole mesh (to
@@ -257,6 +269,7 @@ class BioEMEngine:
         self._pp_pad = int(lay.get("group_pad", 0))
         self._stencil_half_min = int(lay.get("stencil_half", 0))
         self._force_raster = bool(lay.get("force_raster", False))
+        self._lattice_ok = bool(lay.get("lattice", True))
         # The card, or the CPU only when asked (config.resolve_device).
         self.device = resolve_device(device)
         self.use_kernels = (
@@ -352,6 +365,9 @@ class BioEMEngine:
             img = self._image_arrays(maps)
         self.fspec = None
         self.spec = None
+        # (shape, radius) of the voxel lattice the raster's lattice kernel
+        # projects, or None (_model_arrays)
+        self.lattice = None
         with span("bioem.engine.model"):
             marr = self._model_arrays(model, first=True)
 
@@ -509,6 +525,27 @@ class BioEMEngine:
                 pts = np.concatenate([pts, np.repeat(pts[:1], pad, 0)])
                 radii = np.concatenate([radii, np.repeat(radii[:1], pad)])
                 dens = np.concatenate([dens, np.zeros(pad, dens.dtype)])
+        # The raster's variant: the lattice kernel where the model is a
+        # voxel lattice (projection.lattice_axes) and the layout allows it,
+        # else the generic walk over the point list. A later model must fit
+        # the engine's variant: a lattice of the same shape and radius.
+        axes = None
+        if fspec is None and (self._lattice_ok if first else self.lattice is not None):
+            found = lattice_axes(model.points, model.radii, p.pixel_size)
+            lat = None if found is None else (found[1], float(np.float32(model.radii[0])))
+            if not first and lat != self.lattice:
+                raise ValueError(
+                    "swap_model: this engine projects a voxel lattice of shape "
+                    f"{self.lattice[0]} and radius {self.lattice[1]} (the raster's lattice "
+                    "kernel); the model is "
+                    + ("not a voxel lattice" if lat is None else
+                       f"a lattice of shape {lat[0]} and radius {lat[1]}")
+                    + " — pass rank.common_model_layout's model_layout at engine construction")
+            if lat is not None:
+                axes = lattice_field(found[0], model.densities)
+                count("bioem.projection.raster.lattice")
+            if first:
+                self.lattice = lat
         if first:
             self.fspec = fspec
             self.spec = spec
@@ -539,6 +576,7 @@ class BioEMEngine:
             st_im=st_im,
             st_sums=np.asarray(st_sums, np.float32),
             counts=counts,
+            axes=np.zeros(0, np.float32) if axes is None else axes,
         )
 
     def _place_banks(self, host_fields: dict) -> Banks:
@@ -674,7 +712,11 @@ class BioEMEngine:
                     self.fspec, angles, *model, banks.st_re, banks.st_im, banks.st_sums,
                     counts=banks.counts, use_quaternions=quat,
                 )
-            proj = project_batch_kernel(self.spec, angles, *model, use_quaternions=quat)
+            if self.lattice is None:
+                proj = project_batch_kernel(self.spec, angles, *model, use_quaternions=quat)
+            else:
+                proj = project_batch_kernel(self.spec, angles, *model, use_quaternions=quat,
+                                            lattice=(banks.axes, *self.lattice))
         else:
             rotm = rotation_matrices(angles, quat)
             if self.fspec is not None:

@@ -176,15 +176,17 @@ def project_batch(
 
 
 def project_batch_kernel(spec, angles, points, radii, densities, norm_den, *,
-                         use_quaternions: bool):
+                         use_quaternions: bool, lattice=None):
     """Same contract as project_batch, from the block's orientation rows
     ``angles`` (O, 4), through G4 (ops/project_cuda.raster_project): the
-    rotation matrices, the snap, the stencil weights, their deposit in
-    model order and the scale norm_den/tempden in one kernel."""
+    rotation matrices, the snap, the stencil weights, their deposit and
+    the scale norm_den/tempden on the card. ``lattice``, (axes, shape,
+    radius) of a voxel lattice (:func:`lattice_axes`), takes its lattice
+    kernel; else the generic walk over the point list."""
     from ..ops.project_cuda import raster_project
 
     return raster_project(spec, angles, points, radii, densities, norm_den,
-                          use_quaternions=use_quaternions)
+                          use_quaternions=use_quaternions, lattice=lattice)
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +273,88 @@ def choose_projection(p, models, projection: str = "auto") -> str:
     fourier = FOURIER_S0 + FOURIER_S_SLOT_FREQ * g_max * pp_max * n * (n // 2 + 1)
     raster = RASTER_S0 + RASTER_S_PIXEL * n * n + RASTER_S_POINT * p_max
     return "raster" if fourier > RASTER_MARGIN * raster else "fourier"
+
+
+# The largest radius, in pixels, of a lattice the raster's lattice kernel
+# takes (ops/project_cuda.raster_project): its reach (the largest b with
+# (b + 1)²·pix² < r²) is then at most 3, the kernel's widest instance.
+LATTICE_MAX_RADIUS_PIX = 3.5
+# How far, in pixels, an axis's coordinates may stray from its evenly
+# spaced fit: the lattice kernel finds the voxels near a tile from that fit
+# and then snaps each on its own coordinates, so the fit only has to stay
+# well inside the error the kernel allows for (1/16 of a pixel).
+LATTICE_SPACING_TOL_PIX = 1e-3
+# The steps, in pixels, of a lattice the kernel takes (a voxel map's step
+# is the pixel size): within them a plane's rows around a tile fit the
+# kernel's table (csrc/project_raster.cu kLMaxRows).
+LATTICE_STEP_PIX = (0.8, 1.25)
+
+
+def _run_length(same: np.ndarray) -> int:
+    """Leading True entries of ``same``."""
+    off = np.flatnonzero(~same)
+    return int(off[0]) if off.size else int(same.size)
+
+
+def lattice_axes(points, radii, pixel_size: float):
+    """``((x, y, z), (nx, ny, nz))`` — the three axis coordinate vectors
+    (float32) and the shape — where the model's points are a voxel lattice,
+    as io.model_io.voxel_model lays a map out; else None. It reads the
+    points and radii alone and holds them to all of:
+
+    * P = nx·ny·nz points, each axis of at least 2 coordinates;
+    * the points are the C-order broadcast of (x, y, z), bit for bit
+      (point (i, j, k) at index (i·ny + j)·nz + k);
+    * each axis is evenly spaced, to LATTICE_SPACING_TOL_PIX of a pixel,
+      its step within LATTICE_STEP_PIX pixels (increasing or decreasing);
+    * every radius is the same, not point-like (> pixel_size) and at most
+      LATTICE_MAX_RADIUS_PIX pixels.
+
+    The raster's lattice kernel projects such a model by walking its
+    planes (ops/project_cuda.raster_project); anything else takes the
+    generic walk over the point list. Padding points (rank's layouts)
+    come after the model's and are not read here."""
+    pts = np.ascontiguousarray(points, np.float32)
+    r = np.asarray(radii, np.float32).reshape(-1)
+    pix = np.float32(pixel_size)
+    if pts.ndim != 2 or pts.shape[1] != 3 or pts.shape[0] < 8 or r.size != pts.shape[0]:
+        return None
+    r0 = r[0]
+    if not (pix < r0 <= np.float32(LATTICE_MAX_RADIUS_PIX) * pix):
+        return None
+    if not (r.view(np.uint32) == r0.view(np.uint32)).all():
+        return None
+    bits = pts.view(np.uint32)
+    nz = _run_length((bits[:, 0] == bits[0, 0]) & (bits[:, 1] == bits[0, 1]))
+    nyz = _run_length(bits[:, 0] == bits[0, 0])
+    n_p = pts.shape[0]
+    if nz < 2 or nyz % nz or nyz // nz < 2 or n_p % nyz or n_p // nyz < 2:
+        return None
+    ny, nx = nyz // nz, n_p // nyz
+    axes = (pts[::nyz, 0].copy(), pts[:nyz:nz, 1].copy(), pts[:nz, 2].copy())
+    grid = bits.reshape(nx, ny, nz, 3)
+    for d, a in enumerate(axes):
+        shape = [1, 1, 1]
+        shape[d] = a.size
+        if not (grid[..., d] == a.view(np.uint32).reshape(shape)).all():
+            return None
+        a64 = a.astype(np.float64)
+        step = (a64[-1] - a64[0]) / (a.size - 1)
+        fit = a64[0] + np.arange(a.size) * step
+        lo, hi = LATTICE_STEP_PIX
+        if not (lo * pix <= abs(step) <= hi * pix
+                and np.abs(a64 - fit).max() <= LATTICE_SPACING_TOL_PIX * pix):
+            return None
+    return axes, (nx, ny, nz)
+
+
+def lattice_field(axes, densities) -> np.ndarray:
+    """What G4's lattice variant reads of a lattice model (the engine's
+    Banks.axes): its axes (:func:`lattice_axes`) x, y, z, then its largest
+    |density| (which sets the kernel's fixed point), (nx + ny + nz + 1,)
+    float32."""
+    dmax = np.abs(np.asarray(densities, np.float32)).max(initial=np.float32(0))
+    return np.concatenate([*axes, [dmax]]).astype(np.float32)
 
 
 def _unit_stencil(radius: float, pix: float) -> np.ndarray:

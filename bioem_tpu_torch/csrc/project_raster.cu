@@ -58,10 +58,11 @@
 // (reach_bound: S − 1 at every pixel size tried), and the kernels clamp
 // to that bound, which sizes the scratch.
 //
-// Design. The work is O·P snaps and O·P·E deposits (E the nonzero weights
-// of a point); a map of 224³ voxels at the 4608 orientations of the BioEM
-// manual's grid is 5.2e10 snaps a pass. Each (orientation, point) is
-// snapped twice and each deposit made once, in six launches per block:
+// Design of the generic variant. The work is O·P snaps and O·P·E deposits
+// (E the nonzero weights of a point); a map of 224³ voxels at the 4608
+// orientations of the BioEM manual's grid is 5.2e10 snaps a pass. Each
+// (orientation, point) is snapped twice and each deposit made once, in six
+// launches per block:
 //   prep     one thread per point: its share of tempden where it lies in
 //            the frame (Σ multiplicity·weight over its octant entries, f64),
 //            which no orientation changes;
@@ -92,7 +93,72 @@
 //            forms the weight of each pixel it lays (the same bits).
 // An entry is one 16-byte store (its packed pixel and reach, density and
 // radius); the entries live in the caller's scratch, sized for the worst
-// case of every point meeting ntr·ntc bins at the reach bound.
+// case of every point meeting ntr·ntc bins at the reach bound. That round
+// trip through device memory is this design's floor: ~8e10 entries a pass
+// for the 224³ map, ~1.3 TB written and read again.
+//
+// Two variants; which runs is decided by what the model shows
+// (core/projection.lattice_axes, asked by the engine and by
+// rank.common_model_layout), never by a knob:
+//   generic  the six launches above, for any point list: residue models,
+//            models of many radii, a map ranked beside a model that is not
+//            a lattice of its shape and radius;
+//   lattice  a voxel map (--ReadModelMRC, io/model_io.voxel_model): the
+//            points are the C-order broadcast of three evenly spaced axes
+//            (steps 0.8–1.25 pixel), every one of one radius r (pix < r ≤
+//            3.5·pix: reach 1 to 3). Two launches, no entries:
+//   raster_projection_kernel_lattice<reach>: one CTA per (32 × 32-
+//            pixel tile, orientation). For one orientation the voxels of a
+//            plane of the lattice axis a most nearly along the view
+//            (|R[2][a]| ≥ 1/√3 at equal steps) project to a lattice of the
+//            frame under a 2 × 2 map of determinant ±R[2][a]·h_b·h_c/pix², so
+//            the voxels whose snap can land in the tile widened by the reach
+//            are, per plane, the rows of a parallelogram in the plane's (u,
+//            v) indices, found through the axes' evenly spaced fit with a
+//            margin of a pixel (the fit strays from the exact pre-floor
+//            coordinate by ~1e-5 pixel; the lattice's axes by at most 1e-3,
+//            lattice_axes). Each warp walks its own planes (a, a + 8, ...):
+//            it lays out a plane's rows in its own table (each row's first
+//            column and running count), then takes the plane's voxels 32 at
+//            a time as one list (a chunk's lanes 8 voxels apart, so that one
+//            instruction's lanes seldom meet on a pixel), snaps each with
+//            bioem_snap::snap_point on its own coordinates (so every snap is
+//            the generic variant's), and for those that land in the widened
+//            tile forms each octant entry's weight with the plain version's
+//            roundings and adds it to that entry's sum at the voxel's pixel.
+//            The sums are integers: each weight times 2^fx, rounded to an
+//            integer below 2^(57 − lg na − lg (2·reach + 1)²) in size (fx
+//            from the model's largest |density|; 2^45 at 224 planes and reach
+//            1), so that a pixel's sums over the planes and the gather of its
+//            neighbours' stay below 2^62; the largest weight then has 45 bits,
+//            and a pixel whose weights sum to a small share of it keeps more
+//            than f32's 24 (a 31-bit scale broke f32 reordering's bound on a
+//            32³ map, where a pixel's sum is under 1 % of the largest
+//            weight). They are added exactly into 64-bit sums held as two
+//            words in shared memory with native 32-bit atomics (the low
+//            word, then its carry or borrow with the high word; a 64-bit
+//            shared atomicAdd is a compare-and-swap loop on sm_90). Integer
+//            sums do not depend on the order of the adds, so two launches
+//            give the same bits and there are no float atomics. Then each
+//            pixel of the tile adds, for each offset (du, dv) of the reach,
+//            its neighbour's sum of that offset's entry (exactly) and rounds
+//            the total to f32 once: each pixel within f32 reordering's bound
+//            of the plain version, every weight the plain version's
+//            (weight_at's roundings, __fdiv_rn included). tempden: each valid
+//            voxel's share (Σ multiplicity · weight in f64, prep's sum) is
+//            counted by the tile whose interior holds its snapped pixel,
+//            summed in f64 per thread and
+//            the tile's threads in a fixed tree, into (O, tiles) f64 in the
+//            scratch: within one f32 ulp of the generic variant's scale;
+//   raster_projection_kernel_lattice_scale: per orientation the tiles' sums
+//            in a fixed tree, the scale norm_den / tempden rounded to f32
+//            once, and the orientation's pixels, written unscaled by the tile
+//            kernel, times it.
+//   Work: O·P snaps and weight sets (each voxel once per tile whose widened
+//   tile with the margin holds its fit, ~1.27 at tile 32 and reach 1) and
+//   three atomic adds per voxel that lands; the densities from L2 (45 MB at
+//   224³). Snaps, where asked for, are written for the voxels whose snap lies
+//   in the frame.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -547,6 +613,314 @@ __global__ void __launch_bounds__(kDepWarps * 32) raster_projection_kernel_depos
   if (row < N && col < N) out[((size_t)o * N + row) * N + col] = __fmul_rn(acc, scale[o]);
 }
 
+// ---------------------------------------------------------------------------
+// The lattice variant (header): a CTA per (pixel tile, orientation)
+// ---------------------------------------------------------------------------
+
+constexpr int kLTile = 32;            // pixels a side of a CTA's tile
+constexpr int kLThreads = 256;        // a tile's 1024 pixels, four a thread in the gather
+constexpr int kLMaxReach = 3;         // the widest instance
+constexpr int kLMaxAxes = 3 * 4096;   // axis coordinates held in shared memory
+constexpr float kLMargin = 1.f;       // the walk's margin around the widened tile, in pixels
+constexpr int kLMaxRows = 208;        // rows of a plane's walk: ≤ 194 at steps in [0.8, 1.25]·pix
+constexpr int kLScaleBlocks = 16;     // CTAs per orientation of the scale
+
+struct LatticeLaunch {
+  const float* angles;
+  int quat;
+  const float *axes, *dens;  // axes: x, y, z, then the largest |density|
+  int n[3];     // nx, ny, nz
+  int P;        // points of the layout (the snaps' stride), ≥ nx·ny·nz
+  int N, shift_x, shift_y, tiles_c;
+  float r;      // the lattice's one radius
+  Consts c;
+  float* out;
+  int* snaps;
+  double* tpart;  // (O, tiles) tempden's tile sums
+};
+
+__device__ inline float pick3(const float v[3], int d) { return d == 0 ? v[0] : d == 1 ? v[1] : v[2]; }
+
+// The lattice kernel (header): each warp walks its planes of the axis most
+// nearly along the view, row by row, snapping each voxel whose fit lies in
+// the widened tile once with bioem_snap::snap_point on its own coordinates;
+// those that land in it add their octant weights, in 64-bit fixed point,
+// into their pixel's sums; then each pixel of the tile adds its neighbours'
+// sums at its offset from them and rounds the total to f32 once.
+template <int kReach>
+__global__ void __launch_bounds__(kLThreads, 3) raster_projection_kernel_lattice(LatticeLaunch L) {
+  constexpr int E = kLTile + 2 * kReach;                // the widened tile's side
+  constexpr int W = (kReach + 1) * (kReach + 2) / 2;    // octant entries
+  constexpr int kPer = kLTile * kLTile / kLThreads;     // gathered pixels a thread
+  constexpr int kWarps = kLThreads / 32;
+  extern __shared__ unsigned sh_lat[];
+  __shared__ double red[kWarps];
+  __shared__ int row_tab[kWarps * 2 * (kLMaxRows + 1)];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int o = blockIdx.y, tile = blockIdx.x;
+  const int n_ax = L.n[0] + L.n[1] + L.n[2];
+  unsigned* S_lo = sh_lat;                               // [W][E·E] each pixel's sums,
+  int* S_hi = reinterpret_cast<int*>(sh_lat + W * E * E); // their low and high words
+  float* ax = reinterpret_cast<float*>(sh_lat + 2 * W * E * E);
+  for (int i = tid; i < n_ax; i += kLThreads) ax[i] = L.axes[i];
+  for (int i = tid; i < 2 * W * E * E; i += kLThreads) sh_lat[i] = 0u;
+  const int r0 = (tile / L.tiles_c) * kLTile, c0 = (tile % L.tiles_c) * kLTile;
+  float R[9];
+  bioem_snap::rotation_matrix(L.angles + 4 * (size_t)o, L.quat != 0, R);
+  const bioem_snap::Frame f = bioem_snap::make_frame(L.N, L.c.pix, L.shift_x, L.shift_y);
+  __syncthreads();
+
+  // the axes' evenly spaced fits and the plane axis a: the largest
+  // |R[2][a]| / |h_a| (the best-conditioned in-plane map); b < c the others
+  float h[3], c0f[3], gi[3], gj[3];
+  int a = 0;
+  float best = -1.f;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float* A = ax + (d > 0 ? L.n[0] : 0) + (d > 1 ? L.n[1] : 0);
+    c0f[d] = A[0];
+    h[d] = __fdiv_rn(__fsub_rn(A[L.n[d] - 1], A[0]), (float)(L.n[d] - 1));
+    gi[d] = __fmul_rn(__fmul_rn(R[d], h[d]), f.inv_pix);
+    gj[d] = __fmul_rn(__fmul_rn(R[3 + d], h[d]), f.inv_pix);
+    const float score = __fdiv_rn(fabsf(R[6 + d]), fabsf(h[d]));
+    if (score > best) {
+      best = score;
+      a = d;
+    }
+  }
+  const int b = a == 0 ? 1 : 0, cc = a == 2 ? 1 : 2;
+  const int nb = b == 0 ? L.n[0] : L.n[1], nc = cc == 1 ? L.n[1] : L.n[2];
+  const int na = a == 0 ? L.n[0] : a == 1 ? L.n[1] : L.n[2];
+  const int sa = a == 0 ? L.n[1] * L.n[2] : a == 1 ? L.n[2] : 1;
+  const int sb = b == 0 ? L.n[1] * L.n[2] : L.n[2], sc = cc == 1 ? L.n[2] : 1;
+  const float* Aa = ax + (a > 0 ? L.n[0] : 0) + (a > 1 ? L.n[1] : 0);
+  const float* Ab = ax + (b > 0 ? L.n[0] : 0);
+  const float* Ac = ax + L.n[0] + (cc > 1 ? L.n[1] : 0);
+  // t = x/pix + N/2 + 0.5 − shift, the pre-floor pixel coordinate whose
+  // floor is the snapped pixel; on the fit t = (ti0, tj0) + g_a·k + g_b·u + g_c·v
+  const float ti0 = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fadd_rn(
+      __fmul_rn(R[0], c0f[0]), __fmul_rn(R[1], c0f[1])), __fmul_rn(R[2], c0f[2])), f.inv_pix),
+      f.half), 0.5f), (float)L.shift_x);
+  const float tj0 = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fadd_rn(
+      __fmul_rn(R[3], c0f[0]), __fmul_rn(R[4], c0f[1])), __fmul_rn(R[5], c0f[2])), f.inv_pix),
+      f.half), 0.5f), (float)L.shift_y);
+  const float gia = pick3(gi, a), gja = pick3(gj, a);
+  const float gib = pick3(gi, b), gjb = pick3(gj, b), gic = pick3(gi, cc), gjc = pick3(gj, cc);
+  const float det = __fsub_rn(__fmul_rn(gib, gjc), __fmul_rn(gic, gjb));
+  const float m00 = __fdiv_rn(gjc, det), m01 = __fdiv_rn(-gic, det);
+  // the widened tile with the walk's margin, in t
+  const float lo_i = (float)(r0 - kReach) - kLMargin, hi_i = (float)(r0 + kLTile + kReach) + kLMargin;
+  const float lo_j = (float)(c0 - kReach) - kLMargin, hi_j = (float)(c0 + kLTile + kReach) + kLMargin;
+  const float hu_t = __fmul_rn(__fadd_rn(fabsf(m00), fabsf(m01)), 0.5f * (hi_i - lo_i));
+  const float ci_t = 0.5f * (lo_i + hi_i), cj_t = 0.5f * (lo_j + hi_j);
+  // a row's columns: both coordinates' intervals, through 1/g_c
+  const bool use_i = fabsf(gic) > 1e-6f, use_j = fabsf(gjc) > 1e-6f;
+  const float rgi = use_i ? 1.f / gic : 0.f, rgj = use_j ? 1.f / gjc : 0.f;
+
+  // each octant entry's density-free factors, as weight_at forms them
+  const float rad2 = __fmul_rn(L.r, L.r);
+  const float den = __fmul_rn(__fmul_rn(L.c.c_den, L.r), rad2);
+  float chord[W];
+  bool inside[W];
+  float cmax = 0.f;
+#pragma unroll
+  for (int bb = 0; bb <= kReach; ++bb)
+#pragma unroll
+    for (int aa = 0; aa <= bb; ++aa) {
+      const int e = bb * (bb + 1) / 2 + aa;
+      const float dist = __fmul_rn(__fmul_rn((float)(aa * aa + bb * bb), L.c.pix), L.c.pix);
+      inside[e] = dist < rad2;
+      chord[e] = __fmul_rn(L.c.c_chord, __fsqrt_rn(fmaxf(__fsub_rn(rad2, dist), 0.f)));
+      if (inside[e]) cmax = fmaxf(cmax, chord[e]);
+    }
+  // The fixed point (header): weights times 2^fx, each then below 2^(57 −
+  // lg na − lg (2·reach + 1)²) in size (the model's largest |density|, after
+  // the axes, bounds them; 2^45 at 224 planes), so that a pixel's sums over
+  // the planes (at most 32 voxels of a plane snap to one pixel) and a
+  // gather of them stay below 2^62.
+  const float wmax = __fmul_rn(__fdiv_rn(__fmul_rn(__fmul_rn(cmax, L.axes[n_ax]), 3.f), den),
+                               1.0001f);
+  const int room = 57 - (32 - __clz(na)) - (32 - __clz((2 * kReach + 1) * (2 * kReach + 1)));
+  const int fx = wmax > 0.f ? min(max(room - (ilogbf(wmax) + 1), -100), 100) : 0;
+  const float up = scalbnf(1.f, fx);                     // exact scalings
+  const int N = L.N;
+  double tsum = 0.0;  // tempden's share of the tile
+
+  const int rs = warp * 2 * (kLMaxRows + 1), rv = rs + kLMaxRows + 1;  // this warp's plane's
+                                                                        // row starts, first columns
+  for (int k = warp; k < na; k += kWarps) {
+    const float bi = __fadd_rn(ti0, __fmul_rn(gia, (float)k));
+    const float bj = __fadd_rn(tj0, __fmul_rn(gja, (float)k));
+    const float uc = __fadd_rn(__fmul_rn(m00, __fsub_rn(ci_t, bi)),
+                               __fmul_rn(m01, __fsub_rn(cj_t, bj)));
+    const int u0 = (int)ceilf(fmaxf(__fsub_rn(uc, hu_t), 0.f));
+    const int u1 = (int)floorf(fminf(__fadd_rn(uc, hu_t), (float)(nb - 1)));
+    const int nrows = u1 - u0 + 1;
+    if (nrows > kLMaxRows) __trap();  // steps outside the detector's range
+    // the plane's rows: each row's columns whose fit lies in the widened
+    // tile with the margin, and the running count of the rows' voxels
+    int total = 0;
+    for (int t0 = 0; t0 < nrows; t0 += 32) {
+      const int t = t0 + lane;
+      int vlo = 0, len = 0;
+      if (t < nrows) {
+        const float uf = (float)(u0 + t);
+        const float ri = __fadd_rn(bi, __fmul_rn(gib, uf));
+        const float rj = __fadd_rn(bj, __fmul_rn(gjb, uf));
+        float vl = 0.f, vh = (float)(nc - 1);
+        bool any = true;
+        if (use_i) {
+          const float x = (lo_i - ri) * rgi, y = (hi_i - ri) * rgi;
+          vl = fmaxf(vl, fminf(x, y));
+          vh = fminf(vh, fmaxf(x, y));
+        } else {
+          any = ri >= lo_i && ri <= hi_i;
+        }
+        if (use_j) {
+          const float x = (lo_j - rj) * rgj, y = (hi_j - rj) * rgj;
+          vl = fmaxf(vl, fminf(x, y));
+          vh = fminf(vh, fmaxf(x, y));
+        } else {
+          any = any && rj >= lo_j && rj <= hi_j;
+        }
+        if (any && vl <= vh) {
+          vlo = (int)ceilf(vl);
+          len = max((int)floorf(vh) - vlo + 1, 0);
+        }
+        row_tab[rv + t] = vlo;
+      }
+      int x = len;  // inclusive scan over the lanes
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, off);
+        if (lane >= off) x += y;
+      }
+      if (t < nrows) row_tab[rs + t] = total + x - len;
+      total += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) row_tab[rs + max(nrows, 0)] = total;
+    __syncwarp();
+    // the plane's voxels as one list, 32 at a time
+    const float pa = Aa[k];
+    const int pk = k * sa;
+    // a chunk's 32 voxels to the lanes 8 apart (lane ℓ: voxel (ℓ % 4)·8 +
+    // ℓ / 4), so that the lanes of one atomic seldom share a pixel
+    const int spread = (lane & 3) * 8 + (lane >> 2);
+    int j = 0;
+    for (int fl = spread; fl < total; fl += 32) {
+      while (row_tab[rs + j + 1] <= fl) ++j;
+      const int u = u0 + j, v = row_tab[rv + j] + (fl - row_tab[rs + j]);
+      const int p = pk + u * sb + v * sc;  // P < 2^31 (the C entry checks)
+      const float d = __ldg(L.dens + p);
+      const float pu = Ab[u], pv = Ac[v];
+      const float x0 = a == 0 ? pa : b == 0 ? pu : pv;
+      const float x1 = a == 1 ? pa : b == 1 ? pu : pv;
+      const float x2 = a == 2 ? pa : pv;
+      const bioem_snap::Snap sn = bioem_snap::snap_point(f, R, x0, x1, x2, L.r);
+      const int ei = sn.ii - (r0 - kReach), ej = sn.jj - (c0 - kReach);
+      const bool interior = sn.ii >= r0 && sn.ii < min(r0 + kLTile, N) && sn.jj >= c0 &&
+                            sn.jj < min(c0 + kLTile, N);
+      if (L.snaps != nullptr && interior) {
+        L.snaps[((size_t)o * 2) * L.P + p] = sn.ii;
+        L.snaps[((size_t)o * 2 + 1) * L.P + p] = sn.jj;
+      }
+      if (!sn.valid || ei < 0 || ei >= E || ej < 0 || ej >= E) continue;
+      const int key = ei * E + ej;
+      double share = 0.0;
+      long long q[W];
+#pragma unroll
+      for (int bb = 0; bb <= kReach; ++bb)
+#pragma unroll
+        for (int aa = 0; aa <= bb; ++aa) {
+          const int e = bb * (bb + 1) / 2 + aa;
+          const int mult = bb == 0 ? 1 : (aa == 0 || aa == bb) ? 4 : 8;
+          q[e] = 0;
+          if (!inside[e]) continue;
+          const float x = __fmul_rn(__fmul_rn(chord[e], d), 3.f);
+          const float w = __fdiv_rn(x, den);
+          q[e] = __float2ll_rn(__fmul_rn(w, up));
+          share = __dadd_rn(share, __dmul_rn((double)mult, (double)w));  // prep's order
+        }
+      if (interior) tsum = __dadd_rn(tsum, share);
+      // the low words first, then the high words with their carries, so
+      // that the entries' atomics overlap: each sum is 64-bit fixed point held
+      // as (hi, lo) words, added with native 32-bit atomics (a 64-bit shared
+      // atomicAdd is a compare-and-swap loop on sm_90); exact in any order
+      unsigned old[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        if (inside[e]) old[e] = atomicAdd(S_lo + e * E * E + key, (unsigned)q[e]);
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        if (!inside[e]) continue;
+        const int up_e = (int)(q[e] >> 32) + (old[e] + (unsigned)q[e] < old[e] ? 1 : 0);
+        if (up_e != 0) atomicAdd(S_hi + e * E * E + key, up_e);
+      }
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  // each pixel of the tile: its neighbours' sums at its offset from them
+  const double down = scalbn(1.0, -fx);
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int px = tid + m * kLThreads;
+    const int i = px / kLTile + kReach, j = px % kLTile + kReach;
+    long long acc = 0;
+#pragma unroll
+    for (int du = -kReach; du <= kReach; ++du)
+#pragma unroll
+      for (int dv = -kReach; dv <= kReach; ++dv) {
+        const int lo = min(abs(du), abs(dv)), hi = max(abs(du), abs(dv));
+        const int at = (hi * (hi + 1) / 2 + lo) * E * E + (i - du) * E + (j - dv);
+        acc += ((long long)S_hi[at] << 32) + (long long)S_lo[at];
+      }
+    const int row = r0 + i - kReach, col = c0 + j - kReach;
+    if (row < N && col < N)
+      L.out[((size_t)o * N + row) * N + col] = __double2float_rn(__dmul_rn(__ll2double_rn(acc), down));
+  }
+  // tempden's tile sum: each thread's, then a fixed tree
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) tsum = __dadd_rn(tsum, __shfl_xor_sync(kFull, tsum, off));
+  if (lane == 0) red[warp] = tsum;
+  __syncthreads();
+  if (tid == 0) {
+    double t = 0.0;
+    for (int w = 0; w < kWarps; ++w) t = __dadd_rn(t, red[w]);
+    L.tpart[(size_t)o * gridDim.x + tile] = t;
+  }
+}
+
+// The lattice variant's scale: per orientation tempden from its tiles' sums
+// in a fixed tree, norm_den / tempden rounded to f32 once, and the
+// orientation's pixels times it (a chunk of them per CTA).
+__global__ void __launch_bounds__(256) raster_projection_kernel_lattice_scale(
+    const double* __restrict__ tpart, int tiles, const float* __restrict__ norm_den,
+    float* __restrict__ out, int nn, float* __restrict__ scale_out) {
+  __shared__ double dsum[8];
+  __shared__ float sc_sh;
+  const int o = blockIdx.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  double s = 0.0;
+  for (int k = t; k < tiles; k += 256) s = __dadd_rn(s, tpart[(size_t)o * tiles + k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s = __dadd_rn(s, __shfl_xor_sync(kFull, s, off));
+  if (lane == 0) dsum[warp] = s;
+  __syncthreads();
+  if (t == 0) {
+    double tot = 0.0;
+    for (int w = 0; w < 8; ++w) tot = __dadd_rn(tot, dsum[w]);
+    const float sc = __double2float_rn(__ddiv_rn((double)*norm_den, tot));
+    sc_sh = sc;
+    if (scale_out != nullptr && blockIdx.x == 0) scale_out[o] = sc;
+  }
+  __syncthreads();
+  const float sc = sc_sh;
+  const int per = (nn + gridDim.x - 1) / gridDim.x;
+  const int i0 = blockIdx.x * per, i1 = min(nn, i0 + per);
+  float* row = out + (size_t)o * nn;
+  for (int i = i0 + t; i < i1; i += 256) row[i] = __fmul_rn(row[i], sc);
+}
+
 // The census: per orientation, the points the snap drops out of the frame
 // (a group of 32 orientations per CTA, their matrices in shared memory).
 __global__ void __launch_bounds__(256) bounds_census_kernel(
@@ -652,6 +1026,68 @@ int bioem_raster_project(const float* angles, int quat, const float* points, con
                                                                          entries);
   deposit<<<dim3((g.nb + kDepWarps - 1) / kDepWarps, O), kDepWarps * 32, smem_dep, st>>>(
       entries, bstart, sc, g.nbr, g.nbc, N, g.cap, L.c, out);
+  return (int)cudaGetLastError();
+}
+
+// The widest reach of the lattice variant's instances, its tile's side and
+// its walk's margin around the widened tile, in pixels (the tests' twin of
+// the walk reads the same numbers from ops/project_cuda.py).
+int bioem_raster_lattice_max_reach() { return kLMaxReach; }
+int bioem_raster_lattice_tile() { return kLTile; }
+float bioem_raster_lattice_margin() { return kLMargin; }
+
+// Bytes of the scratch one launch of bioem_raster_project_lattice needs:
+// tempden's tile sums, (O, tiles) f64.
+size_t bioem_raster_lattice_scratch_bytes(int O, int N) {
+  if (O < 1 || O > 65535 || N < 1 || N > kMaxN) return 0;
+  const int t = (N + kLTile - 1) / kLTile;
+  return sizeof(double) * (size_t)O * t * t;
+}
+
+// G4 on a voxel lattice (header): the points of the layout's first
+// nx·ny·nz slots are the C-order broadcast of the axes (x, y, z), every one
+// of radius r; axes holds nx + ny + nz + 1 f32, the axes then the largest
+// |density| of those slots; the slots after them (a layout's padding) are
+// not read. The contract, the snaps and the scale are bioem_raster_project's.
+int bioem_raster_project_lattice(const float* angles, int quat, const float* axes, int nx, int ny,
+                                 int nz, const float* dens, const float* norm_den, int O, int P,
+                                 int N, float pix, int shift_x, int shift_y, int S, float r,
+                                 float c_chord, float c_den, float* out, int* snaps, float* scale,
+                                 void* scratch, size_t scratch_bytes, void* stream) {
+  const size_t need = bioem_raster_lattice_scratch_bytes(O, N);
+  if (need == 0 || scratch == nullptr || scratch_bytes < need || S < 1 || S > kMaxS ||
+      !(pix > 0.f) || !(r > pix) || nx < 2 || ny < 2 || nz < 2 ||
+      nx + ny + nz + 1 > kLMaxAxes || (long long)nx * ny * nz > P || P > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  // the radius's reach, as reach_of finds it
+  const int Rb = reach_bound(S, pix);
+  const float rad2 = r * r;
+  int reach = 0;
+  while (reach < Rb && ((float)((reach + 1) * (reach + 1)) * pix) * pix < rad2) ++reach;
+  if (reach < 1 || reach > kLMaxReach) return (int)cudaErrorInvalidValue;
+  const int tc = (N + kLTile - 1) / kLTile;
+  LatticeLaunch L{angles, quat, axes, dens, {nx, ny, nz}, P, N, shift_x, shift_y, tc, r,
+                  Consts{pix, c_chord, c_den, S, Rb}, out, snaps, static_cast<double*>(scratch)};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem_ax = sizeof(float) * (size_t)(nx + ny + nz + 1);
+  const dim3 grid(tc * tc, O);
+  cudaError_t err = cudaSuccess;
+  auto launch = [&](auto kernel, int E, int W) {
+    const size_t smem = smem_ax + 2 * sizeof(unsigned) * (size_t)W * E * E;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)))
+      return;
+    kernel<<<grid, kLThreads, smem, st>>>(L);
+  };
+  if (reach == 1)
+    launch(raster_projection_kernel_lattice<1>, kLTile + 2, 3);
+  else if (reach == 2)
+    launch(raster_projection_kernel_lattice<2>, kLTile + 4, 6);
+  else
+    launch(raster_projection_kernel_lattice<3>, kLTile + 6, 10);
+  if (err) return (int)err;
+  raster_projection_kernel_lattice_scale<<<dim3(kLScaleBlocks, O), 256, 0, st>>>(
+      L.tpart, tc * tc, norm_den, out, N * N, scale);
   return (int)cudaGetLastError();
 }
 

@@ -54,6 +54,12 @@ SIGNATURES = {
                              + [ctypes.c_size_t, P]),
     "bioem_raster_scratch_bytes": [I] * 4 + [F],
     "bioem_raster_max_stencil_half": [],
+    "bioem_raster_project_lattice": ([P, I, P, I, I, I, P, P] + [I] * 3 + [F] + [I] * 3
+                                     + [F] * 3 + [P] * 4 + [ctypes.c_size_t, P]),
+    "bioem_raster_lattice_scratch_bytes": [I, I],
+    "bioem_raster_lattice_max_reach": [],
+    "bioem_raster_lattice_tile": [],
+    "bioem_raster_lattice_margin": [],
     "bioem_bounds_census": [P, I, I, P, P, I, I, F, I, I, P, P],
     "bioem_fused_compare": [P] * 12 + [F] + [I] * 10 + [P] * 5 + [P],
     "bioem_fused_displacement_cc": [P] * 8 + [I] * 9 + [P] * 2 + [P],
@@ -77,6 +83,8 @@ RESTYPES = {
     "bioem_fused_compare_scratch_bytes": ctypes.c_size_t,
     "bioem_compare_batched_smem_bytes": ctypes.c_size_t,
     "bioem_raster_scratch_bytes": ctypes.c_size_t,
+    "bioem_raster_lattice_scratch_bytes": ctypes.c_size_t,
+    "bioem_raster_lattice_margin": ctypes.c_float,
     "bioem_error_string": ctypes.c_char_p,
 }
 

@@ -18,10 +18,11 @@ Three kernels, each beside the torch code it replaces as its plain version:
   fused on the TPU (no Pallas kernel has its body): the block's rotation
   matrices, the snap, the stencil weights, their deposit and the scale
   norm_den/tempden (``bioem_tpu/core/projection.py:74-195``); the kernels
-  are ``csrc/project_raster.cu``'s six ``raster_projection_kernel_*``
-  launches (the points bucketed by bin of the frame, then each bin
-  deposited from its own bucket), and torch.fft.rfft2 transforms its
-  output. The same source holds the out-of-frame census
+  are ``csrc/project_raster.cu``'s ``raster_projection_kernel_*``: for a
+  voxel lattice (core.projection.lattice_axes) two launches that walk its
+  planes per pixel tile, for any other point list six (the points bucketed
+  by bin of the frame, then each bin deposited from its own bucket); and
+  torch.fft.rfft2 transforms its output. The same source holds the out-of-frame census
   (:func:`bounds_census`), which core/engine.py runs at set-up on the card.
 
 Each source's header says what bounds it on the card and how the design
@@ -236,6 +237,14 @@ project_prologue.launches = 0
 # bioem_raster_max_stencil_half says the same; a card test compares them).
 RASTER_MAX_N = 512
 RASTER_MAX_STENCIL_HALF = 1023
+# The lattice variant's widest reach (its kernel's instances), its tile and
+# the margin of its walk around the widened tile, in pixels
+# (csrc/project_raster.cu's kLMaxReach, kLTile, kLMargin; the C entries
+# bioem_raster_lattice_max_reach, _tile and _margin say the same, and a card
+# test compares them): what the plain twin of its walk (tests) mirrors.
+RASTER_LATTICE_MAX_REACH = 3
+RASTER_LATTICE_TILE = 32
+RASTER_LATTICE_MARGIN = 1.0
 
 
 def raster_project_plain(spec, angles, points, radii, dens, norm_den, *, use_quaternions: bool):
@@ -254,19 +263,29 @@ def raster_project(
     norm_den: torch.Tensor,  # () f32
     *,
     use_quaternions: bool,
+    lattice=None,
     snaps: torch.Tensor = None,
     scale: torch.Tensor = None,
 ):
     """G4: the (O, N, N) f32 projections of an orientation block, times
     norm_den/tempden — the contract of core.projection.project_batch on the
-    rows' rotation matrices (module docstring). For a check of the kernel,
+    rows' rotation matrices (module docstring). ``lattice``, (axes, shape,
+    radius) where the model's first nx·ny·nz points are the voxel lattice
+    core.projection.lattice_axes found (axes: core.projection
+    .lattice_field's (nx + ny + nz + 1,) f32 on the card; radius: every
+    point's, a Python float), runs the lattice variant: a CTA per pixel
+    tile walks the lattice's planes, no entries, two launches; else the
+    generic walk over the point list (csrc/project_raster.cu's header). For a check of the kernels,
     ``snaps``, an (O, 2, P) int32 tensor on the card, also receives each
-    point's snapped pixel (i0, j0), and ``scale``, (O,) f32, each
-    orientation's norm_den/tempden; the plain version takes neither. The
-    kernels' scratch (the bins' counts and their entries, 16 bytes per
-    entry, sized for every point meeting the most bins the stencil's reach
-    bound lets it: ~5.8 GB at O = 8 for a 224³ voxel map) is allocated per
-    call, so a captured block step holds it in its graph's pool."""
+    point's snapped pixel (i0, j0) (the lattice variant: each voxel whose
+    snap lies in the frame; the other entries are left as they were), and
+    ``scale``, (O,) f32, each orientation's norm_den/tempden; the plain
+    version, the CPU's for both variants, takes neither. The scratch
+    (generic: the bins' counts and their entries, 16 bytes per entry,
+    sized for every point meeting the most bins the stencil's reach bound
+    lets it, ~5.8 GB at O = 8 for a 224³ voxel map; lattice: one f64 per
+    (orientation, tile)) is allocated per call, so a captured block step
+    holds it in its graph's pool."""
     fn = "raster_project"
     dev = angles.device
     if dev.type == "cpu":
@@ -295,14 +314,35 @@ def raster_project(
         raise ValueError(f"{fn}: {o_n} orientations exceed the grid limit 65535")
     lib = _build.load()
     pix = float(np.float32(spec.pixel_size))
-    nbytes = lib.bioem_raster_scratch_bytes(o_n, p_n, n, s, pix)
-    if nbytes == 0:
-        raise ValueError(f"{fn}: {p_n} points at stencil_half {s} exceed the kernels' "
-                         "int32 entry offsets")
     # the plain version's constants, as its Python expressions round them
     c_chord = float(np.float32(pix * pix * 2.0))
     c_den = float(np.float32(4.0 * float(np.float32(np.pi))))
     out = torch.empty((o_n, n, n), dtype=F32, device=dev)
+    if lattice is not None:
+        axes, shape, radius = lattice
+        nx, ny, nz = (int(v) for v in shape)
+        _build.check_tensors(fn, dev, [("axes", axes, F32, (nx + ny + nz + 1,))])
+        if nx * ny * nz > p_n:
+            raise ValueError(f"{fn}: a lattice of {nx}×{ny}×{nz} voxels exceeds the {p_n} "
+                             "points")
+        nbytes = lib.bioem_raster_lattice_scratch_bytes(o_n, n)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = lib.bioem_raster_project_lattice(
+                angles.data_ptr(), int(bool(use_quaternions)), axes.data_ptr(), nx, ny, nz,
+                dens.data_ptr(), norm_den.data_ptr(), o_n, p_n, n, pix, int(spec.shift_x),
+                int(spec.shift_y), s, float(np.float32(radius)), c_chord, c_den, out.data_ptr(),
+                None if snaps is None else snaps.data_ptr(),
+                None if scale is None else scale.data_ptr(), scratch.data_ptr(), nbytes, stream,
+            )
+        _build.check(status, fn)
+        raster_project.launches += 1
+        return out
+    nbytes = lib.bioem_raster_scratch_bytes(o_n, p_n, n, s, pix)
+    if nbytes == 0:
+        raise ValueError(f"{fn}: {p_n} points at stencil_half {s} exceed the kernels' "
+                         "int32 entry offsets")
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -29,7 +29,7 @@ import numpy as np
 
 from .config import RunConfig, resolve_device
 from .core.orientations import build_orientations
-from .core.projection import choose_projection
+from .core.projection import choose_projection, lattice_axes
 from .io.map_io import read_ref_maps
 from .io.model_io import read_model
 from .params import read_parameters
@@ -49,11 +49,20 @@ def common_model_layout(p, models: Sequence, projection: str = "auto") -> dict:
             pp_max = max(pp_max, -(-int(counts.max()) // 8) * 8)
         lay["n_groups_pad"] = g_max
         lay["group_pad"] = pp_max
-    elif projection != "raster":
-        # The path rule chose the raster for the set (one continuous-radius
-        # model, or a Fourier projection far dearer): ALL models take it
-        # (one engine runs one projection path).
-        lay["force_raster"] = True
+    else:
+        if projection != "raster":
+            # The path rule chose the raster for the set (one continuous-radius
+            # model, or a Fourier projection far dearer): ALL models take it
+            # (one engine runs one projection path).
+            lay["force_raster"] = True
+        # The raster's lattice variant only where every model is a voxel
+        # lattice (core.projection.lattice_axes) of one shape and radius:
+        # a map ranked beside a perturbed copy takes the generic walk.
+        found = set()
+        for m in models:
+            lat = lattice_axes(m.points, m.radii, p.pixel_size)
+            found.add(None if lat is None else (lat[1], float(np.float32(m.radii[0]))))
+        lay["lattice"] = len(found) == 1 and None not in found
     sph = 0
     for m in models:
         large = m.radii > p.pixel_size

@@ -711,9 +711,11 @@ def raster_inputs(dev, case: str = "production") -> dict:
                        torch.tensor(np.float32(model.norm_den), device=dev)))
 
 
-def check_raster(x: dict, orients=None) -> dict:
+def check_raster(x: dict, orients=None, lattice: bool = False) -> dict:
     """G4 against its plain version on the card, on one block of
-    :func:`raster_inputs` (or :func:`map_inputs`). G4 runs the whole block;
+    :func:`raster_inputs` (or :func:`map_inputs`; ``lattice``: its lattice
+    variant, whose snaps are compared where either side's lies in the
+    frame, the variant writing no other). G4 runs the whole block;
     ``orients``, a list of the block's rows, limits the comparison with the
     plain version to those rows (the plain version of a 224³ map holds
     ~2 GB a row in each of its weight tensors). Returns {"pairs": O·P of
@@ -741,10 +743,10 @@ def check_raster(x: dict, orients=None) -> dict:
     o_all, p_n = x["angles"].shape[0], pts.shape[0]
 
     def kern():
-        snaps = torch.empty((o_all, 2, p_n), dtype=torch.int32, device=pts.device)
+        snaps = torch.full((o_all, 2, p_n), UNWRITTEN, dtype=torch.int32, device=pts.device)
         scale = torch.empty((o_all,), dtype=torch.float32, device=pts.device)
         out = raster_project(spec, x["angles"], *x["model"], use_quaternions=quat, snaps=snaps,
-                             scale=scale)
+                             scale=scale, lattice=x["lattice"] if lattice else None)
         return out, snaps, scale
 
     k, again = kern(), kern()
@@ -772,7 +774,9 @@ def check_raster(x: dict, orients=None) -> dict:
              + u * plain.abs())
     vx, vy = _pre_floor(pts, ang, quat, spec.pixel_size, spec.n_pixels)
     torch.cuda.synchronize()
-    di, dj = k[1][:, 0] != i0, k[1][:, 1] != j0
+    n = spec.n_pixels
+    seen = ((i0 >= 0) & (j0 >= 0) & (i0 < n) & (j0 < n)) | (k[1][:, 0] != UNWRITTEN)
+    di, dj = seen & (k[1][:, 0] != i0), seen & (k[1][:, 1] != j0)
     o_ok = ~(di | dj).any(dim=1)
     dropped = ~valid & (dens != 0)
     peak = float(plain.abs().max())
@@ -792,6 +796,41 @@ def check_raster(x: dict, orients=None) -> dict:
     )
 
 
+# The snaps a check's G4 leaves unwritten (the lattice variant writes those
+# of the voxels whose snap lies in the frame).
+UNWRITTEN = -(2 ** 31)
+
+
+def check_raster_lattice(x: dict, orients=None) -> dict:
+    """G4's lattice variant on one block of :func:`map_inputs`: against the
+    plain version as :func:`check_raster` holds G4 (its keys), and against
+    the generic variant on the same block: "snaps_equal", every snap the
+    lattice variant wrote equal to the generic variant's and every snap of
+    the generic variant's in the frame written; "scale_ulps", the scales'
+    largest distance in f32 ulps."""
+    from ..ops.project_cuda import raster_project
+
+    r = check_raster(x, orients, lattice=True)
+    o_n, p_n = x["angles"].shape[0], x["model"][0].shape[0]
+    dev = x["model"][0].device
+    snaps = {}
+    scale = {}
+    for name, lat in (("lattice", x["lattice"]), ("generic", None)):
+        snaps[name] = torch.full((o_n, 2, p_n), UNWRITTEN, dtype=torch.int32, device=dev)
+        scale[name] = torch.empty((o_n,), dtype=torch.float32, device=dev)
+        raster_project(x["spec"], x["angles"], *x["model"], use_quaternions=x["quat"],
+                       snaps=snaps[name], scale=scale[name], lattice=lat)
+    n = x["spec"].n_pixels
+    g, lt = snaps["generic"], snaps["lattice"]
+    in_frame = ((g >= 0) & (g < n)).all(dim=1)
+    wrote = (lt != UNWRITTEN).all(dim=1)
+    both = wrote[:, None, :].expand_as(lt)
+    r.update(snaps_equal=bool(torch.equal(wrote, in_frame) and torch.equal(lt[both], g[both])),
+             scale_ulps=ulp_distance(scale["lattice"], scale["generic"]),
+             in_frame=int(in_frame.sum()))
+    return r
+
+
 def raster_times(x: dict) -> dict:
     """The card's own time (:func:`device_ms`) of G4, its plain version and
     cuFFT's rfft2 of G4's output (the transform it feeds) on one block of
@@ -806,45 +845,76 @@ def raster_times(x: dict) -> dict:
                 rfft2_ms=device_ms(lambda: torch.fft.rfft2(out)))
 
 
-def synthetic_map(box: int, pix: float, seed: int = 5, noise: float = 0.05):
-    """A ``box``³ voxel map read as --ReadModelMRC reads it
-    (io.model_io.voxel_model) and centred on its density mass: 24 Gaussian
-    blobs of 2–6 Å within the middle half of the box, plus N(0, ``noise`` ×
-    the blobs' peak) on every voxel, so that no voxel is zero and the
-    corners leave the frame."""
+def synthetic_map(box, pix: float, seed: int = 5, noise: float = 0.05):
+    """A ``box``³ voxel map (``box`` an int, or (nx, ny, nz)) read as
+    --ReadModelMRC reads it (io.model_io.voxel_model) and centred on its
+    density mass: 24 Gaussian blobs of 2–6 Å within the middle half of the
+    box, plus N(0, ``noise`` × the blobs' peak) on every voxel, so that no
+    voxel is zero and the corners leave the frame."""
     from ..io.model_io import voxel_model
 
+    shape = (box,) * 3 if np.isscalar(box) else tuple(box)
     rng = np.random.default_rng(seed)
-    ax = ((np.arange(1, box + 1) - box / 2.0) * pix)
-    vol = np.zeros((box, box, box), np.float64)
-    half = box * pix / 4.0
+    axes = [(np.arange(1, n + 1) - n / 2.0) * pix for n in shape]
+    vol = np.zeros(shape, np.float64)
+    half = min(shape) * pix / 4.0
     for c, s, a in zip(rng.uniform(-half, half, (24, 3)), rng.uniform(2.0, 6.0, 24),
                        rng.uniform(50.0, 100.0, 24)):
-        g = [np.exp(-((ax - c[k]) ** 2) / (2.0 * s * s)) for k in range(3)]
+        g = [np.exp(-((axes[k] - c[k]) ** 2) / (2.0 * s * s)) for k in range(3)]
         vol += a * g[0][:, None, None] * g[1][None, :, None] * g[2][None, None, :]
     vol += rng.normal(0.0, noise * vol.max(), vol.shape)
     return voxel_model(vol.astype(np.float32), pix).center_density_mass()
 
 
-def map_inputs(dev, box: int = 224, n_orient: int = 8, seed: int = 5) -> dict:
-    """G4's inputs for one block of :func:`synthetic_map`'s ``box``³ map at
-    N = ``box`` on the reference grid's quaternions (the form of
-    :func:`raster_inputs`): the map's one radius 2·pix gives stencil_half 3
-    and 9 weights a voxel."""
+def lattice_angles(n_random: int = 4, seed: int = 7) -> np.ndarray:
+    """Quaternion rows (x, y, z, w) for the lattice kernel's checks: the
+    identity and 90° about z (axis-aligned views), 45° about x, y and z,
+    a third of a turn about (1, 1, 1) (a view down a body diagonal, where
+    the plane axis is a three-way tie), then ``n_random`` random rotations
+    each followed by its −q (the same rotation)."""
+    def about(axis, deg):
+        axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+        h = np.radians(deg) / 2.0
+        return np.concatenate([axis * np.sin(h), [np.cos(h)]])
+
+    rows = [about((0, 0, 1), 0.0), about((0, 0, 1), 90.0), about((1, 0, 0), 45.0),
+            about((0, 1, 0), 45.0), about((0, 0, 1), 45.0), about((1, 1, 1), 120.0)]
+    rng = np.random.default_rng(seed)
+    for q in rng.normal(size=(n_random, 4)):
+        q /= np.linalg.norm(q)
+        rows += [q, -q]
+    return np.asarray(rows, np.float32)
+
+
+def map_inputs(dev, box=224, n_orient: int = 8, seed: int = 5, *, angles=None,
+               shift=(0, 0)) -> dict:
+    """G4's inputs for one block of :func:`synthetic_map`'s map (``box``: an
+    int for a cube, or (nx, ny, nz)) at N = its largest side, on the
+    reference grid's first ``n_orient`` quaternions or the rows ``angles``,
+    with the model's (shift_x, shift_y) (the form of :func:`raster_inputs`):
+    the map's one radius 2·pix gives stencil_half 3 and 9 weights a voxel.
+    "lattice" holds what the engine hands G4's lattice variant: (the axes
+    on the card, the shape, the radius)."""
     import dataclasses
 
-    from ..core.projection import make_projection_spec
+    from ..core.projection import lattice_axes, lattice_field, make_projection_spec
     from ..utils.so3 import super_fibonacci
     from .problem import REFERENCE_GRID
 
+    shape = (box,) * 3 if np.isscalar(box) else tuple(box)
     p, _ang, _quat, _model = _case_block("reference grid")
-    p = dataclasses.replace(p, n_pixels=box)
-    model = synthetic_map(box, p.pixel_size, seed)
-    ang = super_fibonacci(REFERENCE_GRID["n_orient"])[:n_orient].astype(np.float32)
+    p = dataclasses.replace(p, n_pixels=max(shape), shift_x=shift[0], shift_y=shift[1])
+    model = synthetic_map(shape, p.pixel_size, seed)
+    if angles is None:
+        angles = super_fibonacci(REFERENCE_GRID["n_orient"])[:n_orient]
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
-    return dict(spec=make_projection_spec(p, model.radii), angles=t(ang), quat=True, p=p,
+    axes, found = lattice_axes(model.points, model.radii, p.pixel_size)
+    return dict(spec=make_projection_spec(p, model.radii), angles=t(np.float32(angles)),
+                quat=True, p=p,
                 model=(t(model.points), t(model.radii), t(model.densities),
-                       torch.tensor(np.float32(model.norm_den), device=dev)), host=model)
+                       torch.tensor(np.float32(model.norm_den), device=dev)), host=model,
+                lattice=(t(lattice_field(axes, model.densities)), found,
+                         float(model.radii[0])))
 
 
 def check_raster_sparse(dev, wide: bool = False) -> dict:
@@ -901,52 +971,67 @@ def check_raster_sparse(dev, wide: bool = False) -> dict:
                 scale_rel=float(((scale - scale_p).abs() / scale_p.abs()).max()))
 
 
-def raster_map_block(dev, box: int = 224, reps: int = 3) -> dict:
+def raster_map_block(dev, box: int = 224, reps: int = 3, plain: bool = False) -> dict:
     """G4 on one block (8 orientations) of the ``box``³ map
-    (:func:`map_inputs`): two launches bit-equal, every pixel finite, each
-    projection's sum against norm_den (the scale makes them equal but for
-    the f32 sums), and its card time with cuFFT's rfft2 of its output.
-    Returns {"bits", "finite", "sum_rel", "ms", "rfft2_ms", "points",
-    "split": ms of each of its five kernels (torch.profiler), "across":
-    {block: ms} at every 64th block of the reference grid's list}."""
-    from ..ops.project_cuda import raster_project
-
-    x = map_inputs(dev, box)
-    args = (x["spec"], x["angles"], *x["model"])
-    a = raster_project(*args, use_quaternions=True)
-    b = raster_project(*args, use_quaternions=True)
-    sums = a.double().sum(dim=(1, 2))
-    nd = float(x["model"][3])
+    (:func:`map_inputs`), each variant in turn in one process: two launches
+    bit-equal, every pixel finite, each projection's sum against norm_den
+    (the scale makes them equal but for the f32 sums), and its card time.
+    Returns {"generic", "lattice": {"bits", "finite", "sum_rel", "ms",
+    "split": ms of each of its kernels (torch.profiler), "kernels": its
+    kernel launches a call, "calls": raster_project.launches over the
+    calls, "across": {block: ms} at every 64th block of the reference
+    grid's list}, "rfft2_ms", "points", "plain_row_ms": with ``plain``, the
+    plain version's card time for one orientation of the block}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            raster_project(*args, use_quaternions=True)
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "raster_projection_kernel" in e.name:
-            key = e.name.split("raster_projection_kernel_")[1].split("(")[0].split("<")[0]
-            split[key] = split.get(key, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3 / reps
-    # the card time of blocks across the orientation list (the snaps' spread
-    # over the bins, and so the scatter's work, depends on the orientation)
+    from ..ops.project_cuda import raster_project, raster_project_plain
     from ..utils.so3 import super_fibonacci
     from .problem import REFERENCE_GRID
 
+    x = map_inputs(dev, box)
+    args = (x["spec"], x["angles"], *x["model"])
+    nd = float(x["model"][3])
     q = super_fibonacci(REFERENCE_GRID["n_orient"]).astype(np.float32)
-    across = {}
-    for blk in range(0, q.shape[0] // 8, 64):
-        ab = torch.as_tensor(q[8 * blk: 8 * blk + 8], device=dev)
-        across[blk] = device_ms(lambda: raster_project(x["spec"], ab, *x["model"],
-                                                     use_quaternions=True), 1)
-    return dict(split=split, across=across, bits=bool(torch.equal(a, b)),
-                finite=bool(torch.isfinite(a).all()),
-                sum_rel=float(((sums - nd).abs() / abs(nd)).max()),
-                ms=device_ms(lambda: raster_project(*args, use_quaternions=True), reps),
-                rfft2_ms=device_ms(lambda: torch.fft.rfft2(a), reps),
-                points=int(x["model"][0].shape[0]))
+    res = dict(points=int(x["model"][0].shape[0]))
+    for name, lat in (("generic", None), ("lattice", x["lattice"])):
+        def call(angles=x["angles"], lat=lat):
+            return raster_project(x["spec"], angles, *x["model"], use_quaternions=True,
+                                  lattice=lat)
+
+        before = raster_project.launches
+        a, b = call(), call()
+        sums = a.double().sum(dim=(1, 2))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        split, kernels = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "raster_projection_kernel" in e.name:
+                key = e.name.split("raster_projection_kernel_")[1].split("(")[0].split("<")[0]
+                split[key] = (split.get(key, 0.0)
+                              + (e.time_range.end - e.time_range.start) * 1e-3 / reps)
+                kernels += 1
+        # the card time of blocks across the orientation list (the
+        # orientation moves the work: the generic variant's bins, the
+        # lattice variant's plane axis and windows)
+        across = {}
+        for blk in range(0, q.shape[0] // 8, 64):
+            ab = torch.as_tensor(q[8 * blk: 8 * blk + 8], device=dev)
+            across[blk] = device_ms(lambda ab=ab: call(ab), 1)
+        res[name] = dict(split=split, kernels=kernels // reps, across=across,
+                         bits=bool(torch.equal(a, b)), finite=bool(torch.isfinite(a).all()),
+                         sum_rel=float(((sums - nd).abs() / abs(nd)).max()),
+                         ms=device_ms(call, reps), calls=raster_project.launches - before)
+        res["rfft2_ms"] = device_ms(lambda: torch.fft.rfft2(a), reps)
+        del a, b
+    if plain:
+        row = x["angles"][:1]
+        res["plain_row_ms"] = device_ms(lambda: raster_project_plain(
+            x["spec"], row, *x["model"], use_quaternions=True), 1)
+    return res
 
 
 def near_ties(n: int, pix: float, points: np.ndarray, angles: np.ndarray, quat: bool) -> int:
@@ -1135,13 +1220,19 @@ def main(argv=None) -> int:
         r = check_raster_sparse(dev)
         print(f"G4 sparse sheet: snaps equal {r['snaps_equal']}, weights bit-equal "
               f"{r['weights_equal']}, scale max rel |Δ| {r['scale_rel']:.2e}", flush=True)
-        m = raster_map_block(dev)
-        print(f"G4 at a block of the 224³ map ({m['points']} voxels, 8 orientations, card "
-              f"time): {m['ms']:.3f} ms, rfft2 {m['rfft2_ms']:.4f} ms; two launches bit-equal "
-              f"{m['bits']}, finite {m['finite']}, sum vs norm_den {m['sum_rel']:.2e}; by "
-              "kernel (profiler) " + ", ".join(f"{k} {v:.3f} ms" for k, v in m["split"].items())
-              + "; at blocks " + ", ".join(f"{k}: {v:.2f}" for k, v in m["across"].items())
-              + f" ms (mean {np.mean(list(m['across'].values())):.3f})", flush=True)
+        m = raster_map_block(dev, plain=True)
+        for name in ("generic", "lattice"):
+            v = m[name]
+            print(f"G4 {name} at a block of the 224³ map ({m['points']} voxels, 8 orientations, "
+                  f"card time): {v['ms']:.3f} ms, {v['kernels']} kernel launches a call "
+                  f"({v['calls']} calls counted), rfft2 {m['rfft2_ms']:.4f} ms; two launches "
+                  f"bit-equal {v['bits']}, finite {v['finite']}, sum vs norm_den "
+                  f"{v['sum_rel']:.2e}; by kernel (profiler) "
+                  + ", ".join(f"{k} {t:.3f} ms" for k, t in v["split"].items())
+                  + "; at blocks " + ", ".join(f"{k}: {t:.3f}" for k, t in v["across"].items())
+                  + f" ms (mean {np.mean(list(v['across'].values())):.3f})", flush=True)
+        print(f"G4's plain version at one orientation of that block: {m['plain_row_ms']:.2f} ms",
+              flush=True)
         print(json.dumps({"path_rule": path_rule_times(dev)}), flush=True)
         return 0
     probe_f32_accuracy()

@@ -23,8 +23,10 @@ program's ranges from the card's operations by that prefix. The spans
   ``bioem.autotune`` (run.maybe_autotune), ``bioem.engine`` (the
   engine's construction; ``.images``, ``.model``, ``.banks``; counters
   ``bioem.projection.raster`` and ``.fourier``: the path the rule chose,
-  one per model laid out), ``bioem.bounds`` (the out-of-frame census, also
-  under ``bioem.swap_model.bounds``; counter ``bioem.bounds.oob_points``:
+  one per model laid out; ``bioem.projection.raster.lattice``: a model laid
+  out on the raster's lattice variant, one per model), ``bioem.bounds``
+  (the out-of-frame census, also under ``bioem.swap_model.bounds``;
+  counter ``bioem.bounds.oob_points``:
   the (orientation, point) pairs dropped out of the frame),
   ``bioem.capture`` (the block step's capture; ``.warmup``, ``.graph``);
 * a pass: ``bioem.pass`` (``bioem.graph_load``, ``bioem.checkpoint``),

@@ -90,7 +90,11 @@ the port's main path on the card, in phases (each prints its own lines):
    stencils meet (kernel_probe.check_raster_sparse; also at a reach past
    the deposit's octant table), 32³ and 48³ maps against the plain version
    (check_raster), rows 0 and 7 of a block of a 224³ map (11,239,424
-   voxels) against it, that block twice, bit-equal, with its card time, the
+   voxels) against it; G4's lattice variant on 32³, 48³ and 33 × 40 × 27
+   maps (axis-aligned, 45° and diagonal views, q and −q, shifts) and on
+   those rows against the plain version and the generic variant
+   (check_raster_lattice: snaps bit-equal, scales within one ulp); that
+   block twice in each variant, bit-equal, with its card time, the
    card's out-of-frame census of the 32³ map and of the 224³ map (16 of the
    grid's orientations) against projection_oob_report, and the path rule's
    timings (kernel_probe.path_rule_times: G3 + K2 against G4 + rfft2 per
@@ -1431,18 +1435,37 @@ def phase_voxel_map(card: str) -> None:
         require(c["off_tie"] == 0 and c["bits"] and c["reorder_ok"] and c["compared"] > 0
                 and c["scale_rel"] <= 1e-6, f"G4 strays from the plain version on {what}")
 
+    def held_lattice(c, what):
+        held(c, f"{what}, lattice variant")
+        say(f"[voxel map] {what}, lattice variant against the generic: snaps equal "
+            f"{c['snaps_equal']} ({c['in_frame']} in the frame), scales {c['scale_ulps']} ulp apart")
+        require(c["snaps_equal"] and c["scale_ulps"] <= 1,
+                f"G4's lattice variant strays from the generic on {what}")
+
     for box in (32, 48):
         held(kp.check_raster(kp.map_inputs(dev, box)), f"the {box}³ map at N = {box}")
+    for box, shift in ((32, (0, 0)), (48, (2, -3)), ((33, 40, 27), (-1, 2))):
+        name = "x".join(map(str, box)) if isinstance(box, tuple) else f"{box}³"
+        x = kp.map_inputs(dev, box, angles=kp.lattice_angles(), shift=shift)
+        held_lattice(kp.check_raster_lattice(x), f"the {name} map, shift {shift}")
     x = kp.map_inputs(dev, 224)
     for row in (0, 7):
         held(kp.check_raster(x, [row]), f"row {row} of a 224³ map block")
         torch.cuda.empty_cache()
+        held_lattice(kp.check_raster_lattice(x, [row]), f"row {row} of a 224³ map block")
+        torch.cuda.empty_cache()
     del x
     m = kp.raster_map_block(dev)
-    say(f"[voxel map] {card}: one block of the 224³ map ({m['points']} voxels, 8 orientations): "
-        f"G4 {m['ms']:.3f} ms, rfft2 {m['rfft2_ms']:.4f} ms (card time); two launches "
-        f"bit-equal {m['bits']}, finite {m['finite']}, sum against norm_den {m['sum_rel']:.2e}")
-    require(m["bits"] and m["finite"] and m["sum_rel"] < 1e-4, "G4 fails on the 224³ map")
+    for name in ("generic", "lattice"):
+        v = m[name]
+        say(f"[voxel map] {card}: one block of the 224³ map ({m['points']} voxels, 8 "
+            f"orientations): G4 {name} {v['ms']:.3f} ms in {v['kernels']} kernel launches a call "
+            f"(raster_project counted {v['calls']} calls), rfft2 {m['rfft2_ms']:.4f} ms (card "
+            f"time); mean of every 64th block {np.mean(list(v['across'].values())):.3f} ms; two "
+            f"launches bit-equal {v['bits']}, finite {v['finite']}, sum against norm_den "
+            f"{v['sum_rel']:.2e}")
+        require(v["bits"] and v["finite"] and v["sum_rel"] < 1e-4,
+                f"G4's {name} variant fails on the 224³ map")
     for box, stride in ((32, 1), (224, 288)):
         c = kp.check_census(dev, box, stride)
         say(f"[voxel map] census of the {box}³ map, {c['orients']} orientations: card "

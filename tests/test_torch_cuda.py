@@ -55,6 +55,8 @@ oracle within the JAX suite's limits, the C2 cut of the production shape
 branch's gap)), scale_bench and the benchmark harness at a small size.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1530,14 +1532,144 @@ def test_raster_map224_rows_vs_plain(dev, row):
 
 
 def test_raster_map224_block_runs(dev):
-    """One block of a 224³ map (11,239,424 voxels, 8 orientations): two
-    launches bit-equal, every pixel finite, each projection summing to
-    norm_den within f32's sums."""
+    """One block of a 224³ map (11,239,424 voxels, 8 orientations), in each
+    of G4's variants: two launches bit-equal, every pixel finite, each
+    projection summing to norm_den within f32's sums; the generic variant
+    in six kernel launches a call, the lattice variant in two."""
     from bioem_tpu_torch.tools.kernel_probe import raster_map_block
 
     r = raster_map_block(dev, reps=1)
     assert r["points"] == 224 ** 3
-    assert r["bits"] and r["finite"] and r["sum_rel"] < 1e-4, r
+    for name, kernels in (("generic", 6), ("lattice", 2)):
+        v = r[name]
+        assert v["bits"] and v["finite"] and v["sum_rel"] < 1e-4, (name, v)
+        assert v["kernels"] == kernels, (name, v)
+
+
+# G4's lattice variant: (box, shift) of kernel_probe.map_inputs, each on
+# kernel_probe.lattice_angles (axis-aligned, 45° about each axis, a body
+# diagonal, random rotations with their −q)
+LATTICE_MAPS = [(32, (0, 0)), (48, (2, -3)), ((33, 40, 27), (-1, 2))]
+
+
+@pytest.mark.parametrize("box,shift", LATTICE_MAPS, ids=lambda v: str(v))
+def test_raster_lattice_vs_generic_and_plain(dev, box, shift):
+    """G4's lattice variant (kernel_probe.check_raster_lattice) on a voxel
+    map: every snap it writes bit-equal to the generic variant's and every
+    in-frame snap of the generic variant written; the scale within one f32
+    ulp of the generic variant's and within 1e-6 of the plain version's;
+    every pixel within f32 reordering's bound of the plain version's; two
+    launches bit-equal; q and −q give the same projection."""
+    from bioem_tpu_torch.tools.kernel_probe import (check_raster_lattice, lattice_angles,
+                                                    map_inputs)
+
+    ang = lattice_angles()
+    x = map_inputs(dev, box, angles=ang, shift=shift)
+    before = P.raster_project.launches
+    r = check_raster_lattice(x)
+    assert P.raster_project.launches == before + 4
+    assert r["snaps_equal"] and r["scale_ulps"] <= 1, r
+    assert r["off_tie"] == 0 and r["bits"] and r["reorder_ok"], r
+    assert r["compared"] > 0 and r["scale_rel"] <= 1e-6, r
+    out = P.raster_project(x["spec"], x["angles"], *x["model"], use_quaternions=True,
+                           lattice=x["lattice"])
+    for k in range(6, ang.shape[0], 2):
+        assert torch.equal(out[k], out[k + 1]), k
+
+
+@pytest.mark.parametrize("row", [0, 7])
+def test_raster_lattice_map224_rows(dev, row):
+    """The lattice variant on a whole block of the 224³ map, one row held
+    against the plain version and the generic variant as
+    test_raster_lattice_vs_generic_and_plain holds the small maps."""
+    from bioem_tpu_torch.tools.kernel_probe import check_raster_lattice, map_inputs
+
+    r = check_raster_lattice(map_inputs(dev, 224), [row])
+    assert r["pairs"] == 224 ** 3 and r["compared"] == 1, r
+    assert r["snaps_equal"] and r["scale_ulps"] <= 1, r
+    assert r["off_tie"] == 0 and r["bits"] and r["reorder_ok"], r
+
+
+def test_raster_lattice_reach_matches_the_library(dev):
+    """The lattice variant's widest reach, tile and walk margin in the
+    wrapper (which the CPU twin of its walk reads) are the library's; a
+    lattice whose radius reaches further, or one with more voxels than
+    points, is refused."""
+    from bioem_tpu_torch.ops import _build
+    from bioem_tpu_torch.tools.kernel_probe import map_inputs
+
+    lib = _build.load()
+    assert lib.bioem_raster_lattice_max_reach() == P.RASTER_LATTICE_MAX_REACH
+    assert lib.bioem_raster_lattice_tile() == P.RASTER_LATTICE_TILE
+    assert lib.bioem_raster_lattice_margin() == P.RASTER_LATTICE_MARGIN
+    x = map_inputs(dev, 32)
+    axes, shape, radius = x["lattice"]
+    pix = float(np.float32(x["spec"].pixel_size))
+    wide = (axes, shape, 4.5 * pix)
+    spec = dataclasses.replace(x["spec"], stencil_half=6)
+    with pytest.raises(RuntimeError, match="raster_project"):
+        P.raster_project(spec, x["angles"], *x["model"], use_quaternions=True, lattice=wide)
+    with pytest.raises(ValueError, match="exceeds"):
+        P.raster_project(x["spec"], x["angles"], *x["model"], use_quaternions=True,
+                         lattice=(torch.cat([axes, axes[:1]]), (33, 32, 32), radius))
+
+
+def test_engine_takes_the_lattice_variant_on_a_map(dev):
+    """A 24³ map on the card's kernel branch: the engine lays it out on the
+    lattice variant (counter bioem.projection.raster.lattice), each replay
+    launches G4 once, and log P equals the same engine on the generic
+    variant (layout lattice False) within 1e-7 of max |log P| (the two
+    differ only in the order of each pixel's f32 sums; the port and the JAX
+    package's raster differ by 8.6e-9 of it on a 32³ map), argmax tuples
+    equal."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from bioem_tpu_torch.tools.kernel_probe import synthetic_map
+    from bioem_tpu_torch.utils.timestat import RECORDER
+
+    p, orients, _model, images = _engine_problem(np.random.default_rng(3), n_pix=32)
+    model = synthetic_map(24, p.pixel_size)
+    cfg = RunConfig(orient_block=4, projection="raster", autotune=False)
+    before = RECORDER.count("bioem.projection.raster.lattice")
+    eng = BioEMEngine(p, orients, model, images, cfg, device=dev)
+    assert eng.lattice == ((24, 24, 24), float(model.radii[0]))
+    assert RECORDER.count("bioem.projection.raster.lattice") == before + 1
+    gen = BioEMEngine(p, orients, model, images, cfg, device=dev,
+                      model_layout={"lattice": False})
+    assert gen.lattice is None
+    launches = P.raster_project.launches
+    got = eng.results(eng.run())
+    assert P.raster_project.launches - launches == eng.ang_blocks.shape[0] + 1
+    want = gen.results(gen.run())
+    scale = float(np.abs(want.log_prob).max())
+    assert float(np.abs(got.log_prob - want.log_prob).max()) <= 1e-7 * scale
+    for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("lattice", [True, False])
+def test_raster_kernel_log_p_matches_the_jax_engine(dev, lattice):
+    """G4 on the card, its lattice variant (and the generic variant beside
+    it), in an engine whose comparison is the plain one, on the 32³ map of
+    tests/test_torch_voxel_map.py, against the JAX engine's results on the
+    raster path stored from the CPU (MAP32_JAX; JAX is not installed beside
+    the card): log P within MAP_VS_JAX, the best orientation, CTF and
+    displacement equal."""
+    from bioem_tpu_torch.config import RunConfig
+    from bioem_tpu_torch.core.engine import BioEMEngine
+    from tests.test_torch_voxel_map import BEST_FIELDS, MAP_VS_JAX, load_map32_jax
+
+    inputs, want = load_map32_jax()
+    cfg = RunConfig(projection="raster", use_kernels=False, kernel_projection=True,
+                    autotune=False)
+    eng = BioEMEngine(*inputs, cfg, device=dev, model_layout={"lattice": lattice})
+    assert eng.fspec is None and (eng.lattice is not None) == lattice
+    before = P.raster_project.launches
+    got = eng.results(eng.run())
+    assert P.raster_project.launches - before == eng.ang_blocks.shape[0]
+    np.testing.assert_allclose(got.log_prob, want["log_prob"], **MAP_VS_JAX)
+    for f in BEST_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), want[f], err_msg=f)
 
 
 @pytest.mark.parametrize("box,stride", [(32, 1), (224, 288)])

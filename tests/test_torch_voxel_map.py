@@ -67,13 +67,17 @@ def _read_map(cfg, prob) -> Model:
         return read_model(path, read_mrc=True, pixel_size=cfg["pixel_size"])
 
 
-@pytest.fixture(scope="module")
-def small():
+def _small_problem():
     cell = _small_cell()
     prob = problem.build(cell.cfg, cell.mix, SEED)
     p, orients, _residues, images = port.inputs(prob)
     return dict(cell=cell, prob=prob, p=p, orients=orients, images=images,
                 model=_read_map(cell.cfg, prob))
+
+
+@pytest.fixture(scope="module")
+def small():
+    return _small_problem()
 
 
 def _judged(small, outputs):
@@ -312,11 +316,7 @@ def test_voxel_map_log_p_matches_the_jax_engine(small, projection):
     """The JAX engine and the port's plain branch on the 32³ map read from
     its MRC file, each path forced on both: log P within MAP_VS_JAX, the
     best orientation, CTF and displacement equal."""
-    from bioem_tpu.config import RunConfig as JConfig
-    from bioem_tpu.core.engine import BioEMEngine as JEngine
-
-    ej = JEngine(*_jax_inputs(small), JConfig(projection=projection))
-    rj = ej.results(ej.run())
+    rj = _jax_results(small, projection)
     eng = make_engine(small["p"], small["orients"], small["model"], small["images"],
                       RunConfig(projection=projection), device="cpu")
     assert (eng.fspec is None) == (projection == "raster")
@@ -324,6 +324,93 @@ def test_voxel_map_log_p_matches_the_jax_engine(small, projection):
     np.testing.assert_allclose(rt.log_prob, rj.log_prob, **MAP_VS_JAX)
     for f in ("best_orient", "best_conv", "best_cent_x", "best_cent_y"):
         np.testing.assert_array_equal(getattr(rt, f), getattr(rj, f), err_msg=f)
+
+
+def _jax_results(small, projection):
+    from bioem_tpu.config import RunConfig as JConfig
+    from bioem_tpu.core.engine import BioEMEngine as JEngine
+
+    ej = JEngine(*_jax_inputs(small), JConfig(projection=projection))
+    return ej.results(ej.run())
+
+
+# The 32³ map problem above and the JAX engine's results on it on the
+# raster path, stored so that the card's tests (tests/test_torch_cuda.py,
+# where JAX is not installed) hold G4's kernel variants to the JAX package.
+# Written by ``JAX_PLATFORMS=cpu python tests/test_torch_voxel_map.py``.
+MAP32_JAX = os.path.join(ROOT, "tests", "data", "map32_jax_raster.npz")
+BEST_FIELDS = ("best_orient", "best_conv", "best_cent_x", "best_cent_y")
+
+
+def write_map32_jax(path=MAP32_JAX):
+    import dataclasses
+    import json
+
+    small = _small_problem()
+    rj = _jax_results(small, "raster")
+    p, o, m = small["p"], small["orients"], small["model"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(
+        path, params=json.dumps(dataclasses.asdict(p)), angles=o.angles,
+        voluang=o.voluang, points=m.points, radii=m.radii, densities=m.densities,
+        norm_den=m.norm_den, images=small["images"].maps,
+        log_prob=np.asarray(rj.log_prob),
+        **{f: np.asarray(getattr(rj, f)) for f in BEST_FIELDS})
+
+
+def load_map32_jax(path=MAP32_JAX):
+    """(params, orientations, model, images) in the port's types and the
+    JAX engine's results, {field: array}, from ``MAP32_JAX``."""
+    import json
+
+    from bioem_tpu_torch.core.orientations import OrientationSet
+    from bioem_tpu_torch.io.map_io import ImageStack
+    from bioem_tpu_torch.params import BioEMParams
+
+    z = np.load(path)
+    p = BioEMParams(**json.loads(str(z["params"])))
+    orients = OrientationSet(z["angles"], True, float(z["voluang"]))
+    model = Model(z["points"], z["radii"], z["densities"], float(z["norm_den"]))
+    want = {f: z[f] for f in ("log_prob",) + BEST_FIELDS}
+    return (p, orients, model, ImageStack(z["images"])), want
+
+
+def test_stored_map_problem_is_the_small_problem(small):
+    """The stored 32³ problem is the one the tests above build: params,
+    orientations and the map's points and radii equal, its densities and
+    images within f32 rounding (the planting and the map are host f64 math
+    whose last bits may follow the CPU's vector unit)."""
+    import dataclasses
+
+    (p, o, m, images), want = load_map32_jax()
+    assert dataclasses.asdict(p) == dataclasses.asdict(small["p"])
+    np.testing.assert_array_equal(o.angles, small["orients"].angles)
+    assert o.voluang == small["orients"].voluang
+    np.testing.assert_array_equal(m.points, small["model"].points)
+    np.testing.assert_array_equal(m.radii, small["model"].radii)
+    np.testing.assert_allclose(m.densities, small["model"].densities, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(m.densities).max()))
+    np.testing.assert_allclose(m.norm_den, small["model"].norm_den, rtol=1e-6)
+    np.testing.assert_allclose(images.maps, small["images"].maps, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(images.maps).max()))
+    assert want["log_prob"].shape == (small["images"].maps.shape[0],)
+
+
+def test_stored_map_results_are_the_jax_engines():
+    """The stored results are the JAX engine's on the stored problem (raster
+    path, rtol 1e-9), and the port's plain branch meets them within
+    MAP_VS_JAX with the same best tuples, as on the problem it was made
+    from."""
+    (p, o, m, images), want = load_map32_jax()
+    store = dict(p=p, orients=o, model=m, images=images)
+    rj = _jax_results(store, "raster")
+    np.testing.assert_allclose(np.asarray(rj.log_prob), want["log_prob"], rtol=1e-9, atol=0)
+    eng = make_engine(p, o, m, images, RunConfig(projection="raster"), device="cpu")
+    rt = eng.results(eng.run())
+    np.testing.assert_allclose(rt.log_prob, want["log_prob"], **MAP_VS_JAX)
+    for f in BEST_FIELDS:
+        np.testing.assert_array_equal(getattr(rj, f), want[f], err_msg=f)
+        np.testing.assert_array_equal(getattr(rt, f), want[f], err_msg=f)
 
 
 def test_census_matches_the_jax_report(small):
@@ -343,3 +430,7 @@ def test_census_matches_the_jax_report(small):
     got = oob_census(p.n_pixels, p.pixel_size, p.shift_x, p.shift_y, m.points, m.radii, ang,
                      True)
     assert want[0] > 0 and got == want
+
+
+if __name__ == "__main__":
+    write_map32_jax()
