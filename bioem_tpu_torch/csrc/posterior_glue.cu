@@ -9,8 +9,7 @@
 //      u coefficients a_u and b_u) and the orientation mask at :606;
 //   G2 merge_block — engine.py:580 (posterior.py:289 refine_varying_max)
 //      and :606-610 (posterior.py:426-522 merge_block).
-// The formulas are in posterior_glue.cuh, shared with PR 14's design of
-// both kernels (glue_probe.cu), which this design replaced.
+// The formulas are in posterior_glue.cuh.
 //
 // Bounds (the production block: O = 8, C = 8, I = 64, N = 224, F = 113).
 // G1 reads pr, pi (O, N, F) and ctf_re, ctf_im (C, N, F) once, 3.24 MB:
@@ -117,15 +116,6 @@ struct ConstantsArgs {
   float *a_u, *b_u;
 };
 
-// The kernel's parts, for attributing its time (the probe
-// bioem_probe_constants_parts), each the kernel stopped after a phase:
-// kWhole; kPhase1 (the per-image table and the chunk partials); kTicket
-// (phase 1, the ticket and the workers' wait); kImages (the per-image table
-// only); kStaging (the table and the staging of every column, no products).
-// Only kWhole computes G1.
-enum ConstantsPart { kWhole = 0, kPhase1 = 1, kTicket = 2, kImages = 3, kStaging = 4 };
-
-template <int kPart>
 __global__ void __launch_bounds__(kG1Threads) block_constants_kernel(const ConstantsArgs a) {
   extern __shared__ double smem[];
   __shared__ int s_rank;
@@ -139,7 +129,6 @@ __global__ void __launch_bounds__(kG1Threads) block_constants_kernel(const Const
     img[i] = im.log_ssr;
     img[a.I + i] = im.hh;
   }
-  if (kPart == kImages) return;
 
   // Phase 1: this CTA's chunk of columns, staged `sub` at a time (the raw
   // rows copied into shared memory, then |p|²·h and |ctf|² in f64 beside
@@ -179,7 +168,7 @@ __global__ void __launch_bounds__(kG1Threads) block_constants_kernel(const Const
         }
       }
       __syncthreads();
-      if (kPart != kStaging && active) {
+      if (active) {
         const double* mp = smem + o * ld;
         const double* mc = smem + (a.O + c) * ld;
 #pragma unroll 4
@@ -190,13 +179,12 @@ __global__ void __launch_bounds__(kG1Threads) block_constants_kernel(const Const
     __syncthreads();
     if (active) smem[lane * pp + slot] = acc;
     __syncthreads();
-    if (kPart != kStaging && t < pp && p0 + t < P) {
+    if (t < pp && p0 + t < P) {
       double tot = smem[t];
       for (int l = 1; l < lanes; ++l) tot = __dadd_rn(tot, smem[l * pp + t]);
       partials[(size_t)b * P + p0 + t] = tot;
     }
   }
-  if (kPart == kPhase1 || kPart == kStaging) return;
 
   // The ticket: the last `workers` CTAs of this launch to arrive wait for
   // the rest. One thread fences after the barrier (a fence is cumulative: it
@@ -227,7 +215,7 @@ __global__ void __launch_bounds__(kG1Threads) block_constants_kernel(const Const
   int* live = (int*)(pri + kG1Threads);      // kG1Threads
   const double a_coef = __dmul_rn(__dsub_rn(3.0, a.ntot), 0.5);
   const float ntot32 = __double2float_rn(a.ntot);
-  for (int e0 = q0; kPart == kWhole && e0 < q1; e0 += kG1Threads) {
+  for (int e0 = q0; e0 < q1; e0 += kG1Threads) {
     // the tile's np pairs, each with nl neighbouring threads
     const int np = min(kG1Threads, q1 - e0), nl = pair_lanes(np);
     const int ps = t / nl, pl = t % nl;
@@ -443,16 +431,6 @@ int allow_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int kPart>
-int launch_constants(const ConstantsArgs& a, int grid, cudaStream_t stream) {
-  const size_t bytes = constants_smem_bytes(a.O, a.C, a.sub);
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem((const void*)block_constants_kernel<kPart>, bytes);
-  if (err) return err;
-  block_constants_kernel<kPart><<<grid, kG1Threads, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -474,44 +452,15 @@ int bioem_block_constants(const float* pr, const float* pi, const float* ctf_re,
       (long long)(grid - 1) * chunk >= nf || workers < 1 || workers > grid || per_worker < 1 ||
       (long long)workers * per_worker < P || (long long)(workers - 1) * per_worker >= P)
     return (int)cudaErrorInvalidValue;
+  const size_t bytes = constants_smem_bytes(O, C, sub);
+  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int err = allow_smem((const void*)block_constants_kernel, bytes);
+  if (err) return err;
   const ConstantsArgs a{pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask, O, C, I, N, F,
                         ntot, ln_ntot, normalized, chunk, sub, workers, per_worker, ws, ticket,
                         sum_c, ssq_c, f0, k, a_u, b_u};
-  return launch_constants<kWhole>(a, grid, (cudaStream_t)stream);
-}
-
-// G1 in one of its parts (ConstantsPart: 0 whole, 1 phase 1, 2 phase 1 and
-// the ticket, 3 the image table, 4 the table and the staging), the
-// arguments as bioem_block_constants'; only part 0 computes G1.
-int bioem_probe_constants_parts(int part, const float* pr, const float* pi, const float* ctf_re,
-                                const float* ctf_im, const float* h, const float* sum_ref,
-                                const float* ssq_ref, const double* prior, const int* mask, int O,
-                                int C, int I, int N, int F, double ntot, double ln_ntot,
-                                int normalized, int grid, int chunk, int sub, int workers,
-                                int per_worker, double* ws, unsigned long long* ticket,
-                                float* sum_c,
-                                float* ssq_c, double* f0, double* k, float* a_u, float* b_u,
-                                void* stream) {
-  if (part < 0 || part > 4) return (int)cudaErrorInvalidValue;
-  if (part == 0)
-    return bioem_block_constants(pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask, O, C,
-                                 I, N, F, ntot, ln_ntot, normalized, grid, chunk, sub, workers,
-                                 per_worker, ws, ticket, sum_c, ssq_c, f0, k, a_u, b_u, stream);
-  const long long nf = (long long)N * F;
-  if (O < 1 || C < 1 || I < 0 || N < 1 || F < 1 || grid < 1 || chunk < 1 || sub < 1 ||
-      (long long)grid * chunk < nf || (long long)(grid - 1) * chunk >= nf || workers < 1 ||
-      workers > grid || per_worker < 1)
-    return (int)cudaErrorInvalidValue;
-  const ConstantsArgs a{pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask, O, C, I, N, F,
-                        ntot, ln_ntot, normalized, chunk, sub, workers, per_worker, ws, ticket,
-                        sum_c, ssq_c, f0, k, a_u, b_u};
-  auto s = (cudaStream_t)stream;
-  switch (part) {
-    case 1: return launch_constants<kPhase1>(a, grid, s);
-    case 2: return launch_constants<kTicket>(a, grid, s);
-    case 3: return launch_constants<kImages>(a, grid, s);
-    default: return launch_constants<kStaging>(a, grid, s);
-  }
+  block_constants_kernel<<<grid, kG1Threads, bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 int bioem_merge_block(const float* m, const float* se, const int* ds,

@@ -1,6 +1,4 @@
-// What the posterior glue's kernels share: G1 and G2 (posterior_glue.cu) and
-// PR 14's design of them, kept as probes (glue_probe.cu). Every formula is
-// written once here, so that both designs round alike.
+// The formulas of the posterior glue's kernels, G1 and G2 (posterior_glue.cu).
 //
 // Exactness. Every f64 and f32 operation that the plain version rounds on
 // its own is a round-to-nearest intrinsic (__dmul_rn, __dadd_rn, __ddiv_rn,
@@ -30,12 +28,6 @@ __device__ __forceinline__ double warp_sum(double v) {
 // torch.maximum / torch.amax: NaN wins, otherwise the larger.
 __device__ __forceinline__ double nan_max(double a, double b) {
   return (isnan(a) || a > b) ? a : b;
-}
-
-__device__ __forceinline__ double warp_max(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_xor_sync(kFull, v, off));
-  return v;
 }
 
 // (a, ia) beats (b, ib) under torch.argmax's rule: NaN counts as the

@@ -73,9 +73,6 @@ SIGNATURES = {
     "bioem_compare_batched_smem_bytes": [I, I, I],
     "bioem_block_constants": [P] * 9 + [I] * 5 + [D, D, I] + [I] * 5 + [P] * 8 + [P],
     "bioem_merge_block": [P] * 12 + [I] * 5 + [D] + [P] * 11 + [P],
-    "bioem_probe_constants_parts": [I] + [P] * 9 + [I] * 5 + [D, D, I] + [I] * 5 + [P] * 8 + [P],
-    "bioem_probe_block_constants": [I] + [P] * 9 + [I] * 5 + [D, D, I] + [P] * 6 + [P],
-    "bioem_probe_merge_block": [I] + [P] * 12 + [I] * 5 + [D] + [P] * 11 + [P],
     "bioem_error_string": [I],
 }
 RESTYPES = {

@@ -104,16 +104,14 @@ class ConstantsWorkspace(NamedTuple):
     ticket: torch.Tensor  # (1,) i64, 0 when made
 
 
-def constants_workspace(o: int, c: int, i: int, n: int, f: int, device,
-                        n_sm: Optional[int] = None) -> ConstantsWorkspace:
+def constants_workspace(o: int, c: int, i: int, n: int, f: int, device) -> ConstantsWorkspace:
     """A :class:`ConstantsWorkspace` for (O, C, I, N, F) on the card
-    ``device``, planned for its SMs (``n_sm``, at most the card's: fewer
-    CTAs, for a probe)."""
+    ``device``, planned for its SMs."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"block_constants: a workspace lies on the card, not on {dev}")
-    card_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = constants_plan(o, c, i, n, f, min(n_sm or card_sm, card_sm))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = constants_plan(o, c, i, n, f, n_sm)
     return ConstantsWorkspace((o, c, i, n, f), plan,
                               torch.empty(max(plan.ws_doubles, 1), dtype=F64, device=dev),
                               torch.zeros(1, dtype=I64, device=dev))
@@ -196,12 +194,12 @@ def check_workspace(fn: str, workspace: ConstantsWorkspace, dims: tuple, dev) ->
 
 
 def constants_call(fn: str, args: tuple, ntot: float, images_normalized: bool,
-                   workspace: Optional[ConstantsWorkspace] = None, with_plan: bool = True):
+                   workspace: Optional[ConstantsWorkspace] = None):
     """What a G1 launch takes, checked: (the six outputs, the C entry
     point's arguments: the nine inputs' pointers, the dimensions and
-    scalars, with ``with_plan`` the plan and ``workspace``'s pointers (None:
-    one made for this call), the outputs' pointers and the stream). Raises
-    ValueError on a tensor or a workspace G1 does not take."""
+    scalars, the plan and ``workspace``'s pointers (None: one made for this
+    call), the outputs' pointers and the stream). Raises ValueError on a
+    tensor or a workspace G1 does not take."""
     pr, pi, ctf_re, ctf_im, h, sum_ref, ssq_ref, prior, mask = args
     dev = pr.device
     if dev.type != "cuda":
@@ -218,14 +216,12 @@ def constants_call(fn: str, args: tuple, ntot: float, images_normalized: bool,
     consts = torch.empty((2, o_n, c_n, i_n), dtype=F64, device=dev)
     coefs = torch.empty((2, o_n * c_n, i_n), dtype=F32, device=dev)
     outs = (sums[0], sums[1], consts[0], consts[1], coefs[0], coefs[1])
-    plan = ()
-    if with_plan:
-        if workspace is None:
-            workspace = constants_workspace(o_n, c_n, i_n, n, f, dev)
-        check_workspace(fn, workspace, (o_n, c_n, i_n, n, f), dev)
-        plan = (*workspace.plan[:5], workspace.ws.data_ptr(), workspace.ticket.data_ptr())
+    if workspace is None:
+        workspace = constants_workspace(o_n, c_n, i_n, n, f, dev)
+    check_workspace(fn, workspace, (o_n, c_n, i_n, n, f), dev)
     ptrs = (*(t.data_ptr() for t in args), o_n, c_n, i_n, n, f, float(ntot),
-            math.log(float(ntot)), int(bool(images_normalized)), *plan,
+            math.log(float(ntot)), int(bool(images_normalized)), *workspace.plan[:5],
+            workspace.ws.data_ptr(), workspace.ticket.data_ptr(),
             *(t.data_ptr() for t in outs), torch.cuda.current_stream(dev).cuda_stream)
     return outs, ptrs
 

@@ -213,88 +213,3 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
 
 
 body_ablation.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# PR 14's design of G1 and G2 (csrc/glue_probe.cu)
-# ---------------------------------------------------------------------------
-
-GLUE_PARTS = {  # csrc/glue_probe.cu G1Part, G2Part
-    "block_constants": ("full", "loads", "loads_sum", "epilogue"),
-    "merge_block": ("full", "max", "max_sum"),
-}
-# csrc/posterior_glue.cu ConstantsPart: the kernel stopped after a phase
-CONSTANTS_PARTS = ("full", "phase1", "ticket", "images", "staging")
-
-
-def constants_parts(*args, ntot: float, images_normalized: bool, workspace=None,
-                    part: str = "full"):
-    """G1 (``posterior_cuda.block_constants``, this design) in one of its
-    :data:`CONSTANTS_PARTS`: ``full`` is G1; the others stop after a phase
-    (their outputs wrong by design): ``images`` after the per-image table,
-    ``staging`` after staging every column too, ``phase1`` after the chunk
-    partials, ``ticket`` after the ticket and the workers' wait."""
-    from .posterior_cuda import constants_call
-
-    fn = "block_constants"
-    if part not in CONSTANTS_PARTS:
-        raise ValueError(f"{fn} parts: no part {part!r} (one of {CONSTANTS_PARTS})")
-    outs, ptrs = constants_call(f"{fn} parts", args, ntot, images_normalized, workspace)
-    with torch.cuda.device(args[0].device):
-        status = _build.load().bioem_probe_constants_parts(CONSTANTS_PARTS.index(part), *ptrs)
-    _build.check(status, f"{fn} ({part})")
-    constants_parts.launches += 1
-    return outs
-
-
-constants_parts.launches = 0
-
-
-def _legacy_part(fn: str, part: str, dev) -> int:
-    if part not in GLUE_PARTS[fn]:
-        raise ValueError(f"legacy {fn}: no part {part!r} (one of {GLUE_PARTS[fn]})")
-    if dev.type != "cuda":
-        raise ValueError(f"legacy {fn}: PR 14's kernel runs on the card only, not on {dev}")
-    return GLUE_PARTS[fn].index(part)
-
-
-def legacy_block_constants(*args, ntot: float, images_normalized: bool, part: str = "full"):
-    """PR 14's G1 (one CTA per (o, c) pair) on :func:`posterior_cuda.block_constants`'
-    nine inputs: ``full`` returns what G1 returns; the other parts of
-    :data:`GLUE_PARTS` run a piece of it (the loads, the loads and the f64
-    sum, the epilogue) and their outputs are wrong by design."""
-    from .posterior_cuda import constants_call
-
-    fn = "block_constants"
-    which = _legacy_part(fn, part, args[0].device)
-    outs, ptrs = constants_call(f"legacy {fn}", args, ntot, images_normalized, with_plan=False)
-    with torch.cuda.device(args[0].device):
-        status = _build.load().bioem_probe_block_constants(which, *ptrs)
-    _build.check(status, f"legacy {fn} ({part})")
-    legacy_block_constants.launches += 1
-    return outs
-
-
-legacy_block_constants.launches = 0
-
-
-def legacy_merge_block(state, *args, ntot: float, ang_offset=None, m_out=None,
-                       part: str = "full"):
-    """PR 14's G2 (one warp per image) on :func:`posterior_cuda.merge_block`'s
-    arguments after the state, in place: ``full`` merges as G2 does; the
-    other parts of :data:`GLUE_PARTS` run the max pass, or the max and Σ
-    passes, with the state update and no slabs, wrong by design."""
-    from .posterior_cuda import merge_call
-
-    fn = "merge_block"
-    which = _legacy_part(fn, part, args[1].device)
-    ptrs, _offsets = merge_call(f"legacy {fn}", state, *args, ntot=ntot, ang_offset=ang_offset,
-                                m_out=m_out)
-    with torch.cuda.device(args[1].device):
-        status = _build.load().bioem_probe_merge_block(which, *ptrs)
-    _build.check(status, f"legacy {fn} ({part})")
-    legacy_merge_block.launches += 1
-    return state
-
-
-legacy_merge_block.launches = 0

@@ -30,18 +30,17 @@ number of point slots it reads: none, the model's points, every slot
 (``probe_projection_points``): its fixed cost and its cost per point; and
 G4's, its plain version's and cuFFT's rfft2's card time at the production
 raster block (``raster_times``); and the block step's posterior glue, G1
-and G2, beside PR 14's design of them and that design's parts
-(``glue_attribution``). The inputs and checks of the projection's
-glue kernels G3 (``prologue_inputs``, ``check_prologue``) and G4
-(``raster_inputs``, ``check_raster``) live here too, for chip_smoke.py and
-the card tests.
+and G2, beside the floor of a kernel's time (``glue_attribution``). The
+inputs and checks of the projection's glue kernels G3
+(``prologue_inputs``, ``check_prologue``) and G4 (``raster_inputs``,
+``check_raster``) live here too, for chip_smoke.py and the card tests.
 
 Usage, on a machine with a CUDA card (there is no CPU mode: a probe's
 answer is a measurement of the card):
 
     python -m bioem_tpu_torch.tools.kernel_probe [--glue] [--p3 production|reference]
 
-(``--glue``: only the glue's attribution, at the production block's
+(``--glue``: only the glue's times, at the production block's
 shapes on random inputs; ``--p3 BLOCK``: only P3, on that block of
 :data:`BLOCKS`.)
 
@@ -414,22 +413,16 @@ def glue_replay(dev, o: int = 8, c: int = 8, i: int = 64, n_blocks: int = 2) -> 
 
 def glue_attribution(g1, g1_kw, merge_args, workspace=None) -> dict:
     """The card's own time (:func:`device_ms`) of G1 and G2 at one block,
-    this design and its parts beside PR 14's design and its parts
-    (``probe_cuda.CONSTANTS_PARTS``, ``GLUE_PARTS``), and the floor of a
-    kernel's time here (a one-element in-place add): G1 on ``g1``
-    (block_constants' nine inputs) and ``g1_kw``, with ``workspace`` (None:
-    one made here, as an engine holds it); G2 on ``merge_args``
-    (merge_block's arguments from m to disp), slabs off and on, each call
-    merging into one state (the first call moves the tuples, the rest tie
-    with const), the offset a 0-d tensor on the card as a captured step
-    passes it. Returns {label: ms}: "floor", "G1", "G1 <part>", "G1 on <n>
-    CTAs" (planned for half the card's SMs), "G2 slabs off", "G2 slabs
-    on", and "PR 14 G1 <part>", "PR 14 G2 <part> slabs off|on" (the parts
-    with no slab pass only slabs off)."""
+    beside the floor of a kernel's time here (a one-element in-place add):
+    G1 on ``g1`` (block_constants' nine inputs) and ``g1_kw``, with
+    ``workspace`` (None: one made here, as an engine holds it); G2 on
+    ``merge_args`` (merge_block's arguments from m to disp), slabs off and
+    on, each call merging into one state (the first call moves the tuples,
+    the rest tie with const), the offset a 0-d tensor on the card as a
+    captured step passes it. Returns {label: ms}: "floor", "G1", "G2 slabs
+    off", "G2 slabs on"."""
     from ..core.posterior import init_state
     from ..ops import posterior_cuda as G
-    from ..ops.probe_cuda import (CONSTANTS_PARTS, GLUE_PARTS, constants_parts,
-                                  legacy_block_constants, legacy_merge_block)
 
     dev = g1[0].device
     o, c, i = merge_args[1].shape
@@ -440,23 +433,10 @@ def glue_attribution(g1, g1_kw, merge_args, workspace=None) -> dict:
     one = torch.zeros(1, device=dev)
     out = {"floor": device_ms(lambda: one.add_(1.0)),
            "G1": device_ms(lambda: G.block_constants(*g1, **g1_kw, workspace=workspace))}
-    for part in CONSTANTS_PARTS[1:]:
-        out[f"G1 {part}"] = device_ms(
-            lambda: constants_parts(*g1, **g1_kw, workspace=workspace, part=part))
-    half = G.constants_workspace(o, c, i, *g1[0].shape[1:], dev,
-                                 n_sm=max(1, workspace.plan.grid // 2))
-    out[f"G1 on {half.plan.grid} CTAs"] = device_ms(
-        lambda: G.block_constants(*g1, **g1_kw, workspace=half))
-    for part in GLUE_PARTS["block_constants"]:
-        out[f"PR 14 G1 {part}"] = device_ms(
-            lambda: legacy_block_constants(*g1, **g1_kw, part=part))
     for slabs in (False, True):
-        tag = f"slabs {'on' if slabs else 'off'}"
         st = init_state(i, 2 * o, slabs, dev)
-        out[f"G2 {tag}"] = device_ms(lambda: G.merge_block(st, *merge_args, zero, ntot=ntot))
-        for part in GLUE_PARTS["merge_block"][: 1 if slabs else None]:
-            out[f"PR 14 G2 {part} {tag}"] = device_ms(
-                lambda: legacy_merge_block(st, *merge_args, zero, ntot=ntot, part=part))
+        out[f"G2 slabs {'on' if slabs else 'off'}"] = device_ms(
+            lambda: G.merge_block(st, *merge_args, zero, ntot=ntot))
     return out
 
 

@@ -46,9 +46,6 @@ KERNEL_STEMS = ("compare_fused", "compare_batched", "project_kernel")
 # glue_by_phase adds them by name.
 GLUE_KERNELS = (("block_constants_kernel", "bioem.constants"),
                 ("merge_block_kernel", "bioem.merge"),
-                # PR 14's design of G1 and G2 (csrc/glue_probe.cu)
-                ("constants_probe_kernel", "bioem.constants"),
-                ("merge_probe_kernel", "bioem.merge"),
                 ("project_prologue_kernel", "bioem.projection"),
                 ("raster_projection_kernel", "bioem.projection"))
 

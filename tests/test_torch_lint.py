@@ -10,13 +10,21 @@ the source text of ``bioem_tpu_torch/`` and ``chip_smoke.py``:
 * no fast-math build flag and no approximate log/exp intrinsics in the
   CUDA sources (a_coef ≈ −N²/2 amplifies any log1p error);
 * no import of JAX anywhere in the port, and no import of bench.py or
-  the test suite in the package.
+  the test suite in the package;
+* the ``extern "C"`` entry points of ``bioem_tpu_torch/csrc/*.cu`` and
+  ``ops/_build.SIGNATURES`` agree (each entry defined once, its
+  parameters and return type as ctypes declares them, no entry point
+  undeclared): a mismatch would otherwise show only on the card.
 """
 
+import ctypes
+import glob
 import os
 import re
 
 import pytest
+
+from bioem_tpu_torch.ops import _build
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "bioem_tpu_torch")
@@ -97,8 +105,76 @@ def test_engine_turns_tf32_off():
 
 def test_build_flags_are_exact():
     """nvcc builds for sm_90a without fast math."""
-    from bioem_tpu_torch.ops import _build
-
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast" not in flags
+
+
+# The C types of the entry points' parameters and results, as ctypes passes
+# them (every pointer, the stream included, as c_void_p).
+C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double,
+           "size_t": ctypes.c_size_t}
+
+
+def _ctype(decl: str):
+    """The ctypes type of a C type ``decl`` (a pointer: c_void_p; const char*:
+    c_char_p); None where the lint knows no such type."""
+    decl = " ".join(decl.replace("const", " ").split())
+    if decl.replace(" ", "") == "char*":
+        return ctypes.c_char_p
+    return ctypes.c_void_p if "*" in decl else C_TYPES.get(decl)
+
+
+def _entry_points() -> dict:
+    """{name: [(source, return type, [parameter types])]} of every function
+    defined at the top level of an ``extern "C" { ... }`` block of
+    ``csrc/*.cu`` (comments and preprocessor lines stripped, function
+    bodies skipped)."""
+    out: dict = {}
+    for path in sorted(glob.glob(os.path.join(PKG, "csrc", "*.cu"))):
+        with open(path, encoding="utf-8") as f:
+            src = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read(), flags=re.S)
+        src = re.sub(r"^[ \t]*#(?:[^\n]*\\\n)*[^\n]*", "", src, flags=re.M)
+        starts = [m.end() for m in re.finditer(r'extern\s+"C"\s*\{', src)]
+        assert len(starts) == src.count('extern "C"'), f"{path}: an extern \"C\" outside a block"
+        for at in starts:
+            depth, top = 0, []
+            for ch in src[at:]:
+                if ch == "}" and depth == 0:
+                    break
+                if depth == 0:
+                    top.append(ch)
+                depth += (ch == "{") - (ch == "}")
+            for m in re.finditer(r"([A-Za-z_][\w\s*]*?)\s*\b(\w+)\s*\(([^()]*)\)\s*\{",
+                                 "".join(top)):
+                params = [p.strip() for p in m.group(3).split(",")]
+                types = [_ctype(re.sub(r"\w+$", "", p)) for p in params if p not in ("", "void")]
+                out.setdefault(m.group(2), []).append(
+                    (os.path.basename(path), _ctype(m.group(1)), types))
+    return out
+
+
+ENTRY_POINTS = _entry_points()
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signature_matches_its_definition(name):
+    """A declared entry point is defined in exactly one source, with the
+    parameters ``SIGNATURES`` gives (their number and their ctypes types)
+    and the return type ``RESTYPES`` gives (c_int by default)."""
+    defs = ENTRY_POINTS.get(name, [])
+    assert len(defs) == 1, f"{name} defined in {[d[0] for d in defs] or 'no source'}"
+    src, restype, params = defs[0]
+    argtypes = _build.SIGNATURES[name]
+    assert len(params) == len(argtypes), (
+        f"{name} ({src}): {len(params)} parameters, SIGNATURES gives {len(argtypes)}")
+    assert params == argtypes, f"{name} ({src}): parameters {params}, SIGNATURES {argtypes}"
+    assert restype == _build.RESTYPES.get(name, ctypes.c_int), f"{name} ({src}): returns {restype}"
+
+
+def test_every_entry_point_is_declared():
+    """Every ``extern "C"`` function of the sources is in ``SIGNATURES``
+    (``load()`` sets the types of those alone)."""
+    assert ENTRY_POINTS, "no extern \"C\" entry point found under csrc/"
+    undeclared = sorted(set(ENTRY_POINTS) - set(_build.SIGNATURES))
+    assert not undeclared, f"entry points missing from SIGNATURES: {undeclared}"

@@ -470,9 +470,9 @@ def _kernel_order_sum(v, plan, threads=512):
     return out
 
 
-def _pr14_order_sum(v, threads=512):
-    """PR 14's order: per pair, thread t adds columns t, t + 512, ...; the
-    warps' butterflies; the 16 warp sums in order."""
+def _strided_order_sum(v, threads=512):
+    """PR 14's order (one CTA per pair): thread t adds columns t, t + 512,
+    ...; the warps' butterflies; the 16 warp sums in order."""
     p, nf = v.shape
     acc = np.zeros((threads, p))
     for j in range(nf):
@@ -507,23 +507,18 @@ def test_fixed_order_reduction_model_against_f64_truth(rng, case):
     truth = np.array([math.fsum(row) for row in v])
     np.testing.assert_allclose(ours, truth, rtol=1e-13, atol=0)
     assert _f32_ulps(ours / ntot, truth / ntot).max() <= 1
-    assert _f32_ulps(ours / ntot, _pr14_order_sum(v) / ntot).max() <= 1
+    assert _f32_ulps(ours / ntot, _strided_order_sum(v) / ntot).max() <= 1
 
 
 def test_glue_wrappers_check_without_a_card(rng):
     """What the wrappers refuse before any launch: a G1 or G2 launch off the
-    card, a workspace for other shapes, a workspace off the card, a block
-    whose pairs do not fit G2's shared memory, and PR 14's kernels (probes
-    of the card) on the CPU."""
-    from bioem_tpu_torch.ops import probe_cuda as PR
-
+    card, a workspace for other shapes, a workspace off the card and a block
+    whose pairs do not fit G2's shared memory."""
     x = _spectra(rng)
     keys = ("pr", "pi", "ctf_re", "ctf_im", "h", "sum_ref", "ssq_ref", "prior", "mask")
     args = tuple(t(x[k]) for k in keys)
     with pytest.raises(ValueError, match="unsupported device"):
         G.constants_call("block_constants", args, 256.0, True)
-    with pytest.raises(ValueError, match="no part"):
-        PR.constants_parts(*args, ntot=256.0, images_normalized=True, part="tail")
     with pytest.raises(ValueError, match="workspace lies on the card"):
         G.constants_workspace(3, 4, 6, 16, 9, "cpu")
     ws = G.ConstantsWorkspace((3, 4, 5, 16, 9), G.constants_plan(3, 4, 5, 16, 9, 132),
@@ -541,11 +536,6 @@ def test_glue_wrappers_check_without_a_card(rng):
     with pytest.raises(ValueError, match="shared memory"):
         G.merge_call("merge_block", state, None, big, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp,
                      0, ntot=256.0)
-    with pytest.raises(ValueError, match="card only"):
-        PR.legacy_block_constants(*args, ntot=256.0, images_normalized=True)
-    with pytest.raises(ValueError, match="no part"):
-        PR.legacy_merge_block(state, m, se, ds, ccs, k, f0, sum_c, ssq_c, sum_ref, disp, 0,
-                              ntot=256.0, part="slabs")
 
 
 def test_sass_counts_read_calls_and_local_memory():
