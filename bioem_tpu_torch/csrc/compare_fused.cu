@@ -24,7 +24,12 @@
 // the same stage 1 (3 × 8.71e9 TF32 operations per production block,
 // 0.053 ms), no conv product and no log-sum-exp (1.54e9 f32 operations,
 // 0.023 ms), and writes the lattice (7.2 MB) beside reading ~26 MB of
-// spectra: 0.076 ms, operations-bound.
+// spectra: 0.076 ms, operations-bound. At the reference grid's D = 81 (a
+// block O=8, C=32, I=64, N=224, fold 1) stage 1 bounds it at 2.40 ms; what
+// the kernel pays beyond the products is per formed p (the image loads,
+// the conv product, the TF32 split, the barriers of each K chunk) and
+// stage 2 on the CUDA cores, so a wide lattice forms each p once for as
+// many of its rows as one warpgroup's registers hold (below).
 //
 // Design.
 // * Two kernels in one launch of the entry point. A prologue forms the conv
@@ -37,9 +42,27 @@
 // * Roles. t1ᵀ (frequencies × 2Dp) = pᵀ (frequencies × 2M) · Wᵀ: 64
 //   frequencies of one image are wgmma's M (an m-tile; F = 113 gives two),
 //   a chunk of NP = 2·dc stacked t1 rows (dc lattice rows, re then im) its
-//   N (n16…n64; wider lattices loop over ⌈Dp/32⌉ N chunks), so p is formed
-//   straight into registers as the A fragment. A k8 step holds four folded
-//   rows j, real parts at k = 0..3 and imaginary parts at k = 4..7.
+//   N, so p is formed straight into registers as the A fragment and read
+//   from there by all NP columns of the product. A k8 step holds four
+//   folded rows j, real parts at k = 0..3 and imaginary parts at k = 4..7.
+// * Row chunks (plan below). With four warpgroups a CTA (128 registers a
+//   thread) a chunk holds at most 32 rows (n16…n64): the production block's
+//   D = 21 is one chunk. Lattices of 33 to 128 padded rows run two
+//   warpgroups a CTA (255 registers) on wide chunks: the whole lattice as
+//   one chunk of 64 or 88 rows (NP = 128, 176: 88 accumulators and 88 sums a
+//   thread at D = 81) or, from 89 rows, two chunks of 64 (D = 121). The K
+//   loop runs once per chunk, so each p a warpgroup forms serves the whole
+//   chunk: at D = 81 one p where 32-row chunks formed it three times (the
+//   image loads, the conv product, the split and the K chunks' barriers
+//   with it). A wide chunk's W block holds t1_re's rows only: t1_im is the
+//   same block against p with its real and imaginary parts exchanged (and
+//   one negated), a permutation of the A fragment's registers (chain), so
+//   W's L2 traffic per comparison stays about that of 32-row chunks on
+//   four warpgroups (at D = 81 2.8 against 3 KB an image a k8 step) and
+//   its double buffer leaves K chunks of 8. Wider lattices go back to
+//   32-row chunks, on four
+//   warpgroups and from D = 159 on two: their wy and lattice tiles leave
+//   no room for wide ones.
 // * conv shared by the images of a CTA. A CTA takes one oc and n_wg
 //   consecutive images, one per warpgroup (a run of images ends where I
 //   ends: the last CTA's idle warpgroups compute on a copy and write
@@ -61,10 +84,12 @@
 //   lattice columns e ≡ l (mod 32) of rows d = dc·chunk + w·dc/4 + r over
 //   the m-tile (re and im terms apart, as K1 always did) into the chunk's
 //   dc × D rows of the image's lattice in shared memory. Stage 2 is bound
-//   by its shared-memory reads, so with 32-row chunks (NP = 64, D = 25 and
-//   wider) a thread takes up to three columns e, e + 32, e + 64 at once:
-//   each t1 value it reads serves three columns, each wy value its dc/4
-//   rows (the same sums in the same order: the same bits). Narrower chunks
+//   by its shared-memory reads, so with chunks of 32 rows and more (NP ≥
+//   64, D = 25 and wider) a thread takes 8 rows and up to three columns e,
+//   e + 32, e + 64 at once: each t1 value it reads serves three columns,
+//   each wy value 8 rows (the same sums in the same order: the same bits);
+//   a wide chunk is walked in passes of 32 rows, a warp whose 8 rows lie
+//   past the chunk or the lattice skipping its pass. Narrower chunks
 //   (the production block's D = 21) keep one column a thread: three ran
 //   6 % slower there. wy is read only there, 64 frequencies × D at a time:
 //   the prologue writes it to scratch as (Fp, D) complex rows, and each
@@ -73,7 +98,7 @@
 //   buffer; a block barrier orders it after every warpgroup's stage 2 of
 //   the previous m-tile).
 // * The lattice, one row chunk at a time. The lattice is walked in n_nc
-//   chunks of dc ≤ 32 rows (the outer loop, every m-tile inside it); after
+//   chunks of dc rows (the outer loop, every m-tile inside it); after
 //   a chunk's last m-tile its rows are complete and only they are held.
 //   K1 reduces them (compare_lse.cuh) by the warpgroup's 128 threads (the
 //   first pass leaves each v in place of its cc, carrying the cc at the
@@ -83,18 +108,27 @@
 //   the chunks come in flat-index order, so `better` keeps the first
 //   occurrence; a chunk whose values are all −inf adds nothing, a lattice
 //   all −inf ends as the plain version's (argmax 0, Σ exp NaN), and NaN
-//   wins and spreads as in jnp.argmax/max. With one chunk (D ≤ 32) this is
-//   the single reduction it always was. No atomics: two launches on the
+//   wins and spreads as in jnp.argmax/max. With one chunk (D ≤ 32, or a
+//   wide chunk up to D = 88) this is a single reduction. A t1 element is
+//   the same products added in the same order whatever the chunk's width,
+//   and stage 2 and the reduction keep their orders, so the wide chunks
+//   give the bits the 32-row chunks gave. No atomics: two launches on the
 //   same inputs give the same bits.
 // * Shared memory: W and conv double buffers, the t1 tiles (over those
-//   buffers where they fit: stage 2 runs between an m-tile's last K chunk
+//   buffers, the region the larger of the two: stage 2 runs between an m-tile's last K chunk
 //   and the next m-tile's first copy, behind barriers on both sides, so the
 //   K chunk can be longer: fewer barriers, and more of the SM left to L1),
 //   one m-tile of wy (64 × D complex) and each warpgroup's chunk of the
 //   lattice (dc × D floats): nothing grows with F, and D only through
-//   those two tiles of fixed height. The wrapper (ops/compare_cuda.k1_plan) picks the largest
-//   K chunk, with four warpgroups and then two, that fits a block; its
-//   formula is bioem_fused_compare_smem_bytes below.
+//   those two tiles. The wrapper (ops/compare_cuda.k1_plan) picks the
+//   largest K chunk that fits a block, with the wide chunks first where the
+//   lattice has them, else four warpgroups and then two; its formula is
+//   bioem_fused_compare_smem_bytes below. At D = 81, fold 1: W hi/lo 88
+//   rows × 8 steps × 32 B × 2 = 45,056 B a buffer, two; conv 2 × 17,408;
+//   the two t1 tiles (2 × 64 × 180 floats, 92,160 B) over those 124,928;
+//   wy 41,472; two lattices of 88 × 81 floats, 57,088 (each part rounded
+//   up to 128 bytes): 223,488 B with K chunks of 8 steps. D = 121 (two
+//   chunks of 64): 224,256 B, also 8.
 // * K3 (body kCcOut) runs all of the above but the log-sum-exp: its
 //   prologue copies the conv bank it is given into the padded interleaved
 //   scratch instead of forming it, and each warpgroup writes its image's
@@ -102,7 +136,8 @@
 //   coalesced. It takes every shape K1 takes, with K1's tiling.
 // The body variant V is kFull (K1) or kCcOut (K3) in production; the
 // ablation probe P3 instantiates the others at NP = 48 (the production
-// block) and NP = 64 (the reference grid's D = 81) with four warpgroups.
+// block) and NP = 64 with four warpgroups, and at NP = 176 (the reference
+// grid's D = 81) with two.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -127,10 +162,26 @@ constexpr int kPrepThreads = 256;
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
+// The row chunks of the lattice. Four warpgroups (128 registers a thread)
+// take chunks of at most 32 rows (NP ≤ 64). Two warpgroups (255 registers)
+// take the wide chunks: the whole padded lattice as one chunk of 64 or 88
+// rows (NP = 128 or 176: 88 accumulators and 88 sums a thread) up to Dp = 88,
+// two chunks of 64 rows up to Dp = 128; each p a warpgroup forms then serves
+// every 32-row part of its chunk. Wider lattices go in 32-row chunks again
+// (their wy and lattice tiles leave no room for wide ones), on four
+// warpgroups and, from D = 159 where four no longer fit, on two. Two
+// warpgroups are not valid below Dp = 33, where four always fit.
+constexpr int kWideRows = 88;    // rows of the widest chunk (NP = 176)
+constexpr int kWideMaxDp = 128;  // the widest padded lattice in wide chunks (two of 64)
+
+__host__ __device__ inline bool wide_chunks(int Dp, int n_wg) {
+  return n_wg == 2 && Dp > 32 && Dp <= kWideMaxDp;
+}
+
 // The tiling of a problem, the same on the host and in the kernels.
 struct Plan {
   int D, M, F, n_fold, n_wg, KC;
-  int Dp, n_nc, dc, NP, n_ks, n_kc, n_mt, Fp;
+  int Dp, n_nc, dc, NP, wn, n_ks, n_kc, n_mt, Fp;  // wn: rows of a W block
   size_t w_chunk, cv_chunk, wy_tile;    // bytes of one W block, one conv chunk, one m-tile of wy
   size_t w, cv, t1, wy, cc, bytes;      // shared-memory offsets and total
   size_t scratch_w;                     // bytes of the W blocks in scratch
@@ -140,24 +191,32 @@ __host__ __device__ inline Plan plan(int D, int M, int F, int n_fold, int n_wg, 
   Plan P;
   P.D = D, P.M = M, P.F = F, P.n_fold = n_fold, P.n_wg = n_wg, P.KC = KC;
   P.Dp = (D + 7) / 8 * 8;
-  P.n_nc = (P.Dp + 31) / 32;
-  P.dc = ((P.Dp + P.n_nc - 1) / P.n_nc + 7) / 8 * 8;
+  const bool wide = wide_chunks(P.Dp, n_wg);
+  if (wide) {
+    P.n_nc = P.Dp <= kWideRows ? 1 : 2;
+    P.dc = P.Dp > 64 && P.Dp <= kWideRows ? kWideRows : 64;
+  } else {
+    P.n_nc = (P.Dp + 31) / 32;
+    P.dc = ((P.Dp + P.n_nc - 1) / P.n_nc + 7) / 8 * 8;
+  }
   P.NP = 2 * P.dc;
+  P.wn = wide ? P.dc : P.NP;  // a wide chunk's W holds t1_re's rows only (chain)
   P.n_ks = (M + 3) / 4;
   P.n_kc = (P.n_ks + KC - 1) / KC;
   P.n_mt = (F + kMT - 1) / kMT;
   P.Fp = P.n_mt * kMT;
-  P.w_chunk = (size_t)2 * P.NP * 32 * KC;  // hi then lo, NP rows × 32·KC bytes
+  P.w_chunk = (size_t)2 * P.wn * 32 * KC;  // hi then lo, wn rows × 32·KC bytes
   P.cv_chunk = sizeof(float2) * (size_t)KC * n_fold * 4 * kLdF;
   P.wy_tile = sizeof(float2) * (size_t)kMT * D;
   P.w = 0;
   P.cv = P.w + 2 * P.w_chunk;
   // stage 2's t1 tiles lie over the W and conv buffers, which hold nothing
-  // between an m-tile's last K chunk and the next m-tile's first copy
+  // between an m-tile's last K chunk and the next m-tile's first copy; the
+  // region is the larger of the two
   const size_t chunks = P.cv + 2 * align128(P.cv_chunk);
   const size_t t1 = align128(sizeof(float) * (size_t)n_wg * kMT * (P.NP + 4));
-  P.t1 = t1 <= chunks ? 0 : chunks;
-  P.wy = P.t1 + t1 > chunks ? P.t1 + t1 : chunks;
+  P.t1 = 0;
+  P.wy = t1 > chunks ? t1 : chunks;
   P.cc = P.wy + align128(P.wy_tile);
   P.bytes = P.cc + align128(sizeof(float) * (size_t)n_wg * P.dc * D);
   P.scratch_w = P.w_chunk * P.n_nc * P.n_kc;
@@ -201,7 +260,7 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
             int OC, int N, float2* __restrict__ conv, unsigned char* __restrict__ wblk,
             float2* __restrict__ wyp) {
   const size_t n_conv = (size_t)OC * N * P.Fp;
-  const size_t n_w = (size_t)P.n_nc * P.n_kc * P.NP * 8 * P.KC;
+  const size_t n_w = (size_t)P.n_nc * P.n_kc * P.wn * 8 * P.KC;
   const size_t n_wy = (size_t)P.Fp * P.D;
   const size_t NF = (size_t)N * P.F;
   for (size_t q = (size_t)blockIdx.x * kPrepThreads + threadIdx.x; q < n_conv + n_w + n_wy;
@@ -231,15 +290,16 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
                         : make_float2(0.f, 0.f);
       continue;
     }
-    // W block (nc, kc): row n < dc is t1_re[d], row dc + d' is t1_im[d];
-    // column 8s + u (u < 4) multiplies Re p[4(kc·KC + s) + u], 8s + 4 + u
-    // its Im. Rows d ≥ D and folded rows j ≥ M are zero.
+    // W block (nc, kc): row n < dc is t1_re[d], row dc + d' is t1_im[d]
+    // (a wide chunk's block has the first dc rows only: chain); column
+    // 8s + u (u < 4) multiplies Re p[4(kc·KC + s) + u], 8s + 4 + u its Im.
+    // Rows d ≥ D and folded rows j ≥ M are zero.
     const size_t qw = q - n_conv;
     const int per_row = 8 * P.KC;
     const int kp = (int)(qw % per_row);
     const size_t rq = qw / per_row;
-    const int n = (int)(rq % P.NP);
-    const size_t blk = rq / P.NP;  // nc · n_kc + kc
+    const int n = (int)(rq % P.wn);
+    const size_t blk = rq / P.wn;  // nc · n_kc + kc
     const int kc = (int)(blk % P.n_kc), nc = (int)(blk / P.n_kc);
     const int j = 4 * (kc * P.KC + (kp >> 3)) + (kp & 3);
     const bool im_col = (kp & 7) >= 4, im_row = n >= P.dc;
@@ -254,7 +314,7 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
     unsigned char* b = wblk + blk * P.w_chunk;
     const uint32_t off = wg::offset_km(n, 4 * kp, kb);
     *reinterpret_cast<uint32_t*>(b + off) = hi;
-    *reinterpret_cast<uint32_t*>(b + (size_t)P.NP * kb + off) =
+    *reinterpret_cast<uint32_t*>(b + (size_t)P.wn * kb + off) =
         wg::to_tf32(v - __uint_as_float(hi));
   }
 }
@@ -264,17 +324,39 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
 // ---------------------------------------------------------------------------
 
 // acc ← lo·W_hi + hi·W_lo + hi·W_hi for step s of the staged W block
-// (acc's old value is not read), issued asynchronously.
+// (acc's old value is not read), issued asynchronously. A wide chunk
+// (NP = 128, 176) keeps t1_re's rows of W only, [wx_re, −wx_im]: t1_im =
+// Im p·wx_re + Re p·wx_im is the same block against p' = (Im p, −Re p),
+// the A fragment with its k halves exchanged and the second negated (exact
+// in TF32), into the second half of acc. That halves W's bytes, in L2
+// traffic and in shared memory, for the same products; only the order of
+// t1_im's two k halves within a step differs from a block with its rows.
 template <int NP>
 __device__ __forceinline__ void chain(float (&acc)[NP / 2], const uint32_t (&hi)[4],
                                       const uint32_t (&lo)[4], const unsigned char* w, int s,
                                       uint32_t kb) {
   const uint64_t dh = wg::desc(w + 256 * s, 128, 8 * kb);
-  const uint64_t dl = wg::desc(w + (size_t)NP * kb + 256 * s, 128, 8 * kb);
-  wg::fence();
-  wg::Tf32RS<NP>::mma(acc, lo, dh, 0);
-  wg::Tf32RS<NP>::mma(acc, hi, dl, 1);
-  wg::Tf32RS<NP>::mma(acc, hi, dh, 1);
+  if constexpr (NP >= 128) {
+    constexpr int DC = NP / 2, NH = NP / 4;
+    float(&re)[NH] = *reinterpret_cast<float(*)[NH]>(&acc[0]);
+    float(&im)[NH] = *reinterpret_cast<float(*)[NH]>(&acc[NH]);
+    const uint32_t hs[4] = {hi[2], hi[3], hi[0] ^ 0x80000000u, hi[1] ^ 0x80000000u};
+    const uint32_t ls[4] = {lo[2], lo[3], lo[0] ^ 0x80000000u, lo[1] ^ 0x80000000u};
+    const uint64_t dl = wg::desc(w + (size_t)DC * kb + 256 * s, 128, 8 * kb);
+    wg::fence();
+    wg::Tf32RS<DC>::mma(re, lo, dh, 0);
+    wg::Tf32RS<DC>::mma(im, ls, dh, 0);
+    wg::Tf32RS<DC>::mma(re, hi, dl, 1);
+    wg::Tf32RS<DC>::mma(im, hs, dl, 1);
+    wg::Tf32RS<DC>::mma(re, hi, dh, 1);
+    wg::Tf32RS<DC>::mma(im, hs, dh, 1);
+  } else {
+    const uint64_t dl = wg::desc(w + (size_t)NP * kb + 256 * s, 128, 8 * kb);
+    wg::fence();
+    wg::Tf32RS<NP>::mma(acc, lo, dh, 0);
+    wg::Tf32RS<NP>::mma(acc, hi, dl, 1);
+    wg::Tf32RS<NP>::mma(acc, hi, dh, 1);
+  }
   wg::commit();
 }
 
@@ -298,7 +380,10 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
                      float* __restrict__ out_ccs) {
   constexpr int kThreads = 128 * NWG;
   constexpr int NA = NP / 2;  // accumulator floats per thread
-  constexpr int DR = NP / 8;  // stage-2 lattice rows per thread (dc / 4)
+  // stage-2 lattice rows per thread: dc / 4 in chunks up to 32 rows; in
+  // wider chunks each pass takes 4·DR rows, 16 a thread in chunks of 64
+  // (one pass), else 8 (passes of 32)
+  constexpr int DR = NP < 64 ? NP / 8 : NP % 128 == 0 ? 16 : 8;
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ float red_v[NWG][4], red_s[NWG][4];
   __shared__ int red_i[NWG][4];
@@ -511,53 +596,60 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         }
         wg::wg_barrier(bar);
         const int fcn = F - fb < kMT ? F - fb : kMT;
-        const int dl0 = warp * DR;  // this thread's first chunk row
-        if constexpr (NP == 64) {
-          // Lattice columns e = e0 + lane + 32·ce, up to three at a time: each
-          // t1 value a thread reads serves that many columns, each wy value DR
-          // rows.
-          for (int e0 = 0; e0 < D; e0 += 96) {
-            const int nce = D - e0 > 64 ? 3 : D - e0 > 32 ? 2 : 1;  // warp-uniform
-            float sr[DR][3], si[DR][3];
+        if constexpr (NP >= 64) {
+          // The chunk in passes of 4·DR rows, DR a thread; in each, lattice
+          // columns e = e0 + lane + 32·ce, up to three at a time: each t1
+          // value a thread reads serves that many columns, each wy value DR
+          // rows. A warp whose rows lie past the chunk or the lattice skips
+          // the pass (it would only compute rows nothing reads).
+#pragma unroll 1
+          for (int rp = 0; rp < NP / 2; rp += 4 * DR) {
+            const int dl0 = rp + warp * DR;  // this thread's first chunk row
+            if (dl0 >= NP / 2 || nc * dc + dl0 >= D) continue;  // warp-uniform
+            for (int e0 = 0; e0 < D; e0 += 96) {
+              const int nce = D - e0 > 64 ? 3 : D - e0 > 32 ? 2 : 1;  // warp-uniform
+              float sr[DR][3], si[DR][3];
 #pragma unroll
-            for (int r = 0; r < DR; ++r)
+              for (int r = 0; r < DR; ++r)
 #pragma unroll
-              for (int ce = 0; ce < 3; ++ce) sr[r][ce] = si[r][ce] = 0.f;
-            int ec[3];
+                for (int ce = 0; ce < 3; ++ce) sr[r][ce] = si[r][ce] = 0.f;
+              int ec[3];
 #pragma unroll
-            for (int ce = 0; ce < 3; ++ce) ec[ce] = min(e0 + lane + 32 * ce, D - 1);
-            for (int fl = 0; fl < fcn; ++fl) {
-              const float* row = t1w + fl * ldt + dl0;
-              float2 a[DR / 2], b[DR / 2];
+              for (int ce = 0; ce < 3; ++ce) ec[ce] = min(e0 + lane + 32 * ce, D - 1);
+#pragma unroll 4
+              for (int fl = 0; fl < fcn; ++fl) {
+                const float* row = t1w + fl * ldt + dl0;
+                float2 a[DR / 2], b[DR / 2];
 #pragma unroll
-              for (int r = 0; r < DR; r += 2) {
-                a[r / 2] = *reinterpret_cast<const float2*>(row + r);
-                b[r / 2] = *reinterpret_cast<const float2*>(row + dc + r);
-              }
+                for (int r = 0; r < DR; r += 2) {
+                  a[r / 2] = *reinterpret_cast<const float2*>(row + r);
+                  b[r / 2] = *reinterpret_cast<const float2*>(row + dc + r);
+                }
 #pragma unroll
-              for (int ce = 0; ce < 3; ++ce) {
-                if (ce < nce) {
-                  const float2 w = wys[fl * D + ec[ce]];
+                for (int ce = 0; ce < 3; ++ce) {
+                  if (ce < nce) {
+                    const float2 w = wys[fl * D + ec[ce]];
 #pragma unroll
-                  for (int r = 0; r < DR; r += 2) {
-                    sr[r][ce] += a[r / 2].x * w.x;
-                    sr[r + 1][ce] += a[r / 2].y * w.x;
-                    si[r][ce] += b[r / 2].x * w.y;
-                    si[r + 1][ce] += b[r / 2].y * w.y;
+                    for (int r = 0; r < DR; r += 2) {
+                      sr[r][ce] += a[r / 2].x * w.x;
+                      sr[r + 1][ce] += a[r / 2].y * w.x;
+                      si[r][ce] += b[r / 2].x * w.y;
+                      si[r + 1][ce] += b[r / 2].y * w.y;
+                    }
                   }
                 }
               }
-            }
 #pragma unroll
-            for (int ce = 0; ce < 3; ++ce) {
-              const int e = e0 + lane + 32 * ce;
-              if (ce >= nce || e >= D) continue;
+              for (int ce = 0; ce < 3; ++ce) {
+                const int e = e0 + lane + 32 * ce;
+                if (ce >= nce || e >= D) continue;
 #pragma unroll
-              for (int r = 0; r < DR; ++r) {
-                if (nc * dc + dl0 + r < D) {
-                  float* c = ccw + (dl0 + r) * D + e;
-                  const float v = sr[r][ce] - si[r][ce];
-                  *c = mt == 0 ? v : *c + v;
+                for (int r = 0; r < DR; ++r) {
+                  if (nc * dc + dl0 + r < D) {
+                    float* c = ccw + (dl0 + r) * D + e;
+                    const float v = sr[r][ce] - si[r][ce];
+                    *c = mt == 0 ? v : *c + v;
+                  }
                 }
               }
             }
@@ -565,6 +657,7 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         } else {
           // One lattice column at a time (row chunks of at most 24 rows,
           // the production block's among them, where three were slower).
+          const int dl0 = warp * DR;  // this thread's first chunk row
           for (int e = lane; e < D; e += 32) {
             float sr[DR], si[DR];
 #pragma unroll
@@ -703,7 +796,7 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
   float2* conv = reinterpret_cast<float2*>(scratch);
   unsigned char* wblk = reinterpret_cast<unsigned char*>(scratch) + scratch_conv_bytes(P, OC, N);
   float2* wyp = reinterpret_cast<float2*>(wblk + align128(P.scratch_w));
-  const size_t n_prep = (size_t)OC * N * P.Fp + (size_t)P.n_nc * P.n_kc * P.NP * 8 * P.KC +
+  const size_t n_prep = (size_t)OC * N * P.Fp + (size_t)P.n_nc * P.n_kc * P.wn * 8 * P.KC +
                         (size_t)P.Fp * P.D;
   const size_t blocks = (n_prep + kPrepThreads - 1) / kPrepThreads;
   compare_fused_prep_kernel<V == kCcOut>
@@ -722,7 +815,8 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
 }
 
 bool valid(int D, int M, int F, int n_fold, int n_wg, int KC) {
-  return D >= 1 && M >= 1 && F >= 1 && n_fold >= 1 && (n_wg == 2 || n_wg == 4) &&
+  return D >= 1 && M >= 1 && F >= 1 && n_fold >= 1 &&
+         (n_wg == 4 || (n_wg == 2 && (D + 7) / 8 * 8 > 32)) &&
          (KC == 1 || KC == 2 || KC == 4 || KC == 8);
 }
 
@@ -765,10 +859,9 @@ int bioem_fused_compare(const float* proj_re, const float* proj_im, const float*
     case 324: return launch<32, 4>(BIOEM_K1_ARGS);
     case 484: return launch<48, 4>(BIOEM_K1_ARGS);
     case 644: return launch<64, 4>(BIOEM_K1_ARGS);
-    case 162: return launch<16, 2>(BIOEM_K1_ARGS);
-    case 322: return launch<32, 2>(BIOEM_K1_ARGS);
-    case 482: return launch<48, 2>(BIOEM_K1_ARGS);
     case 642: return launch<64, 2>(BIOEM_K1_ARGS);
+    case 1282: return launch<128, 2>(BIOEM_K1_ARGS);
+    case 1762: return launch<176, 2>(BIOEM_K1_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -796,19 +889,19 @@ int bioem_fused_displacement_cc(const float* conv_re, const float* conv_im,
     case 324: return launch<32, 4, kCcOut>(BIOEM_K1_ARGS);
     case 484: return launch<48, 4, kCcOut>(BIOEM_K1_ARGS);
     case 644: return launch<64, 4, kCcOut>(BIOEM_K1_ARGS);
-    case 162: return launch<16, 2, kCcOut>(BIOEM_K1_ARGS);
-    case 322: return launch<32, 2, kCcOut>(BIOEM_K1_ARGS);
-    case 482: return launch<48, 2, kCcOut>(BIOEM_K1_ARGS);
     case 642: return launch<64, 2, kCcOut>(BIOEM_K1_ARGS);
+    case 1282: return launch<128, 2, kCcOut>(BIOEM_K1_ARGS);
+    case 1762: return launch<176, 2, kCcOut>(BIOEM_K1_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The kernel probe P3: body variant ``variant`` (bioem_lse::Body) of the
-// production instance (NP = 48: D = 17..24) and of the reference grid's
-// (NP = 64: D = 81 and wider), four warpgroups. kFull is the production
-// instance itself; the other variants write a checksum into m and nothing
-// else.
+// production instance (NP = 48, four warpgroups: D = 17..24), of the
+// 32-row chunks (NP = 64, four warpgroups: D = 25..32 and D ≥ 129) and of
+// the reference grid's wide chunk (NP = 176, two warpgroups: D = 65..88).
+// kFull is the production instance itself; the other variants write a
+// checksum into m and nothing else.
 int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
                         const float* ctf_re, const float* ctf_im, const float* img_re,
                         const float* img_im, const float* wx_re, const float* wx_im,
@@ -818,16 +911,21 @@ int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
                         int* ds, float* ccs, void* scratch, void* stream) {
   if (!valid(D, M, F, n_fold, n_wg, KC) || M * n_fold != N) return (int)cudaErrorInvalidValue;
   const Plan P = plan(D, M, F, n_fold, n_wg, KC);
-  if ((P.NP != 48 && P.NP != 64) || n_wg != 4) return (int)cudaErrorInvalidValue;
-  switch (variant * 100 + P.NP) {
-    case kFull * 100 + 48: return launch<48, 4, kFull>(BIOEM_K1_ARGS);
-    case kNoLse * 100 + 48: return launch<48, 4, kNoLse>(BIOEM_K1_ARGS);
-    case kMmOnly * 100 + 48: return launch<48, 4, kMmOnly>(BIOEM_K1_ARGS);
-    case kNoGemm * 100 + 48: return launch<48, 4, kNoGemm>(BIOEM_K1_ARGS);
-    case kFull * 100 + 64: return launch<64, 4, kFull>(BIOEM_K1_ARGS);
-    case kNoLse * 100 + 64: return launch<64, 4, kNoLse>(BIOEM_K1_ARGS);
-    case kMmOnly * 100 + 64: return launch<64, 4, kMmOnly>(BIOEM_K1_ARGS);
-    case kNoGemm * 100 + 64: return launch<64, 4, kNoGemm>(BIOEM_K1_ARGS);
+  if (!((P.NP == 48 || P.NP == 64) && n_wg == 4) && !(P.NP == 176 && n_wg == 2))
+    return (int)cudaErrorInvalidValue;
+  switch (variant * 1000 + P.NP) {
+    case kFull * 1000 + 48: return launch<48, 4, kFull>(BIOEM_K1_ARGS);
+    case kNoLse * 1000 + 48: return launch<48, 4, kNoLse>(BIOEM_K1_ARGS);
+    case kMmOnly * 1000 + 48: return launch<48, 4, kMmOnly>(BIOEM_K1_ARGS);
+    case kNoGemm * 1000 + 48: return launch<48, 4, kNoGemm>(BIOEM_K1_ARGS);
+    case kFull * 1000 + 64: return launch<64, 4, kFull>(BIOEM_K1_ARGS);
+    case kNoLse * 1000 + 64: return launch<64, 4, kNoLse>(BIOEM_K1_ARGS);
+    case kMmOnly * 1000 + 64: return launch<64, 4, kMmOnly>(BIOEM_K1_ARGS);
+    case kNoGemm * 1000 + 64: return launch<64, 4, kNoGemm>(BIOEM_K1_ARGS);
+    case kFull * 1000 + 176: return launch<176, 2, kFull>(BIOEM_K1_ARGS);
+    case kNoLse * 1000 + 176: return launch<176, 2, kNoLse>(BIOEM_K1_ARGS);
+    case kMmOnly * 1000 + 176: return launch<176, 2, kMmOnly>(BIOEM_K1_ARGS);
+    case kNoGemm * 1000 + 176: return launch<176, 2, kNoGemm>(BIOEM_K1_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }

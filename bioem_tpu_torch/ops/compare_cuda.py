@@ -6,15 +6,19 @@ Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 ``fused_displacement_cc``). K1 is ``csrc/compare_fused.cu``: a CTA per
 (orientation·ctf, run of images), conv formed once per orientation·ctf,
 stage 1 on warpgroup wgmma in 3xTF32 with W streamed through shared
-memory, the lattice walked in chunks of ≤ 32 rows with an online
-log-sum-exp and wy staged 64 frequencies at a time, so that its shared
-memory does not grow with F and grows with D only through those tiles
-(stage 2 takes three lattice columns per thread at 32-row chunks, each
-value it reads from shared memory serving several products):
-:func:`k1_plan` tiles every odd D up to 129 (±64 at stride 1) at every N
-up to 512, folds 1 and 2, and wider ones (four warpgroups up to D = 145
-at fold 1, 141 at fold 2; two up to 239, 235); where no tiling fits the
-launch raises. K3 is the
+memory, the lattice walked in row chunks with an online log-sum-exp and
+wy staged 64 frequencies at a time, so that its shared memory does not
+grow with F and grows with D only through those tiles (stage 2 takes
+three lattice columns per thread at chunks of 32 rows and more, each
+value it reads from shared memory serving several products). The row
+chunk is as wide as the warpgroups' registers allow (:func:`k1_rows`):
+four warpgroups a CTA take chunks of ≤ 32 rows; two take lattices of 33
+to 128 padded rows in one chunk of 64 or 88 rows or two of 64, so that
+each operand p a warpgroup forms serves the whole chunk (three 32-row
+parts at the reference grid's D = 81). :func:`k1_plan` tiles every odd
+D up to 129 (±64 at stride 1) at every N up to 512, folds 1 and 2, and
+wider ones (four warpgroups in 32-row chunks up to D = 158, two up to
+257, folds 1 and 2); where no tiling fits the launch raises. K3 is the
 same kernel in its cc-out body: its prologue copies the conv bank it is
 given, and each warpgroup writes its image's lattice in place of the
 log-sum-exp; it takes every shape K1 takes, with K1's tiling. K4 is
@@ -106,34 +110,70 @@ def _a128(x: int) -> int:
     return _cdiv(x, 128) * 128
 
 
+# The widest row chunk (NP = 176: 88 accumulators and 88 sums a thread of
+# two warpgroups) and the widest padded lattice in wide chunks (two of 64).
+K1_WIDE_ROWS = 88
+K1_WIDE_MAX_DP = 128
+
+
+def _k1_valid(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> bool:
+    """The tilings K1 has (csrc/compare_fused.cu ``valid``): four
+    warpgroups anywhere, two only where the padded lattice exceeds 32 rows
+    (below, four always fit)."""
+    return (min(d, m, f, n_fold) >= 1 and kc in (1, 2, 4, 8)
+            and (n_wg == 4 or (n_wg == 2 and _cdiv(d, 8) * 8 > 32)))
+
+
+def _k1_wide(d: int, n_wg: int) -> bool:
+    """Two warpgroups take D's lattice in wide chunks (csrc/compare_fused.cu
+    ``wide_chunks``): 33 to 128 padded rows."""
+    return n_wg == 2 and 32 < _cdiv(d, 8) * 8 <= K1_WIDE_MAX_DP
+
+
+def k1_rows(d: int, n_wg: int) -> tuple:
+    """K1's row chunks at D with ``n_wg`` warpgroups (csrc/compare_fused.cu
+    ``plan``): (chunks, rows a chunk). Four warpgroups take chunks of at most
+    32 rows; two take a padded lattice of 33 to 128 rows wide: one chunk of
+    64 or 88 rows up to 88, else two of 64; wider lattices are cut in
+    32-row chunks on either."""
+    dp = _cdiv(d, 8) * 8
+    if _k1_wide(d, n_wg):
+        return (1 if dp <= K1_WIDE_ROWS else 2,
+                K1_WIDE_ROWS if 64 < dp <= K1_WIDE_ROWS else 64)
+    n_nc = _cdiv(dp, 32)
+    return n_nc, _cdiv(_cdiv(dp, n_nc), 8) * 8
+
+
 def k1_smem_bytes(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> int:
     """Dynamic shared memory of K1 with ``n_wg`` warpgroups and K chunks of
     ``kc`` steps (csrc/compare_fused.cu ``plan``; the C entry
-    ``bioem_fused_compare_smem_bytes`` gives the same number): W's hi/lo
-    block and the chunk's conv rows, double-buffered; the t1 tiles, over
-    those buffers where they fit; one m-tile of wy (64 × D complex); each
-    warpgroup's chunk of the lattice (dc ≤ 32 rows × D). No term depends
-    on M or F."""
-    dp = _cdiv(d, 8) * 8
-    n_nc = _cdiv(dp, 32)
-    dc = _cdiv(_cdiv(dp, n_nc), 8) * 8
+    ``bioem_fused_compare_smem_bytes`` gives the same number), 0 for a
+    tiling K1 has not: W's hi/lo block and the chunk's conv rows,
+    double-buffered (a wide chunk's W holds t1_re's rows only:
+    csrc/compare_fused.cu ``chain``); the t1 tiles, over those buffers; one
+    m-tile of wy (64 × D complex); each warpgroup's chunk of the lattice
+    (:func:`k1_rows` × D). No term depends on M or F."""
+    if not _k1_valid(d, m, f, n_fold, n_wg, kc):
+        return 0
+    dc = k1_rows(d, n_wg)[1]
     n_p = 2 * dc
-    w_chunk = 2 * n_p * 32 * kc
+    w_chunk = 2 * (dc if _k1_wide(d, n_wg) else n_p) * 32 * kc
     cv_chunk = 8 * kc * n_fold * 4 * 68
     chunks = 2 * w_chunk + 2 * _a128(cv_chunk)
     t1 = _a128(4 * n_wg * 64 * (n_p + 4))
-    base = chunks if t1 <= chunks else chunks + t1  # t1 over the chunk buffers where it fits
-    return base + _a128(8 * 64 * d) + _a128(4 * n_wg * dc * d)
+    # the t1 tiles lie over the chunk buffers: the region is the larger
+    return max(chunks, t1) + _a128(8 * 64 * d) + _a128(4 * n_wg * dc * d)
 
 
 def k1_plan(d: int, m: int, f: int, n_fold: int, smem_bytes=k1_smem_bytes):
     """K1's tiling at (D, M, F, n_fold): (warpgroups, K-chunk steps, dynamic
-    shared bytes), four warpgroups before two and the longest K chunk first
-    that fits one block beside :data:`K1_STATIC_SMEM`; None if none does.
-    ``smem_bytes``: the shared-memory formula (a kernel library's
-    ``bioem_fused_compare_smem_bytes``, 0 for a tiling it has not, for
-    another checkout's kernel: tools/kernel_ab.py)."""
-    for n_wg in (4, 2):
+    shared bytes), the longest K chunk first that fits one block beside
+    :data:`K1_STATIC_SMEM`, with two warpgroups first where they take the
+    lattice in wide chunks (:func:`k1_rows`), else four before two; None if
+    none fits. ``smem_bytes``: the shared-memory formula (a kernel
+    library's ``bioem_fused_compare_smem_bytes``, 0 for a tiling it has
+    not)."""
+    for n_wg in ((2, 4) if _k1_wide(d, 2) else (4, 2)):
         for kc in (8, 4, 2, 1):
             b = smem_bytes(d, m, f, n_fold, n_wg, kc)
             if 0 < b and b + K1_STATIC_SMEM <= MAX_SMEM:
@@ -141,17 +181,20 @@ def k1_plan(d: int, m: int, f: int, n_fold: int, smem_bytes=k1_smem_bytes):
     return None
 
 
-# Lattice row chunks that read each p K1 forms (one k8 step's stage-1
-# operand of one image at one m-tile): K1 forms p again for each of a
-# lattice's ⌈Dp/32⌉ row chunks, so each formed p serves one.
-K1_CHUNKS_PER_P = 1
+def k1_chunks_per_p(d: int, n_wg: int) -> int:
+    """32-row parts of the lattice that read each p K1 forms (one k8 step's
+    stage-1 operand of one image at one m-tile) with ``n_wg`` warpgroups:
+    the 32-row parts of its row chunk, K1 forming p once per chunk (3 at
+    D = 81 and 2 at D = 121 in wide chunks, 1 in chunks of ≤ 32 rows)."""
+    return _cdiv(k1_rows(d, n_wg)[1], 32)
 
 
 def k1_last_plan(d: int, m: int, f: int, n_fold: int) -> tuple:
     """What ``fused_compare_block.last_plan`` reports after a K1 (or K3)
-    launch at (D, M, F, n_fold): (warpgroups, K-chunk steps, lattice row
-    chunks that read each formed p)."""
-    return (*k1_plan(d, m, f, n_fold)[:2], K1_CHUNKS_PER_P)
+    launch at (D, M, F, n_fold): (warpgroups, K-chunk steps, 32-row parts
+    of the lattice that read each formed p)."""
+    n_wg, kc, _smem = k1_plan(d, m, f, n_fold)
+    return n_wg, kc, k1_chunks_per_p(d, n_wg)
 
 
 def _check(fn: str, device, specs) -> None:
@@ -275,13 +318,13 @@ def launch_k1(fn: str, args, a_coef: float, n_fold: int, variant: int | None = N
             status = lib.bioem_probe_compare(variant, *head, stream)
     _build.check(status, fn)
     if variant is None:
-        fused_compare_block.last_plan = (n_wg, kc, K1_CHUNKS_PER_P)
+        fused_compare_block.last_plan = (n_wg, kc, k1_chunks_per_p(d, n_wg))
     return outs
 
 
 fused_compare_block.launches = 0
-# (warpgroups, K-chunk steps, row chunks that read each formed p) of K1's
-# latest launch (k1_last_plan)
+# (warpgroups, K-chunk steps, 32-row parts of the lattice that read each
+# formed p) of K1's latest launch (k1_last_plan)
 fused_compare_block.last_plan = None
 
 
@@ -327,13 +370,13 @@ def fused_displacement_cc(
         )
     _build.check(status, fn)
     fused_displacement_cc.launches += 1
-    fused_displacement_cc.last_plan = (n_wg, kc, K1_CHUNKS_PER_P)
+    fused_displacement_cc.last_plan = (n_wg, kc, k1_chunks_per_p(d, n_wg))
     return cc
 
 
 fused_displacement_cc.launches = 0
-# (warpgroups, K-chunk steps, row chunks that read each formed p) of K3's
-# latest launch (k1_last_plan)
+# (warpgroups, K-chunk steps, 32-row parts of the lattice that read each
+# formed p) of K3's latest launch (k1_last_plan)
 fused_displacement_cc.last_plan = None
 
 

@@ -174,10 +174,11 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
     inputs of ``compare_cuda.fused_compare_block``. Returns (m, se, ds,
     ccs) as the production kernel does for ``full``; for the ablated
     variants ``m`` holds a checksum and the rest is zero (``no_gemm``
-    writes every output, its cc being 0). The variants exist for K1 at
-    four warpgroups (``compare_cuda.k1_plan``) with row chunks of 2·dc =
-    48 (D = 17..24, the production block) and 64 (D = 25..32 and every
-    lattice of 32-row chunks, the reference grid's D = 81 among them), for
+    writes every output, its cc being 0). The variants exist for K1
+    (``compare_cuda.k1_plan``) at four warpgroups with row chunks of 2·dc =
+    48 (D = 17..24, the production block) and 64 (D = 25..32 and the
+    lattices of 32-row chunks, D ≥ 129), and at two warpgroups with one
+    wide chunk of 2·dc = 176 (D = 65..88, the reference grid's D = 81), for
     K4 at the production tiling, 2·Dp = 48, at any tile."""
     if body not in ("k1", "k4") or variant not in VARIANTS:
         raise ValueError(f"body_ablation: no variant {variant!r} of {body!r}")

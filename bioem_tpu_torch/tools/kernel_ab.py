@@ -23,8 +23,9 @@ between the two libraries' outputs:
 signatures (K1 and K3 now take K1's tiling and a scratch buffer, K2
 per-group point counts and an optional scale, passed as none); the other side is called with the signature its
 ``_build.SIGNATURES`` declares (a K1 or K3 of the new signature with the
-tiling its own library's shared-memory formula gives, :func:`lib_plan`),
-so any checkout that has K4 can be the other side.
+tiling its own ``compare_cuda.k1_plan`` picks from its own library's
+shared-memory formula, :func:`lib_plan`), so any checkout that has K4 can
+be the other side.
 P1 (``bioem_probe_f32_product``, whose C signature has not changed) is
 timed scheme by scheme at K4's stage-1 shape (``kernel_probe.K4_STAGE1``:
 512 products of (48×224)·(224×1024)), with the largest difference between
@@ -68,11 +69,12 @@ def other_library(root: str):
     return importlib.import_module(f"{name}.ops._build")
 
 
-def lib_plan(lib, d: int, m: int, f: int, n_fold: int) -> tuple:
-    """K1's tiling (warpgroups, K-chunk steps) by ``compare_cuda.k1_plan``
-    from a kernel library's own shared-memory formula: each checkout's K1
-    and K3 run with the plan its own kernel was built for."""
-    plan = compare_cuda.k1_plan(d, m, f, n_fold, lib.bioem_fused_compare_smem_bytes)
+def lib_plan(cc_mod, lib, d: int, m: int, f: int, n_fold: int) -> tuple:
+    """K1's tiling (warpgroups, K-chunk steps) by a checkout's own
+    ``compare_cuda.k1_plan`` (``cc_mod``: its order of tilings) from its
+    kernel library's shared-memory formula: each checkout's K1 and K3 run
+    with the plan its own kernel was built for."""
+    plan = cc_mod.k1_plan(d, m, f, n_fold, lib.bioem_fused_compare_smem_bytes)
     if plan is None:
         raise ValueError(f"no K1 tiling at D={d}, M={m}, F={f}, n_fold={n_fold}")
     return plan[:2]
@@ -92,6 +94,8 @@ def main(argv=None) -> int:
     dev = _require_card()
     mod = other_library(args.other)
     libs = {"other": mod.load(), "this": _build.load()}
+    plan_mods = {"other": importlib.import_module(f"{mod.__package__}.compare_cuda"),
+                 "this": compare_cuda}
     # The earlier K1 entry: twelve inputs, a_coef, eight ints, four outputs, the stream.
     other_k1_old = len(mod.SIGNATURES["bioem_fused_compare"]) == 26
     other_k2_old = len(mod.SIGNATURES["bioem_fourier_project"]) == 13
@@ -101,7 +105,7 @@ def main(argv=None) -> int:
     other_k3_old = len(mod.SIGNATURES["bioem_fused_displacement_cc"]) == 17
     inputs, a_coef, n_fold = block_inputs(dev, *BLOCKS[args.block])
     (o, n, f), c, i, (d, m) = inputs[0].shape, inputs[2].shape[0], inputs[4].shape[0], inputs[6].shape
-    plans = {side: lib_plan(lib, d, m, f, n_fold) for side, lib in libs.items()
+    plans = {side: lib_plan(plan_mods[side], lib, d, m, f, n_fold) for side, lib in libs.items()
              if not (side == "other" and other_k1_old)}
     if d > 32:
         chosen.discard("K4")

@@ -158,7 +158,7 @@ def build_problem(signal: float = 0.3, n_pix: int = 224, quat_grid: int = 15,
 
 # The reference's production grid (BASELINE.md, first table; SURVEY.md §6):
 # 4608 quaternions × 32 CTFs (4 B-env × 8 defocus) × 81×81 displacements
-# at stride 1 (D = 81, M = N = 224: K1 on four warpgroups, no K4).
+# at stride 1 (D = 81, M = N = 224: K1 on two warpgroups, no K4).
 REFERENCE_GRID = dict(n_orient=4608, max_disp=40, disp_step=1, n_phase=8, n_env=4)
 # The same grid searching ±60 pixels (D = 121), a lattice the earlier K1
 # refused for its shared memory.

@@ -24,8 +24,8 @@ the port's main path on the card, in phases (each prints its own lines):
    against an f64 lattice at the production shapes, at N = 15 and on the
    stride-1 ±30 lattice at N = 224 (D = 61, M = 224), and twice to the
    same bits; K1 and K3 on lattices the earlier K1 refused or ran on two
-   warpgroups (N = 224, D = 121; N = 512, D = 81: four warpgroups, the
-   lattice in row chunks), K1 at D = 121 timed beside its bound; the
+   warpgroups (N = 224, D = 121; N = 512, D = 81: two warpgroups, the
+   lattice in wide row chunks), K1 at D = 121 timed beside its bound; the
    posterior glue: G1 (the block constants) and G2 (the f64 max repair
    and the streaming merge) against their plain versions at the
    production block (G2 on K1's outputs, into a fresh state and again
@@ -163,16 +163,16 @@ the port's main path on the card, in phases (each prints its own lines):
    K4): one JSON line each with every key, the card named, the pass at or
    below 100 % of its bound;
 23. the reference's production grid: K1 and K3 at its block (D = 81,
-   M = 224: four warpgroups, plan (4, 8)) against their plain versions and
+   M = 224: two warpgroups, plan (2, 8, 3)) against their plain versions and
    K1 timed beside its bound (the kernels line's ``fused_compare_block
    (D=81)`` row); then 4608 quaternions × 32 CTFs × 64 planted images at
    D = 81 through the port's CLI (--ReadOrientation, --ReadMRC): K1 at
-   plan (4, 8), K4 never, finite logP, the planted orientation and CTF
+   plan (2, 8, 3), K4 never, finite logP, the planted orientation and CTF
    recovered; and a cut of ~128 orientations on the plain branch, K1 and
    the hybrid with argmax tuples equal;
 24. the wide grid (the reference grid searching ±60 pixels, D = 121):
    its cut of ~128 orientations × 32 CTFs × 64 planted images through the
-   port's CLI on the kernel branch (K1 on four warpgroups, K4 never) and
+   port's CLI on the kernel branch (K1 on two warpgroups, K4 never) and
    on the plain branch, argmax tuples equal, finite logP, the planted
    parameters recovered; and its C2 cut (2 images × 4 orientations × 32
    CTFs) on the plain branch, K1 and the hybrid (K3) against the f64
@@ -2519,9 +2519,11 @@ def phase_bench(card: str, problem: str) -> dict:
     return rec
 
 
-# K1's tiling at the reference grid's block (D = 81, M = 224, fold 1):
-# four warpgroups, K chunks of eight steps (the lattice in three row chunks).
-REF_PLAN = (4, 8)
+# K1's tiling at the reference grid's block (D = 81, M = 224, fold 1), as
+# fused_compare_block.last_plan reports it: two warpgroups, K chunks of eight
+# steps, the lattice in one chunk of 88 rows, so that each formed p is read
+# by its three 32-row parts.
+REF_PLAN = (2, 8, 3)
 
 
 def kernel_row_d81(torch) -> dict:
@@ -2548,13 +2550,13 @@ def kernel_row_d81(torch) -> dict:
     say(f"[kernels] reference grid block: O={o} C={c} I={i_n} N={n} F={f} D={d} n_fold={nf}; "
         f"k1_plan {cc_mod.k1_plan(d, m, f, nf)}")
     err = check_compare(torch, "K1 fused_compare_block D=81", args, x["a_coef"], nf)
-    require(cc_mod.fused_compare_block.last_plan[:2] == REF_PLAN == cc_mod.k1_plan(d, m, f, nf)[:2],
+    require(cc_mod.fused_compare_block.last_plan == REF_PLAN == cc_mod.k1_last_plan(d, m, f, nf),
             f"K1 at D=81 launched with plan {cc_mod.fused_compare_block.last_plan}")
     conv_re = (x["pr"][:, None] * bk.ctf_re[None] + x["pi"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     conv_im = (x["pi"][:, None] * bk.ctf_re[None] - x["pr"][:, None] * bk.ctf_im[None]).reshape(o * c, n, f)
     check_cc(torch, "K3 fused_displacement_cc D=81", conv_re, conv_im, bk.img_re, bk.img_im,
              x["wx_re"], x["wx_im"], bk.wy_re, bk.wy_im, nf, 2)
-    require(cc_mod.fused_displacement_cc.last_plan[:2] == REF_PLAN,
+    require(cc_mod.fused_displacement_cc.last_plan == REF_PLAN,
             f"K3 at D=81 launched with plan {cc_mod.fused_displacement_cc.last_plan}")
     del conv_re, conv_im
     ms = time_ms(lambda: cc_mod.fused_compare_block(*args, a_coef=x["a_coef"], n_fold=nf))
@@ -2620,7 +2622,7 @@ def phase_reference_grid(card: str) -> None:
     planted orientation and CTF recovered on ≥ 90 % of the images. Then a
     cut of the grid (each planted orientation and its nearest neighbour,
     all 32 CTFs, the 64 images) on the plain branch, K1 and the hybrid (K3
-    at four warpgroups): argmax tuples equal to the plain branch's."""
+    on K1's tiling): argmax tuples equal to the plain branch's."""
     from bioem_tpu_torch.ops import compare_cuda as cc_mod
     from bioem_tpu_torch.params import make_ctf_grid
     from bioem_tpu_torch.tools.golden_error_budget import run_configs
@@ -2642,7 +2644,7 @@ def phase_reference_grid(card: str) -> None:
         f"comparisons/s ({comparisons} comparisons; CLI wall {wall:.1f} s); K1 launches {n1} "
         f"at plan {k1.last_plan}, K4 launches {n4}; logP finite {bool(np.isfinite(lp).all())}; "
         f"planted orientation recovered {rec_o:.3f}, planted CTF {rec_c:.3f}")
-    require(n1 > 0 and (k1.last_plan or ())[:2] == REF_PLAN and n4 == 0,
+    require(n1 > 0 and k1.last_plan == REF_PLAN and n4 == 0,
             f"the reference grid did not run K1 at plan {REF_PLAN} alone")
     require(len(lp) == images.maps.shape[0] and bool(np.isfinite(lp).all()),
             "the reference grid's logP are not all finite")
@@ -2660,7 +2662,7 @@ def phase_reference_grid(card: str) -> None:
             f"{float(np.max(np.abs(res.log_prob - plain.log_prob))):.3e}")
         require(r["ran"] == name and bool(same.all()),
                 f"reference grid cut: {name} ran {r['ran']} or its argmax differs from plain")
-    require(cc_mod.fused_displacement_cc.last_plan[:2] == REF_PLAN,
+    require(cc_mod.fused_displacement_cc.last_plan == REF_PLAN,
             f"K3 did not run at plan {REF_PLAN}")
     say(f"[reference grid] the cut's three passes {time.perf_counter() - t0:.1f} s")
 
@@ -2668,9 +2670,9 @@ def phase_reference_grid(card: str) -> None:
 def kernel_row_wide(torch) -> dict:
     """K1 and K3 on lattices the earlier K1 refused or ran on two
     warpgroups, on random inputs (kernel_probe.block_inputs, stride 1):
-    N = 224, D = 121 (±60; O = 8, C = 8, I = 64, four row chunks) and
-    N = 512, D = 81 (±40; O = 4, C = 4, I = 32), each launched with
-    k1_plan's four-warpgroup tiling and held to its plain version at the
+    N = 224, D = 121 (±60; O = 8, C = 8, I = 64, two row chunks of 64) and
+    N = 512, D = 81 (±40; O = 4, C = 4, I = 32, one of 88), each launched
+    with k1_plan's two-warpgroup wide tiling and held to its plain version at the
     production tolerances (check_compare, check_cc); K1 at D = 121 timed
     beside its plain version and its bound. Returns that row for the
     kernels line.
@@ -2694,7 +2696,8 @@ def kernel_row_wide(torch) -> dict:
         se_rtol = 1.5e-4 * a_coef / ((3.0 - 224 * 224) / 2)
         err = check_compare(torch, f"K1 fused_compare_block N={n} D={d}", args, a_coef, nf,
                             se_rtol=se_rtol)
-        require(plan[0] == 4 and cc_mod.fused_compare_block.last_plan[:2] == plan[:2],
+        require(plan[0] == 2 and cc_mod.fused_compare_block.last_plan
+                == cc_mod.k1_last_plan(d, m, f, nf),
                 f"K1 at N={n} D={d} launched with plan {cc_mod.fused_compare_block.last_plan}")
         conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
         conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
@@ -2723,7 +2726,7 @@ def phase_wide_grid(card: str) -> None:
     at stride 1, which the earlier K1 refused), cut to each planted
     orientation and its nearest neighbour (orientation_cut: ≤ 128
     orientations) × 32 CTFs × 64 planted images, through the port's CLI on
-    the kernel branch (K1 on four warpgroups, K4 never) and on the plain
+    the kernel branch (K1 on two warpgroups, K4 never) and on the plain
     branch (BIOEM_TPU_PALLAS=0): the Maximizing Param rows (argmax tuples)
     equal, every logP finite, the planted orientation and CTF recovered on
     ≥ 90 % of the images. Then the C2 check on a cut of 2 images × 4
@@ -2754,7 +2757,7 @@ def phase_wide_grid(card: str) -> None:
         f"{wall_p:.1f} s); argmax tuples equal on {int(same.sum())}/{len(same)} images; max "
         f"|ΔlogP| {float(np.max(np.abs(lp_k - lp_p))):.3e}; planted orientation recovered "
         f"{rec_o:.3f}, planted CTF {rec_c:.3f}")
-    require(p.nx_disp == 121 and plan[0] == 4, f"the wide grid's K1 plan is {plan}")
+    require(p.nx_disp == 121 and plan[0] == 2, f"the wide grid's K1 plan is {plan}")
     require(n1 > 0 and (k1.last_plan or ())[:2] == plan[:2] and n4 == 0,
             f"the wide grid did not run K1 at plan {plan[:2]} alone")
     require(bool(same.all()), "the wide grid's argmax tuples differ from the plain branch's")

@@ -18,9 +18,11 @@ every fold count and several tiles; K1 at lattice widths up to D = 129
 and 121 at N = 224, which the earlier kernel refused; D = 129 at N =
 256), folds 1–4, odd N, M = 224 and image counts that end a run of four
 mid-way, and on lattices whose values are all −inf, hold NaN, or whose
-first or middle row chunk is all −inf (the online merge's guards); both
-to the same bits across two launches (K1 also at D = 81, three row
-chunks). The projection (K2)
+first, middle or last row chunk is all −inf (the online merge's guards);
+both to the same bits across two launches (K1 also at D = 81, one wide
+chunk of 88 rows, and D = 121, two of 64; K3 at both too). K1 and K3 in
+wide chunks (two warpgroups a CTA) at one image and at odd image counts,
+which leave the last CTA's second warpgroup idle. The projection (K2)
 also with per-group point counts that skip padding, at its largest N and
 to the same bits across two launches. K3 (K1's kernel writing the
 lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, 81 and
@@ -141,12 +143,14 @@ def test_projection_kernel_vs_plain(rng, dev, n):
 # odd N, a stride-1 lattice at N = 224 (M = 224), image counts that end a
 # run of four mid-way; D = 81 at N = 224 (the reference's production grid,
 # folds 1 and 2) and N = 512, D = 107 and 121 at N = 224 and D = 129 at
-# N = 256 (three to five row chunks; compare_cuda.k1_plan).
+# N = 256 (D = 35…121 in wide row chunks on two warpgroups, D = 129 in
+# five 32-row chunks on four; compare_cuda.k1_plan); D = 81 and 121 at one
+# image (the CTA's second warpgroup idle).
 K1_SHAPES = [  # (n_disp, n_fold, n, images)
     (5, 1, 15, 5), (5, 2, 32, 1), (9, 1, 32, 64), (9, 3, 48, 5), (9, 4, 64, 5),
     (21, 2, 48, 201), (21, 1, 224, 5), (30, 1, 64, 5), (35, 1, 48, 5), (35, 2, 80, 7),
     (61, 1, 64, 3), (81, 1, 224, 3), (81, 2, 224, 3), (107, 1, 224, 3), (121, 1, 224, 3),
-    (81, 1, 512, 3), (129, 1, 256, 3)]
+    (81, 1, 512, 3), (129, 1, 256, 3), (81, 1, 224, 1), (121, 1, 224, 1)]
 
 
 @pytest.mark.parametrize("n_disp,n_fold,n,n_img", K1_SHAPES)
@@ -175,7 +179,8 @@ def test_k1_widths_folds_and_image_counts(rng, dev, n_disp, n_fold, n, n_img):
 @pytest.mark.parametrize("n,n_fold,n_disp", [(64, 2, 21), (224, 1, 81), (224, 1, 121)])
 def test_k1_is_deterministic(rng, dev, n, n_fold, n_disp):
     """Two K1 launches on the same inputs give the same bits (no atomics),
-    with one row chunk, with three (D = 81) and with four (D = 121)."""
+    with one row chunk of 24 rows, with one wide chunk of 88 (D = 81) and
+    with two of 64 (D = 121)."""
     args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=3, c=4, i=30)
     a_coef = (3.0 - n * n) / 2
     runs = [C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold) for _ in range(2)]
@@ -183,18 +188,21 @@ def test_k1_is_deterministic(rng, dev, n, n_fold, n_disp):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.parametrize("inf_chunk", [None, 0, 1])
-def test_k1_online_merge_guards(rng, dev, inf_chunk):
-    """The online log-sum-exp's −inf and NaN guards at D = 81 (row chunks
-    [0, 32), [32, 64), [64, 81)), against the plain version: comparisons
-    whose every value is −inf (a_u = 0, b_u = −inf, so u = +inf) give
-    m = −inf, argmax 0 and Σ exp NaN; comparisons holding NaN (a_u = +inf,
-    b_u = 0: u = ±inf by the sign of cc) give NaN m and se and the first
-    NaN's index; with ``inf_chunk`` the rows of that chunk of wx are scaled
-    by 1e30 and b_u made negative, so every value of that chunk is −inf
-    and the others finite: the chunk adds nothing, first (chunk 0, which
-    the later chunks outrank) or in the middle (chunk 1)."""
-    n, d = 224, 81
+@pytest.mark.parametrize("d,n,inf_chunk", [(81, 224, None), (121, 224, 0), (121, 224, 1),
+                                           (129, 256, 0), (129, 256, 2)])
+def test_k1_online_merge_guards(rng, dev, d, n, inf_chunk):
+    """The online log-sum-exp's −inf and NaN guards in K1's row chunks
+    (compare_cuda.k1_rows: D = 81 one wide chunk of 88 rows, D = 121 two of
+    64, D = 129 five of 32 on four warpgroups), against the plain version:
+    comparisons whose every value is −inf (a_u = 0, b_u = −inf, so u =
+    +inf) give m = −inf, argmax 0 and Σ exp NaN; comparisons holding NaN
+    (a_u = +inf, b_u = 0: u = ±inf by the sign of cc) give NaN m and se and
+    the first NaN's index; with ``inf_chunk`` the rows of that chunk of wx
+    are scaled by 1e30 and b_u made negative, so every value of that chunk
+    is −inf and the others finite: the chunk adds nothing, first (chunk 0,
+    which the later chunks outrank), last (chunk 1 of D = 121) or in the
+    middle (chunk 2 of D = 129)."""
+    dc = C.k1_rows(d, C.k1_plan(d, n, n // 2 + 1, 1)[0])[1]
     args = list(_cmp_inputs(rng, dev, n=n, n_fold=1, n_disp=d, o=2, c=2, i=6))
     a_u, b_u = args[10].clone(), -args[11].abs()
     a_u[0], b_u[0] = 0.0, -float("inf")
@@ -203,7 +211,7 @@ def test_k1_online_merge_guards(rng, dev, inf_chunk):
     if inf_chunk is not None:
         for k in (6, 7):
             w = args[k].clone()
-            w[32 * inf_chunk:32 * inf_chunk + 32] *= 1e30
+            w[dc * inf_chunk:dc * inf_chunk + dc] *= 1e30
             args[k] = w
     a_coef = -0.5 * n * n
     km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=1)
@@ -215,7 +223,7 @@ def test_k1_online_merge_guards(rng, dev, inf_chunk):
         # the chunk's values are −inf, the others finite
         rows = pd[2:] // d
         assert bool(torch.isfinite(pm[2:]).all()) and bool(torch.isfinite(ps[2:]).all())
-        assert not bool(((rows >= 32 * inf_chunk) & (rows < 32 * inf_chunk + 32)).any())
+        assert not bool(((rows >= dc * inf_chunk) & (rows < dc * inf_chunk + dc)).any())
     torch.testing.assert_close(km, pm, rtol=1e-5, atol=0, equal_nan=True)
     torch.testing.assert_close(ks, ps, rtol=1.5e-4, atol=0, equal_nan=True)
     assert torch.equal(kd[0], pd[0]) and torch.equal(kd[1, :3], pd[1, :3])
@@ -226,8 +234,8 @@ def test_k1_online_merge_guards(rng, dev, inf_chunk):
     conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).flatten(0, 1)
     conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).flatten(0, 1)
     lat = C.displacement_cc_plain(conv_re, conv_im, *args[4:10]).abs()
-    chunk_max = torch.stack([lat[:, :, r:r + 32].amax((-2, -1)) for r in (0, 32, 64)], -1)
-    scale = chunk_max.gather(-1, (pd.long() // d // 32)[..., None])[..., 0]
+    chunk_max = torch.stack([lat[:, :, r:r + dc].amax((-2, -1)) for r in range(0, d, dc)], -1)
+    scale = chunk_max.gather(-1, (pd.long() // d // dc)[..., None])[..., 0]
     assert bool(((kc - pc).abs() <= 5e-5 * scale)[ok].all())
 
 
@@ -242,7 +250,10 @@ def test_k1_plan_matches_the_library(dev):
                             (21, 224, 113, 1), (9, 12, 25, 4), (61, 224, 113, 1),
                             (81, 224, 113, 1), (81, 112, 113, 2), (107, 224, 113, 1),
                             (121, 224, 113, 1), (81, 512, 257, 1), (129, 256, 129, 1),
-                            (129, 128, 129, 2)]:
+                            (129, 128, 129, 2), (33, 48, 25, 1), (35, 24, 25, 2),
+                            (63, 64, 33, 1), (65, 224, 113, 1), (88, 224, 113, 1),
+                            (89, 224, 113, 1), (121, 56, 113, 4), (128, 224, 113, 4),
+                            (145, 224, 113, 1), (147, 224, 113, 1), (239, 224, 113, 1)]:
         for n_wg in (2, 4):
             for kc in (1, 2, 4, 8):
                 assert (lib.bioem_fused_compare_smem_bytes(d, m, f, n_fold, n_wg, kc)
@@ -260,11 +271,12 @@ def _reference_block(dev):
 def test_k1_and_k3_at_the_reference_block(dev):
     """K1 and K3 at the reference grid's block against their plain versions
     (K1: m, se and cc at the argmax as test_k1_widths_folds_and_image_counts
-    holds them; K3 within 5e-5 of max|cc|), each launched on four
-    warpgroups with K chunks of eight steps."""
+    holds them; K3 within 5e-5 of max|cc|), each launched on two
+    warpgroups with K chunks of eight steps, the lattice in one chunk of 88
+    rows, whose three 32-row parts read each formed p."""
     args, a_coef, n_fold = _reference_block(dev)
     km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
-    assert C.fused_compare_block.last_plan == (4, 8, 1)
+    assert C.fused_compare_block.last_plan == (2, 8, 3)
     pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=n_fold)
     torch.cuda.synchronize()
     torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
@@ -277,7 +289,7 @@ def test_k1_and_k3_at_the_reference_block(dev):
     conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
     conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
     k = C.fused_displacement_cc(conv_re, conv_im, *args[4:10], n_fold=n_fold)
-    assert C.fused_displacement_cc.last_plan == (4, 8, 1)
+    assert C.fused_displacement_cc.last_plan == (2, 8, 3)
     p = C.displacement_cc_plain(conv_re, conv_im, *args[4:10], n_fold=n_fold)
     torch.cuda.synchronize()
     assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())
@@ -286,19 +298,20 @@ def test_k1_and_k3_at_the_reference_block(dev):
 @pytest.mark.parametrize("n,n_fold,n_disp", [(224, 2, 21), (224, 1, 81), (224, 1, 121)])
 def test_k1_last_plan_at_d21_d81_d121(rng, dev, n, n_fold, n_disp):
     """fused_compare_block.last_plan after a launch is compare_cuda's
-    k1_last_plan: (warpgroups, K-chunk steps, row chunks that read each
-    formed p), at the production block's D = 21, the reference grid's D =
-    81 and the wide grid's D = 121."""
+    k1_last_plan: (warpgroups, K-chunk steps, 32-row parts of the lattice
+    that read each formed p), at the production block's D = 21 (1), the
+    reference grid's D = 81 (3) and the wide grid's D = 121 (2)."""
     args = _cmp_inputs(rng, dev, n=n, n_fold=n_fold, n_disp=n_disp, o=1, c=2, i=5)
     C.fused_compare_block(*args, a_coef=(3.0 - n * n) / 2, n_fold=n_fold)
     torch.cuda.synchronize()
     assert C.fused_compare_block.last_plan == C.k1_last_plan(n_disp, n // n_fold, n // 2 + 1,
                                                              n_fold)
+    assert C.fused_compare_block.last_plan[2] == {21: 1, 81: 3, 121: 2}[n_disp]
 
 
 def test_probe_body_ablation_at_the_reference_block(dev):
-    """P3's bodies of the reference grid's instance (compare_fused_kernel<64,
-    4, *>): the full body is K1 bit for bit; the ablated ones launch and
+    """P3's bodies of the reference grid's instance (compare_fused_kernel<176,
+    2, *>): the full body is K1 bit for bit; the ablated ones launch and
     write finite, not all-zero outputs (no_gemm: m 0, se the lattice
     size)."""
     args, a_coef, n_fold = _reference_block(dev)
@@ -726,7 +739,7 @@ def test_debug_prob_kernel_path_launches_k3(rng, dev):
 
 # K3 (K1's kernel in its cc-out body): D = 5…61 × folds 1–4 at N = 48,
 # N = 15 (folds 1 and 3), the stride-1 ±30, ±40 and ±60 lattices at
-# N = 224 (M = 224; D = 81 and 121 in three and four row chunks).
+# N = 224 (M = 224; D = 81 in one wide row chunk, 121 in two).
 K3_SHAPES = ([(d, nf, 48) for d in (5, 9, 21, 35, 61) for nf in (1, 2, 3, 4)]
              + [(5, 1, 15), (5, 3, 15), (61, 1, 224), (81, 1, 224), (121, 1, 224)])
 
@@ -746,6 +759,25 @@ def test_k3_widths_and_folds_vs_plain(rng, dev, n_disp, n_fold, n):
     p = C.displacement_cc_plain(*conv, *args[4:10], n_fold=n_fold)
     assert k.shape == (3, 7, n_disp, n_disp)
     assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("n_disp,n_img", [(81, 1), (81, 5), (121, 1), (121, 5)])
+def test_k3_wide_chunks_at_one_and_odd_image_counts(rng, dev, n_disp, n_img):
+    """K3 in wide row chunks (two warpgroups a CTA, one image each) at one
+    image and at five, where the last CTA's second warpgroup computes on a
+    copy and writes nothing: within 5e-5 of max|cc| of its plain version,
+    and two launches to the same bits."""
+    n = 224
+    args = _cmp_inputs(rng, dev, n=n, n_fold=1, n_disp=n_disp, o=3, c=2, i=n_img)
+    conv = (args[0], args[1])
+    runs = [C.fused_displacement_cc(*conv, *args[4:10], n_fold=1) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert C.fused_displacement_cc.last_plan == C.k1_last_plan(n_disp, n, n // 2 + 1, 1)
+    assert C.fused_displacement_cc.last_plan[0] == 2
+    assert torch.equal(runs[0], runs[1])
+    p = C.displacement_cc_plain(*conv, *args[4:10], n_fold=1)
+    assert runs[0].shape == (3, n_img, n_disp, n_disp)
+    assert float((runs[0] - p).abs().max()) < 5e-5 * float(p.abs().max())
 
 
 def test_k3_is_deterministic(dev):

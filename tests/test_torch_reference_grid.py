@@ -60,16 +60,20 @@ def test_plain_branch_matches_jax_at_d81():
 
 
 def test_k1_plan_at_the_reference_grid():
-    # four warpgroups and K chunks of eight steps: stage 2's t1 tiles lie
-    # over the W and conv buffers
-    assert k1_plan(81, 224, 113, 1) == (4, 8, 183296)
-    assert k1_plan(81, 112, 113, 2) == (4, 8, 218112)
+    # two warpgroups, each taking the whole lattice (one chunk of 88 rows;
+    # W holds t1_re's 88 rows), and K chunks of eight steps: W hi/lo 2 ×
+    # 45,056, conv 2 × 17,408 (fold 1), the t1 tiles over them, wy 41,472,
+    # the two lattices 57,088; at fold 2 the conv rows double and K chunks
+    # of four fit
+    assert k1_plan(81, 224, 113, 1) == (2, 8, 223488)
+    assert k1_plan(81, 112, 113, 2) == (2, 4, 190720)
     # the production grid's D = 21 keeps four warpgroups and K chunks of 8
     assert k1_plan(21, 112, 113, 2)[:2] == (4, 8)
     # the lattices the earlier kernel refused at N = 224 (from D = 107 at
-    # fold 1, 105 at fold 2) are tiled, ±60 at stride 1 on four warpgroups
+    # fold 1, 105 at fold 2) are tiled, ±60 at stride 1 on two warpgroups in
+    # two chunks of 64 rows
     assert k1_plan(107, 224, 113, 1) is not None and k1_plan(105, 112, 113, 2) is not None
-    assert k1_plan(121, 224, 113, 1)[0] == 4
+    assert k1_plan(121, 224, 113, 1) == (2, 8, 224256)
 
 
 # N = 128 holds ±60 at stride 1 (D = 121), which the earlier K1 refused at

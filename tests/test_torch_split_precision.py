@@ -360,15 +360,57 @@ def test_k1_plan_at_production():
 def test_k1_last_plan_and_bytes(d, n_fold):
     """What fused_compare_block.last_plan reports at N = 224 (the production
     block's D = 21, the reference grid's D = 81, the wide grid's D = 121):
-    the plan's warpgroups and K-chunk steps, and one row chunk reading each
-    formed p (K1 forms p again for each of ⌈Dp/32⌉ row chunks: three at
-    D = 81); the plan's bytes are k1_smem_bytes of its tiling and fit a
-    block beside the static slots."""
+    the plan's warpgroups and K-chunk steps, and the 32-row parts of the
+    lattice that read each formed p: 1 at D = 21 (four warpgroups, one
+    chunk of 24 rows), 3 at D = 81 (two warpgroups, one chunk of 88 rows),
+    2 at D = 121 (two warpgroups, two chunks of 64); the plan's bytes are
+    k1_smem_bytes of its tiling and fit a block beside the static slots."""
     m = 224 // n_fold
     n_wg, kc, smem = C.k1_plan(d, m, 113, n_fold)
-    assert C.k1_last_plan(d, m, 113, n_fold) == (n_wg, kc, 1) == (n_wg, kc, C.K1_CHUNKS_PER_P)
+    kc_wide = 8 if n_fold == 1 else 4  # fold 2 doubles the conv rows a K chunk
+    want = {21: (4, 8, 1), 81: (2, kc_wide, 3), 121: (2, kc_wide, 2)}[d]
+    assert C.k1_last_plan(d, m, 113, n_fold) == (n_wg, kc, C.k1_chunks_per_p(d, n_wg)) == want
+    assert C.k1_rows(d, n_wg) == {21: (1, 24), 81: (1, 88), 121: (2, 64)}[d]
     assert smem == C.k1_smem_bytes(d, m, 113, n_fold, n_wg, kc)
-    assert smem + C.K1_STATIC_SMEM <= C.MAX_SMEM and n_wg == 4
+    assert smem + C.K1_STATIC_SMEM <= C.MAX_SMEM
+
+
+@pytest.mark.parametrize("d", [33, 35, 63, 65, 81, 87, 89, 107, 121, 127])
+def test_k1_wide_chunks_take_33_to_128_rows(d):
+    """Two warpgroups take a padded lattice of 33 to 128 rows in wide
+    chunks (one of 64 or 88 rows, else two of 64: NP = 128 or 176), and
+    k1_plan picks them first at N = 224, folds 1 and 2; each chunk holds at
+    least one lattice row, and every 32-row part of a chunk reads its p.
+    Four warpgroups keep chunks of at most 32 rows."""
+    n_nc, dc = C.k1_rows(d, 2)
+    assert dc in (64, 88) and (n_nc - 1) * dc < d <= n_nc * dc
+    assert n_nc == (1 if d <= 88 else 2)
+    assert C.k1_chunks_per_p(d, 2) == -(-dc // 32) and C.k1_chunks_per_p(d, 4) == 1
+    assert C.k1_rows(d, 4)[1] <= 32
+    for n_fold in (1, 2):
+        n_wg, kc, smem = C.k1_plan(d, 224 // n_fold, 113, n_fold)
+        assert n_wg == 2 and smem == C.k1_smem_bytes(d, 224 // n_fold, 113, n_fold, 2, kc)
+
+
+def test_k1_tilings_it_has():
+    """k1_smem_bytes is 0 for a tiling K1 has not (the C formula's `valid`):
+    two warpgroups below 33 padded rows, where four always fit; other
+    warpgroup counts and K chunks. Past 128 padded rows two warpgroups take
+    32-row chunks again, after four run out at D = 159; the reach ends at
+    D = 257."""
+    assert C.k1_smem_bytes(21, 112, 113, 2, 2, 8) == 0
+    assert C.k1_smem_bytes(32, 112, 113, 2, 2, 1) == 0
+    assert C.k1_smem_bytes(33, 112, 113, 2, 2, 1) > 0
+    assert C.k1_smem_bytes(81, 224, 113, 1, 3, 4) == 0
+    assert C.k1_smem_bytes(81, 224, 113, 1, 2, 3) == 0
+    for d in range(1, 33):
+        assert C.k1_plan(d, 224, 113, 1)[0] == 4
+    assert C.k1_rows(129, 2) == (5, 32) and C.k1_plan(129, 224, 113, 1)[0] == 4
+    for n_fold in (1, 2):
+        m = 224 // n_fold
+        assert C.k1_plan(157, m, 113, n_fold)[0] == 4 and C.k1_plan(159, m, 113, n_fold)[0] == 2
+        assert C.k1_plan(257, m, 113, n_fold) is not None
+        assert C.k1_plan(259, m, 113, n_fold) is None
 
 
 @pytest.mark.parametrize("n_fold", [1, 2, 3, 4])
@@ -396,12 +438,12 @@ def test_k1_plan_reaches_every_lattice_to_d129(n_fold):
     block beside the kernel's static slots and do not change with F (or M)
     at fixed D: the lattice is held one row chunk at a time and wy one
     m-tile at a time. Every row chunk holds at least one row of the
-    lattice (the kernel reduces each chunk without checking)."""
-    for d in range(3, 130, 2):
-        dp = -(-d // 8) * 8
-        n_nc = -(-dp // 32)
-        dc = -(-(-(-dp // n_nc)) // 8) * 8
-        assert (n_nc - 1) * dc < d <= n_nc * dc, d
+    lattice (the kernel reduces each chunk without checking), with four
+    warpgroups and with two."""
+    for d in range(3, 260, 2):
+        for n_wg in (2, 4):
+            n_nc, dc = C.k1_rows(d, n_wg)
+            assert (n_nc - 1) * dc < d <= n_nc * dc, (d, n_wg)
     tiled = 0
     for n in range(64, 513, 2):
         m, f = n // n_fold, n // 2 + 1
