@@ -1,7 +1,8 @@
 // Per-image fused comparison kernel (K1) for Hopper (sm_90a): stage 1 of
 // the displacement-lattice DFT on warpgroup wgmma in 3xTF32, conv formed
-// once per orientation·CTF. In its cc-out body the same kernel is the
-// cc-lattice kernel K3.
+// once per orientation·CTF, and at the wide lattices (33 to 128 padded
+// rows, the reference grid's D = 81) stage 2 on wgmma in 3xTF32 too. In its
+// cc-out body the same kernel is the cc-lattice kernel K3.
 //
 // Replaces bioem_tpu/ops/compare_pallas.py:_fused_block_kernel (with
 // _vector_lse and the _cc_tile_* bodies, entry fused_compare_block) and,
@@ -17,28 +18,32 @@
 // What bounds it on the card. Stage 1 is 8·D·M·F real multiply-adds per
 // comparison, three times over in 3xTF32 on the tensor cores (0.05 ms of
 // TF32 peak at the production block O=8, C=8, I=64, N=224, D=21,
-// n_fold=2); p (6·N·F), stage 2 (4·D²·F) and the log-sum-exp are f32 on
-// the CUDA cores. The earlier design (FP32 FMA, one CTA per (oc, image), conv
+// n_fold=2); p (6·N·F) and the log-sum-exp are f32 on the CUDA cores,
+// stage 2 (2·D²·F) too at D ≤ 32. The earlier design (FP32 FMA, one CTA per (oc, image), conv
 // re-formed from three spectra by every CTA: ~2.5 GB of L2 reads per
 // block) took 1.03 ms; stage 1 on the CUDA cores was half of it. K3 does
 // the same stage 1 (3 × 8.71e9 TF32 operations per production block,
 // 0.053 ms), no conv product and no log-sum-exp (1.54e9 f32 operations,
 // 0.023 ms), and writes the lattice (7.2 MB) beside reading ~26 MB of
 // spectra: 0.076 ms, operations-bound. At the reference grid's D = 81 (a
-// block O=8, C=32, I=64, N=224, fold 1) stage 1 bounds it at 2.40 ms; what
-// the kernel pays beyond the products is per formed p (the image loads,
-// the conv product, the TF32 split, the barriers of each K chunk) and
-// stage 2 on the CUDA cores, so a wide lattice forms each p once for as
-// many of its rows as one warpgroup's registers hold (below).
+// block O=8, C=32, I=64, N=224, fold 1) stage 1 bounds it at 2.40 ms and
+// stage 2 in 3xTF32 with its padding (below) at 0.54 ms; what the kernel
+// pays beyond the products is per formed p (the image loads, the conv
+// product, the TF32 split, the barriers of each K chunk), so a wide
+// lattice forms each p once for as many of its rows as one warpgroup's
+// registers hold (below), and stage 2, which on the CUDA cores was bound
+// by its shared-memory reads (2.9 ms of K1's 8.4 there), runs on the
+// tensor cores.
 //
 // Design.
 // * Two kernels in one launch of the entry point. A prologue forms the conv
 //   bank (OC, N, Fp) once per oc, as interleaved complex rows padded with
 //   zeros to Fp = 64·⌈F/64⌉ (16-byte aligned rows), and W = [[wx_re,
 //   −wx_im], [wx_im, wx_re]] split hi/lo in TF32, cut into (N chunk, K
-//   chunk) blocks already in wgmma's shared-memory layout, and wy as
-//   (Fp, D) complex rows. All go to scratch the wrapper allocates; the
-//   main kernel only copies them.
+//   chunk) blocks already in wgmma's shared-memory layout, and wy: as
+//   (Fp, D) complex rows for stage 2 on the CUDA cores, as stage 2's B
+//   blocks on the tensor cores (below). All go to scratch the wrapper
+//   allocates; the main kernel only copies them.
 // * Roles. t1ᵀ (frequencies × 2Dp) = pᵀ (frequencies × 2M) · Wᵀ: 64
 //   frequencies of one image are wgmma's M (an m-tile; F = 113 gives two),
 //   a chunk of NP = 2·dc stacked t1 rows (dc lattice rows, re then im) its
@@ -79,24 +84,49 @@
 //   tf32(x − hi)); a step forms lo·hi + hi·lo + hi·hi in a zeroed
 //   accumulator and adds it to the f32 sum with IEEE adds (K4's scheme:
 //   the tensor cores truncate when they accumulate).
-// * Stage 2 (cc = Re(t1·wyᵀ)) on the CUDA cores: a warpgroup writes its
-//   m-tile's t1 chunk to shared memory; thread (warp w, lane l) sums the
-//   lattice columns e ≡ l (mod 32) of rows d = dc·chunk + w·dc/4 + r over
-//   the m-tile (re and im terms apart, as K1 always did) into the chunk's
-//   dc × D rows of the image's lattice in shared memory. Stage 2 is bound
-//   by its shared-memory reads, so with chunks of 32 rows and more (NP ≥
-//   64, D = 25 and wider) a thread takes 8 rows and up to three columns e,
-//   e + 32, e + 64 at once: each t1 value it reads serves three columns,
-//   each wy value 8 rows (the same sums in the same order: the same bits);
-//   a wide chunk is walked in passes of 32 rows, a warp whose 8 rows lie
-//   past the chunk or the lattice skipping its pass. Narrower chunks
-//   (the production block's D = 21) keep one column a thread: three ran
-//   6 % slower there. wy is read only there, 64 frequencies × D at a time:
-//   the prologue writes it to scratch as (Fp, D) complex rows, and each
-//   m-tile's rows are copied to shared memory by cp.async with the
-//   m-tile's last K chunk, so the copy runs under the stage-1 products (one
-//   buffer; a block barrier orders it after every warpgroup's stage 2 of
-//   the previous m-tile).
+// * Stage 2 (cc = Re(t1·wyᵀ)) on the tensor cores at the wide chunks
+//   (NP = 128, 176). Per m-tile, the chunk's lattice rows d are M (dc = 88
+//   rows as two m64 tiles, the second 24 rows valid; 64 rows as one), the
+//   lattice columns e are N (n2 = 88, or 128 in chunks of 64) and K the
+//   m-tile's 64 frequencies twice: cc += [t1_re, t1_im] · [wy_re, −wy_im]ᵀ,
+//   in two halves (re, then im), each in 3xTF32 k8 steps as stage 1 (a
+//   fresh accumulator a step, added to the f32 sums with IEEE adds; a
+//   chain of two steps was as accurate but spilled). t1 leaves the
+//   accumulators into the warpgroup's two tiles over the chunk buffers
+//   (row f, f32; column d ^ 8·(f mod 4), so that the pairs stored and the
+//   A fragments loaded meet no bank conflict) and is split into hi/lo as
+//   each A fragment is loaded from there: t1 split at the store would need
+//   twice the space, which the block does not have beside the lattice. B
+//   comes from the prologue split hi/lo in wgmma's layout, two blocks an
+//   m-tile (n2 rows × 64 frequencies each: 45,056 bytes at D = 81): the
+//   real half is copied with the m-tile's last K chunk, under the stage-1
+//   products, the imaginary half over it once both warpgroups are done
+//   with it (a block barrier each side; the block holds one half).
+//   Chunks of 88 rows run both m64 tiles in turn, two accumulators: one
+//   tile's step runs while the other's is added. The m-tile's sums are
+//   added into the lattice's rows in shared memory, the earlier m-tiles'
+//   values loaded first. The padding (128 × 88 computed for 81 × 81 at
+//   D = 81, 56 of the second m-tile's 64 frequencies) costs ~1.9× the
+//   products needed: 2.66e11 TF32 operations a reference block, 0.54 ms at
+//   peak. Chosen against the other orientation (M = e, N = d): the same
+//   padding at D = 81, twice the instructions at D = 121, and t1 would be
+//   the shared-memory operand, needing its hi/lo split stored.
+// * Stage 2 on the CUDA cores at chunks of ≤ 32 rows (four warpgroups, the
+//   production block's D = 21; and 32-row chunks past 128 rows): a
+//   warpgroup writes its m-tile's t1 chunk to shared memory; thread (warp
+//   w, lane l) sums the lattice columns e ≡ l (mod 32) of rows d =
+//   dc·chunk + w·dc/4 + r over the m-tile (re and im terms apart) into the
+//   chunk's dc × D rows of the image's lattice in shared memory. It is
+//   bound by its shared-memory reads, so at chunks of 32 rows (NP = 64) a
+//   thread takes 8 rows and up to three columns e, e + 32, e + 64 at once:
+//   each t1 value it reads serves three columns, each wy value 8 rows.
+//   Narrower chunks (the production block's D = 21) keep one column a
+//   thread: three ran 6 % slower there. wy is read only there, 64
+//   frequencies × D at a time: the prologue writes it to scratch as (Fp,
+//   D) complex rows, and each m-tile's rows are copied to shared memory by
+//   cp.async with the m-tile's last K chunk, so the copy runs under the
+//   stage-1 products (one buffer; a block barrier orders it after every
+//   warpgroup's stage 2 of the previous m-tile).
 // * The lattice, one row chunk at a time. The lattice is walked in n_nc
 //   chunks of dc rows (the outer loop, every m-tile inside it); after
 //   a chunk's last m-tile its rows are complete and only they are held.
@@ -109,26 +139,25 @@
 //   occurrence; a chunk whose values are all −inf adds nothing, a lattice
 //   all −inf ends as the plain version's (argmax 0, Σ exp NaN), and NaN
 //   wins and spreads as in jnp.argmax/max. With one chunk (D ≤ 32, or a
-//   wide chunk up to D = 88) this is a single reduction. A t1 element is
-//   the same products added in the same order whatever the chunk's width,
-//   and stage 2 and the reduction keep their orders, so the wide chunks
-//   give the bits the 32-row chunks gave. No atomics: two launches on the
-//   same inputs give the same bits.
+//   wide chunk up to D = 88) this is a single reduction. No atomics: two
+//   launches on the same inputs give the same bits.
 // * Shared memory: W and conv double buffers, the t1 tiles (over those
-//   buffers, the region the larger of the two: stage 2 runs between an m-tile's last K chunk
-//   and the next m-tile's first copy, behind barriers on both sides, so the
-//   K chunk can be longer: fewer barriers, and more of the SM left to L1),
-//   one m-tile of wy (64 × D complex) and each warpgroup's chunk of the
-//   lattice (dc × D floats): nothing grows with F, and D only through
-//   those two tiles. The wrapper (ops/compare_cuda.k1_plan) picks the
-//   largest K chunk that fits a block, with the wide chunks first where the
-//   lattice has them, else four warpgroups and then two; its formula is
-//   bioem_fused_compare_smem_bytes below. At D = 81, fold 1: W hi/lo 88
-//   rows × 8 steps × 32 B × 2 = 45,056 B a buffer, two; conv 2 × 17,408;
-//   the two t1 tiles (2 × 64 × 180 floats, 92,160 B) over those 124,928;
-//   wy 41,472; two lattices of 88 × 81 floats, 57,088 (each part rounded
-//   up to 128 bytes): 223,488 B with K chunks of 8 steps. D = 121 (two
-//   chunks of 64): 224,256 B, also 8.
+//   buffers, the region the larger of the two: stage 2 runs between an
+//   m-tile's last K chunk and the next m-tile's first copy, behind
+//   barriers on both sides, so the K chunk can be longer: fewer barriers,
+//   and more of the SM left to L1), stage 2's tile of wy (CUDA cores: one
+//   m-tile, 64 × D complex; tensor cores: one half of B) and each
+//   warpgroup's chunk of the lattice (dc × D floats): nothing grows with
+//   F, and D only through those tiles. The wrapper (ops/compare_cuda.
+//   k1_plan) picks the largest K chunk that fits a block, with the wide
+//   chunks first where the lattice has them, else four warpgroups and then
+//   two; its formula is bioem_fused_compare_smem_bytes below. At D = 81,
+//   fold 1: W hi/lo 88 rows × 8 steps × 32 B × 2 = 45,056 B a buffer, two;
+//   conv 2 × 17,408; the t1 tiles (2 warpgroups × 2 × 64 × 96 floats,
+//   98,304 B) over those 124,928; B's half 45,056; two lattices of 88 × 81
+//   floats, 57,088 (each part rounded up to 128 bytes): 227,072 B with K
+//   chunks of 8 steps. D = 121 (two chunks of 64, B 128 rows): 227,840 B,
+//   also 8.
 // * K3 (body kCcOut) runs all of the above but the log-sum-exp: its
 //   prologue copies the conv bank it is given into the padded interleaved
 //   scratch instead of forming it, and each warpgroup writes its image's
@@ -137,7 +166,7 @@
 // The body variant V is kFull (K1) or kCcOut (K3) in production; the
 // ablation probe P3 instantiates the others at NP = 48 (the production
 // block) and NP = 64 with four warpgroups, and at NP = 176 (the reference
-// grid's D = 81) with two.
+// grid's D = 81) with two, kNoStage2 there only.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -154,6 +183,7 @@ using bioem_lse::kFull;
 using bioem_lse::kMmOnly;
 using bioem_lse::kNoGemm;
 using bioem_lse::kNoLse;
+using bioem_lse::kNoStage2;
 
 constexpr int kMT = 64;     // frequencies per m-tile (wgmma M)
 constexpr int kLdF = 68;    // stride of a staged conv row (float2): conflict-free
@@ -182,9 +212,14 @@ __host__ __device__ inline bool wide_chunks(int Dp, int n_wg) {
 struct Plan {
   int D, M, F, n_fold, n_wg, KC;
   int Dp, n_nc, dc, NP, wn, n_ks, n_kc, n_mt, Fp;  // wn: rows of a W block
-  size_t w_chunk, cv_chunk, wy_tile;    // bytes of one W block, one conv chunk, one m-tile of wy
-  size_t w, cv, t1, wy, cc, bytes;      // shared-memory offsets and total
-  size_t scratch_w;                     // bytes of the W blocks in scratch
+  bool tc2;      // stage 2 on the tensor cores (the wide chunks)
+  int n2, ld2;   // tc2: stage 2's N (lattice columns, padded), a t1 tile's row (floats)
+  // bytes of one W block, one conv chunk, and one stage-2 tile of wy: an
+  // m-tile's (64, D) complex rows (CUDA cores) or one half of its B
+  // operand, re or im, hi and lo (tensor cores)
+  size_t w_chunk, cv_chunk, wy_tile;
+  size_t w, cv, t1, wy, cc, bytes;       // shared-memory offsets and total
+  size_t scratch_w, scratch_wy;          // bytes of the W blocks and of wy in scratch
 };
 
 __host__ __device__ inline Plan plan(int D, int M, int F, int n_fold, int n_wg, int KC) {
@@ -205,26 +240,32 @@ __host__ __device__ inline Plan plan(int D, int M, int F, int n_fold, int n_wg, 
   P.n_kc = (P.n_ks + KC - 1) / KC;
   P.n_mt = (F + kMT - 1) / kMT;
   P.Fp = P.n_mt * kMT;
+  P.tc2 = wide;
+  P.n2 = wide ? (P.dc == kWideRows ? kWideRows : kWideMaxDp) : 0;
+  P.ld2 = (P.dc + 31) / 32 * 32;
   P.w_chunk = (size_t)2 * P.wn * 32 * KC;  // hi then lo, wn rows × 32·KC bytes
   P.cv_chunk = sizeof(float2) * (size_t)KC * n_fold * 4 * kLdF;
-  P.wy_tile = sizeof(float2) * (size_t)kMT * D;
+  P.wy_tile = wide ? (size_t)2 * P.n2 * 4 * kMT : sizeof(float2) * (size_t)kMT * D;
   P.w = 0;
   P.cv = P.w + 2 * P.w_chunk;
   // stage 2's t1 tiles lie over the W and conv buffers, which hold nothing
   // between an m-tile's last K chunk and the next m-tile's first copy; the
   // region is the larger of the two
   const size_t chunks = P.cv + 2 * align128(P.cv_chunk);
-  const size_t t1 = align128(sizeof(float) * (size_t)n_wg * kMT * (P.NP + 4));
+  const size_t t1 = wide ? align128(sizeof(float) * (size_t)n_wg * 2 * kMT * P.ld2)
+                         : align128(sizeof(float) * (size_t)n_wg * kMT * (P.NP + 4));
   P.t1 = 0;
   P.wy = t1 > chunks ? t1 : chunks;
   P.cc = P.wy + align128(P.wy_tile);
   P.bytes = P.cc + align128(sizeof(float) * (size_t)n_wg * P.dc * D);
   P.scratch_w = P.w_chunk * P.n_nc * P.n_kc;
+  P.scratch_wy = wide ? (size_t)P.n_mt * 2 * P.wy_tile : sizeof(float2) * (size_t)P.Fp * D;
   return P;
 }
 
 // Scratch: the conv bank (OC, N, Fp complex), the W blocks, wy as (Fp, D)
-// complex rows; each part starts on 128 bytes.
+// complex rows (stage 2 on the CUDA cores) or as stage 2's B blocks, two
+// an m-tile (tensor cores); each part starts on 128 bytes.
 __host__ __device__ inline size_t scratch_conv_bytes(const Plan& P, int OC, int N) {
   return align128(sizeof(float2) * (size_t)OC * N * P.Fp);
 }
@@ -258,10 +299,10 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
             const float* __restrict__ wx_re, const float* __restrict__ wx_im,
             const float* __restrict__ wy_re, const float* __restrict__ wy_im, Plan P, int C,
             int OC, int N, float2* __restrict__ conv, unsigned char* __restrict__ wblk,
-            float2* __restrict__ wyp) {
+            unsigned char* __restrict__ wyp) {
   const size_t n_conv = (size_t)OC * N * P.Fp;
   const size_t n_w = (size_t)P.n_nc * P.n_kc * P.wn * 8 * P.KC;
-  const size_t n_wy = (size_t)P.Fp * P.D;
+  const size_t n_wy = P.tc2 ? (size_t)P.n_mt * 2 * P.n2 * kMT : (size_t)P.Fp * P.D;
   const size_t NF = (size_t)N * P.F;
   for (size_t q = (size_t)blockIdx.x * kPrepThreads + threadIdx.x; q < n_conv + n_w + n_wy;
        q += (size_t)gridDim.x * kPrepThreads) {
@@ -283,11 +324,32 @@ compare_fused_prep_kernel(const float* __restrict__ proj_re, const float* __rest
       continue;
     }
     if (q >= n_conv + n_w) {
-      // wy row f (frequency), column e; rows f ≥ F are zero
       const size_t qy = q - n_conv - n_w;
-      const int f = (int)(qy / P.D), e = (int)(qy % P.D);
-      wyp[qy] = f < P.F ? make_float2(wy_re[(size_t)e * P.F + f], wy_im[(size_t)e * P.F + f])
-                        : make_float2(0.f, 0.f);
+      if (P.tc2) {
+        // Stage 2's B on the tensor cores, block (m-tile, half) of n2 rows e
+        // × 64 frequencies of K: half 0 wy_re, half 1 −wy_im; split hi/lo
+        // in wgmma's layout. Rows e ≥ D and frequencies f ≥ F are zero.
+        const int kf = (int)(qy % kMT);
+        const size_t r = qy / kMT;
+        const int e = (int)(r % P.n2);
+        const size_t blk = r / P.n2;  // 2·m-tile + half
+        const int f = (int)(blk >> 1) * kMT + kf;
+        float v = 0.f;
+        if (e < P.D && f < P.F)
+          v = (blk & 1) ? -wy_im[(size_t)e * P.F + f] : wy_re[(size_t)e * P.F + f];
+        const uint32_t hi = wg::to_tf32(v);
+        unsigned char* b = wyp + blk * P.wy_tile;
+        const uint32_t off = wg::offset_km(e, 4 * kf, 4 * kMT);
+        *reinterpret_cast<uint32_t*>(b + off) = hi;
+        *reinterpret_cast<uint32_t*>(b + (size_t)P.n2 * 4 * kMT + off) =
+            wg::to_tf32(v - __uint_as_float(hi));
+      } else {
+        // wy row f (frequency), column e; rows f ≥ F are zero
+        const int f = (int)(qy / P.D), e = (int)(qy % P.D);
+        reinterpret_cast<float2*>(wyp)[qy] =
+            f < P.F ? make_float2(wy_re[(size_t)e * P.F + f], wy_im[(size_t)e * P.F + f])
+                    : make_float2(0.f, 0.f);
+      }
       continue;
     }
     // W block (nc, kc): row n < dc is t1_re[d], row dc + d' is t1_im[d]
@@ -373,17 +435,17 @@ template <int NP, int NWG, int V>
 __global__ void __launch_bounds__(128 * NWG, 1)
 compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __restrict__ wblk,
                      const float* __restrict__ img_re, const float* __restrict__ img_im,
-                     const float2* __restrict__ wyp, const float* __restrict__ a_u,
+                     const unsigned char* __restrict__ wyp, const float* __restrict__ a_u,
                      const float* __restrict__ b_u,
                      float a_coef, Plan P, int I, int N, float* __restrict__ out_m,
                      float* __restrict__ out_se, int* __restrict__ out_ds,
                      float* __restrict__ out_ccs) {
   constexpr int kThreads = 128 * NWG;
   constexpr int NA = NP / 2;  // accumulator floats per thread
-  // stage-2 lattice rows per thread: dc / 4 in chunks up to 32 rows; in
-  // wider chunks each pass takes 4·DR rows, 16 a thread in chunks of 64
-  // (one pass), else 8 (passes of 32)
-  constexpr int DR = NP < 64 ? NP / 8 : NP % 128 == 0 ? 16 : 8;
+  // stage 2 on the tensor cores at the wide chunks (NP = 128, 176), else on
+  // the CUDA cores, dc / 4 lattice rows a thread (8 in chunks of 32)
+  constexpr bool kTc2 = NP >= 128;
+  constexpr int DR = NP / 8;
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ float red_v[NWG][4], red_s[NWG][4];
   __shared__ int red_i[NWG][4];
@@ -393,7 +455,7 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   __shared__ int run_i[NWG];
 
   const int D = P.D, M = P.M, F = P.F, n_fold = P.n_fold, DD = D * D;
-  const int dc = P.dc, KC = P.KC, n_ks = P.n_ks, ldt = NP + 4;
+  const int dc = P.dc, KC = P.KC, n_ks = P.n_ks;
   const uint32_t kb = 32 * KC;
   const int tid = threadIdx.x, wgi = tid >> 7, wt = tid & 127;
   const int lane = tid & 31, warp = wt >> 5, g = lane >> 2, t = lane & 3;
@@ -402,8 +464,7 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   unsigned char* wbuf = smem + P.w;
   float2* cvbuf = reinterpret_cast<float2*>(smem + P.cv);
   const size_t cv_stride = align128(P.cv_chunk) / sizeof(float2);
-  float* t1w = reinterpret_cast<float*>(smem + P.t1) + (size_t)wgi * kMT * ldt;
-  float2* wys = reinterpret_cast<float2*>(smem + P.wy);
+  const float2* wys = reinterpret_cast<const float2*>(smem + P.wy);
   float* ccw = reinterpret_cast<float*>(smem + P.cc) + (size_t)wgi * dc * D;
 
   const int oc = blockIdx.y;
@@ -423,7 +484,8 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
 
   // Copy K chunk kc (of N chunk nc, m-tile at frequency fb) into buffer b:
   // W's block, and conv rows j + k·M (j = 4·step + u) as [step][k][u][kLdF];
-  // with the m-tile's last chunk also its 64 rows of wy, for stage 2.
+  // with the m-tile's last chunk also its tile of wy for stage 2 (on the
+  // tensor cores the real half of its B operand).
   auto issue = [&](int nc, int kc, int fb, int b) {
     const unsigned char* src = wblk + ((size_t)nc * P.n_kc + kc) * P.w_chunk;
     unsigned char* dst = wbuf + (size_t)b * P.w_chunk;
@@ -440,9 +502,10 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         const float2* src_row = conv_oc + (size_t)(ok ? j + k * M : 0) * P.Fp + fb + 2 * c2;
         cp16(cdst + (size_t)row * kLdF + 2 * c2, src_row, ok);
       }
-      if (kc == P.n_kc - 1) {
-        const unsigned char* ysrc = reinterpret_cast<const unsigned char*>(wyp + (size_t)fb * D);
-        unsigned char* ydst = reinterpret_cast<unsigned char*>(wys);
+      if (V != kNoStage2 && kc == P.n_kc - 1) {
+        const unsigned char* ysrc =
+            wyp + (kTc2 ? (size_t)(fb / kMT) * 2 * P.wy_tile : sizeof(float2) * (size_t)fb * D);
+        unsigned char* ydst = smem + P.wy;
         for (size_t q = (size_t)tid * 16; q < P.wy_tile; q += (size_t)kThreads * 16)
           cp16(ydst + q, ysrc + q, true);
       }
@@ -451,6 +514,8 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
   };
 
   float chk = 0.f;  // the ablated bodies' checksum
+  if constexpr (V == kNoStage2)  // the lattice the log-sum-exp reads, in place of stage 2's
+    for (int q = wt; q < dc * D; q += 128) ccw[q] = 0.f;
   for (int nc = 0; nc < P.n_nc; ++nc) {
     for (int mt = 0; mt < P.n_mt; ++mt) {
       const int fb = mt * kMT;
@@ -580,13 +645,171 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         __syncthreads();  // every warpgroup is done with buffer kc & 1
       }
 
-      if constexpr (V == kMmOnly) {
+      if constexpr (V == kMmOnly || V == kNoStage2) {
 #pragma unroll
         for (int r = 0; r < NA; ++r) chk += sum[r];
+      } else if constexpr (kTc2) {
+        // Stage 2 on the tensor cores: the chunk's lattice rows d (M, in
+        // NM2 tiles of 64; dc valid) × columns e (N2) of the m-tile's cc =
+        // Σ_k t1[d, k]·B[e, k], K = its 64 frequencies of t1_re against
+        // wy_re, then of t1_im against −wy_im (two halves: one half of B is
+        // held at a time), in 3xTF32 k8 steps whose fresh accumulator is
+        // added to the f32 sums s2 with IEEE adds. t1 goes to this
+        // warpgroup's tiles (row f, f32) over the chunk buffers and is split
+        // into hi/lo as each A fragment is loaded; B comes split from the
+        // prologue, its real half copied with the last K chunk, its
+        // imaginary half over it once both warpgroups are done with it.
+        constexpr int NH = NP / 4;  // floats of t1_re (and of t1_im) a thread holds
+        constexpr int N2 = NP == 2 * kWideRows ? kWideRows : kWideMaxDp;
+        constexpr int NM2 = NP == 2 * kWideRows ? 2 : 1;
+        constexpr int NA2 = N2 / 2;        // accumulator floats of one m64 × N2 tile
+        constexpr uint32_t kb2 = 4 * kMT;  // bytes of K in a row of B
+        const int ld2 = P.ld2;
+        float* t1r = reinterpret_cast<float*>(smem + P.t1) + (size_t)wgi * 2 * kMT * ld2;
+        float* t1i = t1r + (size_t)kMT * ld2;
+        const unsigned char* yb = smem + P.wy;
+        const int fcn = F - fb < kMT ? F - fb : kMT;
+        const int ns2 = (fcn + 7) / 8;  // k8 steps of a half (frequencies past F add 0)
+        // t1's half h (sum[h·NH..]) to the tile at dst: element (f, d) at
+        // column d ^ 8·(f mod 4), so that the accumulator's pairs are stored
+        // and the A fragments loaded without bank conflicts.
+        auto put = [&](int h, float* dst) {
+          const int sw = (g & 3) << 3;
+#pragma unroll
+          for (int jj = 0; jj < NH / 4; ++jj) {
+            const int col = ((8 * jj) ^ sw) + 2 * t;
+            *reinterpret_cast<float2*>(dst + (16 * warp + g) * ld2 + col) =
+                make_float2(sum[h * NH + 4 * jj], sum[h * NH + 4 * jj + 1]);
+            *reinterpret_cast<float2*>(dst + (16 * warp + g + 8) * ld2 + col) =
+                make_float2(sum[h * NH + 4 * jj + 2], sum[h * NH + 4 * jj + 3]);
+          }
+        };
+        // A fragment of step s, tile tl, from the tile at src: t1 at rows
+        // d0, d0 + 8 (d0 = 64·tl + 16·warp + g; rows past the chunk read 0)
+        // and frequencies 8s + t, 8s + t + 4, split into TF32 hi and lo.
+        auto frag2 = [&](const float* src, int tl, int s, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+          const int d0 = 64 * tl + 16 * warp + g, sw = t << 3;
+          const float* r0 = src + (8 * s + t) * ld2;
+          const float* r1 = r0 + 4 * ld2;
+          const float x[4] = {d0 < dc ? r0[d0 ^ sw] : 0.f, d0 + 8 < dc ? r0[(d0 + 8) ^ sw] : 0.f,
+                              d0 < dc ? r1[d0 ^ sw] : 0.f, d0 + 8 < dc ? r1[(d0 + 8) ^ sw] : 0.f};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi[e] = wg::to_tf32(x[e]);
+            lo[e] = wg::to_tf32(x[e] - __uint_as_float(hi[e]));
+          }
+        };
+        // step s of the half against B (hi, then lo n2 rows later), into acc
+        auto mma2 = [&](float (&acc)[NA2], const uint32_t (&hi)[4], const uint32_t (&lo)[4],
+                        int s) {
+          wg::tf32x3_step<N2>(acc, hi, lo, wg::desc(yb + 256 * s, 128, 8 * kb2),
+                              wg::desc(yb + (size_t)N2 * kb2 + 256 * s, 128, 8 * kb2));
+        };
+        float s2a[NA2], s2b[NA2];  // the sums of tiles 0 and 1
+#pragma unroll
+        for (int r = 0; r < NA2; ++r) s2a[r] = s2b[r] = 0.f;
+        // One half of t1 (the tile at src) against the B half in place.
+        auto half = [&](const float* src) {
+          if constexpr (NM2 == 2) {
+            // Both tiles in turn: tile 0's step s runs while tile 1's step
+            // s − 1 is added, tile 1's step s while tile 0's is.
+            float a0[NA2], a1[NA2];
+#pragma unroll
+            for (int r = 0; r < NA2; ++r) a0[r] = a1[r] = 0.f;
+            uint32_t h0[4], l0[4], h1[4], l1[4];
+            frag2(src, 0, 0, h0, l0);
+            frag2(src, 1, 0, h1, l1);
+            for (int s = 0; s < ns2; ++s) {
+              mma2(a0, h0, l0, s);
+              if (s > 0) {
+                wg::wait<1>();
+                wg::fence_operand(a1);
+#pragma unroll
+                for (int r = 0; r < NA2; ++r) s2b[r] += a1[r];
+              }
+              mma2(a1, h1, l1, s);
+              wg::wait<1>();
+              wg::fence_operand(a0);
+              if (s + 1 < ns2) frag2(src, 0, s + 1, h0, l0);
+#pragma unroll
+              for (int r = 0; r < NA2; ++r) s2a[r] += a0[r];
+              wg::wait<0>();
+              wg::fence_operand(a1);
+              if (s + 1 < ns2) frag2(src, 1, s + 1, h1, l1);
+            }
+#pragma unroll
+            for (int r = 0; r < NA2; ++r) s2b[r] += a1[r];
+          } else {
+            // One tile: each step's fragments are formed while the previous
+            // step's products run.
+            float a2[NA2];
+#pragma unroll
+            for (int r = 0; r < NA2; ++r) a2[r] = 0.f;
+            uint32_t ha[4], la[4], hb[4], lb[4];
+            auto step = [&](int s, uint32_t (&hc)[4], uint32_t (&lc)[4], uint32_t (&hn)[4],
+                            uint32_t (&ln)[4]) {
+              mma2(a2, hc, lc, s);
+              if (s + 1 < ns2) frag2(src, 0, s + 1, hn, ln);
+              wg::wait<0>();
+              wg::fence_operand(a2);
+#pragma unroll
+              for (int r = 0; r < NA2; ++r) s2a[r] += a2[r];
+            };
+            frag2(src, 0, 0, ha, la);
+            for (int s = 0; s < ns2; s += 2) {
+              step(s, ha, la, hb, lb);
+              if (s + 1 < ns2) step(s + 1, hb, lb, ha, la);
+            }
+          }
+        };
+        put(0, t1r);
+        put(1, t1i);
+        wg::wg_barrier(bar);
+        half(t1r);
+        __syncthreads();  // every warpgroup is done with B's real half
+        {
+          const unsigned char* ysrc = wyp + (size_t)(2 * mt + 1) * P.wy_tile;
+          for (size_t q = (size_t)tid * 16; q < P.wy_tile; q += (size_t)kThreads * 16)
+            cp16(smem + P.wy + q, ysrc + q, true);
+          cp_commit();
+        }
+        cp_wait<0>();
+        wg::fence_proxy_async();
+        __syncthreads();  // B's imaginary half is in
+        half(t1i);
+        // The m-tile's share into the chunk's rows of the lattice: the
+        // earlier m-tiles' sums are loaded first, all at once, then added.
+        auto add_cc = [&](int tl, const float (&st)[NA2]) {
+          float old[NA2];
+#pragma unroll
+          for (int j = 0; j < N2 / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const int dl = 64 * tl + 16 * warp + g + 8 * h, e = 8 * j + 2 * t + u;
+                const bool ok = mt > 0 && dl < dc && nc * dc + dl < D && e < D;
+                old[4 * j + 2 * h + u] = ok ? ccw[dl * D + e] : 0.f;
+              }
+#pragma unroll
+          for (int j = 0; j < N2 / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const int dl = 64 * tl + 16 * warp + g + 8 * h, e = 8 * j + 2 * t + u;
+                if (dl < dc && nc * dc + dl < D && e < D)
+                  ccw[dl * D + e] = old[4 * j + 2 * h + u] + st[4 * j + 2 * h + u];
+              }
+        };
+        add_cc(0, s2a);
+        if constexpr (NM2 == 2) add_cc(1, s2b);
       } else {
         // The warpgroup's t1 chunk (frequency row; columns [0, dc) re,
-        // [dc, 2dc) im) to shared memory, then stage 2 on its image:
+        // [dc, 2dc) im) to shared memory, then stage 2 on the CUDA cores:
         // cc[d, e] (+)= Σ_f Re(t1[d, f] · wy[e, f]) over the m-tile.
+        constexpr int ldt = NP + 4;
+        float* t1w = reinterpret_cast<float*>(smem + P.t1) + (size_t)wgi * kMT * ldt;
 #pragma unroll
         for (int jj = 0; jj < NP / 8; ++jj) {
           *reinterpret_cast<float2*>(t1w + (16 * warp + g) * ldt + 8 * jj + 2 * t) =
@@ -596,16 +819,14 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         }
         wg::wg_barrier(bar);
         const int fcn = F - fb < kMT ? F - fb : kMT;
-        if constexpr (NP >= 64) {
-          // The chunk in passes of 4·DR rows, DR a thread; in each, lattice
-          // columns e = e0 + lane + 32·ce, up to three at a time: each t1
-          // value a thread reads serves that many columns, each wy value DR
-          // rows. A warp whose rows lie past the chunk or the lattice skips
-          // the pass (it would only compute rows nothing reads).
-#pragma unroll 1
-          for (int rp = 0; rp < NP / 2; rp += 4 * DR) {
-            const int dl0 = rp + warp * DR;  // this thread's first chunk row
-            if (dl0 >= NP / 2 || nc * dc + dl0 >= D) continue;  // warp-uniform
+        const int dl0 = warp * DR;  // this thread's first chunk row
+        if constexpr (NP == 64) {
+          // Chunks of 32 rows (D = 25..32, and D ≥ 129): 8 rows a thread
+          // and lattice columns e = e0 + lane + 32·ce, up to three at a
+          // time: each t1 value a thread reads serves that many columns,
+          // each wy value 8 rows. A warp whose rows lie past the lattice
+          // skips (it would only compute rows nothing reads).
+          if (nc * dc + dl0 < D) {  // warp-uniform
             for (int e0 = 0; e0 < D; e0 += 96) {
               const int nce = D - e0 > 64 ? 3 : D - e0 > 32 ? 2 : 1;  // warp-uniform
               float sr[DR][3], si[DR][3];
@@ -657,7 +878,6 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
         } else {
           // One lattice column at a time (row chunks of at most 24 rows,
           // the production block's among them, where three were slower).
-          const int dl0 = warp * DR;  // this thread's first chunk row
           for (int e = lane; e < D; e += 32) {
             float sr[DR], si[DR];
 #pragma unroll
@@ -772,7 +992,11 @@ compare_fused_kernel(const float2* __restrict__ conv, const unsigned char* __res
 
   if constexpr (V == kCcOut) return;  // K3 wrote its lattice chunk by chunk
   const size_t oi = (size_t)oc * I + i;
-  if constexpr (V == kMmOnly || V == kNoLse) {
+  if constexpr (V == kMmOnly || V == kNoLse || V == kNoStage2) {
+    if constexpr (V == kNoStage2) {
+      if (wt == 0) chk += run_v[wgi] + run_s[wgi];  // the log-sum-exp's result
+      wg::wg_barrier(bar);  // the last chunk's reduction is done with red_s
+    }
     const float s = wg_sum(chk, red_s[wgi], bar);
     if (wt == 0 && has) out_m[oi] = s;
   } else if (wt == 0 && has) {
@@ -795,9 +1019,9 @@ int launch(const float* proj_re, const float* proj_im, const float* ctf_re,
   const int OC = O * C;
   float2* conv = reinterpret_cast<float2*>(scratch);
   unsigned char* wblk = reinterpret_cast<unsigned char*>(scratch) + scratch_conv_bytes(P, OC, N);
-  float2* wyp = reinterpret_cast<float2*>(wblk + align128(P.scratch_w));
+  unsigned char* wyp = wblk + align128(P.scratch_w);
   const size_t n_prep = (size_t)OC * N * P.Fp + (size_t)P.n_nc * P.n_kc * P.wn * 8 * P.KC +
-                        (size_t)P.Fp * P.D;
+                        (P.tc2 ? (size_t)P.n_mt * 2 * P.n2 * kMT : (size_t)P.Fp * P.D);
   const size_t blocks = (n_prep + kPrepThreads - 1) / kPrepThreads;
   compare_fused_prep_kernel<V == kCcOut>
       <<<(unsigned)(blocks < 4096 ? blocks : 4096), kPrepThreads, 0, stream>>>(
@@ -837,7 +1061,7 @@ size_t bioem_fused_compare_scratch_bytes(int OC, int N, int D, int M, int F, int
                                          int n_wg, int KC) {
   if (!valid(D, M, F, n_fold, n_wg, KC)) return 0;
   const Plan P = plan(D, M, F, n_fold, n_wg, KC);
-  return scratch_conv_bytes(P, OC, N) + align128(P.scratch_w) + sizeof(float2) * (size_t)P.Fp * D;
+  return scratch_conv_bytes(P, OC, N) + align128(P.scratch_w) + P.scratch_wy;
 }
 
 #define BIOEM_K1_ARGS                                                                    \
@@ -899,9 +1123,9 @@ int bioem_fused_displacement_cc(const float* conv_re, const float* conv_im,
 // The kernel probe P3: body variant ``variant`` (bioem_lse::Body) of the
 // production instance (NP = 48, four warpgroups: D = 17..24), of the
 // 32-row chunks (NP = 64, four warpgroups: D = 25..32 and D ≥ 129) and of
-// the reference grid's wide chunk (NP = 176, two warpgroups: D = 65..88).
-// kFull is the production instance itself; the other variants write a
-// checksum into m and nothing else.
+// the reference grid's wide chunk (NP = 176, two warpgroups: D = 65..88;
+// kNoStage2 there only). kFull is the production instance itself; the
+// other variants write a checksum into m and nothing else.
 int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
                         const float* ctf_re, const float* ctf_im, const float* img_re,
                         const float* img_im, const float* wx_re, const float* wx_im,
@@ -926,6 +1150,7 @@ int bioem_probe_compare(int variant, const float* proj_re, const float* proj_im,
     case kNoLse * 1000 + 176: return launch<176, 2, kNoLse>(BIOEM_K1_ARGS);
     case kMmOnly * 1000 + 176: return launch<176, 2, kMmOnly>(BIOEM_K1_ARGS);
     case kNoGemm * 1000 + 176: return launch<176, 2, kNoGemm>(BIOEM_K1_ARGS);
+    case kNoStage2 * 1000 + 176: return launch<176, 2, kNoStage2>(BIOEM_K1_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -21,9 +21,11 @@ namespace bioem_lse {
 
 // kNoLse: the cc lattice without the log-sum-exp; kMmOnly: stage 1 alone,
 // fed from operands formed once (no conv product, fold or TF32 split);
-// kNoGemm: everything but the tensor-core GEMM; kCcOut (K1 only): the cc
-// lattice written out in place of the log-sum-exp.
-enum Body : int { kFull = 0, kNoLse = 1, kMmOnly = 2, kNoGemm = 3, kCcOut = 4 };
+// kNoGemm: everything but stage 1's tensor-core GEMM; kCcOut (K1 only): the
+// cc lattice written out in place of the log-sum-exp; kNoStage2 (K1's wide
+// chunk only): everything but stage 2 (no t1 tile, no wy, the log-sum-exp
+// over a zeroed lattice), so that full − no_stage2 is stage 2's time.
+enum Body : int { kFull = 0, kNoLse = 1, kMmOnly = 2, kNoGemm = 3, kNoStage2 = 4, kCcOut = 5 };
 
 // (v, q) ranks above (best, bidx): the larger value wins, NaN counts as
 // the largest (as jnp.max/argmax treat it), and ties go to the lower flat

@@ -3,7 +3,7 @@
 // instruction wrappers the kernels use, m64nNk8 TF32 with A from
 // registers (the comparisons K1, compare_fused.cu, and K4,
 // compare_batched.cu, and the f32-product probe P1, probe.cu) with the
-// 3xTF32 step K4 and P1 share, and
+// 3xTF32 step K4, P1 and K1's stage 2 share, and
 // m64nNk16 BF16 with both operands from shared memory (the product-issue
 // probe P2, probe.cu). sm_90a only.
 //
@@ -167,7 +167,8 @@ struct Tf32RS<64> {
   }
 };
 
-// n88: each half (t1_re, t1_im) of K1's wide chunk of 88 lattice rows
+// n88: each half (t1_re, t1_im) of K1's wide chunk of 88 lattice rows, and
+// its stage 2 (lattice columns up to 88)
 template <>
 struct Tf32RS<88> {
   static __device__ __forceinline__ void mma(float (&d)[44], const uint32_t (&a)[4], uint64_t desc_b,
@@ -188,13 +189,37 @@ struct Tf32RS<88> {
   }
 };
 
+// n128: K1's stage 2 at the wide chunks of 64 rows (lattice columns up to 128)
+template <>
+struct Tf32RS<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
 // One 3xTF32 k8 step, issued asynchronously: acc ← lo·B_hi + hi·B_lo +
 // hi·B_hi (acc's old value is not read), a (hi, lo) split register operand
 // against the split shared-memory operand at descriptors dh (hi) and dl
 // (lo). The caller waits and adds acc to its f32 sum with IEEE adds: the
 // tensor cores truncate when they accumulate, so a fresh accumulator per
-// step keeps the sum f32-accurate. K4's stage 1 (compare_batched.cu) and
-// P1's 3xTF32 scheme (probe.cu) both run it.
+// step keeps the sum f32-accurate. K4's stage 1 (compare_batched.cu), K1's
+// stage 2 at its wide chunks (compare_fused.cu) and P1's 3xTF32 scheme
+// (probe.cu) run it.
 template <int N>
 __device__ __forceinline__ void tf32x3_step(float (&acc)[N / 2], const uint32_t (&hi)[4],
                                             const uint32_t (&lo)[4], uint64_t dh, uint64_t dl) {

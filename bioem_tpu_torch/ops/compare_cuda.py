@@ -8,14 +8,14 @@ Replaces ``bioem_tpu/ops/compare_pallas.py:_fused_block_kernel`` (entry
 stage 1 on warpgroup wgmma in 3xTF32 with W streamed through shared
 memory, the lattice walked in row chunks with an online log-sum-exp and
 wy staged 64 frequencies at a time, so that its shared memory does not
-grow with F and grows with D only through those tiles (stage 2 takes
-three lattice columns per thread at chunks of 32 rows and more, each
-value it reads from shared memory serving several products). The row
-chunk is as wide as the warpgroups' registers allow (:func:`k1_rows`):
-four warpgroups a CTA take chunks of ≤ 32 rows; two take lattices of 33
-to 128 padded rows in one chunk of 64 or 88 rows or two of 64, so that
-each operand p a warpgroup forms serves the whole chunk (three 32-row
-parts at the reference grid's D = 81). :func:`k1_plan` tiles every odd
+grow with F and grows with D only through those tiles. The row chunk is
+as wide as the warpgroups' registers allow (:func:`k1_rows`): four
+warpgroups a CTA take chunks of ≤ 32 rows, with stage 2 (cc = Re(t1·wyᵀ))
+on the CUDA cores; two take lattices of 33 to 128 padded rows in one
+chunk of 64 or 88 rows or two of 64, so that each operand p a warpgroup
+forms serves the whole chunk (three 32-row parts at the reference grid's
+D = 81), with stage 2 on the tensor cores in 3xTF32 (:func:`k1_stage2_n`).
+The plan alone picks the stage 2, from D. :func:`k1_plan` tiles every odd
 D up to 129 (±64 at stride 1) at every N up to 512, folds 1 and 2, and
 wider ones (four warpgroups in 32-row chunks up to D = 158, two up to
 257, folds 1 and 2); where no tiling fits the launch raises. K3 is the
@@ -144,15 +144,30 @@ def k1_rows(d: int, n_wg: int) -> tuple:
     return n_nc, _cdiv(_cdiv(dp, n_nc), 8) * 8
 
 
+def k1_stage2_n(d: int, n_wg: int) -> int:
+    """The N of K1's stage 2 on the tensor cores (lattice columns, padded:
+    88 in the 88-row chunk, 128 in chunks of 64), 0 where stage 2 runs on
+    the CUDA cores (chunks of ≤ 32 rows)."""
+    if not _k1_wide(d, n_wg):
+        return 0
+    return K1_WIDE_ROWS if k1_rows(d, n_wg)[1] == K1_WIDE_ROWS else K1_WIDE_MAX_DP
+
+
 def k1_smem_bytes(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> int:
     """Dynamic shared memory of K1 with ``n_wg`` warpgroups and K chunks of
     ``kc`` steps (csrc/compare_fused.cu ``plan``; the C entry
     ``bioem_fused_compare_smem_bytes`` gives the same number), 0 for a
     tiling K1 has not: W's hi/lo block and the chunk's conv rows,
     double-buffered (a wide chunk's W holds t1_re's rows only:
-    csrc/compare_fused.cu ``chain``); the t1 tiles, over those buffers; one
-    m-tile of wy (64 × D complex); each warpgroup's chunk of the lattice
-    (:func:`k1_rows` × D). No term depends on M or F."""
+    csrc/compare_fused.cu ``chain``); stage 2's t1 tiles over those
+    buffers; stage 2's tile of wy; each warpgroup's chunk of the lattice
+    (:func:`k1_rows` × D). Stage 2 on the CUDA cores (chunks of ≤ 32 rows)
+    lays t1 over the buffers as (64, 2·dc + 4) floats a warpgroup and takes
+    an m-tile of wy as 64 × D complex; on the tensor cores (the wide
+    chunks) t1 as two tiles of 64 × dc rounded up to 32 floats a
+    warpgroup, and one half of its B operand at a time (hi and lo,
+    :func:`k1_stage2_n` rows × 64 frequencies). No term depends on M or
+    F."""
     if not _k1_valid(d, m, f, n_fold, n_wg, kc):
         return 0
     dc = k1_rows(d, n_wg)[1]
@@ -160,9 +175,15 @@ def k1_smem_bytes(d: int, m: int, f: int, n_fold: int, n_wg: int, kc: int) -> in
     w_chunk = 2 * (dc if _k1_wide(d, n_wg) else n_p) * 32 * kc
     cv_chunk = 8 * kc * n_fold * 4 * 68
     chunks = 2 * w_chunk + 2 * _a128(cv_chunk)
-    t1 = _a128(4 * n_wg * 64 * (n_p + 4))
-    # the t1 tiles lie over the chunk buffers: the region is the larger
-    return max(chunks, t1) + _a128(8 * 64 * d) + _a128(4 * n_wg * dc * d)
+    n2 = k1_stage2_n(d, n_wg)
+    if n2:
+        wy = 2 * n2 * 4 * 64
+        over = _a128(4 * n_wg * 2 * 64 * _cdiv(dc, 32) * 32)
+    else:
+        wy = 8 * 64 * d
+        over = _a128(4 * n_wg * 64 * (n_p + 4))
+    # stage 2's tiles lie over the chunk buffers: the region is the larger
+    return max(chunks, over) + _a128(wy) + _a128(4 * n_wg * dc * d)
 
 
 def k1_plan(d: int, m: int, f: int, n_fold: int, smem_bytes=k1_smem_bytes):

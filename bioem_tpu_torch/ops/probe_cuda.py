@@ -43,7 +43,9 @@ BF16 = torch.bfloat16
 
 SCHEMES = ("fma", "3xtf32", "tf32", "f64tc")  # csrc/probe.cu Scheme
 STRUCTURES = ("loop", "batched")  # csrc/probe.cu Structure
-VARIANTS = ("full", "no_lse", "mm_only", "no_gemm")  # csrc/compare_lse.cuh Body
+VARIANTS = ("full", "no_lse", "mm_only", "no_gemm", "no_stage2")  # csrc/compare_lse.cuh Body
+# The variants each body has: no_stage2 is K1's (its wide chunk, D = 65..88).
+BODY_VARIANTS = {"k1": VARIANTS, "k4": VARIANTS[:4]}
 
 
 def _stream(dev) -> int:
@@ -178,9 +180,11 @@ def body_ablation(*args, a_coef: float, n_fold: int = 1, body: str = "k4",
     (``compare_cuda.k1_plan``) at four warpgroups with row chunks of 2·dc =
     48 (D = 17..24, the production block) and 64 (D = 25..32 and the
     lattices of 32-row chunks, D ≥ 129), and at two warpgroups with one
-    wide chunk of 2·dc = 176 (D = 65..88, the reference grid's D = 81), for
-    K4 at the production tiling, 2·Dp = 48, at any tile."""
-    if body not in ("k1", "k4") or variant not in VARIANTS:
+    wide chunk of 2·dc = 176 (D = 65..88, the reference grid's D = 81; the
+    only tiling with ``no_stage2``: stage 1 and the log-sum-exp over a
+    zeroed lattice, so that full − no_stage2 is stage 2), for K4 at the
+    production tiling, 2·Dp = 48, at any tile (:data:`BODY_VARIANTS`)."""
+    if variant not in BODY_VARIANTS.get(body, ()):
         raise ValueError(f"body_ablation: no variant {variant!r} of {body!r}")
     dev = args[0].device
     if dev.type == "cpu":

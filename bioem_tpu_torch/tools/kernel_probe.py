@@ -22,7 +22,9 @@ P2  What does a looped small product cost against one wide product? Σ of
     structure); beside one cuBLAS GEMM that does all 256 products.
 P3  Where does the production body spend its time? K1 and K4 (tile 8) at
     the production block (O=8, C=8, I=64, N=224, F=113, D=21, n_fold=2)
-    with pieces removed: ``full``, ``no_lse``, ``mm_only`` and ``no_gemm``;
+    with pieces removed: ``full``, ``no_lse``, ``mm_only`` and ``no_gemm``,
+    and at the reference block (K1 alone, D = 81) also ``no_stage2``
+    (everything but stage 2: full − no_stage2 is stage 2's time);
     ``full`` must equal the production kernel bit for bit.
 
 Besides, K2's card time at the production projection block against the
@@ -1163,7 +1165,9 @@ def probe_body_ablation(say=print, img_tile: int = 8, block: str = "production")
            "plain_ms": time_ms(lambda: compare_cuda.fused_compare_block_plain(
                *args, a_coef=a_coef, n_fold=n_fold), 3)}
     for body in bodies:
-        for variant in probe_cuda.VARIANTS:
+        for variant in probe_cuda.BODY_VARIANTS[body]:
+            if variant == "no_stage2" and compare_cuda.k1_rows(d, 2) != (1, 88):
+                continue  # K1's 88-row wide chunk only (D = 65..88)
             def run(body=body, variant=variant):
                 return probe_cuda.body_ablation(*args, a_coef=a_coef, n_fold=n_fold, body=body,
                                                 variant=variant, img_tile=img_tile)

@@ -22,7 +22,10 @@ first, middle or last row chunk is all −inf (the online merge's guards);
 both to the same bits across two launches (K1 also at D = 81, one wide
 chunk of 88 rows, and D = 121, two of 64; K3 at both too). K1 and K3 in
 wide chunks (two warpgroups a CTA) at one image and at odd image counts,
-which leave the last CTA's second warpgroup idle. The projection (K2)
+which leave the last CTA's second warpgroup idle; at D = 81 and 121,
+where stage 2 runs on the tensor cores in 3xTF32, on m, Σ exp, argmax
+and cc against limits that a 1xTF32 stage 2, computed beside them on the
+same inputs, fails. The projection (K2)
 also with per-group point counts that skip padding, at its largest N and
 to the same bits across two launches. K3 (K1's kernel writing the
 lattice) at D = 5…61 and folds 1–4, at N = 15 and at D = 61, 81 and
@@ -295,6 +298,83 @@ def test_k1_and_k3_at_the_reference_block(dev):
     assert float((k - p).abs().max()) < 5e-5 * float(p.abs().max())
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → TF32, round to nearest with ties away (cvt.rna.tf32.f32)."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("d", [81, 121])
+def test_k1_and_k3_stage2_on_the_tensor_cores(rng, dev, d):
+    """K1 and K3 at the wide chunks (D = 81: one of 88 rows; D = 121: two
+    of 64), whose stage 2 runs on the tensor cores in 3xTF32, against
+    their plain twins at N = 224, and a 1xTF32 stage 2 (the plain version's
+    t1 and wy rounded to TF32, the product in f64) fails the same limits
+    on the same inputs. The limits and why (CPU emulation of both schemes:
+    tests/test_torch_split_precision.py):
+    * K3's cc within 5e-6 of max|cc| of the f64 lattice: plain f32 reads
+      ~4e-7, a 3xTF32 stage 2 ~3e-7, a 1xTF32 one ~3e-4;
+    * m within rtol 1e-5 of the plain version (3xTF32 ~5e-7; 1xTF32 3–4e-4,
+      δcc times |a_coef| = 25,088);
+    * the log-sum-exp m + log Σ exp within twice the plain version's
+      distance from f64 (3xTF32 ~0.5×, 1xTF32 ~300×);
+    * Σ exp within rtol 1.5e-4 of the plain version (chip_smoke's limit:
+      v's absolute f32 error times e^(v − m));
+    * the argmax equal to the plain version's wherever the two best values
+      of its lattice lie more than 1e-5·|a_coef| apart (near-ties may
+      swap), and cc there within rtol 1e-5."""
+    n = 224
+    a_coef = (3.0 - n * n) / 2
+    args = _cmp_inputs(rng, dev, n=n, n_fold=1, n_disp=d, o=2, c=2, i=6)
+    (o, _n, f), c = args[0].shape, args[2].shape[0]
+    conv_re = (args[0][:, None] * args[2][None] + args[1][:, None] * args[3][None]).reshape(o * c, n, f)
+    conv_im = (args[1][:, None] * args[2][None] - args[0][:, None] * args[3][None]).reshape(o * c, n, f)
+    km, ks, kd, kc = C.fused_compare_block(*args, a_coef=a_coef, n_fold=1)
+    k3 = C.fused_displacement_cc(conv_re, conv_im, *args[4:10], n_fold=1)
+    assert C.fused_compare_block.last_plan[0] == C.fused_displacement_cc.last_plan[0] == 2
+    pm, ps, pd, pc = C.fused_compare_block_plain(*args, a_coef=a_coef, n_fold=1)
+    cc = C.displacement_cc_plain(conv_re, conv_im, *args[4:10])
+    cc64 = C.displacement_cc_plain(conv_re.double(), conv_im.double(),
+                                   *(t.double() for t in args[4:10]))
+    # the 1xTF32 control: the plain version's t1, stage 2 on TF32 operands
+    p_re = conv_re[:, None] * args[4][None] - conv_im[:, None] * args[5][None]
+    p_im = conv_re[:, None] * args[5][None] + conv_im[:, None] * args[4][None]
+    ein = torch.einsum
+    t1r = ein("dm,oimf->oidf", args[6], p_re) - ein("dm,oimf->oidf", args[7], p_im)
+    t1i = ein("dm,oimf->oidf", args[6], p_im) + ein("dm,oimf->oidf", args[7], p_re)
+    x64 = lambda t: _tf32(t).double()  # noqa: E731
+    cc1 = (ein("oidf,ef->oide", x64(t1r), x64(args[8]))
+           - ein("oidf,ef->oide", x64(t1i), x64(args[9]))).float()
+    torch.cuda.synchronize()
+
+    def lse(lat, au, bu):
+        v = a_coef * torch.log1p(au[..., None] * lat.flatten(2) - bu[..., None] * lat.flatten(2) ** 2)
+        top = torch.topk(v, 2, dim=-1).values
+        return top[..., 0], torch.exp(v - top[..., :1]).sum(-1), top[..., 0] - top[..., 1]
+
+    m64, s64, _gap = lse(cc64, args[10].double(), args[11].double())
+    lse64 = m64 + s64.log()
+    p_gap = float((pm.double() + ps.double().log() - lse64).abs().max())
+    scale = float(cc64.abs().max())
+
+    def limits(lat, m, se):
+        return {"cc": float((lat.double() - cc64).abs().max()) < 5e-6 * scale,
+                "m": float(((m - pm).abs() / pm.abs()).max()) <= 1e-5,
+                "lse": float((m.double() + se.double().log() - lse64).abs().max()) <= 2 * p_gap}
+
+    got = limits(k3, km, ks)
+    assert all(got.values()), got
+    m1, s1, _ = lse(cc1, args[10], args[11])
+    control = limits(cc1, m1, s1)
+    assert not any(control.values()), control
+    torch.testing.assert_close(ks, ps, rtol=1.5e-4, atol=0)
+    _m, _s, gap = lse(cc, args[10], args[11])
+    clear = gap > 1e-5 * abs(a_coef)
+    assert bool((kd == pd)[clear].all()) and float(clear.float().mean()) >= 0.9
+    ok = kd == pd
+    torch.testing.assert_close(kc[ok], pc[ok], rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("n,n_fold,n_disp", [(224, 2, 21), (224, 1, 81), (224, 1, 121)])
 def test_k1_last_plan_at_d21_d81_d121(rng, dev, n, n_fold, n_disp):
     """fused_compare_block.last_plan after a launch is compare_cuda's
@@ -311,16 +391,16 @@ def test_k1_last_plan_at_d21_d81_d121(rng, dev, n, n_fold, n_disp):
 
 def test_probe_body_ablation_at_the_reference_block(dev):
     """P3's bodies of the reference grid's instance (compare_fused_kernel<176,
-    2, *>): the full body is K1 bit for bit; the ablated ones launch and
-    write finite, not all-zero outputs (no_gemm: m 0, se the lattice
-    size)."""
+    2, *>): the full body is K1 bit for bit; the ablated ones, no_stage2
+    among them, launch and write finite, not all-zero outputs (no_gemm: m
+    0, se the lattice size)."""
     args, a_coef, n_fold = _reference_block(dev)
     kw = dict(a_coef=a_coef, n_fold=n_fold, body="k1")
     prod = C.fused_compare_block(*args, a_coef=a_coef, n_fold=n_fold)
     full = PR.body_ablation(*args, **kw, variant="full")
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(full, prod))
-    for variant in ("no_lse", "mm_only", "no_gemm"):
+    for variant in ("no_lse", "mm_only", "no_stage2", "no_gemm"):
         outs = PR.body_ablation(*args, **kw, variant=variant)
         torch.cuda.synchronize()
         assert all(bool(torch.isfinite(t.float()).all()) for t in outs), variant

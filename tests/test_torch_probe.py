@@ -286,7 +286,7 @@ def test_body_ablation_full_on_cpu_is_the_plain_version(rng, body):
 
 
 @pytest.mark.parametrize("body,variant", [("k1", "no_lse"), ("k1", "mm_only"),
-                                          ("k1", "no_gemm"),
+                                          ("k1", "no_gemm"), ("k1", "no_stage2"),
                                           ("k4", "no_lse"), ("k4", "mm_only"),
                                           ("k4", "no_gemm")])
 def test_body_ablation_variants_have_no_plain_version(rng, body, variant):
@@ -298,7 +298,8 @@ def test_body_ablation_variants_have_no_plain_version(rng, body, variant):
 
 def test_body_ablation_rejects_unknown_variants(rng):
     args = _small_compare_args(rng)
-    for body, variant in (("k1", "no_fold"), ("k4", "no_fold"), ("k2", "full")):
+    for body, variant in (("k1", "no_fold"), ("k4", "no_fold"), ("k2", "full"),
+                          ("k4", "no_stage2")):
         with pytest.raises(ValueError, match="no variant"):
             P.body_ablation(*args, a_coef=-1.0, n_fold=2, body=body, variant=variant)
 

@@ -4,9 +4,9 @@ quaternions × 32 CTFs × 81×81 displacements at stride 1) on the CPU.
 * The port's plain branch against the JAX engine at N = 96, D = 81, all 32
   CTFs, 2 noise images and two orientation blocks, at the suite's
   tolerance (noise images: see tests/test_torch_bench.py's C2 note).
-* K1's tiling at that grid: ``k1_plan(81, 224, 113, 1)`` is four
-  warpgroups and K chunks of eight steps at folds 1 and 2 (the lattice
-  held one row chunk at a time, the t1 tiles over the chunk buffers),
+* K1's tiling at that grid: ``k1_plan(81, 224, 113, 1)`` is two
+  warpgroups (one 88-row chunk) and K chunks of eight steps, four at fold
+  2 (stage 2's tiles over the chunk buffers),
   the production block's D = 21 keeps its plan, and the lattices the
   earlier kernel refused at N = 224 (D ≥ 107 at fold 1, D ≥ 105 at fold 2)
   are tiled.
@@ -62,18 +62,21 @@ def test_plain_branch_matches_jax_at_d81():
 def test_k1_plan_at_the_reference_grid():
     # two warpgroups, each taking the whole lattice (one chunk of 88 rows;
     # W holds t1_re's 88 rows), and K chunks of eight steps: W hi/lo 2 ×
-    # 45,056, conv 2 × 17,408 (fold 1), the t1 tiles over them, wy 41,472,
-    # the two lattices 57,088; at fold 2 the conv rows double and K chunks
-    # of four fit
-    assert k1_plan(81, 224, 113, 1) == (2, 8, 223488)
-    assert k1_plan(81, 112, 113, 2) == (2, 4, 190720)
+    # 45,056, conv 2 × 17,408 (fold 1), and over them stage 2's t1 tiles
+    # (2 × 2 × 64 × 96 floats, 98,304); one half of stage 2's B (hi and
+    # lo, 88 rows × 64 frequencies: 45,056); the two lattices 57,088; at
+    # fold 2 the conv rows double and K chunks of four fit (the t1 tiles
+    # then the larger)
+    assert k1_plan(81, 224, 113, 1) == (2, 8, 227072)
+    assert k1_plan(81, 112, 113, 2) == (2, 4, 200448)
     # the production grid's D = 21 keeps four warpgroups and K chunks of 8
     assert k1_plan(21, 112, 113, 2)[:2] == (4, 8)
     # the lattices the earlier kernel refused at N = 224 (from D = 107 at
     # fold 1, 105 at fold 2) are tiled, ±60 at stride 1 on two warpgroups in
-    # two chunks of 64 rows
+    # two chunks of 64 rows (stage 2's B 128 lattice columns wide: 65,536
+    # a half, hi and lo)
     assert k1_plan(107, 224, 113, 1) is not None and k1_plan(105, 112, 113, 2) is not None
-    assert k1_plan(121, 224, 113, 1) == (2, 8, 224256)
+    assert k1_plan(121, 224, 113, 1) == (2, 8, 227840)
 
 
 # N = 128 holds ±60 at stride 1 (D = 121), which the earlier K1 refused at

@@ -14,7 +14,10 @@ after each of its products. Held against f64 at K1's stage-1 shape
 (D = 21 and 35, N = 224) through stage 2 and the log-sum-exp, to
 chip_smoke's limits: m rtol 1e-5 and se rtol 1.5e-4 from the plain f32
 version, the log-sum-exp within 4× the plain version's distance from f64
-(+1e-6); and at K2's group product (the separable Exᵀ·diag(d)·Ey of
+(+1e-6); K1's stage 2 as the tensor cores run it at the wide chunks (D =
+81 and 121: per m-tile [t1_re, t1_im]·[wy_re, −wy_im]ᵀ in 3xTF32 k8
+steps) to the card tests' limits there, which a 1xTF32 stage 2 fails;
+and at K2's group product (the separable Exᵀ·diag(d)·Ey of
 80-, 36- and 1-point groups at N = 224), to 5e-5 of max|spectrum|.
 
 Host logic, against the JAX package run as its own tests run it (Pallas in
@@ -132,10 +135,36 @@ def _k1_problem(rng, d, n_fold, n=224, n_img=2):
                 b_u=g(np.abs(rng.normal(0, 1e-9, (1, n_img)))), a_coef=(3.0 - n * n) / 2)
 
 
-def _emulated_k1_cc(x, n_fold):
+def _stage2(t1r, t1i, wy_re, wy_im, scheme):
+    """cc (D, D) = Re(t1·wyᵀ) from t1 (D, F): "f32" as the CUDA cores run
+    it (chunks of ≤ 32 rows); "3xtf32" as the tensor cores run it at the
+    wide chunks: per m-tile of 64 frequencies the product [t1_re, t1_im] ·
+    [wy_re, −wy_im]ᵀ in 3xTF32 k8 steps, re half then im half (each half
+    padded to whole steps), each step added to the m-tile's f32 sum, the
+    m-tiles' sums added in order; "1xtf32" the same product with TF32
+    operands (hi·hi alone), the control a tolerance must reject."""
+    if scheme == "f32":
+        return t1r @ wy_re.T - t1i @ wy_im.T
+    cc = torch.zeros(t1r.shape[0], wy_re.shape[0], dtype=torch.float32)
+    for f0 in range(0, t1r.shape[1], 64):
+        fs = slice(f0, f0 + 64)
+        nf = t1r[:, fs].shape[1]
+        pad = -(-nf // 8) * 8 - nf
+        z = lambda t: torch.cat([t, t.new_zeros(t.shape[0], pad)], 1)  # noqa: E731
+        a = torch.cat([z(t1r[:, fs]), z(t1i[:, fs])], 1)
+        b = torch.cat([z(wy_re[:, fs]), z(-wy_im[:, fs])], 1).T.contiguous()
+        if scheme == "3xtf32":
+            cc = cc + gemm_3xtf32(a, b)
+        else:
+            cc = cc + (tf32(a).double() @ tf32(b).double()).float()
+    return cc
+
+
+def _emulated_k1_cc(x, n_fold, stage2="f32"):
     """K1's cc lattice with stage 1 in emulated 3xTF32: the GEMM t1ᵀ = pᵀ·Wᵀ
     with W = [[wx_re, −wx_im], [wx_im, wx_re]], K ordered as the kernel's k8
-    steps (four folded rows' real parts, then their imaginary parts)."""
+    steps (four folded rows' real parts, then their imaginary parts);
+    stage 2 in ``stage2`` (:func:`_stage2`)."""
     d, m = x["wx_re"].shape
     mp = -(-m // 4) * 4
     cr, ci = x["conv_re"][0], x["conv_im"][0]
@@ -158,7 +187,7 @@ def _emulated_k1_cc(x, n_fold):
         w = torch.cat([k_order(wr, -wi), k_order(wi, wr)])  # (2D, 2M): rows re, then im
         t1 = gemm_3xtf32(a, w.T.contiguous())  # (F, 2D)
         t1r, t1i = t1[:, :d].T, t1[:, d:].T  # (D, F)
-        out.append(t1r @ x["wy_re"].T - t1i @ x["wy_im"].T)
+        out.append(_stage2(t1r, t1i, x["wy_re"], x["wy_im"], stage2))
     return torch.stack(out)[None]  # (1, I, D, D)
 
 
@@ -189,6 +218,38 @@ def test_3xtf32_k1_stage1_meets_chip_smoke_limits(rng, d, n_fold):
     e_lse = float((em.double() + es.double().log() - lse64).abs().max())
     p_lse = float((pm.double() + ps.double().log() - lse64).abs().max())
     assert e_lse <= 4 * p_lse + 1e-6
+
+
+@pytest.mark.parametrize("d", [81, 121])
+@pytest.mark.parametrize("stage2", ["3xtf32", "1xtf32"])
+def test_k1_stage2_on_the_tensor_cores_meets_the_card_tests_limits(rng, d, stage2):
+    """Stage 2 as K1 runs it at the wide chunks (D = 81: one chunk of 88
+    rows; D = 121: two of 64), in emulated 3xTF32 after the emulated 3xTF32
+    stage 1, meets the limits tests/test_torch_cuda.py holds K1 and K3 to
+    there, and stage 2 in 1xTF32 fails every one of them: cc within 5e-6 of
+    max|cc| of f64 (the plain f32 version reads ~4e-7, 3xTF32 ~3e-7, 1xTF32
+    ~3e-4); m within rtol 1e-5 of the plain f32 version (3xTF32 ~5e-7,
+    1xTF32 3–4e-4: a_coef = −25,088 amplifies δcc); the log-sum-exp within
+    twice the plain version's distance from f64 (3xTF32 ~0.5×, 1xTF32
+    ~300×, 0.16–0.34 in log P)."""
+    x = _k1_problem(rng, d, 1)
+    args = [x[k] for k in ("conv_re", "conv_im", "img_re", "img_im", "wx_re", "wx_im",
+                           "wy_re", "wy_im")]
+    plain_cc = C.displacement_cc_plain(*args)
+    cc64 = C.displacement_cc_plain(*(t.double() for t in args))
+    emu_cc = _emulated_k1_cc(x, 1, stage2=stage2)
+    au, bu, a = x["a_u"], x["b_u"], x["a_coef"]
+    em, es = _lse(emu_cc, au, bu, a)
+    pm, ps = _lse(plain_cc, au, bu, a)
+    m64, s64 = _lse(cc64, au.double(), bu.double(), a)
+    lse64 = m64 + s64.log()
+    checks = {
+        "cc": float((emu_cc.double() - cc64).abs().max()) < 5e-6 * float(cc64.abs().max()),
+        "m": float(((em - pm).abs() / pm.abs()).max()) <= 1e-5,
+        "lse": (float((em.double() + es.double().log() - lse64).abs().max())
+                <= 2 * float((pm.double() + ps.double().log() - lse64).abs().max())),
+    }
+    assert all(checks.values()) if stage2 == "3xtf32" else not any(checks.values()), checks
 
 
 @pytest.mark.parametrize("scheme", ["3xtf32", "fma"])
